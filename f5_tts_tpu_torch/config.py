@@ -1,0 +1,92 @@
+"""Model and audio configuration, a copy of the JAX package's `config.py`.
+
+The port carries its own copy because the JAX package cannot be imported
+without JAX. The field names and defaults are identical, so a `config.json`
+written by either package's `save_pretrained` loads in the other.
+
+Fields that select JAX-only code paths (`use_flash_attention`,
+`int8_compute`, `remat`) are kept so such snapshots load, and are not read
+by the port: attention goes to the CUDA kernel for a CUDA tensor and to the
+plain PyTorch version for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class AudioConfig:
+    """Log-mel front-end parameters."""
+
+    sample_rate: int = 24_000
+    n_fft: int = 1024
+    hop_length: int = 256
+    n_mels: int = 100
+
+    @property
+    def frames_per_second(self) -> float:
+        return self.sample_rate / self.hop_length
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    """Diffusion-transformer backbone hyperparameters.
+
+    Base pretrained config: dim=1024, depth=22, heads=16, ff_mult=2,
+    text_dim=512, conv_layers=4.
+    """
+
+    dim: int = 1024
+    depth: int = 22
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 2
+    mel_dim: int = 100
+    text_num_embeds: int = 256
+    text_dim: int = 512
+    text_mask_padding: bool = True
+    conv_layers: int = 4
+    conv_mult: int = 2
+    dropout: float = 0.0
+    # absolute positional table size for the text branch (~44 s of 24 kHz audio)
+    max_pos: int = 4096
+    # "bfloat16" for the fast path, "float32" for parity testing
+    compute_dtype: str = "float32"
+    # read by the JAX package only (see the module docstring)
+    use_flash_attention: bool = True
+    int8_compute: bool = False
+    remat: bool = False
+
+    def replace(self, **kw) -> "DiTConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class CFMConfig:
+    """Conditional flow-matching wrapper config."""
+
+    audio_drop_prob: float = 0.3
+    cond_drop_prob: float = 0.2
+    frac_lengths_mask: tuple[float, float] = (0.7, 1.0)
+    max_duration: int = 4096
+    # sequence-length bucket (frames); padded tails are masked out
+    duration_bucket: int = 256
+
+
+@dataclass(frozen=True)
+class VocosConfig:
+    """Vocos mel-24khz vocoder."""
+
+    input_channels: int = 100
+    dim: int = 512
+    intermediate_dim: int = 1536
+    num_layers: int = 8
+    n_fft: int = 1024
+    hop_length: int = 256
+    compute_dtype: str = "float32"
+
+
+# Pretrained "v1" base model configuration.
+F5TTS_V1_BASE = DiTConfig()

@@ -1,0 +1,307 @@
+// Flash-attention forward for Hopper (sm_90a), bf16 in and out.
+//
+// Replaces the Pallas TPU kernel of the JAX package:
+// f5_tts_tpu/ops/flash_attention.py, `_flash_attention_call` (kernel body
+// `_make_kernel`, wrapper `flash_attention`). It computes the same function:
+// non-causal softmax(q k^T * scale - (1 - mask) * 1e30) v over [b, h, n, d],
+// with an optional key-padding mask and an optional interleaved rotary
+// embedding of q and k (x * cos + rotate_half(x) * sin, tables cast to bf16
+// first) applied inside the kernel. Softmax statistics are float32.
+//
+// What bounds it on this card. Per (b, h) the work is 4 n^2 d FLOP against
+// 4 n d bytes of q, k, v and the output, so at the model's n = 1024, d = 64
+// it sits above the bf16 ridge point and wants the tensor cores. The TPU
+// kernel held all of K and V of one head in fast memory (1 MB at n = 4096);
+// a Hopper block has 227 KB of shared memory, so this kernel tiles K and V.
+//
+// Design:
+//   - one block of 4 warps per (64-row q tile, head, batch row); each warp
+//     owns 16 query rows;
+//   - K and V stream through shared memory in 64-row tiles, with an online
+//     softmax (running max and sum in float32, output accumulated in float32
+//     registers), so shared memory is 3 tiles whatever n is;
+//   - both products run on the tensor cores through mma.sync m16n8k16 (bf16
+//     operands, float32 accumulation); the score accumulator's register
+//     layout is the A-operand layout of the second product, so P never
+//     leaves registers;
+//   - masked keys get the finite bias -1e30 (never -inf), so a fully masked
+//     row averages its keys uniformly, as the plain version does; keys past
+//     n (the ragged last tile) get -FLT_MAX, are zero-filled in shared
+//     memory, and contribute exactly 0;
+//   - the rotary embedding is applied in registers while a q or k tile is
+//     copied to shared memory: lane 2j takes -x[2j+1], lane 2j+1 takes x[2j];
+//   - q, k, v and the output are addressed through (batch, head, row)
+//     strides, so [b, n, h, d] projections are read without a transpose copy.
+//     The head dim must be contiguous and rows 16-byte aligned.
+//
+// Only bf16 is taken: the Python wrapper raises ValueError for any other
+// dtype. cp.async / TMA double buffering, wgmma and warp specialisation are
+// not used yet.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cfloat>
+#include <cstdint>
+
+namespace {
+
+constexpr int BM = 64;  // query rows per block, 16 per warp
+constexpr int BN = 64;  // keys per K/V tile
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int PAD = 8;  // bf16 padding per shared-memory row: conflict-free fragment loads
+constexpr float MASKED = -1e30f;
+
+struct Params {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  const uint8_t* mask;  // [b, n] or null
+  const float* cos;     // [n, d] or null
+  const float* sin;     // [n, d] or null
+  int n;
+  long long q_sb, q_sh, q_sn;
+  long long k_sb, k_sh, k_sn;
+  long long v_sb, v_sh, v_sn;
+  long long o_sb, o_sh, o_sn;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// c += a (16x16, row-major) * b (16x8, column-major); bf16 in, float32 accumulate.
+__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Copy rows [row0, row0 + 64) of one head into shared memory (row stride
+// D + PAD), zero-filling rows >= n. With tables, rotate each (2j, 2j+1) pair.
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g, long long sn,
+                                          int row0, int n, const float* cos, const float* sin) {
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < BN * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS;
+    const int c = (i % CHUNKS) * 8;
+    const int row = row0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < n) {
+      val = *reinterpret_cast<const uint4*>(g + row * sn + c);
+      if (cos != nullptr) {
+        const float4* cr = reinterpret_cast<const float4*>(cos + static_cast<long long>(row) * D + c);
+        const float4* sr = reinterpret_cast<const float4*>(sin + static_cast<long long>(row) * D + c);
+        const float4 c0 = cr[0], c1 = cr[1], s0 = sr[0], s1 = sr[1];
+        const float cs[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+        const float ss[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+        __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 xf = __bfloat1622float2(x[j]);
+          const float ce = round_bf16(cs[2 * j]), co = round_bf16(cs[2 * j + 1]);
+          const float se = round_bf16(ss[2 * j]), so = round_bf16(ss[2 * j + 1]);
+          x[j] = __floats2bfloat162_rn(xf.x * ce - xf.y * se, xf.y * co + xf.x * so);
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(s + r * (D + PAD) + c) = val;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
+  constexpr int LD = D + PAD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = sQ + BM * LD;
+  __nv_bfloat16* sV = sK + BN * LD;
+  float* sBias = reinterpret_cast<float*>(sV + BN * LD);  // per-key additive bias
+
+  const int q0 = blockIdx.x * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // row within the 8-row group of an mma fragment
+  const int t = lane % 4;  // column pair within the fragment
+  const int wr = (threadIdx.x / 32) * 16;  // warp's first row within the q tile
+
+  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
+  __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
+  const uint8_t* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(b) * p.n;
+
+  load_tile<D>(sQ, qg, p.q_sn, q0, p.n, p.cos, p.sin);
+
+  // thread's rows: wr + g (index 0) and wr + g + 8 (index 1)
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m[2] = {-FLT_MAX, -FLT_MAX};
+  float l[2] = {0.f, 0.f};
+
+  for (int k0 = 0; k0 < p.n; k0 += BN) {
+    __syncthreads();  // the previous tile is consumed by every warp
+    load_tile<D>(sK, kg, p.k_sn, k0, p.n, p.cos, p.sin);
+    load_tile<D>(sV, vg, p.v_sn, k0, p.n, nullptr, nullptr);
+    if (threadIdx.x < BN) {
+      const int key = k0 + threadIdx.x;
+      sBias[threadIdx.x] = key >= p.n ? -FLT_MAX : (mask != nullptr && !mask[key]) ? MASKED : 0.f;
+    }
+    __syncthreads();
+
+    // S = Q K^T for the warp's 16 rows and the tile's 64 keys
+    float s[BN / 8][4];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const __nv_bfloat16* qa = sQ + (wr + g) * LD + kc * 16 + 2 * t;
+      const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * LD), a2 = ld32(qa + 8), a3 = ld32(qa + 8 * LD + 8);
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        const __nv_bfloat16* kb = sK + (nt * 8 + g) * LD + kc * 16 + 2 * t;
+        mma_16816(s[nt], a0, a1, a2, a3, ld32(kb), ld32(kb + 8));
+      }
+    }
+
+    // scale, bias, online softmax update
+    float mt[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = s[nt][e] * p.scale + sBias[nt * 8 + 2 * t + (e & 1)];
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[nt][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      alpha[r] = __expf(m[r] - mt[r]);
+      m[r] = mt[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      acc[i][0] *= alpha[0];
+      acc[i][1] *= alpha[0];
+      acc[i][2] *= alpha[1];
+      acc[i][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = __expf(s[nt][e] - m[e >> 1]);
+        l[e >> 1] += s[nt][e];
+      }
+    }
+
+    // O += P V, P rounded to bf16 straight from the score registers
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc) {
+      const uint32_t a0 = pack_f32(s[2 * kc][0], s[2 * kc][1]);
+      const uint32_t a1 = pack_f32(s[2 * kc][2], s[2 * kc][3]);
+      const uint32_t a2 = pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      const uint32_t a3 = pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const __nv_bfloat16* vb = sV + (kc * 16 + 2 * t) * LD + dt * 8 + g;
+        mma_16816(acc[dt], a0, a1, a2, a3, pack_bf16(vb[0], vb[LD]), pack_bf16(vb[8 * LD], vb[9 * LD]));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + wr + g + 8 * r;
+    if (row < p.n) {
+      const float inv = 1.f / l[r];
+      __nv_bfloat16* orow = og + row * p.o_sn + 2 * t;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        *reinterpret_cast<uint32_t*>(orow + dt * 8) = pack_f32(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const Params& p, int b, int h, cudaStream_t stream) {
+  const int smem = (BM + 2 * BN) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16)) +
+                   BN * static_cast<int>(sizeof(float));
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n + BM - 1) / BM, h, b);
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns the cudaError_t of the launch (0 on success). Strides are in
+// elements; the head dim is contiguous.
+int f5_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, const void* mask,
+                           const void* cos, const void* sin, int b, int h, int n, int d,
+                           long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+                           long long k_sh, long long k_sn, long long v_sb, long long v_sh,
+                           long long v_sn, long long o_sb, long long o_sh, long long o_sn,
+                           float scale, void* stream) {
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.cos = static_cast<const float*>(cos);
+  p.sin = static_cast<const float*>(sin);
+  p.n = n;
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return static_cast<int>(launch<64>(p, b, h, s));
+    case 128: return static_cast<int>(launch<128>(p, b, h, s));
+    case 256: return static_cast<int>(launch<256>(p, b, h, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+const char* f5_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

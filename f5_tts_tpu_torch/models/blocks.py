@@ -1,0 +1,307 @@
+"""DiT building blocks, the inference subset of the JAX package's
+`models/blocks.py`.
+
+Each block is an nn.Module whose parameter names are those of the published
+PyTorch checkpoint (`time_embed.time_mlp.0.weight`, `attn.to_out.0.bias`,
+...), so a snapshot's tensors load by name. The forward passes call the
+primitives of utils/modules.py, which cast each weight to the activation's
+dtype, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from f5_tts_tpu_torch.models.rope import get_pos_embed_indices, precompute_freqs_cis
+from f5_tts_tpu_torch.ops.attention import scaled_dot_product_attention
+from f5_tts_tpu_torch.utils.modules import conv1d, embedding, gelu, layer_norm, linear, mish
+
+
+def as_batch_flag(flag, batch: int, device: torch.device) -> torch.Tensor:
+    """A drop flag (Python bool or [b] bool tensor) as a bool tensor [b].
+    Per-sample flags let cond and uncond CFG streams share one forward."""
+    flag = torch.as_tensor(flag, dtype=torch.bool, device=device)
+    return flag.expand(batch) if flag.ndim == 0 else flag
+
+
+class LayerNorm(nn.Module):
+    """Affine LayerNorm with float32 statistics."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+# ------------------------------------------------------------ timestep embed
+
+
+def sinus_position_embedding(x: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:
+    """Sinusoidal embedding in float32, [sin|cos] concat."""
+    half_dim = dim // 2
+    emb = math.log(10000) / (half_dim - 1)
+    emb = torch.exp(torch.arange(half_dim, dtype=torch.float32, device=x.device) * -emb)
+    emb = scale * x.float()[:, None] * emb[None, :]
+    return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+
+
+class TimestepEmbedding(nn.Module):
+    def __init__(self, dim: int, freq_embed_dim: int = 256):
+        super().__init__()
+        self.freq_embed_dim = freq_embed_dim
+        self.time_mlp = nn.Sequential(nn.Linear(freq_embed_dim, dim), nn.SiLU(), nn.Linear(dim, dim))
+
+    def forward(self, timestep: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """t [m] -> [m, dim]; the sinusoid is float32, the MLP runs in dtype."""
+        h = sinus_position_embedding(timestep, self.freq_embed_dim).to(dtype)
+        mlp1, mlp2 = self.time_mlp[0], self.time_mlp[2]
+        return linear(F.silu(linear(h, mlp1.weight, mlp1.bias)), mlp2.weight, mlp2.bias)
+
+
+# ------------------------------------------------------------ conv pos embed
+
+
+class ConvPositionEmbedding(nn.Module):
+    """Two grouped k31 conv1d + Mish."""
+
+    def __init__(self, dim: int, kernel_size: int = 31, groups: int = 16):
+        super().__init__()
+        self.groups = groups
+        self.conv1d = nn.Sequential(
+            nn.Conv1d(dim, dim, kernel_size, groups=groups), nn.Mish(),
+            nn.Conv1d(dim, dim, kernel_size, groups=groups), nn.Mish(),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c1, c2 = self.conv1d[0], self.conv1d[2]
+        out = mish(conv1d(x, c1.weight, c1.bias, groups=self.groups))
+        return mish(conv1d(out, c2.weight, c2.bias, groups=self.groups))
+
+
+# ------------------------------------------------------------ ConvNeXt V2
+
+
+class GRN(nn.Module):
+    """Global response normalization over the sequence axis, norms in float32."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.zeros(1, 1, dim))
+        self.beta = nn.Parameter(torch.zeros(1, 1, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gx = torch.sqrt(x.float().square().sum(dim=1, keepdim=True))
+        nx = (gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)).to(x.dtype)
+        return self.gamma.to(x.dtype) * (x * nx) + self.beta.to(x.dtype) + x
+
+
+class ConvNeXtV2Block(nn.Module):
+    """dwconv k7 -> LN -> pwconv -> GELU -> GRN -> pwconv -> residual."""
+
+    def __init__(self, dim: int, intermediate_dim: int):
+        super().__init__()
+        self.dwconv = nn.Conv1d(dim, dim, 7, groups=dim)
+        self.norm = LayerNorm(dim)
+        self.pwconv1 = nn.Linear(dim, intermediate_dim)
+        self.grn = GRN(intermediate_dim)
+        self.pwconv2 = nn.Linear(intermediate_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x
+        x = conv1d(x, self.dwconv.weight, self.dwconv.bias, groups=x.shape[-1], padding=3)
+        x = self.norm(x)
+        x = gelu(linear(x, self.pwconv1.weight, self.pwconv1.bias), approximate=False)
+        x = self.grn(x)
+        x = linear(x, self.pwconv2.weight, self.pwconv2.bias)
+        return residual + x
+
+
+# ------------------------------------------------------------ text embedding
+
+
+class TextEmbedding(nn.Module):
+    def __init__(
+        self,
+        text_num_embeds: int,
+        text_dim: int,
+        conv_layers: int = 0,
+        conv_mult: int = 2,
+        max_pos: int = 4096,
+        mask_padding: bool = True,
+    ):
+        super().__init__()
+        self.text_embed = nn.Embedding(text_num_embeds + 1, text_dim)
+        self.text_blocks = nn.ModuleList(
+            ConvNeXtV2Block(text_dim, text_dim * conv_mult) for _ in range(conv_layers)
+        )
+        self.max_pos = max_pos
+        self.mask_padding = mask_padding
+        # absolute [cos|sin] position table: a constant, not a checkpoint tensor
+        self.register_buffer(
+            "freqs_cis", torch.tensor(precompute_freqs_cis(text_dim, max_pos)), persistent=False
+        )
+
+    def forward(self, text: torch.Tensor, seq_len: int, drop_text, dtype: torch.dtype) -> torch.Tensor:
+        """Text ids [b, nt] padded with -1 -> [b, seq_len, text_dim].
+
+        The ids shift by +1 so -1 padding becomes the filler token 0; the CFG
+        text drop zeroes the *shifted* ids; the ConvNeXt blocks see the
+        absolute position table, and padding is re-zeroed after each block."""
+        batch, text_len = text.shape
+        text = (text.long() + 1)[:, :seq_len]
+        if seq_len > text_len:
+            text = F.pad(text, (0, seq_len - text_len), value=0)
+        text_mask = (text == 0)[..., None]  # True = filler/padding
+
+        drop = as_batch_flag(drop_text, batch, text.device)
+        text = torch.where(drop[:, None], torch.zeros_like(text), text)
+        x = embedding(self.text_embed.weight, text, dtype=dtype)
+
+        if len(self.text_blocks) > 0:
+            pos_idx = get_pos_embed_indices(
+                torch.zeros(batch, dtype=torch.long, device=text.device), seq_len, self.max_pos
+            )
+            x = x + self.freqs_cis.to(dtype)[pos_idx]
+            if self.mask_padding:
+                x = x.masked_fill(text_mask, 0.0)
+                for block in self.text_blocks:
+                    x = block(x).masked_fill(text_mask, 0.0)
+            else:
+                for block in self.text_blocks:
+                    x = block(x)
+        return x
+
+
+# ------------------------------------------------------------ input embedding
+
+
+class InputEmbedding(nn.Module):
+    def __init__(self, mel_dim: int, text_dim: int, out_dim: int):
+        super().__init__()
+        self.proj = nn.Linear(mel_dim * 2 + text_dim, out_dim)
+        self.conv_pos_embed = ConvPositionEmbedding(out_dim)
+
+    def forward(self, x, cond, text_embed, drop_audio_cond=False) -> torch.Tensor:
+        """concat(x, cond, text) -> proj -> conv position embedding residual."""
+        drop = as_batch_flag(drop_audio_cond, x.shape[0], x.device)
+        cond = torch.where(drop[:, None, None], torch.zeros_like(cond), cond)
+        x = linear(torch.cat([x, cond, text_embed], dim=-1), self.proj.weight, self.proj.bias)
+        return self.conv_pos_embed(x) + x
+
+
+# ------------------------------------------------------------ attention
+
+
+class Attention(nn.Module):
+    """Non-causal multi-head attention with RoPE and a key-padding mask."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.to_q = nn.Linear(dim, inner)
+        self.to_k = nn.Linear(dim, inner)
+        self.to_v = nn.Linear(dim, inner)
+        self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [b, n, dim]
+        mask: torch.Tensor | None = None,  # [b, n] bool
+        rope: tuple[torch.Tensor, torch.Tensor] | None = None,  # (cos, sin) [n, dim_head]
+    ) -> torch.Tensor:
+        """Scale 1/sqrt(dim_head); keys masked only; output rows re-zeroed
+        by the mask. q, k and v reach attention as strided [b, h, n, d] views
+        of the projections, and its output reshapes back without a copy."""
+        b, n, _ = x.shape
+
+        def heads(lin: nn.Linear) -> torch.Tensor:
+            return linear(x, lin.weight, lin.bias).view(b, n, self.heads, -1).transpose(1, 2)
+
+        q, k, v = heads(self.to_q), heads(self.to_k), heads(self.to_v)
+        out = scaled_dot_product_attention(
+            q, k, v, 1.0 / math.sqrt(q.shape[-1]), key_mask=mask, rope=rope
+        )
+        out = out.transpose(1, 2).reshape(b, n, -1)
+        out = linear(out, self.to_out[0].weight, self.to_out[0].bias)
+        if mask is not None:
+            out = out * mask[..., None].to(out.dtype)
+        return out
+
+
+# ------------------------------------------------------------ feed forward
+
+
+class FeedForward(nn.Module):
+    """Linear -> GELU(tanh) -> Linear."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = int(dim * mult)
+        # index 1 holds the reference's dropout slot, so checkpoint names line up
+        self.ff = nn.Sequential(
+            nn.Sequential(nn.Linear(dim, inner), nn.GELU(approximate="tanh")),
+            nn.Identity(),
+            nn.Linear(inner, dim),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w1, w2 = self.ff[0][0], self.ff[2]
+        return linear(gelu(linear(x, w1.weight, w1.bias), approximate=True), w2.weight, w2.bias)
+
+
+# ------------------------------------------------------------ AdaLN-Zero
+
+
+class AdaLayerNormZero(nn.Module):
+    def __init__(self, dim: int, chunks: int = 6):
+        super().__init__()
+        self.linear = nn.Linear(dim, dim * chunks)
+
+    def mods(self, emb: torch.Tensor) -> torch.Tensor:
+        """time embedding -> SiLU -> Linear(chunks * dim) modulation vector."""
+        return linear(F.silu(emb), self.linear.weight, self.linear.bias)
+
+    def forward(self, x: torch.Tensor, mod: torch.Tensor):
+        """Split order: shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
+        gate_mlp; `mod` is [b or 1, 6 * dim]."""
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
+        x = layer_norm(x) * (1 + scale_msa[:, None]) + shift_msa[:, None]
+        return x, gate_msa, shift_mlp, scale_mlp, gate_mlp
+
+
+class AdaLayerNormZeroFinal(AdaLayerNormZero):
+    def __init__(self, dim: int):
+        super().__init__(dim, chunks=2)
+
+    def forward(self, x: torch.Tensor, mod: torch.Tensor) -> torch.Tensor:
+        """Scale and shift only; split order scale, shift."""
+        scale, shift = mod.chunk(2, dim=-1)
+        return layer_norm(x) * (1 + scale[:, None]) + shift[:, None]
+
+
+# ------------------------------------------------------------ DiT block
+
+
+class DiTBlock(nn.Module):
+    """AdaLN-Zero -> attention -> gated residual -> modulated FF -> gated residual."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int):
+        super().__init__()
+        self.attn_norm = AdaLayerNormZero(dim)
+        self.attn = Attention(dim, heads, dim_head)
+        self.ff = FeedForward(dim, mult=ff_mult)
+
+    def forward(self, x, mod, mask=None, rope=None) -> torch.Tensor:
+        norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.attn_norm(x, mod)
+        x = x + gate_msa[:, None] * self.attn(norm, mask=mask, rope=rope)
+        norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
+        return x + gate_mlp[:, None] * self.ff(norm)
