@@ -5,15 +5,24 @@
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. device: a CUDA device must be present; prints its name and, from
      nvidia-smi, its name and power limit;
-  2. build: compiles the attention kernel from the sources in this checkout;
-  3. kernel vs plain: the kernel against its plain PyTorch version in bf16 at
-     the main path's shape and two edge shapes, timed with CUDA events;
-  4. main path: the base DiT (1024 x 22 layers x 16 heads, bf16) and Vocos,
-     randomly initialised from a seed, written with save_pretrained and read
-     back with from_pretrained, then one warm-up and three requests through
-     F5TTS.sample (2 s reference, 10 s total, 32 Euler steps, CFG 2, sway -1);
-     checks the waves, the kernel's launch count per request, and one DiT
-     forward against the float32 CPU path on a short input.
+  2. build: compiles every kernel from the sources in this checkout, one nvcc
+     per source, all at once;
+  3. kernels vs plain, timed with CUDA events: the attention kernel in bf16
+     at the main path's shape and two edge shapes; the attention kernel in
+     float32 at the duration predictor's shape and at the DiT's; the
+     dequantizing matmul at every linear shape of the main path, int4 and
+     int8, bf16 and float32;
+  4. snapshot: the base DiT (1024 x 22 layers x 16 heads, bf16), Vocos and a
+     float32 duration predictor (DURATION_V2), randomly initialised from a
+     seed, written with save_pretrained as float, int4 and int8 DiT files;
+  5. float main path: from_pretrained, then one warm-up and three requests
+     through F5TTS.sample (2 s reference, 10 s total, 32 Euler steps, CFG 2,
+     sway -1); checks the waves, the kernels' launch counts per request, and
+     one DiT forward against the float32 CPU path on a short input;
+  6. quantized main path: from_pretrained(quantization_bits=4), the same
+     warm-up and three requests, one request with duration=None (the
+     float32 predictor, through the float32 attention kernel), the int4 DiT
+     forward against the float32 CPU path, and one int8 load and request.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -22,6 +31,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -30,6 +40,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ATTN_TOL = 2e-2  # absolute, on O(1) outputs: both sides round P and the rotated q, k to bf16
+QMM_TOL = 2e-2  # absolute, on O(1) outputs: both sides round W to bf16; sums and output rounding differ
+F32_TOL = 1e-4  # absolute, float32 kernels on O(1) outputs: the same math summed in another order
 DIT_TOL = 3e-2  # relative L2 of a bf16 DiT forward against float32, 22 layers
 STEPS = 32
 EVALS_PER_REQUEST = STEPS - 1  # Euler: one flow evaluation per step of a 32-point grid
@@ -63,15 +75,33 @@ def device_phase():
 
 
 def build_phase():
-    from f5_tts_tpu_torch.ops import flash_attention as fa
+    from f5_tts_tpu_torch.ops import cuda_build, flash_attention, qmatmul
 
     phase("build")
     t0 = time.perf_counter()
-    lib = fa.build()
-    print(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
-    log = (fa.BUILD_DIR / "flash_attention_fwd.build.log")
-    if log.exists():
-        print(log.read_text().strip())
+    sources = (flash_attention.SOURCE, qmatmul.SOURCE)
+    libs = cuda_build.build(*sources)
+    print(f"built {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} in {time.perf_counter() - t0:.1f} s")
+    for src in sources:
+        log = cuda_build.log_path(src)
+        if log.exists():
+            print(log.read_text().strip())
+
+
+def reset_counts():
+    from f5_tts_tpu_torch.ops.flash_attention import flash_attention
+    from f5_tts_tpu_torch.ops.qmatmul import qmatmul
+
+    flash_attention.launches = flash_attention.launches_f32 = qmatmul.launches = 0
+
+
+def counts() -> dict:
+    from f5_tts_tpu_torch.ops.flash_attention import flash_attention
+    from f5_tts_tpu_torch.ops.qmatmul import qmatmul
+
+    return {"flash_attention_fwd": flash_attention.launches,
+            "flash_attention_fwd_f32": flash_attention.launches_f32,
+            "qmatmul": qmatmul.launches}
 
 
 def _time_ms(fn, iters=20):
@@ -136,67 +166,148 @@ def kernel_phase():
     return results
 
 
-def main_path_phase(card: str):
+def f32_attention_phase():
+    import torch
+
+    from f5_tts_tpu_torch.models.rope import rotary_freqs
+    from f5_tts_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    phase("attention kernel vs plain (float32)")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    # (name, b, h, n, d, valid keys or None)
+    cases = [("duration predictor", 1, 8, 187, 64, None), ("DiT shape", 2, 16, 1024, 64, 937)]
+    results = {}
+    for name, b, h, n, d, valid in cases:
+        x = [torch.randn(b, n, h * d, generator=gen, device="cuda") for _ in range(3)]
+        q, k, v = (t.view(b, n, h, d).transpose(1, 2) for t in x)
+        mask = None
+        if valid is not None:
+            mask = (torch.arange(n, device="cuda") < valid)[None, :].expand(b, n).contiguous()
+        raw = rotary_freqs(n, d, device="cuda")
+        rope = (torch.cos(raw), torch.sin(raw))
+        scale = d ** -0.5
+        out = flash_attention(q, k, v, scale, key_mask=mask, rope=rope)
+        ref = flash_attention_plain(q, k, v, scale, mask, rope)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ms = _time_ms(lambda: flash_attention(q, k, v, scale, key_mask=mask, rope=rope))
+        plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v, scale, mask, rope))
+        print(f"{name}: [b={b}, h={h}, n={n}, d={d}] mask={valid} rope=True float32: "
+              f"max|kernel - plain| = {err:.3e} (tol {F32_TOL}); kernel {ms:.4f} ms "
+              f"({4 * b * h * n * n * d / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms")
+        if not (err <= F32_TOL):
+            raise AssertionError(f"float32 attention kernel disagrees with its plain version at {name}: {err}")
+        results[name] = (err, ms, plain_ms)
+    return results
+
+
+# (linear, m, k, n) of every quantized linear on the main path: time
+# conditioning over the 31 evaluation times, the text branch over 1024
+# padded text positions, the DiT blocks over 2 x 1024 frames (CFG)
+QMM_SHAPES = [
+    ("time_mlp.0", 31, 256, 1024), ("time_mlp.2", 31, 1024, 1024),
+    ("attn_norm.linear", 31, 1024, 6144), ("norm_out.linear", 31, 1024, 2048),
+    ("text pwconv1", 1024, 512, 1024), ("text pwconv2", 1024, 1024, 512),
+    ("to_q/k/v/out", 2048, 1024, 1024), ("ff w1", 2048, 1024, 2048), ("ff w2", 2048, 2048, 1024),
+    ("proj_out", 2048, 1024, 100),
+]
+
+
+def qmatmul_phase():
+    import numpy as np
+    import torch
+
+    from f5_tts_tpu_torch.models.quant import quantize_kernel
+    from f5_tts_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+
+    phase("dequantizing matmul vs plain (int4 and int8, bf16 and float32)")
+    rng = np.random.default_rng(0)
+    results = {}
+    for name, m, k, n in QMM_SHAPES:
+        # drawn as the model's linears are, so outputs stay O(1)
+        w = (rng.uniform(-1, 1, (k, n)) / np.sqrt(k)).astype(np.float32)
+        bias = torch.tensor(rng.standard_normal(n).astype(np.float32) * 0.1, device="cuda")
+        x32 = torch.tensor(rng.standard_normal((m, k)).astype(np.float32), device="cuda")
+        for bits in (4, 8):
+            p = quantize_kernel(w, bits)
+            q, s32, b32 = (torch.from_numpy(np.ascontiguousarray(p[t].T)).cuda() for t in ("q", "scales", "biases"))
+            for dtype, tol in ((torch.bfloat16, QMM_TOL), (torch.float32, F32_TOL)):
+                # scales, biases and bias in the activations' dtype, as the cast model holds them
+                x, s, b, bb = (t.to(dtype) for t in (x32, s32, b32, bias))
+                out = qmatmul(x, q, s, b, bb)
+                ref = qmatmul_plain(x, q, s, b, bb)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                ms = _time_ms(lambda: qmatmul(x, q, s, b, bb))
+                plain_ms = _time_ms(lambda: qmatmul_plain(x, q, s, b, bb))
+                label = f"{name} [m={m}, k={k}, n={n}] int{bits} {str(dtype).removeprefix('torch.')}"
+                print(f"{label}: max|kernel - plain| = {err:.3e} (tol {tol}); kernel {ms:.4f} ms "
+                      f"({2 * m * k * n / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms")
+                if not (err <= tol):
+                    raise AssertionError(f"dequantizing matmul disagrees with its plain version at {label}: {err}")
+                results[(name, bits, dtype)] = (err, ms, plain_ms)
+    return results
+
+
+def snapshot_phase(snap: str):
     import torch
 
     from f5_tts_tpu_torch import F5TTS, CFMConfig, Vocos, VocosConfig
-    from f5_tts_tpu_torch.config import F5TTS_V1_BASE
-    from f5_tts_tpu_torch.ops.flash_attention import flash_attention
+    from f5_tts_tpu_torch.config import DURATION_V2, F5TTS_V1_BASE
+    from f5_tts_tpu_torch.models.duration import DurationPredictor
 
-    phase("main path: base DiT, bf16, save_pretrained -> from_pretrained -> 1 + 3 requests")
-    dit_cfg = F5TTS_V1_BASE.replace(compute_dtype="bfloat16")
+    phase("snapshot: base DiT + Vocos + float32 duration predictor -> save_pretrained (float, int4, int8)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     src = F5TTS.init(
-        gen, dit_cfg, device="cuda", cfm_cfg=CFMConfig(),
+        gen, F5TTS_V1_BASE.replace(compute_dtype="bfloat16"), device="cuda", cfm_cfg=CFMConfig(),
         vocab_char_map={c: i for i, c in enumerate(VOCAB_CHARS)},
         vocoder=Vocos.init(gen, VocosConfig(compute_dtype="bfloat16"), device="cuda"),
+        duration_predictor=DurationPredictor.init(gen, DURATION_V2, device="cuda"),
     )
     n_params = sum(p.numel() for p in src.dit.parameters())
-    tmp_base = "/dev/shm" if os.path.isdir("/dev/shm") else None
-    with tempfile.TemporaryDirectory(dir=tmp_base) as snap:
-        src.save_pretrained(snap)
-        model = F5TTS.from_pretrained(snap, device="cuda")
-    del src
+    src.save_pretrained(snap)
+    t1 = time.perf_counter()
+    for bits in (4, 8):
+        src.save_pretrained(snap, quantization_bits=bits)
+    print(f"init + save_pretrained: {t1 - t0:.1f} s; quantize + save int4 and int8: "
+          f"{time.perf_counter() - t1:.1f} s; DiT parameters: {n_params}; files: "
+          + ", ".join(f"{f.name} {f.stat().st_size / 2**20:.1f} MiB" for f in sorted(Path(snap).glob("*.safetensors"))))
+
+
+def _request(model, ref, duration, card: str, label: str, expect: dict, expect_len: int) -> float:
+    """One request; checks the wave and each kernel's launches in it against
+    `expect`. Returns its wall time."""
+    import torch
+
+    before = counts()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    print(f"init + save_pretrained + from_pretrained: {time.perf_counter() - t0:.1f} s; "
-          f"DiT parameters: {n_params}")
-
+    t0 = time.perf_counter()
+    wave, _ = model.sample(ref[None], TEXT, duration=duration, steps=STEPS, method="euler",
+                           cfg_strength=2.0, sway_sampling_coef=-1.0, seed=0, return_trajectory=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in counts().items()}
     sr = model.audio_cfg.sample_rate
-    ref = torch.sin(2 * torch.pi * 220 * torch.arange(2 * sr, device="cuda") / sr) * 0.1
-    duration = int(10.0 * model.audio_cfg.frames_per_second)
-    per_request = dit_cfg.depth * EVALS_PER_REQUEST
-    expect_len = (duration - 1) * model.audio_cfg.hop_length
+    print(f"{label}: {wall * 1e3:.1f} ms wall for {wave.shape[-1] / sr:.3f} s of audio "
+          f"(RTF {wall / (wave.shape[-1] / sr):.5f}); launches {launched}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+    if tuple(wave.shape) != (expect_len,):
+        raise AssertionError(f"wave shape {tuple(wave.shape)}, expected ({expect_len},)")
+    if not torch.isfinite(wave).all() or not (wave != 0).any():
+        raise AssertionError("wave is not finite or is all zero")
+    if launched != expect:
+        raise AssertionError(f"kernel launches in the request {launched}, expected {expect}")
+    return wall
 
-    flash_attention.launches = 0
-    times = []
-    for i in range(4):
-        before = flash_attention.launches
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        wave, _ = model.sample(ref[None], TEXT, duration=duration, steps=STEPS, method="euler",
-                               cfg_strength=2.0, sway_sampling_coef=-1.0, seed=0,
-                               return_trajectory=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = flash_attention.launches - before
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        label = "warm-up" if i == 0 else f"request {i}"
-        print(f"{label}: {wall * 1e3:.1f} ms wall for {wave.shape[-1] / sr:.3f} s of audio "
-              f"(RTF {wall / (wave.shape[-1] / sr):.5f}); attention launches {launched}; "
-              f"peak memory {peak:.2f} GiB; on {card}")
-        if tuple(wave.shape) != (expect_len,):
-            raise AssertionError(f"wave shape {tuple(wave.shape)}, expected ({expect_len},)")
-        if not torch.isfinite(wave).all() or not (wave != 0).any():
-            raise AssertionError("wave is not finite or is all zero")
-        if launched != per_request:
-            raise AssertionError(f"{launched} attention launches in a request, expected {per_request}")
-        if i > 0:
-            times.append(wall)
-    launches = flash_attention.launches
 
-    phase("DiT forward: bf16 on the card against float32 on the CPU")
+def _dit_forward_check(model, label: str) -> None:
+    """The model's DiT in bf16 on the card against float32 on the CPU (which
+    the CPU tests hold to the JAX package); moves model.dit to the CPU."""
+    import torch
+
+    phase(f"DiT forward ({label}): bf16 on the card against float32 on the CPU")
     dit_gpu = model._inference_dit()
     dit_cpu = model.dit.to("cpu")
     g = torch.Generator().manual_seed(1)
@@ -214,28 +325,129 @@ def main_path_phase(card: str):
     rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
     print(f"relative L2 of the bf16 card forward against float32 CPU: {rel:.3e} (tol {DIT_TOL})")
     if not (rel <= DIT_TOL):
-        raise AssertionError(f"DiT forward on the card disagrees with the CPU path: {rel}")
-    return times, launches
+        raise AssertionError(f"DiT forward ({label}) on the card disagrees with the CPU path: {rel}")
+
+
+def _setup(model):
+    import torch
+
+    sr = model.audio_cfg.sample_rate
+    ref = torch.sin(2 * torch.pi * 220 * torch.arange(2 * sr, device="cuda") / sr) * 0.1
+    duration = int(10.0 * model.audio_cfg.frames_per_second)
+    return ref, duration, (duration - 1) * model.audio_cfg.hop_length
+
+
+def float_path_phase(card: str, snap: str):
+    import torch
+
+    from f5_tts_tpu_torch import F5TTS
+
+    phase("float main path: from_pretrained -> 1 + 3 requests")
+    t0 = time.perf_counter()
+    model = F5TTS.from_pretrained(snap, device="cuda")
+    torch.cuda.synchronize()
+    print(f"from_pretrained: {time.perf_counter() - t0:.1f} s")
+    ref, duration, expect_len = _setup(model)
+    per_request = {"flash_attention_fwd": model.dit_cfg.depth * EVALS_PER_REQUEST,
+                   "flash_attention_fwd_f32": 0, "qmatmul": 0}
+    reset_counts()
+    times = [_request(model, ref, duration, card, "warm-up" if i == 0 else f"request {i}", per_request, expect_len)
+             for i in range(4)][1:]
+    launched = counts()
+    _dit_forward_check(model, "float")
+    return times, launched
+
+
+def qmm_launches_per_request(cfg) -> int:
+    """Quantized-linear launches in one request: the time conditioning once
+    (time MLP 2, one AdaLN linear per block, norm_out), the text branch for
+    the two CFG embeddings (2 per ConvNeXt block each), and per flow
+    evaluation 6 per block (q, k, v, out, two FF) plus proj_out."""
+    return (2 + cfg.depth + 1) + 2 * 2 * cfg.conv_layers + EVALS_PER_REQUEST * (6 * cfg.depth + 1)
+
+
+def quantized_path_phase(card: str, snap: str):
+    import numpy as np
+    import torch
+
+    from f5_tts_tpu_torch import F5TTS
+    from f5_tts_tpu_torch.audio.mel import log_mel_spectrogram
+    from f5_tts_tpu_torch.models.cfm import clamp_duration
+
+    phase("quantized main path: from_pretrained(quantization_bits=4) -> 1 + 3 requests, duration=None")
+    t0 = time.perf_counter()
+    model = F5TTS.from_pretrained(snap, device="cuda", quantization_bits=4)
+    torch.cuda.synchronize()
+    print(f"from_pretrained(quantization_bits=4): {time.perf_counter() - t0:.1f} s; "
+          f"duration predictor {model.duration_predictor.cfg}")
+    ref, duration, expect_len = _setup(model)
+    cfg = model.dit_cfg
+    per_request = {"flash_attention_fwd": cfg.depth * EVALS_PER_REQUEST, "flash_attention_fwd_f32": 0,
+                   "qmatmul": qmm_launches_per_request(cfg)}
+    print(f"expected per request: {per_request}")
+
+    # the predictor's duration for this request, worked out before the counted run
+    a = model.audio_cfg
+    mel = log_mel_spectrogram(ref, a.sample_rate, a.n_mels, a.n_fft, a.hop_length)
+    ids = model._tokenize(TEXT)
+    predicted = model.predict_duration(mel, ids)
+    clamped = int(clamp_duration(predicted, np.array([mel.shape[1]]), np.array([ids.shape[1]]),
+                                 model.cfm_cfg.max_duration)[0])
+    print(f"predicted duration {int(predicted[0])} frames, clamped {clamped}")
+
+    reset_counts()
+    times = [_request(model, ref, duration, card, "warm-up" if i == 0 else f"request {i}", per_request, expect_len)
+             for i in range(4)][1:]
+    with_predictor = {**per_request, "flash_attention_fwd_f32": model.duration_predictor.cfg.depth}
+    _request(model, ref, None, card, "request with duration=None", with_predictor, (clamped - 1) * a.hop_length)
+    launched = counts()
+    _dit_forward_check(model, "int4")
+    del model
+
+    phase("int8 path: from_pretrained(quantization_bits=8) -> 1 request")
+    reset_counts()
+    model8 = F5TTS.from_pretrained(snap, device="cuda", quantization_bits=8)
+    _request(model8, ref, duration, card, "int8 request", per_request, expect_len)
+    launched = {k: v + launched[k] for k, v in counts().items()}
+    return times, launched
 
 
 def main() -> int:
     card = device_phase()
+    import torch
+
     build_phase()
     kernel = kernel_phase()
-    times, launches = main_path_phase(card)
-    err, ms, plain_ms = kernel["main path"]
-    print(f"requests: {', '.join(f'{t * 1e3:.1f} ms' for t in times)} on {card}")
+    f32_attn = f32_attention_phase()
+    qmm = qmatmul_phase()
+    tmp_base = "/dev/shm" if os.path.isdir("/dev/shm") and shutil.disk_usage("/dev/shm").free > 8 * 2**30 else None
+    with tempfile.TemporaryDirectory(dir=tmp_base) as snap:
+        snapshot_phase(snap)
+        float_times, float_launches = float_path_phase(card, snap)
+        q_times, q_launches = quantized_path_phase(card, snap)
+    print(f"float requests: {', '.join(f'{t * 1e3:.1f} ms' for t in float_times)}; "
+          f"int4 requests: {', '.join(f'{t * 1e3:.1f} ms' for t in q_times)}; on {card}")
+    # launches summed over the main paths' counted runs
+    launches = {k: float_launches[k] + q_launches[k] for k in float_launches}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the main paths")
+    rows = [
+        ("flash_attention_fwd", "flash_attention_fwd.cu", "f5_tts_tpu/ops/flash_attention.py:165", kernel["main path"]),
+        ("flash_attention_fwd_f32", "flash_attention_fwd.cu", "f5_tts_tpu/ops/flash_attention.py:165",
+         f32_attn["duration predictor"]),
+        ("qmatmul", "qmatmul.cu", "f5_tts_tpu/ops/qmatmul.py:69", qmm[("to_q/k/v/out", 4, torch.bfloat16)]),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
+        "name": name,
         "route": "cuda",
-        "source": "f5_tts_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "f5_tts_tpu/ops/flash_attention.py:165",
-        "launches": launches,
+        "source": f"f5_tts_tpu_torch/csrc/{src}",
+        "replaces": replaces,
+        "launches": launches[name],
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-    }]}))
-    import torch
+    } for name, src, replaces, (err, ms, plain_ms) in rows]}))
 
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

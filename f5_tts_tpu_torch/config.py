@@ -64,6 +64,29 @@ class DiTConfig:
 
 
 @dataclass(frozen=True)
+class DurationConfig:
+    """Duration-predictor transformer."""
+
+    dim: int = 512
+    depth: int = 8
+    heads: int = 8
+    dim_head: int = 64
+    ff_mult: int = 2
+    mel_dim: int = 100
+    text_num_embeds: int = 256
+    text_dim: int = 512
+    conv_layers: int = 2
+    dropout: float = 0.0
+    max_pos: int = 4096
+    compute_dtype: str = "float32"
+    # read by the JAX package only (see the module docstring)
+    use_flash_attention: bool = True
+
+    def replace(self, **kw) -> "DurationConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
 class CFMConfig:
     """Conditional flow-matching wrapper config."""
 
@@ -90,3 +113,6 @@ class VocosConfig:
 
 # Pretrained "v1" base model configuration.
 F5TTS_V1_BASE = DiTConfig()
+
+# Pretrained duration model configuration.
+DURATION_V2 = DurationConfig()

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in and out.
+// Flash-attention forward for Hopper (sm_90a): a bf16 kernel on the tensor
+// cores and a float32 kernel on the FMA units.
 //
 // Replaces the Pallas TPU kernel of the JAX package:
 // f5_tts_tpu/ops/flash_attention.py, `_flash_attention_call` (kernel body
@@ -34,9 +35,26 @@
 //     strides, so [b, n, h, d] projections are read without a transpose copy.
 //     The head dim must be contiguous and rows 16-byte aligned.
 //
-// Only bf16 is taken: the Python wrapper raises ValueError for any other
-// dtype. cp.async / TMA double buffering, wgmma and warp specialisation are
-// not used yet.
+// The float32 kernel (flash_fwd_f32_kernel) computes the same function in
+// float32 throughout, as the JAX kernel does for float32 inputs (HIGHEST
+// precision): no bf16 rounding of P or of the rotated q and k, no TF32. It
+// serves models whose compute dtype is float32, such as the duration
+// predictor. Design:
+//   - one block of 8 warps per (32-row q tile, head, batch row); 8 lanes
+//     share a query row, each owning D/8 of its dims in float4 chunks
+//     (lane j of the row takes chunks j, j + 8, ...), so q and the output
+//     accumulator live in registers (32 floats each at d = 256);
+//   - K and V stream through shared memory in 32-row float32 tiles (64 KB at
+//     d = 256, within the 227 KB a block may use); a score is a partial dot
+//     product per lane summed over the row's 8 lanes with shuffles;
+//   - the same online softmax and the same -1e30 / -FLT_MAX masking as the
+//     bf16 kernel, so fully masked rows stay finite and uniform;
+//   - RoPE in float32 registers while q is loaded and while a K tile is
+//     staged (tables not rounded).
+//
+// The Python wrapper raises ValueError for any dtype but bf16 and float32.
+// cp.async / TMA double buffering, wgmma and warp specialisation are not
+// used yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -265,6 +283,161 @@ cudaError_t launch(const Params& p, int b, int h, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- float32
+
+constexpr int F_BM = 32;  // query rows per block, 4 per warp
+constexpr int F_BN = 32;  // keys per K/V tile
+constexpr int F_THREADS = 256;
+constexpr int F_LANES = 8;  // lanes per query row
+
+struct ParamsF32 {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  const uint8_t* mask;  // [b, n] or null
+  const float* cos;     // [n, d] or null
+  const float* sin;     // [n, d] or null
+  int n;
+  long long q_sb, q_sh, q_sn;
+  long long k_sb, k_sh, k_sn;
+  long long v_sb, v_sh, v_sn;
+  long long o_sb, o_sh, o_sn;
+  float scale;
+};
+
+// x * cos + rotate_half(x) * sin on one float4 chunk that starts at an even
+// lane of row `row`: lane 2j takes -x[2j+1], lane 2j+1 takes x[2j].
+template <int D>
+__device__ __forceinline__ float4 rope_chunk(float4 x, const float* cos, const float* sin, int row, int c) {
+  const float4 cs = *reinterpret_cast<const float4*>(cos + static_cast<long long>(row) * D + c);
+  const float4 sn = *reinterpret_cast<const float4*>(sin + static_cast<long long>(row) * D + c);
+  return make_float4(__fadd_rn(__fmul_rn(x.x, cs.x), -__fmul_rn(x.y, sn.x)),
+                     __fadd_rn(__fmul_rn(x.y, cs.y), __fmul_rn(x.x, sn.y)),
+                     __fadd_rn(__fmul_rn(x.z, cs.z), -__fmul_rn(x.w, sn.z)),
+                     __fadd_rn(__fmul_rn(x.w, cs.w), __fmul_rn(x.z, sn.w)));
+}
+
+template <int D>
+__global__ void __launch_bounds__(F_THREADS) flash_fwd_f32_kernel(const ParamsF32 p) {
+  constexpr int CH = D / 4 / F_LANES;  // float4 chunks per lane
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);  // [F_BN][D]
+  float* sV = sK + F_BN * D;
+  float* sBias = sV + F_BN * D;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x % 32;
+  const int sub = lane % F_LANES;  // lane within the query row
+  const int row = blockIdx.x * F_BM + threadIdx.x / F_LANES;
+
+  const float* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
+  float* og = p.o + b * p.o_sb + h * p.o_sh;
+  const uint8_t* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(b) * p.n;
+
+  float4 q[CH], acc[CH];
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int c = (sub + F_LANES * i) * 4;
+    q[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < p.n) {
+      q[i] = *reinterpret_cast<const float4*>(qg + row * p.q_sn + c);
+      if (p.cos != nullptr) q[i] = rope_chunk<D>(q[i], p.cos, p.sin, row, c);
+    }
+  }
+  float m = -FLT_MAX, l = 0.f;
+
+  for (int k0 = 0; k0 < p.n; k0 += F_BN) {
+    __syncthreads();  // the previous tile is consumed by every warp
+    for (int i = threadIdx.x; i < F_BN * D / 4; i += F_THREADS) {
+      const int r = i / (D / 4);
+      const int c = (i % (D / 4)) * 4;
+      const int key = k0 + r;
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+      if (key < p.n) {
+        kv = *reinterpret_cast<const float4*>(kg + key * p.k_sn + c);
+        vv = *reinterpret_cast<const float4*>(vg + key * p.v_sn + c);
+        if (p.cos != nullptr) kv = rope_chunk<D>(kv, p.cos, p.sin, key, c);
+      }
+      *reinterpret_cast<float4*>(sK + r * D + c) = kv;
+      *reinterpret_cast<float4*>(sV + r * D + c) = vv;
+    }
+    if (threadIdx.x < F_BN) {
+      const int key = k0 + threadIdx.x;
+      sBias[threadIdx.x] = key >= p.n ? -FLT_MAX : (mask != nullptr && !mask[key]) ? MASKED : 0.f;
+    }
+    __syncthreads();
+
+    float s[F_BN];
+    float mt = m;
+#pragma unroll
+    for (int j = 0; j < F_BN; ++j) {
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        const float4 kv = *reinterpret_cast<const float4*>(sK + j * D + (sub + F_LANES * i) * 4);
+        part = fmaf(q[i].x, kv.x, part);
+        part = fmaf(q[i].y, kv.y, part);
+        part = fmaf(q[i].z, kv.z, part);
+        part = fmaf(q[i].w, kv.w, part);
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      part += __shfl_xor_sync(0xffffffffu, part, 4);
+      s[j] = part * p.scale + sBias[j];
+      mt = fmaxf(mt, s[j]);
+    }
+    const float alpha = expf(m - mt);
+    m = mt;
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      acc[i].x *= alpha;
+      acc[i].y *= alpha;
+      acc[i].z *= alpha;
+      acc[i].w *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < F_BN; ++j) {
+      const float pj = expf(s[j] - m);
+      l += pj;
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        const float4 vv = *reinterpret_cast<const float4*>(sV + j * D + (sub + F_LANES * i) * 4);
+        acc[i].x = fmaf(pj, vv.x, acc[i].x);
+        acc[i].y = fmaf(pj, vv.y, acc[i].y);
+        acc[i].z = fmaf(pj, vv.z, acc[i].z);
+        acc[i].w = fmaf(pj, vv.w, acc[i].w);
+      }
+    }
+  }
+
+  if (row < p.n) {
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int c = (sub + F_LANES * i) * 4;
+      *reinterpret_cast<float4*>(og + row * p.o_sn + c) =
+          make_float4(acc[i].x * inv, acc[i].y * inv, acc[i].z * inv, acc[i].w * inv);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_f32(const ParamsF32& p, int b, int h, cudaStream_t stream) {
+  const int smem = (2 * F_BN * D + F_BN) * static_cast<int>(sizeof(float));
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n + F_BM - 1) / F_BM, h, b);
+  flash_fwd_f32_kernel<D><<<grid, F_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -296,6 +469,36 @@ int f5_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case 64: return static_cast<int>(launch<64>(p, b, h, s));
     case 128: return static_cast<int>(launch<128>(p, b, h, s));
     case 256: return static_cast<int>(launch<256>(p, b, h, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The float32 kernel; the same arguments as f5_flash_attention_fwd.
+int f5_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, const void* mask,
+                               const void* cos, const void* sin, int b, int h, int n, int d,
+                               long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+                               long long k_sh, long long k_sn, long long v_sb, long long v_sh,
+                               long long v_sn, long long o_sb, long long o_sh, long long o_sn,
+                               float scale, void* stream) {
+  ParamsF32 p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.cos = static_cast<const float*>(cos);
+  p.sin = static_cast<const float*>(sin);
+  p.n = n;
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return static_cast<int>(launch_f32<64>(p, b, h, s));
+    case 128: return static_cast<int>(launch_f32<128>(p, b, h, s));
+    case 256: return static_cast<int>(launch_f32<256>(p, b, h, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

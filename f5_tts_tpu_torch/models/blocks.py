@@ -5,7 +5,9 @@ Each block is an nn.Module whose parameter names are those of the published
 PyTorch checkpoint (`time_embed.time_mlp.0.weight`, `attn.to_out.0.bias`,
 ...), so a snapshot's tensors load by name. The forward passes call the
 primitives of utils/modules.py, which cast each weight to the activation's
-dtype, as the JAX package does.
+dtype, as the JAX package does. Every linear goes through `apply_linear`, so
+a float `nn.Linear` and a weight-only quantized `QuantizedLinear`
+(models/quant.py) are interchangeable.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from torch import nn
 
 from f5_tts_tpu_torch.models.rope import get_pos_embed_indices, precompute_freqs_cis
 from f5_tts_tpu_torch.ops.attention import scaled_dot_product_attention
-from f5_tts_tpu_torch.utils.modules import conv1d, embedding, gelu, layer_norm, linear, mish
+from f5_tts_tpu_torch.utils.modules import apply_linear, conv1d, embedding, gelu, layer_norm, mish
 
 
 def as_batch_flag(flag, batch: int, device: torch.device) -> torch.Tensor:
@@ -62,8 +64,7 @@ class TimestepEmbedding(nn.Module):
     def forward(self, timestep: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """t [m] -> [m, dim]; the sinusoid is float32, the MLP runs in dtype."""
         h = sinus_position_embedding(timestep, self.freq_embed_dim).to(dtype)
-        mlp1, mlp2 = self.time_mlp[0], self.time_mlp[2]
-        return linear(F.silu(linear(h, mlp1.weight, mlp1.bias)), mlp2.weight, mlp2.bias)
+        return apply_linear(self.time_mlp[2], F.silu(apply_linear(self.time_mlp[0], h)))
 
 
 # ------------------------------------------------------------ conv pos embed
@@ -118,9 +119,9 @@ class ConvNeXtV2Block(nn.Module):
         residual = x
         x = conv1d(x, self.dwconv.weight, self.dwconv.bias, groups=x.shape[-1], padding=3)
         x = self.norm(x)
-        x = gelu(linear(x, self.pwconv1.weight, self.pwconv1.bias), approximate=False)
+        x = gelu(apply_linear(self.pwconv1, x), approximate=False)
         x = self.grn(x)
-        x = linear(x, self.pwconv2.weight, self.pwconv2.bias)
+        x = apply_linear(self.pwconv2, x)
         return residual + x
 
 
@@ -193,7 +194,7 @@ class InputEmbedding(nn.Module):
         """concat(x, cond, text) -> proj -> conv position embedding residual."""
         drop = as_batch_flag(drop_audio_cond, x.shape[0], x.device)
         cond = torch.where(drop[:, None, None], torch.zeros_like(cond), cond)
-        x = linear(torch.cat([x, cond, text_embed], dim=-1), self.proj.weight, self.proj.bias)
+        x = apply_linear(self.proj, torch.cat([x, cond, text_embed], dim=-1))
         return self.conv_pos_embed(x) + x
 
 
@@ -223,15 +224,15 @@ class Attention(nn.Module):
         of the projections, and its output reshapes back without a copy."""
         b, n, _ = x.shape
 
-        def heads(lin: nn.Linear) -> torch.Tensor:
-            return linear(x, lin.weight, lin.bias).view(b, n, self.heads, -1).transpose(1, 2)
+        def heads(lin: nn.Module) -> torch.Tensor:
+            return apply_linear(lin, x).view(b, n, self.heads, -1).transpose(1, 2)
 
         q, k, v = heads(self.to_q), heads(self.to_k), heads(self.to_v)
         out = scaled_dot_product_attention(
             q, k, v, 1.0 / math.sqrt(q.shape[-1]), key_mask=mask, rope=rope
         )
         out = out.transpose(1, 2).reshape(b, n, -1)
-        out = linear(out, self.to_out[0].weight, self.to_out[0].bias)
+        out = apply_linear(self.to_out[0], out)
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)
         return out
@@ -254,8 +255,7 @@ class FeedForward(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w1, w2 = self.ff[0][0], self.ff[2]
-        return linear(gelu(linear(x, w1.weight, w1.bias), approximate=True), w2.weight, w2.bias)
+        return apply_linear(self.ff[2], gelu(apply_linear(self.ff[0][0], x), approximate=True))
 
 
 # ------------------------------------------------------------ AdaLN-Zero
@@ -268,7 +268,7 @@ class AdaLayerNormZero(nn.Module):
 
     def mods(self, emb: torch.Tensor) -> torch.Tensor:
         """time embedding -> SiLU -> Linear(chunks * dim) modulation vector."""
-        return linear(F.silu(emb), self.linear.weight, self.linear.bias)
+        return apply_linear(self.linear, F.silu(emb))
 
     def forward(self, x: torch.Tensor, mod: torch.Tensor):
         """Split order: shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,

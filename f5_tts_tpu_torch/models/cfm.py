@@ -1,5 +1,6 @@
 """Conditional flow-matching sampling and the F5TTS API (the port of the JAX
-package's `models/cfm.py`, the fused zero-shot synthesis path).
+package's `models/cfm.py`: the fused zero-shot synthesis path, the
+weight-only int4/int8 quantized DiT and the duration predictor).
 
 Classifier-free guidance runs cond and uncond as one 2B-batch forward with
 per-sample drop flags. Durations are padded to a bucket (multiples of
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -23,6 +25,7 @@ import torch
 from f5_tts_tpu_torch.audio.mel import log_mel_spectrogram
 from f5_tts_tpu_torch.config import AudioConfig, CFMConfig, DiTConfig
 from f5_tts_tpu_torch.models.dit import DiT
+from f5_tts_tpu_torch.models.duration import DurationPredictor
 from f5_tts_tpu_torch.models.ode import odeint
 from f5_tts_tpu_torch.models.vocos import Vocos
 from f5_tts_tpu_torch.utils.masks import lens_to_mask
@@ -143,7 +146,7 @@ def sway_time_grid(steps: int, sway_sampling_coef: float | None, t_start: float 
 
 class F5TTS:
     """Flow-matching TTS model: the DiT plus host-side wiring (tokenizer
-    vocab, mel front-end, vocoder)."""
+    vocab, mel front-end, vocoder, optional duration predictor)."""
 
     def __init__(
         self,
@@ -153,6 +156,7 @@ class F5TTS:
         audio_cfg: AudioConfig = AudioConfig(),
         vocab_char_map: dict[str, int] | None = None,
         vocoder: Vocos | None = None,
+        duration_predictor: DurationPredictor | None = None,
     ):
         self.dit = dit
         self.dit_cfg = dit_cfg
@@ -160,6 +164,7 @@ class F5TTS:
         self.audio_cfg = audio_cfg
         self.vocab_char_map = vocab_char_map
         self.vocoder = vocoder
+        self.duration_predictor = duration_predictor
         self._cast_cache: tuple | None = None
 
     @property
@@ -183,22 +188,40 @@ class F5TTS:
         return cls(dit, dit_cfg, **kwargs)
 
     @classmethod
-    def from_pretrained(cls, local_dir: str | Path, device: torch.device | str = "cpu") -> "F5TTS":
-        """Load a snapshot directory (see models/convert.py)."""
+    def from_pretrained(
+        cls, local_dir: str | Path, device: torch.device | str = "cpu", quantization_bits: int | None = None
+    ) -> "F5TTS":
+        """Load a snapshot directory (see models/convert.py); with
+        `quantization_bits` (4 or 8), its weight-only quantized DiT."""
         from f5_tts_tpu_torch.models.convert import load_f5tts_pretrained
 
-        return load_f5tts_pretrained(local_dir, device)
+        return load_f5tts_pretrained(local_dir, device, quantization_bits)
 
-    def save_pretrained(self, path: str | Path) -> None:
-        """Write a snapshot directory in the published float layout:
-        model_v1.safetensors, vocab.txt, vocos/model.safetensors and
-        config.json. Either package's from_pretrained loads it."""
-        from f5_tts_tpu_torch.models.convert import export_dit_state, export_vocos_state
+    def save_pretrained(self, path: str | Path, quantization_bits: int | None = None) -> None:
+        """Write a snapshot directory in the published layouts: the float DiT
+        as model_v1.safetensors (torch-EMA naming) or, with
+        `quantization_bits`, quantized as model_v1_{bits}b.safetensors (MLX
+        naming); vocab.txt, duration_v2.safetensors, vocos/model.safetensors
+        and config.json. Either package's from_pretrained loads it. The DiT
+        must hold float weights."""
+        from f5_tts_tpu_torch.models.convert import (
+            export_dit_state,
+            export_duration_state,
+            export_mlx_state,
+            export_vocos_state,
+            to_mlx_model_naming,
+        )
+        from f5_tts_tpu_torch.models.quant import quantize_flat_mlx
         from f5_tts_tpu_torch.utils.safetensors import save_file
 
         path = Path(path)
         os.makedirs(path, exist_ok=True)
-        save_file(export_dit_state(self.dit), path / "model_v1.safetensors")
+        if quantization_bits is None:
+            save_file(export_dit_state(self.dit), path / "model_v1.safetensors")
+        else:
+            flat = to_mlx_model_naming(export_mlx_state(self.dit), self.dit_cfg.dim_head)
+            save_file(quantize_flat_mlx(flat, quantization_bits),
+                      path / f"model_v1_{quantization_bits}b.safetensors")
         if self.vocab_char_map is not None:
             entries = sorted(self.vocab_char_map, key=self.vocab_char_map.get)
             (path / "vocab.txt").write_text("\n".join(entries))
@@ -207,6 +230,9 @@ class F5TTS:
             "audio": dataclasses.asdict(self.audio_cfg),
             "cfm": dataclasses.asdict(self.cfm_cfg),
         }
+        if self.duration_predictor is not None:
+            save_file(export_duration_state(self.duration_predictor), path / "duration_v2.safetensors")
+            cfg_blob["duration"] = dataclasses.asdict(self.duration_predictor.cfg)
         if self.vocoder is not None:
             cfg_blob["vocos"] = dataclasses.asdict(self.vocoder.cfg)
             os.makedirs(path / "vocos", exist_ok=True)
@@ -221,17 +247,30 @@ class F5TTS:
         return list_str_to_tensor(text)
 
     def _inference_dit(self) -> DiT:
-        """The DiT in its compute dtype. For bf16 a cast copy is kept, rebuilt
-        when any parameter is replaced or modified in place. LayerNorm and GRN
-        statistics, the timestep sinusoid, the DiT output and the ODE state
-        stay float32 all the same."""
+        """The DiT in its compute dtype. For bf16 a cast copy is kept (every
+        float tensor cast, a quantized linear's scales and biases included;
+        int8 codes stay), rebuilt when any parameter or buffer is replaced or
+        modified in place. LayerNorm and GRN statistics, the timestep
+        sinusoid, the DiT output and the ODE state stay float32 all the
+        same."""
         dtype = self.dit.compute_dtype
         if dtype == torch.float32:
             return self.dit
-        key = tuple((p.data_ptr(), p._version) for p in self.dit.parameters())
+        key = tuple((t.data_ptr(), t._version) for t in itertools.chain(self.dit.parameters(), self.dit.buffers()))
         if self._cast_cache is None or self._cast_cache[0] != key:
             self._cast_cache = (key, copy.deepcopy(self.dit).to(dtype))
         return self._cast_cache[1]
+
+    # -- duration ----------------------------------------------------------
+
+    def predict_duration(self, cond, text, speed: float = 1.0, *, lens=None) -> np.ndarray:
+        """Predicted total duration in frames, [b] int32: the predictor's
+        seconds times the integer frame rate sample_rate // hop_length,
+        divided by `speed`. `cond` is a mel [b, n, d] (or raw wave [b, nw]),
+        `text` the ids [b, nt]; `lens` masks each item's reference length."""
+        seconds = self.duration_predictor(cond, text, lens=lens).cpu().numpy()
+        frame_rate = self.audio_cfg.sample_rate // self.audio_cfg.hop_length
+        return (seconds * frame_rate / speed).astype(np.int32)
 
     # -- sampling ----------------------------------------------------------
 
@@ -240,12 +279,13 @@ class F5TTS:
         self,
         cond,  # [b, n, d] mel or [1, nw] raw wave (tensor or array)
         text: list[str] | np.ndarray,
-        duration: int | np.ndarray,
+        duration: int | np.ndarray | None = None,
         *,
         lens: np.ndarray | None = None,
         steps: int = 8,
         method: Literal["euler", "midpoint", "rk4"] = "rk4",
         cfg_strength: float = 2.0,
+        speed: float = 1.0,
         sway_sampling_coef: float | None = -1.0,
         seed: int | None = None,
         max_duration: int | None = None,
@@ -258,7 +298,9 @@ class F5TTS:
         vocoder. The output is trimmed to the longest duration; the
         trajectory is [steps, b, n, d] (or the final state [1, b, n, d]).
         `y0` overrides the initial noise; `seed` fixes it, shared by every
-        batch row."""
+        batch row. With `duration=None` the duration predictor sets each
+        item's total duration from the reference mel and the text, scaled by
+        1 / `speed`."""
         device = self.device
         max_duration = max_duration or self.cfm_cfg.max_duration
         cond = torch.as_tensor(cond, device=device)
@@ -295,6 +337,10 @@ class F5TTS:
         text_lens = (text_np != -1).sum(axis=-1).astype(np.int32)
         lens_np = np.maximum(text_lens, lens_np)
 
+        if duration is None:
+            if self.duration_predictor is None:
+                raise ValueError("Duration must be provided or a duration predictor must be set.")
+            duration = self.predict_duration(cond, text_np, speed)
         if isinstance(duration, (int, np.integer)):
             duration = np.full((batch,), duration, dtype=np.int32)
         duration = clamp_duration(duration, lens_np, text_lens, max_duration)

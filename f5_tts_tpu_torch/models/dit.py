@@ -15,7 +15,7 @@ from torch import nn
 from f5_tts_tpu_torch.config import DiTConfig
 from f5_tts_tpu_torch.models import blocks as B
 from f5_tts_tpu_torch.models.rope import rotary_freqs
-from f5_tts_tpu_torch.utils.modules import linear
+from f5_tts_tpu_torch.utils.modules import apply_linear
 
 
 class DiT(nn.Module):
@@ -69,4 +69,4 @@ class DiT(nn.Module):
         for block, mod in zip(self.transformer_blocks, time_mods["blocks"]):
             x = block(x, mod, mask=mask, rope=rope)
         x = self.norm_out(x, time_mods["final"])
-        return linear(x, self.proj_out.weight, self.proj_out.bias).float()
+        return apply_linear(self.proj_out, x).float()

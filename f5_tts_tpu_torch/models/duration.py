@@ -1,0 +1,142 @@
+"""Transformer duration predictor (the port of the JAX package's
+`models/duration.py`).
+
+Pre-LN residual transformer blocks (no AdaLN) over the reference mel and
+the text, then masked-mean pooling -> Linear -> Softplus: the total duration
+in seconds. Parameter names are those of the published duration_v2 file.
+Three details of the reference's forward are kept: the text embedding runs
+with mask_padding=False, attention gets no mask (so its output is not
+re-zeroed), and the rotary embedding covers the full head.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from f5_tts_tpu_torch.audio.mel import log_mel_spectrogram
+from f5_tts_tpu_torch.config import AudioConfig, DurationConfig
+from f5_tts_tpu_torch.models import blocks as B
+from f5_tts_tpu_torch.models.rope import rotary_freqs
+from f5_tts_tpu_torch.utils.masks import lens_to_mask, maybe_masked_mean
+from f5_tts_tpu_torch.utils.modules import apply_linear, init_parameters_, layer_norm, linear, rms_norm
+
+
+class DurationBlock(nn.Module):
+    """LayerNorm (no affine, eps 1e-6) -> attention -> residual, then
+    LayerNorm -> feed-forward -> residual."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int):
+        super().__init__()
+        self.attn = B.Attention(dim, heads, dim_head)
+        self.ff = B.FeedForward(dim, mult=ff_mult)
+
+    def forward(self, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        x = x + self.attn(layer_norm(x), mask=None, rope=rope)
+        return x + self.ff(layer_norm(x))
+
+
+class DurationInputEmbedding(nn.Module):
+    def __init__(self, mel_dim: int, text_dim: int, out_dim: int):
+        super().__init__()
+        self.proj = nn.Linear(mel_dim + text_dim, out_dim)
+        self.conv_pos_embed = B.ConvPositionEmbedding(out_dim)
+
+    def forward(self, x: torch.Tensor, text_embed: torch.Tensor) -> torch.Tensor:
+        """concat(mel, text) -> proj -> conv position embedding residual."""
+        x = apply_linear(self.proj, torch.cat([x, text_embed], dim=-1))
+        return self.conv_pos_embed(x) + x
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight)
+
+
+class DurationTransformer(nn.Module):
+    def __init__(self, cfg: DurationConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.text_embed = B.TextEmbedding(
+            cfg.text_num_embeds, cfg.text_dim, conv_layers=cfg.conv_layers, max_pos=cfg.max_pos,
+            mask_padding=False,
+        )
+        self.input_embed = DurationInputEmbedding(cfg.mel_dim, cfg.text_dim, cfg.dim)
+        self.transformer_blocks = nn.ModuleList(
+            DurationBlock(cfg.dim, cfg.heads, cfg.dim_head, cfg.ff_mult) for _ in range(cfg.depth)
+        )
+        self.norm_out = RMSNorm(cfg.dim)
+
+    def forward(self, x: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
+        """mel [b, n, mel_dim], text ids [b, nt] padded with -1 -> [b, n, dim]
+        in the compute dtype."""
+        dtype = getattr(torch, self.cfg.compute_dtype)
+        seq_len = x.shape[1]
+        text_embed = self.text_embed(text, seq_len, False, dtype)
+        h = self.input_embed(x.to(dtype), text_embed)
+        raw = rotary_freqs(seq_len, self.cfg.dim_head, device=x.device)
+        rope = (torch.cos(raw), torch.sin(raw))
+        for block in self.transformer_blocks:
+            h = block(h, rope)
+        return self.norm_out(h)
+
+
+class DurationPredictor(nn.Module):
+    """Seconds-scale duration predictor: `DurationTransformer`, masked mean,
+    a bias-free float32 linear to one value, softplus."""
+
+    def __init__(self, cfg: DurationConfig = DurationConfig(), audio_cfg: AudioConfig = AudioConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.audio_cfg = audio_cfg
+        self.transformer = DurationTransformer(cfg)
+        self.to_pred = nn.Sequential(nn.Linear(cfg.dim, 1, bias=False))
+
+    @classmethod
+    def init(
+        cls, generator: torch.Generator, cfg: DurationConfig = DurationConfig(),
+        device: torch.device | str = "cpu", **kwargs,
+    ) -> "DurationPredictor":
+        """Random weights drawn from `generator`, which must live on `device`."""
+        with torch.device(device):
+            predictor = cls(cfg, **kwargs)
+        init_parameters_(predictor, generator)
+        return predictor
+
+    @property
+    def device(self) -> torch.device:
+        return self.to_pred[0].weight.device
+
+    @torch.no_grad()
+    def forward(
+        self,
+        inp,  # [b, n, mel_dim] mel or [b, nw] raw wave (tensor or array)
+        text,  # [b, nt] int ids padded with -1 (tensor or array)
+        lens=None,  # [b] valid mel frames, default all
+    ) -> torch.Tensor:
+        """Predicted duration in seconds, [b] float32. A mel shorter than the
+        text is zero-padded to the text's length first; frames past `lens`
+        are zeroed and left out of the mean."""
+        device = self.device
+        inp = torch.as_tensor(inp, device=device)
+        if inp.ndim == 2:
+            a = self.audio_cfg
+            inp = log_mel_spectrogram(inp, a.sample_rate, a.n_mels, a.n_fft, a.hop_length)
+        if inp.shape[-1] != self.cfg.mel_dim:
+            raise ValueError(f"input has {inp.shape[-1]} mel channels, expected {self.cfg.mel_dim}")
+        text = torch.as_tensor(np.asarray(text), device=device)
+        batch, seq_len = inp.shape[0], inp.shape[1]
+        if seq_len < text.shape[1]:
+            seq_len = text.shape[1]
+            inp = F.pad(inp, (0, 0, 0, seq_len - inp.shape[1]))
+        lens = torch.full((batch,), seq_len, device=device) if lens is None else torch.as_tensor(lens, device=device)
+        mask = lens_to_mask(lens, seq_len)
+        inp = torch.where(mask[..., None], inp, torch.zeros_like(inp))
+        x = maybe_masked_mean(self.transformer(inp, text), mask)
+        return F.softplus(linear(x.float(), self.to_pred[0].weight))[..., 0]

@@ -1,0 +1,117 @@
+"""Weight-only int4/int8 dequantizing matmul: the CUDA kernel's wrapper and
+its plain version.
+
+The kernel (csrc/qmatmul.cu, whose header note gives its design) is built
+by ops/cuda_build.py at first use and called through ctypes on PyTorch's
+current stream.
+
+Layout (PyTorch's [out, in]): codes q int8 [n, k], centred by -2^(bits-1);
+scales and biases [n, k / 64] in float32 or the model's compute dtype;
+dequant(W)[j, i] = q[j, i] * scales[j, i // 64] + biases[j, i // 64].
+
+`qmatmul` launches the kernel for CUDA tensors and runs `qmatmul_plain` for
+CPU tensors. Both compute x @ dequant(W)^T (+ bias) with W dequantized in
+float32 and rounded to x's dtype. `qmatmul.launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from f5_tts_tpu_torch.ops import cuda_build
+
+SOURCE = cuda_build.CSRC / "qmatmul.cu"
+GROUP_SIZE = 64
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def dequantize_kernel(q: torch.Tensor, scales: torch.Tensor, biases: torch.Tensor) -> torch.Tensor:
+    """Codes [n, k] with group scales and biases [n, k / 64] -> float32
+    weight [n, k]: q * s, then + b."""
+    n, k = q.shape
+    w = q.float().view(n, k // GROUP_SIZE, GROUP_SIZE) * scales.float()[..., None] + biases.float()[..., None]
+    return w.view(n, k)
+
+
+def qmatmul_plain(
+    x: torch.Tensor,  # [..., k]
+    q: torch.Tensor,  # [n, k] int8
+    scales: torch.Tensor,  # [n, k / 64]
+    biases: torch.Tensor,  # [n, k / 64]
+    bias: torch.Tensor | None = None,  # [n]
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: dequantize in float32, round
+    to x's dtype, matmul, then add the bias in x's dtype."""
+    y = torch.matmul(x, dequantize_kernel(q, scales, biases).to(x.dtype).t())
+    return y if bias is None else y + bias.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(cuda_build.build(SOURCE)[0]))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.f5_qmatmul.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.f5_qmatmul.restype = i32
+    lib.f5_qmatmul_error_string.argtypes = [i32]
+    lib.f5_qmatmul_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def qmatmul(
+    x: torch.Tensor,  # [..., k]
+    q: torch.Tensor,  # [n, k] int8
+    scales: torch.Tensor,  # [n, k / 64]
+    biases: torch.Tensor,  # [n, k / 64]
+    bias: torch.Tensor | None = None,  # [n]
+) -> torch.Tensor:
+    """x @ dequant(W)^T (+ bias) -> [..., n] in x's dtype. CPU tensors run the
+    plain version; CUDA tensors launch the kernel whatever m is, and anything
+    it does not take raises ValueError."""
+    if x.device.type == "cpu":
+        return qmatmul_plain(x, q, scales, biases, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmatmul runs on CPU or CUDA tensors, not {x.device.type}")
+    n, k = q.shape
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"qmatmul takes bfloat16 or float32 activations, not {x.dtype}")
+    if k % GROUP_SIZE or x.shape[-1] != k:
+        raise ValueError(f"qmatmul needs x [..., {k}] with k a multiple of {GROUP_SIZE}; got x {tuple(x.shape)}")
+    if q.dtype != torch.int8 or not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("qmatmul needs contiguous, 16-byte aligned int8 codes")
+    for name, t in (("scales", scales), ("biases", biases)):
+        if t.shape != (n, k // GROUP_SIZE) or t.dtype not in _DTYPES or t.dtype != scales.dtype \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous [{n}, {k // GROUP_SIZE}] bfloat16 or float32, "
+                             "the same dtype for both")
+    if bias is not None:
+        if bias.shape != (n,):
+            raise ValueError(f"bias must be [{n}]")
+        bias = bias.to(x.dtype).contiguous()
+    for name, t in (("q", q), ("scales", scales), ("biases", biases), ("bias", bias)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k)
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.clone(memory_format=torch.contiguous_format)
+    m = x2.shape[0]
+    y = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    if m:
+        with torch.cuda.device(x.device):
+            err = _library().f5_qmatmul(
+                x2.data_ptr(), q.data_ptr(), scales.data_ptr(), biases.data_ptr(),
+                None if bias is None else bias.data_ptr(), y.data_ptr(),
+                m, n, k, int(x.dtype == torch.bfloat16), int(scales.dtype == torch.bfloat16),
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"qmatmul kernel launch failed: {_library().f5_qmatmul_error_string(err).decode()}")
+        qmatmul.launches += 1
+    return y.view(*lead, n)
+
+
+qmatmul.launches = 0

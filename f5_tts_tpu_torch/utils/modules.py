@@ -36,6 +36,15 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
     return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
+def apply_linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Apply a float `nn.Linear` (weight cast to x's dtype) or a weight-only
+    quantized linear (models/quant.py `QuantizedLinear`, whose forward runs
+    the dequantizing matmul)."""
+    if isinstance(layer, nn.Linear):
+        return linear(x, layer.weight, layer.bias)
+    return layer(x)
+
+
 def embedding(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """Row gather with out-of-range ids clamped into the table, as the JAX
     package's `mode="clip"` gather does (torch would raise instead)."""
@@ -59,6 +68,13 @@ def layer_norm(
     if weight is not None:
         y = y * weight.to(x.dtype) + bias.to(x.dtype)
     return y
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last axis with float32 statistics, then the scale."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return y.to(x.dtype) * weight.to(x.dtype)
 
 
 def conv1d(

@@ -219,6 +219,9 @@ def test_safetensors_reader_writer_match_the_package(tmp_path):
         "d": rng.integers(0, 255, (2, 2, 2)).astype(np.uint8),
         "e": np.array([True, False]),
         "f": _rand(rng, 4).astype(np.float16),
+        # packed int4/int8 codes of the published quantized files
+        "g.weight": rng.integers(0, 2**32, (3, 4), dtype=np.uint32),
+        "h": rng.integers(0, 2**16, (5,), dtype=np.uint16),
     }
     st.save_file(tensors, tmp_path / "ours.safetensors")
     ref_save(tensors, str(tmp_path / "theirs.safetensors"))
