@@ -22,7 +22,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   6. quantized main path: from_pretrained(quantization_bits=4), the same
      warm-up and three requests, one request with duration=None (the
      float32 predictor, through the float32 attention kernel), the int4 DiT
-     forward against the float32 CPU path, and one int8 load and request.
+     forward against the float32 CPU path, and one int8 load and request;
+  7. attention backward vs plain, timed with CUDA events: the backward
+     kernel in bf16 at the CFM training shape and with a key mask at a
+     ragged n, in float32 at the duration training shape, and the forward's
+     log-sum-exp output;
+  8. CFM training: the base DiT with float32 master weights and bf16
+     compute, AdamW and EMA, on a fixed synthetic batch of 4 x 1024 frames
+     with fixed draws: one warm-up and eight timed steps (exact attention
+     launches per step, a finite falling loss, parameters and EMA moving),
+     one grad_accum=2 step, a save_checkpoint / load_checkpoint round trip,
+     and the gradient on the card against the float32 CPU path;
+  9. duration training: DURATION_V2 in float32 on the same batch shape, a
+     few steps with exact float32 attention launches and a falling loss.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -30,6 +42,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -43,6 +56,9 @@ ATTN_TOL = 2e-2  # absolute, on O(1) outputs: both sides round P and the rotated
 QMM_TOL = 2e-2  # absolute, on O(1) outputs: both sides round W to bf16; sums and output rounding differ
 F32_TOL = 1e-4  # absolute, float32 kernels on O(1) outputs: the same math summed in another order
 DIT_TOL = 3e-2  # relative L2 of a bf16 DiT forward against float32, 22 layers
+GRAD_TOL = {"bf16": 2e-2, "f32": 1e-4}  # attention backward: max error over the plain gradient's max magnitude
+TRAIN_GRAD_TOL = 5e-2  # relative L2 of the DiT's loss gradient, bf16 compute against float32, 22 layers
+TRAIN_BATCH, TRAIN_FRAMES = 4, 1024
 STEPS = 32
 EVALS_PER_REQUEST = STEPS - 1  # Euler: one flow evaluation per step of a 32-point grid
 TEXT = ["Some call me nature, others call me mother nature. "
@@ -79,7 +95,7 @@ def build_phase():
 
     phase("build")
     t0 = time.perf_counter()
-    sources = (flash_attention.SOURCE, qmatmul.SOURCE)
+    sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE, qmatmul.SOURCE)
     libs = cuda_build.build(*sources)
     print(f"built {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} in {time.perf_counter() - t0:.1f} s")
     for src in sources:
@@ -93,6 +109,7 @@ def reset_counts():
     from f5_tts_tpu_torch.ops.qmatmul import qmatmul
 
     flash_attention.launches = flash_attention.launches_f32 = qmatmul.launches = 0
+    flash_attention.launches_bwd = flash_attention.launches_bwd_f32 = 0
 
 
 def counts() -> dict:
@@ -101,7 +118,9 @@ def counts() -> dict:
 
     return {"flash_attention_fwd": flash_attention.launches,
             "flash_attention_fwd_f32": flash_attention.launches_f32,
-            "qmatmul": qmatmul.launches}
+            "qmatmul": qmatmul.launches,
+            "flash_attention_bwd": flash_attention.launches_bwd,
+            "flash_attention_bwd_f32": flash_attention.launches_bwd_f32}
 
 
 def _time_ms(fn, iters=20):
@@ -275,6 +294,10 @@ def snapshot_phase(snap: str):
           + ", ".join(f"{f.name} {f.stat().st_size / 2**20:.1f} MiB" for f in sorted(Path(snap).glob("*.safetensors"))))
 
 
+ZERO = {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0, "qmatmul": 0,
+        "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0}
+
+
 def _request(model, ref, duration, card: str, label: str, expect: dict, expect_len: int) -> float:
     """One request; checks the wave and each kernel's launches in it against
     `expect`. Returns its wall time."""
@@ -348,8 +371,7 @@ def float_path_phase(card: str, snap: str):
     torch.cuda.synchronize()
     print(f"from_pretrained: {time.perf_counter() - t0:.1f} s")
     ref, duration, expect_len = _setup(model)
-    per_request = {"flash_attention_fwd": model.dit_cfg.depth * EVALS_PER_REQUEST,
-                   "flash_attention_fwd_f32": 0, "qmatmul": 0}
+    per_request = {**ZERO, "flash_attention_fwd": model.dit_cfg.depth * EVALS_PER_REQUEST}
     reset_counts()
     times = [_request(model, ref, duration, card, "warm-up" if i == 0 else f"request {i}", per_request, expect_len)
              for i in range(4)][1:]
@@ -382,7 +404,7 @@ def quantized_path_phase(card: str, snap: str):
           f"duration predictor {model.duration_predictor.cfg}")
     ref, duration, expect_len = _setup(model)
     cfg = model.dit_cfg
-    per_request = {"flash_attention_fwd": cfg.depth * EVALS_PER_REQUEST, "flash_attention_fwd_f32": 0,
+    per_request = {**ZERO, "flash_attention_fwd": cfg.depth * EVALS_PER_REQUEST,
                    "qmatmul": qmm_launches_per_request(cfg)}
     print(f"expected per request: {per_request}")
 
@@ -412,6 +434,215 @@ def quantized_path_phase(card: str, snap: str):
     return times, launched
 
 
+def bwd_kernel_phase():
+    import torch
+
+    from f5_tts_tpu_torch.models.rope import rotary_freqs
+    from f5_tts_tpu_torch.ops import flash_attention as fa
+
+    phase("attention backward vs plain (bf16 and float32), and the forward's log-sum-exp")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    # (name, dtype, b, h, n, d, valid keys or None): q, k, v and g as [b, n, h*d] projection views, RoPE
+    cases = [
+        ("CFM training", torch.bfloat16, TRAIN_BATCH, 16, TRAIN_FRAMES, 64, None),
+        ("key mask, ragged n", torch.bfloat16, TRAIN_BATCH, 16, 937, 64, 900),
+        ("duration training", torch.float32, TRAIN_BATCH, 8, TRAIN_FRAMES, 64, None),
+    ]
+    results = {}
+    for name, dtype, b, h, n, d, valid in cases:
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        q, k, v, g = (torch.randn(b, n, h * d, generator=gen, device="cuda").to(dtype).view(b, n, h, d).transpose(1, 2)
+                      for _ in range(4))
+        mask = None
+        if valid is not None:
+            mask = (torch.arange(n, device="cuda") < valid)[None, :].expand(b, n).contiguous()
+        raw = rotary_freqs(n, d, device="cuda")
+        rope = (torch.cos(raw), torch.sin(raw))
+        scale = d ** -0.5
+        key_mask, cos, sin = fa._checked(q, k, v, mask, rope)
+        out, lse = fa._forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse=True)
+        lse_err = (lse - fa.attention_lse_plain(q, k, scale, mask, rope)).abs().max().item()
+        lse_tol = 2e-2 if tag == "bf16" else F32_TOL
+        got = fa._backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin)
+        ref = fa.flash_attention_bwd_plain(q, k, v, out, g, scale, mask, rope)
+        torch.cuda.synchronize()
+        abs_errs = [(a - r).abs().max().item() for a, r in zip(got, ref)]
+        errs = [e / r.abs().max().item() for e, r in zip(abs_errs, ref)]
+        ms = _time_ms(lambda: fa._backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin))
+        plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, g, scale, mask, rope), iters=5)
+        flop = 10 * b * h * n * n * d
+        print(f"{name}: {tag} [b={b}, h={h}, n={n}, d={d}] mask={valid} rope=True strided=True: "
+              f"max|kernel - plain| / max|plain| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+              f"(tol {GRAD_TOL[tag]}); lse max error {lse_err:.3e} (tol {lse_tol}); kernel {ms:.4f} ms "
+              f"({flop / ms / 1e9:.1f} TFLOP/s at 10 b h n^2 d), plain {plain_ms:.4f} ms")
+        if not max(errs) <= GRAD_TOL[tag]:
+            raise AssertionError(f"attention backward kernel disagrees with its plain version at {name}: {errs}")
+        if not lse_err <= lse_tol:
+            raise AssertionError(f"the forward's log-sum-exp disagrees with the plain one at {name}: {lse_err}")
+        results[name] = (max(abs_errs), ms, plain_ms)
+    return results
+
+
+def _train_batch(gen, mel_dim=100):
+    """A synthetic batch: mel frames past each length zeroed, as the loader
+    pads them; text ids of the vocab's range padded with -1."""
+    import torch
+
+    b, n = TRAIN_BATCH, TRAIN_FRAMES
+    lens = torch.tensor([n, n - 24, n - 100, n - 217], device="cuda")[:b]
+    mel = torch.randn(b, n, mel_dim, generator=gen, device="cuda")
+    mel = torch.where((torch.arange(n, device="cuda")[None, :] < lens[:, None])[..., None], mel, 0.0)
+    text = torch.randint(0, len(VOCAB_CHARS), (b, 240), generator=gen, device="cuda", dtype=torch.int32)
+    text[1:, 200:] = -1
+    return mel, text, lens
+
+
+def _train_steps(name, step_fn, state, batch, draws, expect, n_steps, card):
+    """One warm-up step and `n_steps` timed ones on a fixed batch and fixed
+    draws; checks each step's kernel launches against `expect` and that the
+    loss is finite and falls. Returns (losses, ms per timed step)."""
+    import torch
+
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n_steps + 1):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step_fn(state, *batch, draws=draws)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = {k: v - before[k] for k, v in counts().items()}
+        if launched != expect:
+            raise AssertionError(f"{name} step {i}: kernel launches {launched}, expected {expect}")
+        losses.append(loss.item())
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"{name} step {i}: loss {losses[-1]}")
+    ms = [t * 1e3 for t in times[1:]]
+    median = sorted(ms)[len(ms) // 2]
+    print(f"{name}: losses {', '.join(f'{x:.4f}' for x in losses)}; step ms after the warm-up "
+          f"{', '.join(f'{t:.1f}' for t in ms)}; median {median:.1f} ms, "
+          f"{TRAIN_BATCH * TRAIN_FRAMES / (median / 1e3):.0f} frames/s; launches per step {expect}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    return losses, ms
+
+
+def cfm_training_phase(card: str, tmp: str):
+    import torch
+
+    from f5_tts_tpu_torch import F5TTS, CFMConfig
+    from f5_tts_tpu_torch.config import F5TTS_V1_BASE
+    from f5_tts_tpu_torch.models.cfm import cfm_loss, draw_cfm
+    from f5_tts_tpu_torch.models.dit import DiT
+    from f5_tts_tpu_torch.training import trainer as T
+
+    phase(f"CFM training: base DiT, float32 master + bf16 compute, AdamW + EMA, {TRAIN_BATCH} x {TRAIN_FRAMES} frames")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cfg = F5TTS_V1_BASE.replace(compute_dtype="bfloat16")
+    model = F5TTS.init(gen, cfg, device="cuda", cfm_cfg=CFMConfig())
+    opt = T.make_optimizer(learning_rate=1e-4, num_warmup_steps=0, total_steps=1000)
+    state = T.init_train_state(model.dit, opt, ema=True)
+    watched = {k: p.detach().clone() for k, p in list(model.dit.named_parameters())[-4:]}
+    mel, text, lens = _train_batch(gen)
+    draws = draw_cfm(gen, model.cfm_cfg, TRAIN_BATCH, TRAIN_FRAMES, 100, torch.device("cuda"))
+    print(f"DiT parameters {sum(p.numel() for p in model.dit.parameters())}; CFG drops of the fixed draws: "
+          f"audio {bool(draws.audio_drop[0] < model.cfm_cfg.audio_drop_prob)}, "
+          f"text {bool(draws.text_drop[0] < model.cfm_cfg.cond_drop_prob)}")
+
+    per_micro = {**ZERO, "flash_attention_fwd": cfg.depth, "flash_attention_bwd": cfg.depth}
+    reset_counts()
+    step = T.make_train_step(model.cfm_cfg, opt, ema_decay=0.999)
+    losses, ms = _train_steps("CFM step", step, state, (mel, text, lens), draws, per_micro, 8, card)
+    half = TRAIN_BATCH // 2
+    draws2 = [draw_cfm(gen, model.cfm_cfg, half, TRAIN_FRAMES, 100, torch.device("cuda")) for _ in range(2)]
+    before = counts()
+    t0 = time.perf_counter()
+    loss2 = T.make_train_step(model.cfm_cfg, opt, ema_decay=0.999, grad_accum=2)(
+        state, *T.split_microbatches(2, mel, text, lens), draws=draws2).item()
+    accum_ms = (time.perf_counter() - t0) * 1e3
+    launched = counts()
+    accum = {k: v - before[k] for k, v in launched.items()}
+    expect2 = {k: 2 * v for k, v in per_micro.items()}
+    print(f"grad_accum=2 step: loss {loss2:.4f}, {accum_ms:.1f} ms, launches {accum}")
+    if accum != expect2 or not math.isfinite(loss2):
+        raise AssertionError(f"grad_accum=2 step: launches {accum} (expected {expect2}), loss {loss2}")
+    if state.step != 10 or state.opt_state["count"] != 10:
+        raise AssertionError(f"update count {state.step}, expected 10")
+    params = dict(model.dit.named_parameters())
+    for k, p in watched.items():
+        if torch.equal(p, params[k]) or torch.equal(p, state.ema[k]):
+            raise AssertionError(f"{k}: the parameter or its EMA did not move")
+
+    phase("CFM training: save_checkpoint / load_checkpoint round trip")
+    t0 = time.perf_counter()
+    trainer = T.F5TTSTrainer(model, results_dir=tmp, ema_decay=0.999)
+    trainer.state = state
+    trainer.save_checkpoint(state.step)
+    t1 = time.perf_counter()
+    fresh = T.F5TTSTrainer(F5TTS.init(torch.Generator(device="cuda").manual_seed(4), cfg, device="cuda"),
+                           results_dir=tmp, ema_decay=0.999)
+    fresh.state = T.init_train_state(fresh.model.dit, opt, ema=True)
+    fresh.load_checkpoint(state.step)
+    torch.cuda.synchronize()
+    loaded = dict(fresh.model.dit.named_parameters())
+    for k, p in params.items():
+        if not (torch.equal(loaded[k], p) and torch.equal(fresh.state.ema[k], state.ema[k])
+                and torch.equal(fresh.state.opt_state["mu"][k], state.opt_state["mu"][k])
+                and torch.equal(fresh.state.opt_state["nu"][k], state.opt_state["nu"][k])):
+            raise AssertionError(f"checkpoint round trip changed {k}")
+    if fresh.state.step != state.step or fresh.state.opt_state["count"] != state.opt_state["count"]:
+        raise AssertionError("checkpoint round trip lost the step")
+    print(f"save {t1 - t0:.1f} s, load {time.perf_counter() - t1:.1f} s: weights, EMA, moments and step "
+          f"{fresh.state.step} identical; files "
+          + ", ".join(f"{f.name} {f.stat().st_size / 2**20:.0f} MiB" for f in sorted(Path(tmp).glob("*"))))
+    del fresh, loaded
+
+    phase("CFM training: the gradient on the card (bf16 compute) against the float32 CPU path")
+    g_cpu = torch.Generator().manual_seed(5)
+    b, n = 2, 128
+    small = (torch.randn(b, n, 100, generator=g_cpu), torch.randint(0, 95, (b, 40), generator=g_cpu),
+             torch.tensor([n, 100]))
+    small_draws = draw_cfm(g_cpu, model.cfm_cfg, b, n, 100, torch.device("cpu"))
+    dit_cpu = DiT(cfg.replace(compute_dtype="float32"))
+    dit_cpu.load_state_dict(model.dit.state_dict())
+    flat = []
+    for dit, dev in ((model.dit, "cuda"), (dit_cpu, "cpu")):
+        moved = type(small_draws)(**{k: v.to(dev) for k, v in vars(small_draws).items()})
+        loss = cfm_loss(dit, model.cfm_cfg, *(t.to(dev) for t in small), draws=moved)
+        grads = torch.autograd.grad(loss, list(dit.parameters()))
+        flat.append(torch.cat([g.float().cpu().reshape(-1) for g in grads]))
+    rel = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
+    print(f"relative L2 of the card's gradient (bf16 compute) against the float32 CPU path: {rel:.3e} "
+          f"(tol {TRAIN_GRAD_TOL})")
+    if not rel <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"the DiT's gradient on the card disagrees with the CPU path: {rel}")
+    return losses, ms, launched
+
+
+def duration_training_phase(card: str):
+    import torch
+
+    from f5_tts_tpu_torch.config import DURATION_V2
+    from f5_tts_tpu_torch.models.duration import DurationPredictor
+    from f5_tts_tpu_torch.training import trainer as T
+    from f5_tts_tpu_torch.training.duration_trainer import make_duration_train_step
+
+    phase(f"duration training: DURATION_V2, float32, {TRAIN_BATCH} x {TRAIN_FRAMES} frames")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    model = DurationPredictor.init(gen, DURATION_V2, device="cuda")
+    opt = T.make_optimizer(learning_rate=1e-4, num_warmup_steps=0, total_steps=1000)
+    state = T.init_train_state(model, opt, ema=True)
+    mel, text, lens = _train_batch(gen)
+    rand_frac = torch.rand(TRAIN_BATCH, generator=gen, device="cuda")
+    per_step = {**ZERO, "flash_attention_fwd_f32": DURATION_V2.depth, "flash_attention_bwd_f32": DURATION_V2.depth}
+    reset_counts()
+    step = make_duration_train_step(opt, model.audio_cfg.frames_per_second, ema_decay=0.999)
+    losses, ms = _train_steps("duration step", step, state, (mel, text, lens), rand_frac, per_step, 4, card)
+    return losses, ms, counts()
+
+
 def main() -> int:
     card = device_phase()
     import torch
@@ -425,10 +656,17 @@ def main() -> int:
         snapshot_phase(snap)
         float_times, float_launches = float_path_phase(card, snap)
         q_times, q_launches = quantized_path_phase(card, snap)
+    bwd = bwd_kernel_phase()
+    with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
+        _, cfm_ms, cfm_launches = cfm_training_phase(card, tmp)
+    _, dur_ms, dur_launches = duration_training_phase(card)
     print(f"float requests: {', '.join(f'{t * 1e3:.1f} ms' for t in float_times)}; "
-          f"int4 requests: {', '.join(f'{t * 1e3:.1f} ms' for t in q_times)}; on {card}")
+          f"int4 requests: {', '.join(f'{t * 1e3:.1f} ms' for t in q_times)}; "
+          f"CFM step median {sorted(cfm_ms)[len(cfm_ms) // 2]:.1f} ms; "
+          f"duration step median {sorted(dur_ms)[len(dur_ms) // 2]:.1f} ms; on {card}")
     # launches summed over the main paths' counted runs
-    launches = {k: float_launches[k] + q_launches[k] for k in float_launches}
+    paths = (float_launches, q_launches, cfm_launches, dur_launches)
+    launches = {k: sum(p[k] for p in paths) for k in float_launches}
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main paths")
@@ -437,6 +675,10 @@ def main() -> int:
         ("flash_attention_fwd_f32", "flash_attention_fwd.cu", "f5_tts_tpu/ops/flash_attention.py:165",
          f32_attn["duration predictor"]),
         ("qmatmul", "qmatmul.cu", "f5_tts_tpu/ops/qmatmul.py:69", qmm[("to_q/k/v/out", 4, torch.bfloat16)]),
+        ("flash_attention_bwd", "flash_attention_bwd.cu", "f5_tts_tpu/ops/flash_attention.py:349",
+         bwd["CFM training"]),
+        ("flash_attention_bwd_f32", "flash_attention_bwd.cu", "f5_tts_tpu/ops/flash_attention.py:349",
+         bwd["duration training"]),
     ]
     print(json.dumps({"kernels": [{
         "name": name,

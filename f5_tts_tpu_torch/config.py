@@ -5,9 +5,10 @@ without JAX. The field names and defaults are identical, so a `config.json`
 written by either package's `save_pretrained` loads in the other.
 
 Fields that select JAX-only code paths (`use_flash_attention`,
-`int8_compute`, `remat`) are kept so such snapshots load, and are not read
-by the port: attention goes to the CUDA kernel for a CUDA tensor and to the
-plain PyTorch version for a CPU tensor.
+`int8_compute`) are kept so such snapshots load, and are not read by the
+port: attention goes to the CUDA kernels for a CUDA tensor and to the plain
+PyTorch versions for a CPU tensor. `remat` turns on activation checkpointing
+in the DiT's training forward in both packages.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ class DiTConfig:
     # read by the JAX package only (see the module docstring)
     use_flash_attention: bool = True
     int8_compute: bool = False
+    # activation checkpointing of each block in training
     remat: bool = False
 
     def replace(self, **kw) -> "DiTConfig":

@@ -52,6 +52,11 @@
 //   - RoPE in float32 registers while q is loaded and while a K tile is
 //     staged (tables not rounded).
 //
+// Both kernels optionally write the per-row log-sum-exp of the scaled,
+// biased scores, m + log(l) in float32 [b, h, n], when the lse pointer is not
+// null: the backward (flash_attention_bwd.cu) recomputes P = exp(s - lse)
+// from it instead of rescanning a whole row of keys.
+//
 // The Python wrapper raises ValueError for any dtype but bf16 and float32.
 // cp.async / TMA double buffering, wgmma and warp specialisation are not
 // used yet.
@@ -76,6 +81,7 @@ struct Params {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;           // [b, h, n] or null
   const uint8_t* mask;  // [b, n] or null
   const float* cos;     // [n, d] or null
   const float* sin;     // [n, d] or null
@@ -262,6 +268,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     const int row = q0 + wr + g + 8 * r;
     if (row < p.n) {
       const float inv = 1.f / l[r];
+      if (p.lse != nullptr && t == 0) {
+        p.lse[(static_cast<long long>(b) * gridDim.y + h) * p.n + row] = m[r] + logf(l[r]);
+      }
       __nv_bfloat16* orow = og + row * p.o_sn + 2 * t;
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
@@ -295,6 +304,7 @@ struct ParamsF32 {
   const float* k;
   const float* v;
   float* o;
+  float* lse;           // [b, h, n] or null
   const uint8_t* mask;  // [b, n] or null
   const float* cos;     // [n, d] or null
   const float* sin;     // [n, d] or null
@@ -418,6 +428,9 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32_kernel(const ParamsF3
 
   if (row < p.n) {
     const float inv = 1.f / l;
+    if (p.lse != nullptr && sub == 0) {
+      p.lse[(static_cast<long long>(b) * gridDim.y + h) * p.n + row] = m + logf(l);
+    }
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
       const int c = (sub + F_LANES * i) * 4;
@@ -444,7 +457,7 @@ extern "C" {
 
 // Returns the cudaError_t of the launch (0 on success). Strides are in
 // elements; the head dim is contiguous.
-int f5_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, const void* mask,
+int f5_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, const void* mask,
                            const void* cos, const void* sin, int b, int h, int n, int d,
                            long long q_sb, long long q_sh, long long q_sn, long long k_sb,
                            long long k_sh, long long k_sn, long long v_sb, long long v_sh,
@@ -455,6 +468,7 @@ int f5_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.mask = static_cast<const uint8_t*>(mask);
   p.cos = static_cast<const float*>(cos);
   p.sin = static_cast<const float*>(sin);
@@ -474,7 +488,7 @@ int f5_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // The float32 kernel; the same arguments as f5_flash_attention_fwd.
-int f5_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, const void* mask,
+int f5_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, const void* mask,
                                const void* cos, const void* sin, int b, int h, int n, int d,
                                long long q_sb, long long q_sh, long long q_sn, long long k_sb,
                                long long k_sh, long long k_sn, long long v_sb, long long v_sh,
@@ -485,6 +499,7 @@ int f5_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void
   p.k = static_cast<const float*>(k);
   p.v = static_cast<const float*>(v);
   p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
   p.mask = static_cast<const uint8_t*>(mask);
   p.cos = static_cast<const float*>(cos);
   p.sin = static_cast<const float*>(sin);

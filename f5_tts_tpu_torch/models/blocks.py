@@ -1,5 +1,4 @@
-"""DiT building blocks, the inference subset of the JAX package's
-`models/blocks.py`.
+"""DiT building blocks (the port of the JAX package's `models/blocks.py`).
 
 Each block is an nn.Module whose parameter names are those of the published
 PyTorch checkpoint (`time_embed.time_mlp.0.weight`, `attn.to_out.0.bias`,
@@ -8,6 +7,10 @@ primitives of utils/modules.py, which cast each weight to the activation's
 dtype, as the JAX package does. Every linear goes through `apply_linear`, so
 a float `nn.Linear` and a weight-only quantized `QuantizedLinear`
 (models/quant.py) are interchangeable.
+
+Dropout runs only in training, where a block is given a dropout seed (one
+draw of the training generator) and the rate is above 0; the sampling paths
+pass none.
 """
 
 from __future__ import annotations
@@ -21,6 +24,32 @@ from torch import nn
 from f5_tts_tpu_torch.models.rope import get_pos_embed_indices, precompute_freqs_cis
 from f5_tts_tpu_torch.ops.attention import scaled_dot_product_attention
 from f5_tts_tpu_torch.utils.modules import apply_linear, conv1d, embedding, gelu, layer_norm, mish
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), else zeroed; the keep mask is drawn from
+    `generator`, which must live on x's device."""
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros_like(x))
+
+
+def dropout_generators(seed: int | None, count: int, device: torch.device) -> list[torch.Generator | None]:
+    """`count` independent generators on `device` from one seed (a draw of
+    the training generator), or `count` Nones without a seed. A block that
+    builds its generators from a seed draws the same masks when it is run
+    again, which activation checkpointing relies on."""
+    if seed is None:
+        return [None] * count
+    seeds = torch.randint(0, 2**62, (count,), generator=torch.Generator().manual_seed(seed)).tolist()
+    return [torch.Generator(device=device).manual_seed(s) for s in seeds]
+
+
+def draw_seeds(generator: torch.Generator, count: int) -> list[int]:
+    """`count` seeds drawn from `generator` (one host read for a CUDA
+    generator)."""
+    return torch.randint(0, 2**62, (count,), generator=generator, device=generator.device).tolist()
 
 
 def as_batch_flag(flag, batch: int, device: torch.device) -> torch.Tensor:
@@ -218,10 +247,14 @@ class Attention(nn.Module):
         x: torch.Tensor,  # [b, n, dim]
         mask: torch.Tensor | None = None,  # [b, n] bool
         rope: tuple[torch.Tensor, torch.Tensor] | None = None,  # (cos, sin) [n, dim_head]
+        dropout_rate: float = 0.0,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
-        """Scale 1/sqrt(dim_head); keys masked only; output rows re-zeroed
-        by the mask. q, k and v reach attention as strided [b, h, n, d] views
-        of the projections, and its output reshapes back without a copy."""
+        """Scale 1/sqrt(dim_head); keys masked only; dropout on the output
+        projection (with a generator and a rate above 0); output rows
+        re-zeroed by the mask. q, k and v reach attention as strided
+        [b, h, n, d] views of the projections, and its output reshapes back
+        without a copy."""
         b, n, _ = x.shape
 
         def heads(lin: nn.Module) -> torch.Tensor:
@@ -233,6 +266,8 @@ class Attention(nn.Module):
         )
         out = out.transpose(1, 2).reshape(b, n, -1)
         out = apply_linear(self.to_out[0], out)
+        if generator is not None and dropout_rate > 0.0:
+            out = dropout(out, dropout_rate, generator)
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)
         return out
@@ -242,7 +277,7 @@ class Attention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Linear -> GELU(tanh) -> Linear."""
+    """Linear -> GELU(tanh) -> dropout (in training) -> Linear."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -254,8 +289,11 @@ class FeedForward(nn.Module):
             nn.Linear(inner, dim),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_linear(self.ff[2], gelu(apply_linear(self.ff[0][0], x), approximate=True))
+    def forward(self, x: torch.Tensor, dropout_rate: float = 0.0, generator: torch.Generator | None = None) -> torch.Tensor:
+        h = gelu(apply_linear(self.ff[0][0], x), approximate=True)
+        if generator is not None and dropout_rate > 0.0:
+            h = dropout(h, dropout_rate, generator)
+        return apply_linear(self.ff[2], h)
 
 
 # ------------------------------------------------------------ AdaLN-Zero
@@ -300,8 +338,11 @@ class DiTBlock(nn.Module):
         self.attn = Attention(dim, heads, dim_head)
         self.ff = FeedForward(dim, mult=ff_mult)
 
-    def forward(self, x, mod, mask=None, rope=None) -> torch.Tensor:
+    def forward(self, x, mod, mask=None, rope=None, dropout_rate: float = 0.0, dropout_seed: int | None = None):
+        """`mod` is [b or 1, 6 * dim]; `dropout_seed` (training) splits into
+        the attention's and the feed-forward's dropout streams."""
+        g_attn, g_ff = dropout_generators(dropout_seed, 2, x.device)
         norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.attn_norm(x, mod)
-        x = x + gate_msa[:, None] * self.attn(norm, mask=mask, rope=rope)
+        x = x + gate_msa[:, None] * self.attn(norm, mask=mask, rope=rope, dropout_rate=dropout_rate, generator=g_attn)
         norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-        return x + gate_mlp[:, None] * self.ff(norm)
+        return x + gate_mlp[:, None] * self.ff(norm, dropout_rate=dropout_rate, generator=g_ff)

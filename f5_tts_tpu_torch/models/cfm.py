@@ -1,6 +1,7 @@
-"""Conditional flow-matching sampling and the F5TTS API (the port of the JAX
-package's `models/cfm.py`: the fused zero-shot synthesis path, the
-weight-only int4/int8 quantized DiT and the duration predictor).
+"""Conditional flow matching: the training loss, sampling and the F5TTS API
+(the port of the JAX package's `models/cfm.py`: the masked-infill training
+loss, the fused zero-shot synthesis path, the weight-only int4/int8
+quantized DiT and the duration predictor).
 
 Classifier-free guidance runs cond and uncond as one 2B-batch forward with
 per-sample drop flags. Durations are padded to a bucket (multiples of
@@ -28,9 +29,85 @@ from f5_tts_tpu_torch.models.dit import DiT
 from f5_tts_tpu_torch.models.duration import DurationPredictor
 from f5_tts_tpu_torch.models.ode import odeint
 from f5_tts_tpu_torch.models.vocos import Vocos
-from f5_tts_tpu_torch.utils.masks import lens_to_mask
+from f5_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
 from f5_tts_tpu_torch.utils.modules import init_parameters_
 from f5_tts_tpu_torch.utils.tokenizer import list_str_to_idx, list_str_to_tensor
+
+
+@dataclasses.dataclass
+class CFMDraws:
+    """The random draws of one `cfm_loss` call. Tests fill them with the
+    JAX package's draws; training draws them from a generator
+    (`draw_cfm`)."""
+
+    frac_lengths: torch.Tensor  # [b] span fraction, U(lo, hi)
+    span_start: torch.Tensor  # [b] U(0, 1), places each span
+    x0: torch.Tensor  # [b, n, mel] N(0, 1) noise
+    time: torch.Tensor  # [b] U(0, 1) flow time
+    audio_drop: torch.Tensor  # [1] U(0, 1), audio dropped below audio_drop_prob
+    text_drop: torch.Tensor  # [1] U(0, 1), text dropped below cond_drop_prob
+
+
+def draw_cfm(generator: torch.Generator, cfm_cfg: CFMConfig, batch: int, seq_len: int, mel_dim: int,
+             device: torch.device) -> CFMDraws:
+    """Every draw of one loss from `generator`, made on its device."""
+    gd = generator.device
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, device=gd).to(device)
+
+    lo, hi = cfm_cfg.frac_lengths_mask
+    return CFMDraws(
+        frac_lengths=lo + (hi - lo) * uniform(batch),
+        span_start=uniform(batch),
+        x0=torch.randn((batch, seq_len, mel_dim), generator=generator, device=gd).to(device),
+        time=uniform(batch),
+        audio_drop=uniform(1),
+        text_drop=uniform(1),
+    )
+
+
+def cfm_loss(
+    dit: DiT,
+    cfm_cfg: CFMConfig,
+    inp: torch.Tensor,  # [b, n, mel] mel
+    text: torch.Tensor,  # [b, nt] int ids padded with -1
+    lens: torch.Tensor,  # [b] int
+    generator: torch.Generator | None = None,
+    draws: CFMDraws | None = None,
+) -> torch.Tensor:
+    """Masked-infill flow-matching MSE, a float32 scalar: a random span of
+    U(lo, hi) of each length is hidden from the cond, x0 ~ N(0, 1) and a
+    per-sample time t ~ U(0, 1) give phi = (1 - t) x0 + t x1, the DiT
+    predicts the flow x1 - x0 from phi, and the squared error is averaged
+    over the span's elements only (denominator max(span frames * mel, 1e-6)).
+    The CFG drops are decided per batch (audio dropped whenever text is), and
+    no attention mask is passed, as in the reference's training forward.
+
+    The draws come from `draws` when given, else from `generator`; the DiT's
+    dropout (cfg.dropout > 0) needs the generator. Gradients flow to the
+    DiT's parameters, which stay float32 while the forward runs in the
+    config's compute dtype."""
+    batch, seq_len, mel_dim = inp.shape
+    if draws is None:
+        draws = draw_cfm(generator, cfm_cfg, batch, seq_len, mel_dim, inp.device)
+    mask = lens_to_mask(lens, seq_len)
+    span = mask_from_frac_lengths(lens, draws.frac_lengths, draws.span_start, seq_len) & mask
+
+    x1 = inp.float()
+    x0 = draws.x0.float()
+    t = draws.time.float()[:, None, None]
+    phi = (1 - t) * x0 + t * x1
+    flow = x1 - x0
+    cond = torch.where(span[..., None], torch.zeros_like(x1), x1)
+
+    drop_text = draws.text_drop < cfm_cfg.cond_drop_prob
+    drop_audio = (draws.audio_drop < cfm_cfg.audio_drop_prob) | drop_text
+    pred = dit.forward_train(
+        phi, cond, text, draws.time, drop_audio_cond=drop_audio[0], drop_text=drop_text[0], generator=generator,
+    )
+    se = torch.where(span[..., None], (pred - flow).square(), torch.zeros_like(pred))
+    return se.sum() / (span.sum() * mel_dim).float().clamp(min=1e-6)
 
 
 def cfm_sample_mel(
@@ -260,6 +337,35 @@ class F5TTS:
         if self._cast_cache is None or self._cast_cache[0] != key:
             self._cast_cache = (key, copy.deepcopy(self.dit).to(dtype))
         return self._cast_cache[1]
+
+    # -- training loss -----------------------------------------------------
+
+    def __call__(self, inp, text, *, lens=None, generator: torch.Generator | None = None,
+                 draws: CFMDraws | None = None) -> torch.Tensor:
+        """The CFM training loss (`cfm_loss`) of a batch: `inp` is a mel
+        [b, n, d] or a raw wave [b, nw], `text` a list of strings or ids
+        [b, nt] padded with -1, `lens` the valid frames (default all). It
+        runs the master DiT (float32 parameters, compute in the config's
+        dtype), never the cast copy that sampling uses."""
+        device = self.device
+        inp = torch.as_tensor(inp, device=device)
+        if inp.ndim == 2:
+            a = self.audio_cfg
+            inp = log_mel_spectrogram(inp, a.sample_rate, a.n_mels, a.n_fft, a.hop_length)
+        if inp.shape[-1] != self.audio_cfg.n_mels:
+            raise ValueError(f"input has {inp.shape[-1]} mel channels, expected {self.audio_cfg.n_mels}")
+        batch, seq_len = inp.shape[0], inp.shape[1]
+        text_np = np.asarray(self._tokenize(text) if isinstance(text, list) else text, dtype=np.int32)
+        if text_np.shape[0] != batch:
+            raise ValueError(f"{text_np.shape[0]} texts for a batch of {batch}")
+        if text_np.size and int(text_np.max()) >= self.dit_cfg.text_num_embeds:
+            raise ValueError(f"text id {int(text_np.max())} out of range for "
+                             f"text_num_embeds={self.dit_cfg.text_num_embeds}")
+        lens = torch.full((batch,), seq_len, device=device) if lens is None else torch.as_tensor(lens, device=device)
+        if generator is None and draws is None:
+            generator = torch.Generator(device=device).manual_seed(int(np.random.randint(0, 2**31 - 1)))
+        return cfm_loss(self.dit, self.cfm_cfg, inp, torch.as_tensor(text_np, device=device), lens,
+                        generator=generator, draws=draws)
 
     # -- duration ----------------------------------------------------------
 

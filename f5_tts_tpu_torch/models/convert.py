@@ -158,7 +158,12 @@ def _to_numpy(module: nn.Module) -> dict[str, np.ndarray]:
 
     if any(isinstance(m, QuantizedLinear) for m in module.modules()):
         raise ValueError("exporting needs float weights; this model holds quantized linears")
-    return {k: v.detach().float().cpu().numpy() for k, v in module.state_dict().items()}
+    return state_numpy(module.state_dict())
+
+
+def state_numpy(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """A float state dict as float32 numpy arrays on the host."""
+    return {k: v.detach().float().cpu().numpy() for k, v in state.items()}
 
 
 # (module name fragment, MLX fragment): MLX names the members of a
@@ -179,8 +184,15 @@ def export_mlx_state(module: nn.Module) -> dict[str, np.ndarray]:
     of the loader's normalization. For the DiT it is what the JAX package's
     `export_dit_state` writes, which `to_mlx_model_naming` and
     `quantize_flat_mlx` turn into a published quantized file."""
+    return mlx_names(_to_numpy(module))
+
+
+def mlx_names(flat: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """A float state dict (module names, torch layouts, as numpy arrays) in
+    MLX naming and MLX conv layout; `export_mlx_state` of a module's state,
+    and of a trainer's EMA copy."""
     out = {}
-    for k, v in _to_numpy(module).items():
+    for k, v in flat.items():
         key = f".{k}"
         for frag, mlx in _MLX_RENAMES:
             key = key.replace(frag, mlx)

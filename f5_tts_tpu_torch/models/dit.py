@@ -3,7 +3,10 @@
 The JAX functions map to methods of `DiT`:
   - `dit_text_embed`          -> `DiT.embed_text`
   - `dit_time_mods`           -> `DiT.time_mods`
-  - `dit_forward_precomputed` -> `DiT.forward`
+  - `dit_forward_precomputed` -> `DiT.forward` (sampling: precomputed text
+    embedding and time modulations)
+  - `dit_forward`             -> `DiT.forward_train` (training: text ids and
+    per-sample times in, optional dropout and activation checkpointing)
 The depth dimension is a ModuleList walked in Python; the output is float32.
 """
 
@@ -11,6 +14,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from f5_tts_tpu_torch.config import DiTConfig
 from f5_tts_tpu_torch.models import blocks as B
@@ -69,4 +73,46 @@ class DiT(nn.Module):
         for block, mod in zip(self.transformer_blocks, time_mods["blocks"]):
             x = block(x, mod, mask=mask, rope=rope)
         x = self.norm_out(x, time_mods["final"])
+        return apply_linear(self.proj_out, x).float()
+
+    def forward_train(
+        self,
+        x: torch.Tensor,  # [b, n, mel] noised input audio
+        cond: torch.Tensor,  # [b, n, mel] masked cond audio
+        text: torch.Tensor,  # [b, nt] int ids padded with -1
+        time: torch.Tensor,  # [b] or scalar flow time in [0, 1]
+        drop_audio_cond=False,  # bool | [b] bool
+        drop_text=False,  # bool | [b] bool
+        mask: torch.Tensor | None = None,  # [b, n] bool padding mask
+        generator: torch.Generator | None = None,  # dropout; None = deterministic
+    ) -> torch.Tensor:
+        """Full backbone forward -> [b, n, mel] float32. Each sample's time
+        goes through the time embedding and every block's AdaLN-Zero
+        modulation ([b, 6 * dim]). Dropout runs when a generator is given
+        and cfg.dropout > 0, with one seed per layer. With cfg.remat each
+        block is recomputed in the backward instead of keeping its
+        activations (torch.utils.checkpoint)."""
+        dtype = self.compute_dtype
+        b, n = x.shape[0], x.shape[1]
+        time = torch.as_tensor(time, dtype=torch.float32, device=x.device)
+        if time.ndim == 0:
+            time = time.expand(b)
+        t_emb = self.time_embed(time, dtype)  # [b, dim]
+        text_embed = self.embed_text(text, n, drop_text=drop_text)
+        x = self.input_embed(x.to(dtype), cond.to(dtype), text_embed, drop_audio_cond=drop_audio_cond)
+        raw = rotary_freqs(n, self.cfg.dim_head, device=x.device)
+        rope = (torch.cos(raw), torch.sin(raw))
+        rate = self.cfg.dropout
+        use_dropout = generator is not None and rate > 0.0
+        seeds = B.draw_seeds(generator, self.cfg.depth) if use_dropout else [None] * self.cfg.depth
+
+        def run_block(block, h, seed):
+            return block(h, block.attn_norm.mods(t_emb), mask=mask, rope=rope, dropout_rate=rate, dropout_seed=seed)
+
+        for block, seed in zip(self.transformer_blocks, seeds):
+            if self.cfg.remat:
+                x = checkpoint(run_block, block, x, seed, use_reentrant=False)
+            else:
+                x = run_block(block, x, seed)
+        x = self.norm_out(x, self.norm_out.mods(t_emb))
         return apply_linear(self.proj_out, x).float()

@@ -7,6 +7,10 @@ in seconds. Parameter names are those of the published duration_v2 file.
 Three details of the reference's forward are kept: the text embedding runs
 with mask_padding=False, attention gets no mask (so its output is not
 re-zeroed), and the rotary embedding covers the full head.
+
+`duration_loss` is the training loss (the JAX package's
+`duration_forward(return_loss=True)`): the cond hidden past a random prefix
+of each length, then L1 against the length in seconds.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from f5_tts_tpu_torch.models.rope import rotary_freqs
 from f5_tts_tpu_torch.utils.masks import lens_to_mask, maybe_masked_mean
 from f5_tts_tpu_torch.utils.modules import apply_linear, init_parameters_, layer_norm, linear, rms_norm
 
+FRAMES_PER_SECOND = AudioConfig().frames_per_second
+
 
 class DurationBlock(nn.Module):
     """LayerNorm (no affine, eps 1e-6) -> attention -> residual, then
@@ -33,9 +39,13 @@ class DurationBlock(nn.Module):
         self.attn = B.Attention(dim, heads, dim_head)
         self.ff = B.FeedForward(dim, mult=ff_mult)
 
-    def forward(self, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-        x = x + self.attn(layer_norm(x), mask=None, rope=rope)
-        return x + self.ff(layer_norm(x))
+    def forward(self, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor], dropout_rate: float = 0.0,
+                dropout_seed: int | None = None) -> torch.Tensor:
+        """`dropout_seed` (training) splits into the attention's and the
+        feed-forward's dropout streams."""
+        g_attn, g_ff = B.dropout_generators(dropout_seed, 2, x.device)
+        x = x + self.attn(layer_norm(x), mask=None, rope=rope, dropout_rate=dropout_rate, generator=g_attn)
+        return x + self.ff(layer_norm(x), dropout_rate=dropout_rate, generator=g_ff)
 
 
 class DurationInputEmbedding(nn.Module):
@@ -73,17 +83,21 @@ class DurationTransformer(nn.Module):
         )
         self.norm_out = RMSNorm(cfg.dim)
 
-    def forward(self, x: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, text: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """mel [b, n, mel_dim], text ids [b, nt] padded with -1 -> [b, n, dim]
-        in the compute dtype."""
+        in the compute dtype. Dropout runs when a generator is given and
+        cfg.dropout > 0, with one seed per layer."""
         dtype = getattr(torch, self.cfg.compute_dtype)
         seq_len = x.shape[1]
         text_embed = self.text_embed(text, seq_len, False, dtype)
         h = self.input_embed(x.to(dtype), text_embed)
         raw = rotary_freqs(seq_len, self.cfg.dim_head, device=x.device)
         rope = (torch.cos(raw), torch.sin(raw))
-        for block in self.transformer_blocks:
-            h = block(h, rope)
+        rate = self.cfg.dropout
+        use_dropout = generator is not None and rate > 0.0
+        seeds = B.draw_seeds(generator, self.cfg.depth) if use_dropout else [None] * self.cfg.depth
+        for block, seed in zip(self.transformer_blocks, seeds):
+            h = block(h, rope, dropout_rate=rate, dropout_seed=seed)
         return self.norm_out(h)
 
 
@@ -138,5 +152,33 @@ class DurationPredictor(nn.Module):
         lens = torch.full((batch,), seq_len, device=device) if lens is None else torch.as_tensor(lens, device=device)
         mask = lens_to_mask(lens, seq_len)
         inp = torch.where(mask[..., None], inp, torch.zeros_like(inp))
-        x = maybe_masked_mean(self.transformer(inp, text), mask)
-        return F.softplus(linear(x.float(), self.to_pred[0].weight))[..., 0]
+        return self.head(self.transformer(inp, text), mask)
+
+    def head(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Masked mean of the transformer's output, the float32 linear to one
+        value, softplus: seconds [b]."""
+        return F.softplus(linear(maybe_masked_mean(x, mask).float(), self.to_pred[0].weight))[..., 0]
+
+
+def duration_loss(
+    predictor: DurationPredictor,
+    inp: torch.Tensor,  # [b, n, mel_dim] mel
+    text: torch.Tensor,  # [b, nt] int ids padded with -1
+    lens: torch.Tensor,  # [b] int
+    generator: torch.Generator | None = None,
+    rand_frac: torch.Tensor | None = None,  # [b] U(0, 1), the prefix draw
+    frames_per_second: float = FRAMES_PER_SECOND,
+) -> torch.Tensor:
+    """The L1 training loss in seconds, a float32 scalar: each cond is kept
+    only on a random prefix floor(rand_frac * len) of its length, so the
+    model learns the full duration from a partial clip. `rand_frac` comes in
+    as a tensor when given (tests feed the JAX package's draw), else from
+    `generator`, which also drives the dropout (cfg.dropout > 0)."""
+    batch, seq_len = inp.shape[0], inp.shape[1]
+    if rand_frac is None:
+        rand_frac = torch.rand(batch, generator=generator, device=generator.device).to(inp.device)
+    rand_index = (rand_frac * lens).to(torch.int32)
+    mask = lens_to_mask(lens, seq_len) & (torch.arange(seq_len, device=inp.device)[None, :] < rand_index[:, None])
+    inp = torch.where(mask[..., None], inp, torch.zeros_like(inp))
+    pred = predictor.head(predictor.transformer(inp, text, generator=generator), mask)
+    return (pred - lens.float() / frames_per_second).abs().mean()

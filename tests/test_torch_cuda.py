@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions on an NVIDIA GPU: the
-attention kernel (bf16 and float32) and the dequantizing matmul.
+attention forward (K1) and backward (K2), bf16 and float32, and the
+dequantizing matmul.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -10,6 +11,10 @@ Tolerances, absolute on O(1) outputs: 2e-2 in bf16 (attention: both sides
 round P and the rotated q and k to bf16 at different points; matmul: both
 round W to bf16, and they sum in another order and round the output); 1e-4
 in float32 (the same float32 math summed in another order). TF32 is off.
+Attention gradients are held relative to the plain gradient's largest
+magnitude, floored at 0.1 (at n = 1, dq and dk are a cancellation, 0 in
+exact arithmetic): 2e-2 in bf16 (P and dS rounded to bf16 on both sides, at
+different points), 1e-4 in float32.
 """
 
 import pytest
@@ -17,7 +22,13 @@ import torch
 
 from f5_tts_tpu_torch.models.quant import quantize_kernel
 from f5_tts_tpu_torch.models.rope import rotary_freqs
-from f5_tts_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from f5_tts_tpu_torch.ops import flash_attention as fa
+from f5_tts_tpu_torch.ops.flash_attention import (
+    attention_lse_plain,
+    flash_attention,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+)
 from f5_tts_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
 
 TOL = 2e-2
@@ -118,6 +129,128 @@ def test_rejects_what_the_kernel_does_not_take(gen):
     qt = torch.randn(1, 2, 64, 16, generator=gen, device="cuda", dtype=torch.bfloat16).transpose(2, 3)
     with pytest.raises(ValueError, match="strides"):
         flash_attention(qt, k, v, 0.125)
+
+
+# ------------------------------------------------------------ attention backward
+
+GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _grads_vs_plain(gen, b, h, n, d, dtype, key_mask, rope, strided):
+    """K2's dq, dk, dv (through autograd of flash_attention) and the plain
+    backward's, on the same inputs and output gradient."""
+    if strided:
+        x = [torch.randn(b, n, h * d, generator=gen, device="cuda").to(dtype) for _ in range(4)]
+        q, k, v, g = (t.view(b, n, h, d).transpose(1, 2) for t in x)
+    else:
+        q, k, v, g = (torch.randn(b, h, n, d, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (flash_attention.launches_bwd, flash_attention.launches_bwd_f32)
+    out = flash_attention(*leaves, d ** -0.5, key_mask=key_mask, rope=rope)
+    got = torch.autograd.grad(out, leaves, g)
+    after = (flash_attention.launches_bwd, flash_attention.launches_bwd_f32)
+    assert after[dtype == torch.float32] == before[dtype == torch.float32] + 1
+    ref = flash_attention_bwd_plain(q, k, v, out.detach(), g, d ** -0.5, key_mask, rope)
+    return got, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("n", [1, 37, 64, 130])
+def test_bwd_kernel_matches_plain(gen, dtype, d, n):
+    mask = torch.arange(n, device="cuda")[None, :] < torch.tensor([[max(n - 5, 1)], [n]], device="cuda")
+    for key_mask, rope in ((None, None), (mask, None), (None, _rope(n, d)), (mask, _rope(n, d))):
+        got, ref = _grads_vs_plain(gen, 2, 3, n, d, dtype, key_mask, rope, strided=n == 130)
+        for name, a, r in zip("qkv", got, ref):
+            assert a.dtype == dtype and a.shape == r.shape and torch.isfinite(a).all()
+            err = (a.float() - r).abs().max().item() / max(r.abs().max().item(), 0.1)
+            assert err <= GRAD_TOL[dtype], (f"d{name}", key_mask is not None, rope is not None, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_bwd_kernel_training_shape_strided(gen, dtype):
+    """The DiT's shape: q, k, v and g as [b, n, h*d] projection views, RoPE,
+    no mask, 1024 frames."""
+    got, ref = _grads_vs_plain(gen, 2, 16, 1024, 64, dtype, None, _rope(1024, 64), strided=True)
+    for a, r in zip(got, ref):
+        assert (a.float() - r).abs().max().item() <= GRAD_TOL[dtype] * r.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_autograd_function_agrees_with_autograd_of_plain(gen, dtype):
+    """gradcheck-style: the gradient of a scalar function of the output,
+    through FlashAttentionFn (K1 + K2), against autograd through
+    flash_attention_plain."""
+    b, h, n, d = 2, 4, 100, 64
+    base = [torch.randn(b, h, n, d, generator=gen, device="cuda").to(dtype) for _ in range(3)]
+    w = torch.randn(b, h, n, d, generator=gen, device="cuda")
+    mask = torch.arange(n, device="cuda")[None, :] < torch.tensor([[70], [n]], device="cuda")
+    grads = []
+    for fn in (flash_attention, flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in base]
+        out = fn(*leaves, 0.125, mask, _rope(n, d))
+        grads.append(torch.autograd.grad((out.float() * w).sum(), leaves))
+    for a, r in zip(*grads):
+        r = r.float()
+        assert (a.float() - r).abs().max().item() <= GRAD_TOL[dtype] * r.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_forward_lse_matches_plain(gen, dtype):
+    """K1's log-sum-exp output (rows with a kept key; a fully masked row is
+    -1e30 in the kernel and the float32 minimum in the plain version)."""
+    b, h, n, d = 2, 3, 130, 64
+    q, k, v = (x.to(dtype) for x in _qkv(gen, b, h, n, d))
+    mask = torch.arange(n, device="cuda")[None, :] < torch.tensor([[90], [n]], device="cuda")
+    rope = _rope(n, d)
+    key_mask, cos, sin = fa._checked(q, k, v, mask, rope)
+    out, lse = fa._forward_kernel(q, k, v, 0.125, key_mask, cos, sin, with_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, h, n) and lse.dtype == torch.float32
+    ref = attention_lse_plain(q, k, 0.125, mask, rope)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(lse, ref, atol=tol, rtol=0)
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v, 0.125, mask, rope).float(),
+                               atol=TOL if dtype == torch.bfloat16 else TOL_F32, rtol=0)
+
+
+@pytest.mark.cuda
+def test_no_grad_launches_no_backward_and_no_lse(gen, monkeypatch):
+    q, k, v = _qkv(gen, 1, 2, 64, 64)
+    calls = []
+    real = fa._forward_kernel
+    monkeypatch.setattr(fa, "_forward_kernel", lambda *a, **kw: calls.append(kw["with_lse"]) or real(*a, **kw))
+    before = (flash_attention.launches, flash_attention.launches_bwd)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    with torch.no_grad():
+        out = flash_attention(*leaves, 0.125, rope=_rope(64, 64))
+    assert out.grad_fn is None and calls == [False]
+    assert (flash_attention.launches, flash_attention.launches_bwd) == (before[0] + 1, before[1])
+    out = flash_attention(*leaves, 0.125, rope=_rope(64, 64))
+    assert calls == [False, True]
+    out.float().sum().backward()
+    assert flash_attention.launches_bwd == before[1] + 1
+
+
+@pytest.mark.cuda
+def test_bwd_rejects_what_the_kernel_does_not_take(gen):
+    q, k, v = (t.requires_grad_() for t in _qkv(gen, 1, 2, 16, 64))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        flash_attention(q.half(), k.half(), v.half(), 0.125)
+    key_mask, cos, sin = fa._checked(q, k, v, None, None)
+    out, lse = fa._forward_kernel(q.detach(), k.detach(), v.detach(), 0.125, key_mask, cos, sin, with_lse=True)
+    with pytest.raises(ValueError, match="gradient"):
+        fa._backward_kernel(q, k, v, out, lse, out.float(), 0.125, key_mask, cos, sin)
+    # a gradient whose head dim is not contiguous is copied, not refused
+    g = torch.randn(1, 2, 64, 16, generator=gen, device="cuda").to(torch.bfloat16).transpose(2, 3)
+    dq, dk, dv = fa._backward_kernel(q, k, v, out, lse, g, 0.125, key_mask, cos, sin)
+    ref = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), out, g, 0.125)
+    for a, r in zip((dq, dk, dv), ref):
+        assert (a - r).abs().max().item() <= GRAD_TOL[torch.bfloat16] * r.abs().max().item()
 
 
 # ------------------------------------------------------------ dequantizing matmul
