@@ -34,9 +34,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      one grad_accum=2 step, a save_checkpoint / load_checkpoint round trip,
      and the gradient on the card against the float32 CPU path;
   9. duration training: DURATION_V2 in float32 on the same batch shape, a
-     few steps with exact float32 attention launches and a falling loss.
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}.
+     few steps with exact float32 attention launches and a falling loss;
+ 10. probe kernels vs plain, timed with CUDA events: the attention variants
+     (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope, also
+     at a ragged n) in bf16 and the Triton LayerNorm + modulate at the probe
+     tools' shapes and at a ragged n;
+ 11. probe tools: both tools' entry points once at their full shapes with
+     few repetitions, counting each probe kernel's launches there.
+Each kernel phase also times one PyTorch call that computes the same
+function, where there is one (the library yardstick), and computes the
+kernel's bound on this card from its inputs. The line before the last is a
+JSON object describing each kernel; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -58,7 +67,12 @@ F32_TOL = 1e-4  # absolute, float32 kernels on O(1) outputs: the same math summe
 DIT_TOL = 3e-2  # relative L2 of a bf16 DiT forward against float32, 22 layers
 GRAD_TOL = {"bf16": 2e-2, "f32": 1e-4}  # attention backward: max error over the plain gradient's max magnitude
 TRAIN_GRAD_TOL = 5e-2  # relative L2 of the DiT's loss gradient, bf16 compute against float32, 22 layers
+LN_TOL = (1e-2, 8e-3)  # LayerNorm + modulate, bf16: |kernel - plain| <= a + b |plain| (one output rounding)
 TRAIN_BATCH, TRAIN_FRAMES = 4, 1024
+# the card's published peaks at 700 W (NVIDIA H100 SXM data sheet, dense)
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
+PROBE_REPS = {"attn_variants": 10, "fusion_probe": 4}
 STEPS = 32
 EVALS_PER_REQUEST = STEPS - 1  # Euler: one flow evaluation per step of a 32-point grid
 TEXT = ["Some call me nature, others call me mother nature. "
@@ -91,11 +105,11 @@ def device_phase():
 
 
 def build_phase():
-    from f5_tts_tpu_torch.ops import cuda_build, flash_attention, qmatmul
+    from f5_tts_tpu_torch.ops import attn_variants, cuda_build, flash_attention, qmatmul
 
     phase("build")
     t0 = time.perf_counter()
-    sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE, qmatmul.SOURCE)
+    sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE, qmatmul.SOURCE, attn_variants.SOURCE)
     libs = cuda_build.build(*sources)
     print(f"built {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} in {time.perf_counter() - t0:.1f} s")
     for src in sources:
@@ -136,6 +150,30 @@ def _time_ms(fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(flop: float, moved: int, peak: str) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what sets it: the
+    operations over the peak rate of their type, or the bytes (each input
+    read once, each output written once) over the memory rate."""
+    by_ops, by_bytes = flop / PEAK_FLOPS[peak] * 1e3, moved / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def _library_line(label: str, what: str, ms: float | None, bound_ms: float, bound_by: str) -> None:
+    lib = "none (no single PyTorch call)" if ms is None else f"{ms:.4f} ms ({what})"
+    print(f"{label}: library call {lib}; bound {bound_ms * 1e3:.2f} us ({bound_by})")
+
+
+def _sdpa(q, k, v, scale, mask=None):
+    import torch.nn.functional as F
+
+    attn_mask = None if mask is None else mask[:, None, None, :]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=scale)
 
 
 def kernel_phase():
@@ -181,8 +219,25 @@ def kernel_phase():
               f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
         if not (err <= ATTN_TOL):
             raise AssertionError(f"kernel disagrees with its plain version at {name}: {err}")
-        results[name] = (err, ms, plain_ms)
+        results[name] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                         **_attention_yardstick(name, q, k, v, scale, mask, rope, valid, "bf16")}
     return results
+
+
+def _attention_yardstick(label, q, k, v, scale, mask, rope, valid, peak) -> dict:
+    """SDPA on q and k already rotated, with the same key mask (the rotation
+    is not timed), and the forward's bound: 4 b h n n_keys d operations over
+    the keys the mask keeps, q, k, v and the output, the mask and the
+    tables moved once."""
+    from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb
+
+    b, h, n, d = q.shape
+    qr, kr = (q, k) if rope is None else (apply_rotary_pos_emb(q, rope), apply_rotary_pos_emb(k, rope))
+    library_ms = _time_ms(lambda: _sdpa(qr, kr, v, scale, mask))
+    bound_ms, bound_by = bound(4 * b * h * n * (valid or n) * d,
+                               nbytes(q, k, v, q, mask, *(rope or ())), peak)
+    _library_line(label, "SDPA, RoPE outside" if rope is not None else "SDPA", library_ms, bound_ms, bound_by)
+    return {"library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def f32_attention_phase():
@@ -216,7 +271,8 @@ def f32_attention_phase():
               f"({4 * b * h * n * n * d / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms")
         if not (err <= F32_TOL):
             raise AssertionError(f"float32 attention kernel disagrees with its plain version at {name}: {err}")
-        results[name] = (err, ms, plain_ms)
+        results[name] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                         **_attention_yardstick(name, q, k, v, scale, mask, rope, valid, "f32")}
     return results
 
 
@@ -237,7 +293,7 @@ def qmatmul_phase():
     import torch
 
     from f5_tts_tpu_torch.models.quant import quantize_kernel
-    from f5_tts_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+    from f5_tts_tpu_torch.ops.qmatmul import dequantize_kernel, qmatmul, qmatmul_plain
 
     phase("dequantizing matmul vs plain (int4 and int8, bf16 and float32)")
     rng = np.random.default_rng(0)
@@ -264,7 +320,16 @@ def qmatmul_phase():
                       f"({2 * m * k * n / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms")
                 if not (err <= tol):
                     raise AssertionError(f"dequantizing matmul disagrees with its plain version at {label}: {err}")
-                results[(name, bits, dtype)] = (err, ms, plain_ms)
+                # yardstick: one matmul on the weight already dequantized; bound: 2 m k n
+                # operations, x, the int8 codes, scales, biases, bias and the output moved once
+                w_deq = dequantize_kernel(q, s, b).to(dtype)
+                library_ms = _time_ms(lambda: torch.nn.functional.linear(x, w_deq, bb))
+                bound_ms, bound_by = bound(2 * m * k * n, nbytes(x, q, s, b, bb, out),
+                                           "bf16" if dtype == torch.bfloat16 else "f32")
+                _library_line(label, "F.linear, no dequantization", library_ms, bound_ms, bound_by)
+                results[(name, bits, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                                                "library_ms": library_ms, "bound_ms": bound_ms,
+                                                "bound_by": bound_by}
     return results
 
 
@@ -437,7 +502,7 @@ def quantized_path_phase(card: str, snap: str):
 def bwd_kernel_phase():
     import torch
 
-    from f5_tts_tpu_torch.models.rope import rotary_freqs
+    from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb, rotary_freqs
     from f5_tts_tpu_torch.ops import flash_attention as fa
 
     phase("attention backward vs plain (bf16 and float32), and the forward's log-sum-exp")
@@ -479,7 +544,17 @@ def bwd_kernel_phase():
             raise AssertionError(f"attention backward kernel disagrees with its plain version at {name}: {errs}")
         if not lse_err <= lse_tol:
             raise AssertionError(f"the forward's log-sum-exp disagrees with the plain one at {name}: {lse_err}")
-        results[name] = (max(abs_errs), ms, plain_ms)
+        # yardstick: the backward of SDPA on q and k already rotated, with the same mask; bound:
+        # 10 b h n n_keys d operations, q, k, v, out, g and lse read and dq, dk, dv written once
+        leaves = [t.detach().requires_grad_() for t in
+                  (apply_rotary_pos_emb(q, rope), apply_rotary_pos_emb(k, rope), v)]
+        sdpa_out = _sdpa(*leaves, scale, mask)
+        library_ms = _time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True), iters=5)
+        bound_ms, bound_by = bound(10 * b * h * n * (valid or n) * d,
+                                   nbytes(q, k, v, out, g, lse, mask, *rope, *got), tag)
+        _library_line(name, "SDPA backward, RoPE outside", library_ms, bound_ms, bound_by)
+        results[name] = {"err": max(abs_errs), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
     return results
 
 
@@ -643,6 +718,127 @@ def duration_training_phase(card: str):
     return losses, ms, counts()
 
 
+PROBE_ATTN = ("attn_pack2", "attn_flat", "flash_nhd", "flash_bhnd_rope")
+
+
+def reset_probe_counts():
+    from f5_tts_tpu_torch.ops import attn_variants
+    from f5_tts_tpu_torch.ops.ln_modulate import ln_modulate
+
+    for name in PROBE_ATTN:
+        getattr(attn_variants, name).launches = 0
+    ln_modulate.launches = 0
+
+
+def probe_counts() -> dict:
+    from f5_tts_tpu_torch.ops import attn_variants
+    from f5_tts_tpu_torch.ops.ln_modulate import ln_modulate
+
+    return {**{name: getattr(attn_variants, name).launches for name in PROBE_ATTN},
+            "ln_modulate": ln_modulate.launches}
+
+
+def probe_kernel_phase():
+    import torch
+
+    from f5_tts_tpu_torch.ops import attn_variants as av
+    from f5_tts_tpu_torch.ops.ln_modulate import ln_modulate, ln_modulate_plain
+    from f5_tts_tpu_torch.tools.fusion_probe import perm_matrix, rope_tables
+
+    phase("probe kernels vs plain: attention variants (bf16, CUDA) and LayerNorm + modulate (Triton)")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    plain = {"attn_pack2": av.attention_plain, "attn_flat": av.attention_plain,
+             "flash_nhd": av.flash_nhd_plain, "flash_bhnd_rope": av.flash_bhnd_rope_plain}
+    results = {}
+    # (label, kernel, b, h, n, d): the probe tools' shape, and flash_bhnd_rope at a ragged n
+    cases = [(name, name, 2, 16, 1024, 64) for name in PROBE_ATTN]
+    cases.append(("flash_bhnd_rope, ragged n", "flash_bhnd_rope", 2, 16, 1000, 64))
+    for label, name, b, h, n, d in cases:
+        nhd = name == "flash_nhd"
+        q, k, v = (torch.randn(*((b, n, h, d) if nhd else (b, h, n, d)), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        rope = ()
+        if name.startswith("flash"):
+            rope = (*rope_tables(n, d, "cuda"), torch.tensor(perm_matrix(d), device="cuda"))
+        scale = d ** -0.5
+        fn = getattr(av, name)
+        out = fn(q, k, v, *rope, scale)
+        ref = plain[name](q, k, v, *rope, scale)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ms = _time_ms(lambda: fn(q, k, v, *rope, scale))
+        plain_ms = _time_ms(lambda: plain[name](q, k, v, *rope, scale))
+        flop = 4 * b * h * n * n * d + (4 * b * h * n * d * d if rope else 0)  # + x @ P for q and k
+        print(f"{label}: [b={b}, h={h}, n={n}, d={d}] {'[b, n, h, d]' if nhd else '[b, h, n, d]'} "
+              f"rope={bool(rope)}: max|kernel - plain| = {err:.3e} (tol {ATTN_TOL}); kernel {ms:.4f} ms "
+              f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
+        if not (err <= ATTN_TOL):
+            raise AssertionError(f"{name} disagrees with its plain version at {label}: {err}")
+        # yardstick: SDPA on [b, h, n, d] views, q and k already rotated for the RoPE variants
+        qh, kh, vh = (t.transpose(1, 2) if nhd else t for t in (q, k, v))
+        if rope:
+            qh, kh = av.rope_plain(qh, *rope), av.rope_plain(kh, *rope)
+        library_ms = _time_ms(lambda: _sdpa(qh, kh, vh, scale))
+        bound_ms, bound_by = bound(flop, nbytes(q, k, v, out, *rope), "bf16")
+        _library_line(label, "SDPA, RoPE outside" if rope else "SDPA", library_ms, bound_ms, bound_by)
+        results[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by}
+
+    for label, (b, n, d) in (("ln_modulate", (2, 1024, 1024)), ("ln_modulate, ragged n", (2, 1000, 1024))):
+        x, scale, shift = (torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+                           for shape in ((b, n, d), (b, d), (b, d)))
+        out = ln_modulate(x, scale, shift)
+        ref = ln_modulate_plain(x, scale, shift)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        within = bool((diff <= LN_TOL[0] + LN_TOL[1] * ref.float().abs()).all())
+        ms = _time_ms(lambda: ln_modulate(x, scale, shift))
+        plain_ms = _time_ms(lambda: ln_modulate_plain(x, scale, shift))
+        # about 7 float32 operations an element: mean, centring, square and sum, normalise, modulate
+        bound_ms, bound_by = bound(7 * b * n * d, nbytes(x, scale, shift, out), "f32")
+        print(f"{label}: [b={b}, n={n}, d={d}] bf16: max|kernel - plain| = {err:.3e} "
+              f"(tol {LN_TOL[0]} + {LN_TOL[1]} |plain|: {'met' if within else 'NOT met'}); kernel {ms:.4f} ms "
+              f"({nbytes(x, out) / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms")
+        _library_line(label, "", None, bound_ms, bound_by)
+        if not within:
+            raise AssertionError(f"ln_modulate disagrees with its plain version at {label}: {err}")
+        results[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                          "bound_ms": bound_ms, "bound_by": bound_by}
+    return results
+
+
+def probe_tools_phase(card: str):
+    """Both probe tools' entry points at their full shapes, with each probe
+    kernel's launches counted over the run."""
+    import torch
+
+    from f5_tts_tpu_torch.tools import attn_variants, fusion_probe
+
+    phase(f"probe tools: attn_variants (reps {PROBE_REPS['attn_variants']}) and fusion_probe all "
+          f"(reps {PROBE_REPS['fusion_probe']})")
+    reset_probe_counts()
+    t0 = time.perf_counter()
+    variants = attn_variants.main(reps=PROBE_REPS["attn_variants"])
+    probes = fusion_probe.main("all", reps=PROBE_REPS["fusion_probe"])
+    torch.cuda.synchronize()
+    launched = probe_counts()
+    print(f"probe tools: {time.perf_counter() - t0:.1f} s; probe kernel launches {launched}; on {card}")
+    for name, n in launched.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by the probe tools")
+    for name, (_, err) in variants.items():
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"attention variant {name} disagrees with the unfused version: {err}")
+    checks = ((probes["attn"]["rope-as-matmul maxerr"], F32_TOL, "rope as a product"),
+              (probes["layer"]["layer ropek maxerr vs current"], ATTN_TOL, "attention layer through P4"),
+              (probes["layer"]["layer nhd maxerr vs current"], ATTN_TOL, "attention layer through P3"))
+    for err, tol, what in checks:
+        if not err <= tol:
+            raise AssertionError(f"{what} disagrees with the reference in the probe tools: {err} (tol {tol})")
+    return launched
+
+
 def main() -> int:
     card = device_phase()
     import torch
@@ -660,36 +856,52 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
         _, cfm_ms, cfm_launches = cfm_training_phase(card, tmp)
     _, dur_ms, dur_launches = duration_training_phase(card)
+    probe = probe_kernel_phase()
+    probe_launches = probe_tools_phase(card)
     print(f"float requests: {', '.join(f'{t * 1e3:.1f} ms' for t in float_times)}; "
           f"int4 requests: {', '.join(f'{t * 1e3:.1f} ms' for t in q_times)}; "
           f"CFM step median {sorted(cfm_ms)[len(cfm_ms) // 2]:.1f} ms; "
           f"duration step median {sorted(dur_ms)[len(dur_ms) // 2]:.1f} ms; on {card}")
-    # launches summed over the main paths' counted runs
+    # launches summed over the main paths' counted runs; the probe kernels' over the probe tools' run
     paths = (float_launches, q_launches, cfm_launches, dur_launches)
     launches = {k: sum(p[k] for p in paths) for k in float_launches}
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main paths")
+    launches.update(probe_launches)
+    csrc = "f5_tts_tpu_torch/csrc/"
     rows = [
-        ("flash_attention_fwd", "flash_attention_fwd.cu", "f5_tts_tpu/ops/flash_attention.py:165", kernel["main path"]),
-        ("flash_attention_fwd_f32", "flash_attention_fwd.cu", "f5_tts_tpu/ops/flash_attention.py:165",
-         f32_attn["duration predictor"]),
-        ("qmatmul", "qmatmul.cu", "f5_tts_tpu/ops/qmatmul.py:69", qmm[("to_q/k/v/out", 4, torch.bfloat16)]),
-        ("flash_attention_bwd", "flash_attention_bwd.cu", "f5_tts_tpu/ops/flash_attention.py:349",
+        ("flash_attention_fwd", "cuda", csrc + "flash_attention_fwd.cu", "f5_tts_tpu/ops/flash_attention.py:165",
+         kernel["main path"]),
+        ("flash_attention_fwd_f32", "cuda", csrc + "flash_attention_fwd.cu",
+         "f5_tts_tpu/ops/flash_attention.py:165", f32_attn["duration predictor"]),
+        ("qmatmul", "cuda", csrc + "qmatmul.cu", "f5_tts_tpu/ops/qmatmul.py:69",
+         qmm[("to_q/k/v/out", 4, torch.bfloat16)]),
+        ("flash_attention_bwd", "cuda", csrc + "flash_attention_bwd.cu", "f5_tts_tpu/ops/flash_attention.py:349",
          bwd["CFM training"]),
-        ("flash_attention_bwd_f32", "flash_attention_bwd.cu", "f5_tts_tpu/ops/flash_attention.py:349",
-         bwd["duration training"]),
+        ("flash_attention_bwd_f32", "cuda", csrc + "flash_attention_bwd.cu",
+         "f5_tts_tpu/ops/flash_attention.py:349", bwd["duration training"]),
+        ("attn_pack2", "cuda", csrc + "attn_variants.cu", "tools/attn_variants.py:76", probe["attn_pack2"]),
+        ("attn_flat", "cuda", csrc + "attn_variants.cu", "tools/attn_variants.py:115", probe["attn_flat"]),
+        ("flash_nhd", "cuda", csrc + "attn_variants.cu", "tools/fusion_probe.py:128", probe["flash_nhd"]),
+        ("flash_bhnd_rope", "cuda", csrc + "attn_variants.cu", "tools/fusion_probe.py:165",
+         probe["flash_bhnd_rope"]),
+        ("ln_modulate", "triton", "f5_tts_tpu_torch/ops/ln_modulate.py", "tools/fusion_probe.py:318",
+         probe["ln_modulate"]),
     ]
     print(json.dumps({"kernels": [{
         "name": name,
-        "route": "cuda",
-        "source": f"f5_tts_tpu_torch/csrc/{src}",
+        "route": route,
+        "source": src,
         "replaces": replaces,
         "launches": launches[name],
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    } for name, src, replaces, (err, ms, plain_ms) in rows]}))
+        "max_abs_err": r["err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+    } for name, route, src, replaces, r in rows]}))
 
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,6 +45,8 @@
 
 #include <cstdint>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int GROUP = 64;  // quantization group along k
@@ -63,19 +65,6 @@ __device__ __forceinline__ float dequant(int8_t code, float s, float b) {
 
 constexpr int T_THREADS = 128;
 constexpr int LD = BK + 8;  // bf16 row stride in shared memory: conflict-free fragment loads
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 template <typename ST>
 __global__ void __launch_bounds__(T_THREADS)

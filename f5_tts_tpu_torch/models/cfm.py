@@ -255,7 +255,7 @@ class F5TTS:
         cls,
         generator: torch.Generator,
         dit_cfg: DiTConfig = DiTConfig(),
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         **kwargs,
     ) -> "F5TTS":
         """Random weights drawn from `generator`, which must live on `device`."""
@@ -266,7 +266,7 @@ class F5TTS:
 
     @classmethod
     def from_pretrained(
-        cls, local_dir: str | Path, device: torch.device | str = "cpu", quantization_bits: int | None = None
+        cls, local_dir: str | Path, device: torch.device | str = "cuda", quantization_bits: int | None = None
     ) -> "F5TTS":
         """Load a snapshot directory (see models/convert.py); with
         `quantization_bits` (4 or 8), its weight-only quantized DiT."""

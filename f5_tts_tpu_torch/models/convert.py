@@ -322,7 +322,7 @@ def params_from_jax(np_tree: dict, cfg: DiTConfig | VocosConfig | DurationConfig
 
 
 def load_f5tts_pretrained(
-    local_dir: str | Path, device: torch.device | str = "cpu", quantization_bits: int | None = None
+    local_dir: str | Path, device: torch.device | str = "cuda", quantization_bits: int | None = None
 ):
     """Build a ready-to-sample F5TTS from a snapshot directory written by
     either package's `save_pretrained` (or the published artifacts with a

@@ -115,7 +115,7 @@ class DurationPredictor(nn.Module):
     @classmethod
     def init(
         cls, generator: torch.Generator, cfg: DurationConfig = DurationConfig(),
-        device: torch.device | str = "cpu", **kwargs,
+        device: torch.device | str = "cuda", **kwargs,
     ) -> "DurationPredictor":
         """Random weights drawn from `generator`, which must live on `device`."""
         with torch.device(device):

@@ -63,7 +63,7 @@ class Vocos(nn.Module):
 
     @classmethod
     def init(
-        cls, generator: torch.Generator, cfg: VocosConfig = VocosConfig(), device: torch.device | str = "cpu"
+        cls, generator: torch.Generator, cfg: VocosConfig = VocosConfig(), device: torch.device | str = "cuda"
     ) -> "Vocos":
         """Random weights drawn from `generator`, which must live on `device`."""
         with torch.device(device):

@@ -3,7 +3,8 @@ a plain C interface, loaded through ctypes.
 
 Each source under csrc/ compiles on its own into
 build/f5_tts_tpu_torch/lib<stem>_<hash>.so beside the package, at first use;
-the file name carries the source's hash, so an edited source rebuilds. The
+the file name carries the hash of the source and of the headers under csrc/,
+so an edited source or header rebuilds. The
 compiler's output (with ptxas register and spill counts) goes to
 <stem>.build.log in the same directory. `build` starts one nvcc per missing
 library, all at once, and waits for them together.
@@ -31,7 +32,10 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    return BUILD_DIR / f"lib{source.stem}_{hashlib.sha256(source.read_bytes()).hexdigest()[:16]}.so"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def log_path(source: Path) -> Path:

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on an NVIDIA GPU: the
-attention forward (K1) and backward (K2), bf16 and float32, and the
-dequantizing matmul.
+attention forward (K1) and backward (K2), bf16 and float32, the
+dequantizing matmul, and the probe tools' kernels (the attention variants
+P1-P4 and the Triton LayerNorm + modulate P5).
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -14,7 +15,9 @@ in float32 (the same float32 math summed in another order). TF32 is off.
 Attention gradients are held relative to the plain gradient's largest
 magnitude, floored at 0.1 (at n = 1, dq and dk are a cancellation, 0 in
 exact arithmetic): 2e-2 in bf16 (P and dS rounded to bf16 on both sides, at
-different points), 1e-4 in float32.
+different points), 1e-4 in float32. LayerNorm + modulate: 1e-2 + 8e-3 times
+the plain output's magnitude in bf16 (one bf16 rounding of the output, whose
+ulp grows with it), 1e-4 in float32.
 """
 
 import pytest
@@ -29,6 +32,8 @@ from f5_tts_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain,
     flash_attention_plain,
 )
+from f5_tts_tpu_torch.ops import attn_variants as av
+from f5_tts_tpu_torch.ops.ln_modulate import ln_modulate, ln_modulate_plain
 from f5_tts_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
 
 TOL = 2e-2
@@ -307,3 +312,103 @@ def test_qmatmul_rejects_what_the_kernel_does_not_take(gen):
         qmatmul(x, q.to(torch.int16), scales, biases)
     with pytest.raises(ValueError, match="scales"):
         qmatmul(x, q, scales.half(), biases)
+
+
+# ------------------------------------------------------------ probe kernels P1-P5
+
+
+def _rope_inputs(n, d):
+    from f5_tts_tpu_torch.tools.fusion_probe import perm_matrix
+
+    cos, sin = _rope(n, d)
+    return cos, sin, torch.tensor(perm_matrix(d), device="cuda")
+
+
+def _variant(name, q, k, v, scale, rope):
+    """The wrapper's output, its launch count's step, and the plain output."""
+    fn = getattr(av, name)
+    args = (q, k, v) if rope is None else (q, k, v, *rope)
+    before = fn.launches
+    out = fn(*args, scale)
+    assert fn.launches == before + 1
+    plain = {"attn_pack2": av.attention_plain, "attn_flat": av.attention_plain,
+             "flash_bhnd_rope": av.flash_bhnd_rope_plain, "flash_nhd": av.flash_nhd_plain}[name]
+    return out, plain(*args, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["attn_pack2", "attn_flat", "flash_bhnd_rope", "flash_nhd"])
+@pytest.mark.parametrize("shape", [(2, 16, 1024, 64), (2, 16, 1000, 64), (1, 3, 37, 128), (2, 2, 130, 128)],
+                         ids=["main", "ragged", "odd-heads", "d128"])
+def test_attn_variant_matches_plain(gen, name, shape):
+    b, h, n, d = shape
+    nhd = name == "flash_nhd"
+    q, k, v = (torch.randn(*((b, n, h, d) if nhd else shape), generator=gen, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    rope = _rope_inputs(n, d) if name.startswith("flash") else None
+    out, ref = _variant(name, q, k, v, d ** -0.5, rope)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_nhd_reads_a_non_contiguous_view(gen):
+    """q, k, v as [b, n, h, d] views of one fused [b, n, 3, h, d] projection,
+    with a random P; the output is written in q's layout."""
+    b, n, h, d = 2, 300, 4, 64
+    qkv = torch.randn(b, n, 3, h, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    cos, sin = _rope(n, d)
+    P = torch.randn(d, d, generator=gen, device="cuda") / d ** 0.5
+    out, ref = _variant("flash_nhd", q, k, v, 0.125, (cos, sin, P))
+    assert out.shape == (b, n, h, d)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["attn_pack2", "attn_flat", "flash_bhnd_rope", "flash_nhd"])
+def test_attn_variant_rejects_what_the_kernel_does_not_take(gen, name):
+    for dtype, d, match in ((torch.float32, 64, "bfloat16"), (torch.bfloat16, 96, "head dim")):
+        q, k, v = (torch.randn(1, 2, 16, d, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        rope = _rope_inputs(16, d) if name.startswith("flash") else None
+        args = (q, k, v) if rope is None else (q, k, v, *rope)
+        with pytest.raises(ValueError, match=match):
+            getattr(av, name)(*args, 0.125)
+
+
+def _ln_inputs(gen, b, n, d, dtype):
+    x = torch.randn(b, n, d, generator=gen, device="cuda").to(dtype) * 2 + 0.5
+    return x, *(torch.randn(b, d, generator=gen, device="cuda").to(dtype) for _ in range(2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(2, 1024, 1024), (2, 1000, 1024), (3, 7, 100)], ids=["main", "ragged", "small"])
+def test_ln_modulate_matches_plain(gen, shape, dtype):
+    x, scale, shift = _ln_inputs(gen, *shape, dtype)
+    before = ln_modulate.launches
+    out = ln_modulate(x, scale, shift)
+    assert ln_modulate.launches == before + 1
+    ref = ln_modulate_plain(x, scale, shift)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and out.dtype == dtype
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        assert (err <= 1e-2 + 8e-3 * ref.float().abs()).all(), err.max().item()
+    else:
+        assert err.max().item() <= TOL_F32
+
+
+@pytest.mark.cuda
+def test_ln_modulate_strided_input_and_rejections(gen):
+    x, scale, shift = _ln_inputs(gen, 2, 64, 256, torch.bfloat16)
+    xs = x[:, ::2]  # every other row: a row stride the kernel reads as given
+    out = ln_modulate(xs, scale, shift)
+    ref = ln_modulate_plain(xs, scale, shift)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2 + 8e-3 * ref.float().abs().max().item()
+    with pytest.raises(ValueError, match="scale"):
+        ln_modulate(x, scale[:, :128], shift)
+    with pytest.raises(ValueError, match=r"\[b, n, d\]"):
+        ln_modulate(x[0], scale, shift)

@@ -143,7 +143,7 @@ def test_snapshot_loader(models, tmp_path):
 
     jax_model, port = models
     jax_model.save_pretrained(tmp_path / "jax")
-    loaded = F5TTS.from_pretrained(tmp_path / "jax")
+    loaded = F5TTS.from_pretrained(tmp_path / "jax", device="cpu")
     assert loaded.dit_cfg == port.dit_cfg and loaded.cfm_cfg == port.cfm_cfg
     assert loaded.vocab_char_map == VOCAB
     for a, b in ((loaded.dit, port.dit), (loaded.vocoder, port.vocoder)):
@@ -206,3 +206,31 @@ def test_sample_errors_and_seeded_noise(models):
     mel2 = np.zeros((2, 10, 100), np.float32)
     _, traj = port.sample(mel2, ["ab", "ab"], duration=40, steps=2, seed=3, cfg_strength=0.0)
     torch.testing.assert_close(traj[0, 0], traj[0, 1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("entry", ["F5TTS.init", "F5TTS.from_pretrained", "load_f5tts_pretrained",
+                                   "DurationPredictor.init", "Vocos.init"])
+def test_entry_points_default_to_the_card(entry):
+    """The port's entry points run on the card unless the caller asks for the
+    CPU, as these tests do."""
+    import inspect
+
+    from f5_tts_tpu_torch.models import convert
+    from f5_tts_tpu_torch.models.duration import DurationPredictor
+
+    owners = {"F5TTS": F5TTS, "DurationPredictor": DurationPredictor, "Vocos": Vocos}
+    owner, _, name = entry.rpartition(".")
+    fn = getattr(owners[owner], name) if owner else getattr(convert, name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_init_without_device_does_not_fall_back_to_the_cpu():
+    """With no card, F5TTS.init without `device` raises torch's own CUDA
+    error; with one, the model lives on it."""
+    cfg = DiTConfig(**TINY)
+    if torch.cuda.is_available():
+        model = F5TTS.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+        assert model.device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        F5TTS.init(torch.Generator().manual_seed(0), cfg)

@@ -141,7 +141,7 @@ def quant_models(float_models, tmp_path_factory, request):
     jax_model.save_pretrained(root / "jax", quantization_bits=bits)
     port.save_pretrained(root / "port", quantization_bits=bits)
     return (bits, root, JaxF5TTS.from_pretrained(str(root / "jax"), quantization_bits=bits),
-            F5TTS.from_pretrained(root / "jax", quantization_bits=bits))
+            F5TTS.from_pretrained(root / "jax", device="cpu", quantization_bits=bits))
 
 
 def test_quantize_module_matches_quantize_tree(float_models):
@@ -176,7 +176,7 @@ def test_quantized_snapshot_files_match_jax(quant_models):
         assert ours[k].dtype == theirs[k].dtype, k
         np.testing.assert_array_equal(ours[k], theirs[k])
     assert ours["transformer.proj_out.weight"].dtype == np.uint32
-    from_port = F5TTS.from_pretrained(root / "port", quantization_bits=bits)
+    from_port = F5TTS.from_pretrained(root / "port", device="cpu", quantization_bits=bits)
     for k, v in port_q.dit.state_dict().items():
         torch.testing.assert_close(from_port.dit.state_dict()[k], v, rtol=0, atol=0)
     back = JaxF5TTS.from_pretrained(str(root / "port"), quantization_bits=bits)

@@ -377,7 +377,8 @@ def _dataset(n_batches, b=2, frames=48, seed=0):
 
 
 def _fresh_f5tts(seed):
-    return F5TTS.init(torch.Generator().manual_seed(seed), tcfg.DiTConfig(**TINY), cfm_cfg=tcfg.CFMConfig())
+    return F5TTS.init(torch.Generator().manual_seed(seed), tcfg.DiTConfig(**TINY), device="cpu",
+                      cfm_cfg=tcfg.CFMConfig())
 
 
 def test_trainer_end_to_end(tmp_path, capsys):
@@ -452,8 +453,8 @@ def test_trainer_generate_sample_with_ema(tmp_path):
     from f5_tts_tpu_torch.audio.io import read_wav, write_wav
 
     g = torch.Generator().manual_seed(0)
-    model = F5TTS.init(g, tcfg.DiTConfig(**TINY), cfm_cfg=tcfg.CFMConfig(duration_bucket=64),
-                       vocoder=Vocos.init(g, VocosConfig(dim=32, intermediate_dim=64, num_layers=2)))
+    model = F5TTS.init(g, tcfg.DiTConfig(**TINY), device="cpu", cfm_cfg=tcfg.CFMConfig(duration_bucket=64),
+                       vocoder=Vocos.init(g, VocosConfig(dim=32, intermediate_dim=64, num_layers=2), device="cpu"))
     trainer = T.F5TTSTrainer(model, num_warmup_steps=1, results_dir=tmp_path / "r", ema_decay=0.5)
     trainer.train(_dataset(1), total_steps=1, save_every=10**9, sample_every=10**9)
     ref = tmp_path / "ref.wav"
@@ -492,7 +493,7 @@ def test_duration_trainer_end_to_end(tmp_path, capsys):
     from f5_tts_tpu.models.convert import convert_duration_state as jax_convert
 
     def fresh(seed):
-        return DurationPredictor.init(torch.Generator().manual_seed(seed), tcfg.DurationConfig(**DUR))
+        return DurationPredictor.init(torch.Generator().manual_seed(seed), tcfg.DurationConfig(**DUR), device="cpu")
 
     trainer = DurationTrainer(fresh(0), num_warmup_steps=2, results_dir=tmp_path, ema_decay=0.9)
     trainer.train(_duration_batches(6), learning_rate=1e-4, total_steps=6, save_every=3, log_every=2)
