@@ -40,7 +40,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      at a ragged n) in bf16 and the Triton LayerNorm + modulate at the probe
      tools' shapes and at a ragged n;
  11. probe tools: both tools' entry points once at their full shapes with
-     few repetitions, counting each probe kernel's launches there.
+     few repetitions, counting each probe kernel's launches there;
+ 12. ranking: K3's device time per int4 request (launches per request
+     times the kernel's time, summed over the linear shapes) and K2's per
+     CFM step (22 calls), each beside the same sum for its library call,
+     timed with the card held by a spin kernel while the calls are enqueued
+     (so, unlike phases 3 and 7, the host's enqueue is left out); the host
+     time per wrapper call of K3 and K2 (100 calls enqueued behind a spin
+     kernel; median, least and most of 10 runs); and a torch.profiler
+     breakdown of one int4 request and one CFM step by kernel group.
+Phases 1, 2, 4 and 12 alone (device_phase, build_phase, snapshot_phase,
+ranking_phase) measure another checkout's package the same way from a copy
+of this file placed in its root.
 Each kernel phase also times one PyTorch call that computes the same
 function, where there is one (the library yardstick), and computes the
 kernel's bound on this card from its inputs. The line before the last is a
@@ -73,6 +84,7 @@ TRAIN_BATCH, TRAIN_FRAMES = 4, 1024
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 PROBE_REPS = {"attn_variants": 10, "fusion_probe": 4}
+HOLD_CYCLES = 50_000_000  # the spin kernel before a timed run: about 25 ms at the H100's 1.98 GHz
 STEPS = 32
 EVALS_PER_REQUEST = STEPS - 1  # Euler: one flow evaluation per step of a 32-point grid
 TEXT = ["Some call me nature, others call me mother nature. "
@@ -150,6 +162,45 @@ def _time_ms(fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20):
+    """The device time of one call: as `_time_ms`, but with the card held by
+    a spin kernel while the host enqueues the calls, so a call whose host
+    side is slower than its kernels is still timed on the device."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls=100, rounds=10) -> list:
+    """The host's time to enqueue one call, in us, for each of `rounds` runs
+    of `calls` calls enqueued without a synchronize behind a spin kernel (so
+    a kernel faster than the host does not change what is timed); sorted."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return sorted(per_call)
 
 
 def nbytes(*tensors) -> int:
@@ -453,6 +504,15 @@ def qmm_launches_per_request(cfg) -> int:
     return (2 + cfg.depth + 1) + 2 * 2 * cfg.conv_layers + EVALS_PER_REQUEST * (6 * cfg.depth + 1)
 
 
+def qmm_launches_by_shape(cfg) -> dict:
+    """The quantized-linear launches of one request by `QMM_SHAPES` name;
+    they sum to `qmm_launches_per_request`."""
+    evals, depth, conv = EVALS_PER_REQUEST, cfg.depth, cfg.conv_layers
+    return {"time_mlp.0": 1, "time_mlp.2": 1, "attn_norm.linear": depth, "norm_out.linear": 1,
+            "text pwconv1": 2 * conv, "text pwconv2": 2 * conv, "to_q/k/v/out": evals * 4 * depth,
+            "ff w1": evals * depth, "ff w2": evals * depth, "proj_out": evals}
+
+
 def quantized_path_phase(card: str, snap: str):
     import numpy as np
     import torch
@@ -460,6 +520,7 @@ def quantized_path_phase(card: str, snap: str):
     from f5_tts_tpu_torch import F5TTS
     from f5_tts_tpu_torch.audio.mel import log_mel_spectrogram
     from f5_tts_tpu_torch.models.cfm import clamp_duration
+    from f5_tts_tpu_torch.ops import qmatmul as qm
 
     phase("quantized main path: from_pretrained(quantization_bits=4) -> 1 + 3 requests, duration=None")
     t0 = time.perf_counter()
@@ -483,8 +544,20 @@ def quantized_path_phase(card: str, snap: str):
     print(f"predicted duration {int(predicted[0])} frames, clamped {clamped}")
 
     reset_counts()
-    times = [_request(model, ref, duration, card, "warm-up" if i == 0 else f"request {i}", per_request, expect_len)
-             for i in range(4)][1:]
+    maps = [qm.maps_encoded()]
+    times = []
+    for i in range(4):
+        times.append(_request(model, ref, duration, card, "warm-up" if i == 0 else f"request {i}", per_request,
+                              expect_len))
+        maps.append(qm.maps_encoded())
+    times = times[1:]
+    # K3 keeps its TMA maps by address and shape: the requests after the warm-up encode no codes map and no
+    # more x maps than the warm-up did (a miss on every launch would encode three times as many)
+    first, later = ({k: b[k] - a[k] for k in a} for a, b in ((maps[0], maps[1]), (maps[1], maps[4])))
+    print(f"K3 tensor maps encoded: warm-up request {first}; the three requests after it {later}, "
+          f"over {3 * per_request['qmatmul']} launches")
+    if later["codes"] or later["x"] > first["x"]:
+        raise AssertionError(f"K3 re-encodes its tensor maps: warm-up {first}, the three requests after it {later}")
     with_predictor = {**per_request, "flash_attention_fwd_f32": model.duration_predictor.cfg.depth}
     _request(model, ref, None, card, "request with duration=None", with_predictor, (clamped - 1) * a.hop_length)
     launched = counts()
@@ -531,7 +604,9 @@ def bwd_kernel_phase():
         got = fa._backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin)
         ref = fa.flash_attention_bwd_plain(q, k, v, out, g, scale, mask, rope)
         torch.cuda.synchronize()
-        abs_errs = [(a - r).abs().max().item() for a, r in zip(got, ref)]
+        if any(a.dtype != dtype for a in got):
+            raise AssertionError(f"the backward kernel wrote {[a.dtype for a in got]}, expected {dtype}")
+        abs_errs = [(a.float() - r).abs().max().item() for a, r in zip(got, ref)]
         errs = [e / r.abs().max().item() for e, r in zip(abs_errs, ref)]
         ms = _time_ms(lambda: fa._backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin))
         plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, g, scale, mask, rope), iters=5)
@@ -539,7 +614,8 @@ def bwd_kernel_phase():
         print(f"{name}: {tag} [b={b}, h={h}, n={n}, d={d}] mask={valid} rope=True strided=True: "
               f"max|kernel - plain| / max|plain| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
               f"(tol {GRAD_TOL[tag]}); lse max error {lse_err:.3e} (tol {lse_tol}); kernel {ms:.4f} ms "
-              f"({flop / ms / 1e9:.1f} TFLOP/s at 10 b h n^2 d), plain {plain_ms:.4f} ms")
+              f"({flop / ms / 1e9:.1f} TFLOP/s at 10 b h n^2 d, {1.4 * flop / ms / 1e9:.1f} at the 14 b h n^2 d "
+              f"executed), plain {plain_ms:.4f} ms")
         if not max(errs) <= GRAD_TOL[tag]:
             raise AssertionError(f"attention backward kernel disagrees with its plain version at {name}: {errs}")
         if not lse_err <= lse_tol:
@@ -839,6 +915,149 @@ def probe_tools_phase(card: str):
     return launched
 
 
+PROFILE_NAME_CHARS = 80
+# torch.profiler kernel groups, by a substring of the kernel's name; the first match wins
+PROFILE_GROUPS = (
+    ("K2 attention backward", ("flash_bwd",)),
+    ("K1 attention forward", ("flash_fwd",)),
+    ("K3 dequantizing matmul", ("qmm_",)),
+    ("optimizer (foreach)", ("multi_tensor", "foreach")),
+    ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "splitkreduce")),
+    ("conv (cuDNN)", ("conv", "cudnn", "winograd", "implicit")),
+    ("FFT", ("fft",)),
+    ("reductions", ("reduce", "softmax", "norm")),
+    ("dtype casts and copies", ("copy", "cast", "convert")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "index", "cat", "where", "fill")),
+)
+
+
+def _profiled(label: str, fn) -> None:
+    """Run `fn` once under torch.profiler and print its wall time, the
+    device's busy time (the sum of kernel times), its peak memory, the
+    kernel time and launches by group, and the largest kernels by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups: dict[str, list] = {}
+    kernels: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.device_time_total <= 0:
+            continue
+        low = ev.name.lower()
+        group = next((g for g, keys in PROFILE_GROUPS if any(key in low for key in keys)), "other")
+        entry = groups.setdefault(group, [0.0, 0])
+        entry[0] += ev.device_time_total / 1e3
+        entry[1] += 1
+        name = ev.name[:PROFILE_NAME_CHARS]  # templated names differ far out; group by their start
+        kernels[name] = kernels.get(name, 0.0) + ev.device_time_total / 1e3
+    busy = sum(ms for ms, _ in groups.values())
+    print(f"profile, {label}: wall {wall * 1e3:.1f} ms under the profiler, device busy {busy:.1f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; by group (ms, launches): "
+          + "; ".join(f"{g} {ms:.2f} ({n})" for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    print(f"profile, {label}: largest kernels (ms): "
+          + "; ".join(f"{name} {ms:.2f}" for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]))
+    if busy <= 0:
+        raise AssertionError(f"the profile of the {label} shows no device time")
+
+
+def ranking_phase(card: str, snap: str) -> None:
+    """K3's device time per int4 request and K2's per CFM step beside their
+    library calls' (device times, the host left out), the host time of one
+    wrapper call, and a torch.profiler breakdown of one int4 request and one
+    CFM step. It calls only entry points whose interface the TMA + wgmma
+    redesign of K2 and K3 kept, so a copy of this file in a checkout from
+    before it measures that checkout the same way."""
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from f5_tts_tpu_torch import F5TTS, CFMConfig
+    from f5_tts_tpu_torch.config import F5TTS_V1_BASE
+    from f5_tts_tpu_torch.models.cfm import draw_cfm
+    from f5_tts_tpu_torch.models.quant import quantize_kernel
+    from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb, rotary_freqs
+    from f5_tts_tpu_torch.ops import flash_attention as fa
+    from f5_tts_tpu_torch.ops.qmatmul import dequantize_kernel, qmatmul
+    from f5_tts_tpu_torch.training import trainer as T
+
+    phase("ranking: device time per request and step against the library calls; host time per call; profiles")
+    cfg = F5TTS_V1_BASE
+    per_shape = qmm_launches_by_shape(cfg)
+    if sum(per_shape.values()) != qmm_launches_per_request(cfg):
+        raise AssertionError(f"launches by shape {per_shape} do not sum to {qmm_launches_per_request(cfg)}")
+    rng = np.random.default_rng(0)
+    k3_ms = k3_lib = 0.0
+    host = {}
+    for name, m, k, n in QMM_SHAPES:
+        # int4 codes with bf16 scales and biases, as a bf16 model holds them; no linear bias
+        p = quantize_kernel((rng.uniform(-1, 1, (k, n)) / np.sqrt(k)).astype(np.float32), 4)
+        q, s, b = (torch.from_numpy(np.ascontiguousarray(p[t].T)).cuda() for t in ("q", "scales", "biases"))
+        s, b = s.to(torch.bfloat16), b.to(torch.bfloat16)
+        x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32), device="cuda").to(torch.bfloat16)
+        w = dequantize_kernel(q, s, b).to(torch.bfloat16)
+        ms, lib = device_ms(lambda: qmatmul(x, q, s, b)), device_ms(lambda: F.linear(x, w))
+        k3_ms, k3_lib = k3_ms + per_shape[name] * ms, k3_lib + per_shape[name] * lib
+        print(f"K3 int4 bf16 {name} [m={m}, k={k}, n={n}]: device {ms:.4f} ms, F.linear on the dequantized "
+              f"weight {lib:.4f} ms; {per_shape[name]} launches per int4 request")
+        if (m, k, n) in ((2048, 1024, 1024), (31, 1024, 6144)):
+            host[f"K3 [{m}, {k}, {n}]"] = host_us(lambda: qmatmul(x, q, s, b))
+    print(f"K3 int4 bf16, per int4 request ({sum(per_shape.values())} launches over the {len(QMM_SHAPES)} "
+          f"shapes): kernel {k3_ms:.3f} ms, F.linear on the dequantized weights {k3_lib:.3f} ms, "
+          f"lost {k3_ms - k3_lib:.3f} ms; on {card}")
+
+    # K2 at the CFM training shape: q, k, v and g as [b, n, h*d] projection views, RoPE, no mask
+    b, h, n, d = TRAIN_BATCH, 16, TRAIN_FRAMES, 64
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, g = (torch.randn(b, n, h * d, generator=gen, device="cuda").to(torch.bfloat16)
+                  .view(b, n, h, d).transpose(1, 2) for _ in range(4))
+    raw = rotary_freqs(n, d, device="cuda")
+    rope = (torch.cos(raw), torch.sin(raw))
+    key_mask, cos, sin = fa._checked(q, k, v, None, rope)
+    out, lse = fa._forward_kernel(q, k, v, d ** -0.5, key_mask, cos, sin, with_lse=True)
+    args = (q, k, v, out, lse, g, d ** -0.5, key_mask, cos, sin)
+    ms = device_ms(lambda: fa._backward_kernel(*args))
+    leaves = [t.detach().requires_grad_() for t in (apply_rotary_pos_emb(q, rope), apply_rotary_pos_emb(k, rope), v)]
+    sdpa_out = _sdpa(*leaves, d ** -0.5)
+    lib = device_ms(lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True), iters=5)
+    print(f"K2 bf16 [{b}, {h}, {n}, {d}]: device {ms:.4f} ms, SDPA backward {lib:.4f} ms; per CFM step "
+          f"({cfg.depth} calls): kernel {cfg.depth * ms:.3f} ms, SDPA backward {cfg.depth * lib:.3f} ms, "
+          f"lost {cfg.depth * (ms - lib):.3f} ms; on {card}")
+    host[f"K2 [{b}, {h}, {n}, {d}]"] = host_us(lambda: fa._backward_kernel(*args))
+    for label, us in host.items():
+        print(f"host time per wrapper call, {label} (100 calls enqueued behind a spin kernel, 10 runs): "
+              f"median {statistics.median(us):.1f} us, least {us[0]:.1f}, most {us[-1]:.1f}")
+
+    model = F5TTS.from_pretrained(snap, device="cuda", quantization_bits=4)
+    ref, duration, _ = _setup(model)
+
+    def request():
+        model.sample(ref[None], TEXT, duration=duration, steps=STEPS, method="euler", cfg_strength=2.0,
+                     sway_sampling_coef=-1.0, seed=0, return_trajectory=False)
+
+    request()
+    _profiled("int4 request", request)
+    del model
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    model = F5TTS.init(gen, cfg.replace(compute_dtype="bfloat16"), device="cuda", cfm_cfg=CFMConfig())
+    opt = T.make_optimizer(learning_rate=1e-4, num_warmup_steps=0, total_steps=1000)
+    state = T.init_train_state(model.dit, opt, ema=True)
+    batch = _train_batch(gen)
+    draws = draw_cfm(gen, model.cfm_cfg, TRAIN_BATCH, TRAIN_FRAMES, 100, torch.device("cuda"))
+    step = T.make_train_step(model.cfm_cfg, opt, ema_decay=0.999)
+    step(state, *batch, draws=draws)
+    _profiled("CFM step", lambda: step(state, *batch, draws=draws))
+
+
 def main() -> int:
     card = device_phase()
     import torch
@@ -852,12 +1071,13 @@ def main() -> int:
         snapshot_phase(snap)
         float_times, float_launches = float_path_phase(card, snap)
         q_times, q_launches = quantized_path_phase(card, snap)
-    bwd = bwd_kernel_phase()
-    with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
-        _, cfm_ms, cfm_launches = cfm_training_phase(card, tmp)
-    _, dur_ms, dur_launches = duration_training_phase(card)
-    probe = probe_kernel_phase()
-    probe_launches = probe_tools_phase(card)
+        bwd = bwd_kernel_phase()
+        with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
+            _, cfm_ms, cfm_launches = cfm_training_phase(card, tmp)
+        _, dur_ms, dur_launches = duration_training_phase(card)
+        probe = probe_kernel_phase()
+        probe_launches = probe_tools_phase(card)
+        ranking_phase(card, snap)
     print(f"float requests: {', '.join(f'{t * 1e3:.1f} ms' for t in float_times)}; "
           f"int4 requests: {', '.join(f'{t * 1e3:.1f} ms' for t in q_times)}; "
           f"CFM step median {sorted(cfm_ms)[len(cfm_ms) // 2]:.1f} ms; "

@@ -9,75 +9,95 @@
 //   P   = the probabilities, recomputed with the same scale, key-mask bias and
 //         interleaved RoPE (tables rounded to bf16 in the bf16 kernels);
 //   dV  = P^T g;
-//   dS  = P * (g V^T - delta) * scale, with delta = rowsum(g * out) computed
-//         outside the kernel, as in JAX;
+//   dS  = P * (g V^T - delta) * scale, with delta = rowsum(g * out) (the JAX
+//         package computes it outside its kernel; here the bf16 pre-pass
+//         does, and the float32 path's caller);
 //   dQ' = dS K',  dK' = dS^T Q';
 //   dQ, dK = the RoPE backward of dQ', dK': dx = dx' cos + (dx' sin) P^T,
 //         i.e. dx[2j] = dx'[2j] cos[2j] + dx'[2j+1] sin[2j+1] and
 //         dx[2j+1] = dx'[2j+1] cos[2j+1] - dx'[2j] sin[2j].
-// Products accumulate in float32 and dq, dk, dv are written in float32; the
-// Python wrapper casts them to q's dtype. In the bf16 kernels P (for dV) and
-// dS are rounded to bf16 before their products, as the JAX kernel does.
+// Products accumulate in float32. In the bf16 path P (for dV) and dS are
+// rounded to bf16 before their products, as the JAX kernel does, and dq, dk,
+// dv are written in bf16, one rounding of the float32 sum; the float32 path
+// writes float32.
 //
-// What bounds it on this card. Per (b, h) the work is 10 n^2 d FLOP (five
-// n x n x d products, one of them recomputing S twice) against ~8 n d bytes,
-// so at n = 1024, d = 64 it wants the tensor cores. The TPU kernel holds all
-// of K and V of one head in VMEM and accumulates dK and dV across the
-// sequential q-block grid in its output refs. Hopper blocks run in parallel
-// and in no order, so nothing can be carried between them; this design
-// splits the work in two kernels that need no float atomics and are
-// deterministic:
-//   - dkdv: one block per 64-key tile owns dK and dV of those keys in
-//     registers and streams Q', g and the row statistics over all queries;
-//   - dq: one block per 64-query tile owns dQ in registers and streams K'
-//     and V over all keys.
-// The row statistics come from the forward: P = exp(s - lse) with the
-// log-sum-exp K1 saved (flash_attention_fwd.cu), so no pass rescans a row.
-// A row whose keys are all masked has lse ~ -1e30, where m + log(l) loses
-// log(l); such a row is uniform over the n keys (as the forward and the
-// plain version make it), so the kernels give it P = 1/n directly.
+// The TPU kernel holds all of K and V of one head in VMEM and accumulates dK
+// and dV across the sequential q-block grid in its output refs. Hopper
+// blocks run in parallel and in no order, so nothing can be carried between
+// them; both paths split the work in two kernels that need no float atomics
+// and are deterministic:
+//   - dkdv: a block owns dK and dV of a run of keys in registers and streams
+//     Q', g and the row statistics over all queries;
+//   - dq: a block owns dQ of a run of queries and streams K', V and the key
+//     biases over all keys.
+// That is 14 n^2 d FLOP per (b, h) where the Pallas kernel does 10 (S and
+// dP are computed in both kernels). The row statistics come from the
+// forward: P = exp(s - lse) with the log-sum-exp K1 saved
+// (flash_attention_fwd.cu), so no pass rescans a row. A row whose keys are
+// all masked has lse ~ -1e30, where m + log(l) loses log(l); such a row is
+// uniform over the n keys (as the forward and the plain version make it), so
+// the kernels give it P = 1/n directly.
 //
-// bf16 design: 4 warps per 64-row tile, 16 rows each; every product runs
-// through mma.sync m16n8k16 (bf16 operands, float32 accumulation), and a
-// score accumulator's register layout is reused as the A operand of the next
-// product, so P and dS never leave registers. Each warp owns DC output
-// columns (64, or 128 at d = 256), so d = 128 and 256 run 8 warps that share
-// their 16 rows' score products; the accumulators stay within 255 registers.
-// Tiles stage through shared memory (4 tiles of 64 x (d + 8) bf16).
+// What bounds it on this card. At n = 1024, d = 64 the work is far above the
+// ridge point: it is bound by the tensor cores, which only wgmma drives at
+// full rate. The first bf16 version (mma.sync, 55.7 TFLOP/s counted on the
+// H100) staged every tile with plain loads between two __syncthreads, so no
+// copy overlapped a product; rotated each Q (or K) tile again in every block
+// (16 times per head at n = 1024); built the B operand of the P V shaped
+// products from scalar shared-memory loads; and left delta and three
+// float32-to-bf16 casts to PyTorch around it. This design:
+//   - a pre-pass kernel, one launch over the rows, writes rope(q) and rope(k)
+//     once as bf16 scratch (tables rounded to bf16, one bf16 rounding of the
+//     float32 rotation, as the forward rounds), the row statistics
+//     (lse, delta = rowsum(g * out) in float32) padded to a multiple of 128
+//     rows with (FLT_MAX, 0), and each key's bias (0, -1e30 masked, -FLT_MAX
+//     past n), so rows and keys past n contribute exactly 0 whatever TMA's
+//     zero fill brings;
+//   - at d = 64 and 128 the main kernels are warp specialised: one producer
+//     warp keeps a ring of 2 or 3 shared-memory stages filled with TMA
+//     copies (4-d tensor maps over the (batch, head, row) strides, so v and
+//     g are read in place from [b, n, h, d] projection views; 128-byte
+//     swizzle) and bulk copies of the row stats or key biases, each stage
+//     guarded by a full and an empty mbarrier; one or two consumer
+//     warpgroups (64 owned rows each; two at d = 64, one at d = 128 to stay
+//     within 255 registers) run wgmma.m64nNk16: the score-shaped products
+//     with both operands in shared memory (K-major), the P V shaped ones
+//     with P or dS as bf16 register A fragments and the streamed tile as an
+//     MN-major B operand (wgmma's transpose bit, no scalar loads);
+//   - at d = 256 the dK and dV accumulators of 64 rows would need 256
+//     registers a thread, so d = 256 keeps the first version's mma.sync
+//     kernels (4 or 8 warps a 64-row tile, tiles staged through padded
+//     shared memory), reading the pre-pass's outputs;
+//   - the epilogue applies the RoPE backward in registers (the pair
+//     (2j, 2j+1) sits in one thread's accumulator) and writes bf16.
 //
 // float32 design: 8 lanes per row, each owning d/8 of the row's dims in
 // float4 chunks, as the float32 forward; a score is a partial dot product
-// summed over the row's 8 lanes with shuffles. No TF32.
+// summed over the row's 8 lanes with shuffles. No TF32. delta is computed
+// by the caller; RoPE is applied while rows are staged.
 //
 // q, k, v and g are addressed through (batch, head, row) strides, so
 // [b, n, h, d] projection views are read without a transpose copy; the head
-// dim must be contiguous and rows 16-byte aligned. Rows and keys past n (the
-// ragged last tile) are zero-filled and contribute exactly 0.
-// cp.async / TMA pipelining, wgmma and warp specialisation are not used yet.
+// dim must be contiguous and rows 16-byte aligned.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
 constexpr int BM = 64;  // rows per tile (queries or keys)
-constexpr int PAD = 8;  // bf16 padding per shared-memory row: conflict-free fragment loads
+constexpr int PAD = 8;  // bf16 padding per shared-memory row of the mma.sync kernels
 constexpr float MASKED = -1e30f;
 constexpr float FULLY_MASKED = -1e29f;  // an lse below this marks a row with every key masked
 
-template <int D>
-struct Shape {
-  static constexpr int DC = D <= 128 ? 64 : 128;  // output columns per warp
-  static constexpr int WARPS = 4 * (D / DC);
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int LD = D + PAD;
-};
-
+// The float32 kernels' arguments.
 template <typename T>
 struct Params {
   const T* q;
@@ -89,7 +109,7 @@ struct Params {
   const uint8_t* mask;  // [b, n] or null
   const float* cos;     // [n, d] or null
   const float* sin;     // [n, d] or null
-  float* dq;            // [b, h, n, d], contiguous
+  float* dq;            // [b, h, n, d], contiguous float32
   float* dk;
   float* dv;
   int n;
@@ -118,36 +138,504 @@ __device__ __forceinline__ float prob_f32(float s, float bias, float lse, float 
 
 // ---------------------------------------------------------------- bf16
 
-// Copy rows [row0, row0 + 64) of one head into shared memory (row stride
-// D + PAD), zero-filling rows >= n. With tables, rotate each (2j, 2j+1) pair
-// as the forward does.
+constexpr int ROW_PAD = 128;  // the row statistics and key biases are padded to a multiple of this
+
+// The bf16 path's arguments: the pre-pass reads q, k, g, out, lse, the mask
+// and the tables and writes qr, kr, stats and kbias; the main kernels read
+// qr, kr, v, g (through tensor maps or strides), stats and kbias, and the
+// tables for the RoPE backward, and write bf16 dq, dk, dv.
+struct BwdParams {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* g;
+  const __nv_bfloat16* out;
+  const float* lse;     // [b, h, n]
+  const uint8_t* mask;  // [b, n] or null
+  const float* cos;     // [n, d] or null
+  const float* sin;
+  __nv_bfloat16* qr;    // rope(q), rope(k): [b, h, n, d] contiguous
+  __nv_bfloat16* kr;
+  float2* stats;        // [b, h, n_pad]: (lse, delta) of each query row; (FLT_MAX, 0) past n
+  float* kbias;         // [b, n_pad]: each key's additive bias; -FLT_MAX past n
+  __nv_bfloat16* dq;    // [b, h, n, d] contiguous
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int h, n, n_pad;
+  long long q_sb, q_sh, q_sn;
+  long long k_sb, k_sh, k_sn;
+  long long v_sb, v_sh, v_sn;
+  long long g_sb, g_sh, g_sn;
+  long long o_sb, o_sh, o_sn;
+  float scale;
+};
+
+// Copy one 16-byte chunk (8 dims from an even dim c) of a row, rotated with
+// the row's tables when given: the tables are rounded to bf16, then
+// x'[2j] = x[2j] c[2j] - x[2j+1] s[2j] and x'[2j+1] = x[2j+1] c[2j+1] +
+// x[2j] s[2j+1] in float32, rounded once to bf16 (the forward's rounding).
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g, long long sn,
-                                          int row0, int n, const float* cos, const float* sin) {
+__device__ __forceinline__ void rope_chunk_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src, const float* cos,
+                                                const float* sin, int row, int c) {
+  uint4 val = *reinterpret_cast<const uint4*>(src);
+  if (cos != nullptr) {
+    const float4* cr = reinterpret_cast<const float4*>(cos + static_cast<long long>(row) * D + c);
+    const float4* sr = reinterpret_cast<const float4*>(sin + static_cast<long long>(row) * D + c);
+    const float4 c0 = cr[0], c1 = cr[1], s0 = sr[0], s1 = sr[1];
+    const float cs[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+    const float ss[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 xf = __bfloat1622float2(x[j]);
+      const float ce = round_bf16(cs[2 * j]), co = round_bf16(cs[2 * j + 1]);
+      const float se = round_bf16(ss[2 * j]), so = round_bf16(ss[2 * j + 1]);
+      x[j] = __floats2bfloat162_rn(xf.x * ce - xf.y * se, xf.y * co + xf.x * so);
+    }
+  }
+  *reinterpret_cast<uint4*>(dst) = val;
+}
+
+// The pre-pass: one launch over the (b, h, n_pad) rows, D / 8 threads a row.
+// Writes qr = rope(q) and kr = rope(k) once (every main-kernel block used to
+// rotate each tile it read), stats = (lse, rowsum(g * out)) in float32, and
+// from the h = 0 rows each key's bias (0, MASKED, or -FLT_MAX past n).
+template <int D>
+__global__ void __launch_bounds__(256) flash_bwd_prepass_kernel(const BwdParams p, long long rows) {
+  constexpr int TPR = D / 8;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long row = idx / TPR;
+  if (row >= rows) return;  // rows is a multiple of ROW_PAD, so whole warps leave together
+  const int sub = static_cast<int>(idx % TPR);
+  const long long bh = row / p.n_pad;
+  const int i = static_cast<int>(row % p.n_pad);
+  const int b = static_cast<int>(bh / p.h), h = static_cast<int>(bh % p.h);
+  const int c = sub * 8;
+  float delta = 0.f;
+  if (i < p.n) {
+    const long long o = (bh * p.n + i) * D + c;
+    rope_chunk_bf16<D>(p.qr + o, p.q + b * p.q_sb + h * p.q_sh + i * p.q_sn + c, p.cos, p.sin, i, c);
+    rope_chunk_bf16<D>(p.kr + o, p.k + b * p.k_sb + h * p.k_sh + i * p.k_sn + c, p.cos, p.sin, i, c);
+    const uint4 gv = *reinterpret_cast<const uint4*>(p.g + b * p.g_sb + h * p.g_sh + i * p.g_sn + c);
+    const uint4 ov = *reinterpret_cast<const uint4*>(p.out + b * p.o_sb + h * p.o_sh + i * p.o_sn + c);
+    const __nv_bfloat162* gx = reinterpret_cast<const __nv_bfloat162*>(&gv);
+    const __nv_bfloat162* ox = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 gf = __bfloat1622float2(gx[j]), of = __bfloat1622float2(ox[j]);
+      delta += gf.x * of.x + gf.y * of.y;
+    }
+  }
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1) delta += __shfl_xor_sync(0xffffffffu, delta, off);
+  if (sub == 0) {
+    p.stats[row] = i < p.n ? make_float2(p.lse[bh * p.n + i], delta) : make_float2(FLT_MAX, 0.f);
+    if (h == 0) {
+      const uint8_t* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(b) * p.n;
+      p.kbias[static_cast<long long>(b) * p.n_pad + i] = key_bias(mask, i, p.n);
+    }
+  }
+}
+
+// The RoPE backward of one (2j, 2j+1) pair of a gradient row, tables rounded
+// to bf16: dx[2j] = dx'[2j] c[2j] + dx'[2j+1] s[2j+1], dx[2j+1] =
+// dx'[2j+1] c[2j+1] - dx'[2j] s[2j]. Returns the pair rounded once to bf16.
+template <int D>
+__device__ __forceinline__ __nv_bfloat162 rope_bwd_pair(float x0, float x1, const float* cos, const float* sin,
+                                                        int row, int col) {
+  if (cos != nullptr) {
+    const long long o = static_cast<long long>(row) * D + col;
+    const float ce = round_bf16(cos[o]), co = round_bf16(cos[o + 1]);
+    const float se = round_bf16(sin[o]), so = round_bf16(sin[o + 1]);
+    const float y0 = x0 * ce + x1 * so, y1 = x1 * co - x0 * se;
+    x0 = y0;
+    x1 = y1;
+  }
+  return __floats2bfloat162_rn(x0, x1);
+}
+
+// ------------------------------------------ bf16, d = 64 and 128: TMA + wgmma
+
+template <int D>
+struct WShape {
+  static constexpr int WGS = D == 64 ? 2 : 1;   // consumer warpgroups, 64 owned rows each
+  static constexpr int ROWS = 64 * WGS;         // rows a block owns (keys for dK/dV, queries for dQ)
+  static constexpr int PANELS = D / 64;         // 64-dim panels of a tile (128-byte swizzled rows)
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int THREADS = CONSUMERS + 32;  // + one producer warp
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int PANEL = BM * 128;         // bytes of one 64-row panel of a streamed tile
+  static constexpr int TILE = PANELS * PANEL;    // a streamed 64-row tile
+  static constexpr int OWN_PANEL = ROWS * 128;   // bytes of one panel of an owned tile
+  static constexpr int OWN = PANELS * OWN_PANEL;
+  static constexpr int STAGE = 2 * TILE + 1024;  // two tiles + 512 B of row stats or 256 B of key biases
+  static constexpr int BAR_OFF = 2 * OWN + STAGES * STAGE;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + slack to align the base to 1024
+};
+
+// Descriptor of k16 step kc of a K-major operand: panel kc / 4, 32 bytes a step inside it.
+__device__ __forceinline__ uint64_t kmajor(uint64_t desc, int kc, int panel_bytes) {
+  return desc + (((kc / 4) * panel_bytes + (kc % 4) * 32) >> 4);
+}
+
+// Descriptor of k16 step kc of an MN-major operand: 16 rows of 128 bytes a step.
+__device__ __forceinline__ uint64_t mnmajor(uint64_t desc, int kc) { return desc + ((kc * 16 * 128) >> 4); }
+
+// Round a [64 x 64] score-shaped accumulator to bf16 A fragments, one per k16 step.
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    a[kc][0] = pack_f32(x[8 * kc + 0], x[8 * kc + 1]);
+    a[kc][1] = pack_f32(x[8 * kc + 2], x[8 * kc + 3]);
+    a[kc][2] = pack_f32(x[8 * kc + 4], x[8 * kc + 5]);
+    a[kc][3] = pack_f32(x[8 * kc + 6], x[8 * kc + 7]);
+  }
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// Store a thread's share of a [64 x D] accumulator (rows row0 + g and
+// row0 + g + 8 of the block's rows) as bf16 rows of a contiguous [n, D]
+// head, with the RoPE backward when tables are given.
+template <int D>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[D / 2], int row0, int n,
+                                          const float* cos, const float* sin) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = row0 + g + 8 * hi;
+    if (row >= n) continue;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int col = 8 * i + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * D + col) =
+          rope_bwd_pair<D>(acc[4 * i + 2 * hi], acc[4 * i + 2 * hi + 1], cos, sin, row, col);
+    }
+  }
+}
+
+// dK, dV for ROWS keys. The producer (lane 0 of the last warp) loads the
+// block's K' and V once and then streams Q', g and the row stats of each
+// 64-query tile through the ring. Each consumer warpgroup owns 64 keys:
+// S^T = K' Q'^T and dP^T = V g^T from shared memory (K-major), P^T and
+// dS^T in registers, then dV += P^T g and dK' += dS^T Q' with P^T and dS^T
+// as bf16 A fragments and g, Q' as MN-major B operands (wgmma's transpose).
+template <int D>
+__global__ void __launch_bounds__(WShape<D>::THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qr_map, const __grid_constant__ CUtensorMap kr_map,
+                            const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap g_map,
+                            const BwdParams p) {
+  using W = WShape<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + W::OWN;
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + W::BAR_OFF);
+  uint64_t* full = own + 1;
+  uint64_t* empty = full + W::STAGES;
+  auto stage = [&](int s) { return smem + 2 * W::OWN + s * W::STAGE; };
+
+  const int k0 = blockIdx.x * W::ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long bh = static_cast<long long>(b) * p.h + h;
+  const int tiles = (p.n + BM - 1) / BM;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own, 1);
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W::CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= W::CONSUMERS) {  // producer warp
+    if (threadIdx.x == W::CONSUMERS) {
+      mbar_arrive_expect_tx(own, 2 * W::OWN);
+      for (int pn = 0; pn < W::PANELS; ++pn) {
+        for (int r = 0; r < W::WGS; ++r) {
+          const int off = pn * W::OWN_PANEL + r * W::PANEL;
+          tma_load_4d(sK + off, &kr_map, own, pn * 64, k0 + r * BM, h, b);
+          tma_load_4d(sV + off, &v_map, own, pn * 64, k0 + r * BM, h, b);
+        }
+      }
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % W::STAGES;
+        if (it >= W::STAGES) mbar_wait(&empty[s], (it / W::STAGES - 1) & 1);
+        unsigned char* st = stage(s);
+        mbar_arrive_expect_tx(&full[s], 2 * W::TILE + BM * 8);
+        for (int pn = 0; pn < W::PANELS; ++pn) {
+          tma_load_4d(st + pn * W::PANEL, &qr_map, &full[s], pn * 64, it * BM, h, b);
+          tma_load_4d(st + W::TILE + pn * W::PANEL, &g_map, &full[s], pn * 64, it * BM, h, b);
+        }
+        bulk_load(st + 2 * W::TILE, p.stats + bh * p.n_pad + it * BM, BM * 8, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row0 = wg * 64 + (threadIdx.x / 32 % 4) * 16;  // this warp's first key in the block
+  const float* kbias = p.kbias + static_cast<long long>(b) * p.n_pad + k0 + row0 + g;
+  const float bias[2] = {kbias[0], kbias[8]};  // keys row0 + g and row0 + g + 8
+  const float inv_n = 1.f / p.n;
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(own, 0);
+  const uint64_t k_desc = sw128_desc(sK + wg * W::PANEL);
+  const uint64_t v_desc = sw128_desc(sV + wg * W::PANEL);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % W::STAGES;
+    mbar_wait(&full[s], (it / W::STAGES) & 1);
+    unsigned char* st = stage(s);
+    const float2* stats = reinterpret_cast<const float2*>(st + 2 * W::TILE);
+
+    float sc[32], dp[32];
+    const uint64_t q_desc = sw128_desc(st), g_desc = sw128_desc(st + W::TILE);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      wgmma_ss(sc, kmajor(k_desc, kc, W::OWN_PANEL), kmajor(q_desc, kc, W::PANEL), kc > 0);
+    }
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      wgmma_ss(dp, kmajor(v_desc, kc, W::OWN_PANEL), kmajor(g_desc, kc, W::PANEL), kc > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P^T = exp(s + bias - lse); dS^T = P^T (dP^T - delta) scale
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 sd = stats[8 * i + 2 * t + (e & 1)];
+        const float pr = prob(sc[4 * i + e] * p.scale, bias[e >> 1], sd.x, inv_n);
+        sc[4 * i + e] = pr;
+        dp[4 * i + e] = pr * (dp[4 * i + e] - sd.y) * p.scale;
+      }
+    }
+    uint32_t pa[4][4], da[4][4];
+    to_a_frags(pa, sc);  // P rounded to bf16 before dV
+    to_a_frags(da, dp);  // dS rounded to bf16 before dK
+    const uint64_t gt_desc = sw128_desc(st + W::TILE, W::PANEL), qt_desc = sw128_desc(st, W::PANEL);
+    wgmma_fence();
+    fence_regs(dv);
+    fence_regs(dk);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dv, pa[kc], mnmajor(gt_desc, kc), 1);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dk, da[kc], mnmajor(qt_desc, kc), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(&empty[s]);
+  }
+
+  store_acc<D>(p.dk + bh * p.n * D, dk, k0 + row0, p.n, p.cos, p.sin);
+  store_acc<D>(p.dv + bh * p.n * D, dv, k0 + row0, p.n, nullptr, nullptr);
+}
+
+// dQ for ROWS queries. The producer loads the block's Q' and g once and then
+// streams K', V and the key biases of each 64-key tile. Each consumer
+// warpgroup owns 64 queries: S = Q' K'^T and dP = g V^T from shared memory,
+// P and dS in registers, dQ' += dS K' with K' as the MN-major B operand.
+// Two blocks share an SM: this kernel waits on latency more than on the
+// tensor cores, and four consumer warpgroups an SM beat two even though,
+// at d = 64, ptxas then serializes the wgmmas of a warpgroup to fit 112
+// registers a thread (0.287 against 0.310 ms a backward call at the CFM
+// training shape on the H100).
+template <int D>
+__global__ void __launch_bounds__(WShape<D>::THREADS, 2)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qr_map, const __grid_constant__ CUtensorMap kr_map,
+                          const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap g_map,
+                          const BwdParams p) {
+  using W = WShape<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sG = smem + W::OWN;
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + W::BAR_OFF);
+  uint64_t* full = own + 1;
+  uint64_t* empty = full + W::STAGES;
+  auto stage = [&](int s) { return smem + 2 * W::OWN + s * W::STAGE; };
+
+  const int q0 = blockIdx.x * W::ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long bh = static_cast<long long>(b) * p.h + h;
+  const int tiles = (p.n + BM - 1) / BM;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own, 1);
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W::CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= W::CONSUMERS) {  // producer warp
+    if (threadIdx.x == W::CONSUMERS) {
+      mbar_arrive_expect_tx(own, 2 * W::OWN);
+      for (int pn = 0; pn < W::PANELS; ++pn) {
+        for (int r = 0; r < W::WGS; ++r) {
+          const int off = pn * W::OWN_PANEL + r * W::PANEL;
+          tma_load_4d(sQ + off, &qr_map, own, pn * 64, q0 + r * BM, h, b);
+          tma_load_4d(sG + off, &g_map, own, pn * 64, q0 + r * BM, h, b);
+        }
+      }
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % W::STAGES;
+        if (it >= W::STAGES) mbar_wait(&empty[s], (it / W::STAGES - 1) & 1);
+        unsigned char* st = stage(s);
+        mbar_arrive_expect_tx(&full[s], 2 * W::TILE + BM * 4);
+        for (int pn = 0; pn < W::PANELS; ++pn) {
+          tma_load_4d(st + pn * W::PANEL, &kr_map, &full[s], pn * 64, it * BM, h, b);
+          tma_load_4d(st + W::TILE + pn * W::PANEL, &v_map, &full[s], pn * 64, it * BM, h, b);
+        }
+        bulk_load(st + 2 * W::TILE, p.kbias + static_cast<long long>(b) * p.n_pad + it * BM, BM * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row0 = wg * 64 + (threadIdx.x / 32 % 4) * 16;  // this warp's first query in the block
+  const float2* stats = p.stats + bh * p.n_pad + q0 + row0 + g;
+  const float2 sd[2] = {stats[0], stats[8]};  // rows row0 + g and row0 + g + 8
+  const float inv_n = 1.f / p.n;
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(own, 0);
+  const uint64_t q_desc = sw128_desc(sQ + wg * W::PANEL);
+  const uint64_t g_desc = sw128_desc(sG + wg * W::PANEL);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % W::STAGES;
+    mbar_wait(&full[s], (it / W::STAGES) & 1);
+    unsigned char* st = stage(s);
+    const float* kb = reinterpret_cast<const float*>(st + 2 * W::TILE);
+
+    float sc[32], dp[32];
+    const uint64_t k_desc = sw128_desc(st), v_desc = sw128_desc(st + W::TILE);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      wgmma_ss(sc, kmajor(q_desc, kc, W::OWN_PANEL), kmajor(k_desc, kc, W::PANEL), kc > 0);
+    }
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      wgmma_ss(dp, kmajor(g_desc, kc, W::OWN_PANEL), kmajor(v_desc, kc, W::PANEL), kc > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS = P (dP - delta) scale, P = exp(s + bias - lse)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = prob(sc[4 * i + e] * p.scale, kb[8 * i + 2 * t + (e & 1)], sd[e >> 1].x, inv_n);
+        dp[4 * i + e] = pr * (dp[4 * i + e] - sd[e >> 1].y) * p.scale;
+      }
+    }
+    uint32_t da[4][4];
+    to_a_frags(da, dp);  // dS rounded to bf16 before dQ
+    const uint64_t kt_desc = sw128_desc(st, W::PANEL);
+    wgmma_fence();
+    fence_regs(dq);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dq, da[kc], mnmajor(kt_desc, kc), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(&empty[s]);
+  }
+
+  store_acc<D>(p.dq + bh * p.n * D, dq, q0 + row0, p.n, p.cos, p.sin);
+}
+
+// A 4-d tensor map of a [b, h, n, D] bf16 tensor with (batch, head, row)
+// strides in elements: dims (D, n, h, b), 64 x 64 boxes, 128-byte swizzle.
+template <int D>
+cudaError_t head_map(CUtensorMap* map, const void* base, int b, int h, int n, long long sb, long long sh,
+                     long long sn) {
+  const uint64_t dims[4] = {D, static_cast<uint64_t>(n), static_cast<uint64_t>(h), static_cast<uint64_t>(b)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(sn) * 2, static_cast<uint64_t>(sh) * 2,
+                               static_cast<uint64_t>(sb) * 2};
+  const uint32_t box[4] = {64, BM, 1, 1};
+  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int D>
+cudaError_t launch_wgmma(const BwdParams& p, int b, cudaStream_t stream) {
+  using W = WShape<D>;
+  const long long hn = static_cast<long long>(p.n) * D;
+  CUtensorMap qr_map, kr_map, v_map, g_map;
+  cudaError_t err = head_map<D>(&qr_map, p.qr, b, p.h, p.n, p.h * hn, hn, D);
+  if (err == cudaSuccess) err = head_map<D>(&kr_map, p.kr, b, p.h, p.n, p.h * hn, hn, D);
+  if (err == cudaSuccess) err = head_map<D>(&v_map, p.v, b, p.h, p.n, p.v_sb, p.v_sh, p.v_sn);
+  if (err == cudaSuccess) err = head_map<D>(&g_map, p.g, b, p.h, p.n, p.g_sb, p.g_sh, p.g_sn);
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> dkdv_raised[MAX_DEVICES], dq_raised[MAX_DEVICES];
+  err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dkdv_wgmma_kernel<D>), W::SMEM, dkdv_raised);
+  if (err == cudaSuccess) {
+    err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel<D>), W::SMEM, dq_raised);
+  }
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n + W::ROWS - 1) / W::ROWS, p.h, b);
+  flash_bwd_dkdv_wgmma_kernel<D><<<grid, W::THREADS, W::SMEM, stream>>>(qr_map, kr_map, v_map, g_map, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma_kernel<D><<<grid, W::THREADS, W::SMEM, stream>>>(qr_map, kr_map, v_map, g_map, p);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------ bf16, d = 256: mma.sync
+
+// At d = 256 a warpgroup owning 64 rows would hold 64 x 256 float32 dK and
+// dV accumulators (256 registers a thread) beside the score tiles, past the
+// 255-register limit, so d = 256 keeps the first version's mma.sync kernels,
+// reading the pre-pass's qr, kr, stats and key biases.
+
+template <int D>
+struct Shape {
+  static constexpr int DC = D <= 128 ? 64 : 128;  // output columns per warp
+  static constexpr int WARPS = 4 * (D / DC);
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int LD = D + PAD;
+};
+
+// Copy rows [row0, row0 + 64) of one head into shared memory (row stride
+// D + PAD), zero-filling rows >= n.
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g, long long sn, int row0, int n) {
   constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
   for (int i = threadIdx.x; i < BM * CHUNKS; i += Shape<D>::THREADS) {
     const int r = i / CHUNKS;
     const int c = (i % CHUNKS) * 8;
     const int row = row0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n) {
-      val = *reinterpret_cast<const uint4*>(g + row * sn + c);
-      if (cos != nullptr) {
-        const float4* cr = reinterpret_cast<const float4*>(cos + static_cast<long long>(row) * D + c);
-        const float4* sr = reinterpret_cast<const float4*>(sin + static_cast<long long>(row) * D + c);
-        const float4 c0 = cr[0], c1 = cr[1], s0 = sr[0], s1 = sr[1];
-        const float cs[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-        const float ss[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-        __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 xf = __bfloat1622float2(x[j]);
-          const float ce = round_bf16(cs[2 * j]), co = round_bf16(cs[2 * j + 1]);
-          const float se = round_bf16(ss[2 * j]), so = round_bf16(ss[2 * j + 1]);
-          x[j] = __floats2bfloat162_rn(xf.x * ce - xf.y * se, xf.y * co + xf.x * so);
-        }
-      }
-    }
+    if (row < n) val = *reinterpret_cast<const uint4*>(g + row * sn + c);
     *reinterpret_cast<uint4*>(s + r * (D + PAD) + c) = val;
   }
 }
@@ -194,10 +682,10 @@ __device__ __forceinline__ void product(float (&acc)[Shape<D>::DC / 8][4], const
   }
 }
 
-// Write a thread's share of a [16 x DC] float32 accumulator for rows
-// row0 + g and row0 + g + 8, applying the RoPE backward with the rows' tables.
+// Write a thread's share of a [16 x DC] accumulator for rows row0 + g and
+// row0 + g + 8 as bf16, applying the RoPE backward with the rows' tables.
 template <int D>
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[Shape<D>::DC / 8][4], int row0,
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[Shape<D>::DC / 8][4], int row0,
                                            int c0, int n, const float* cos, const float* sin) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
@@ -207,22 +695,14 @@ __device__ __forceinline__ void store_rows(float* out, const float (&acc)[Shape<
 #pragma unroll
     for (int dt = 0; dt < Shape<D>::DC / 8; ++dt) {
       const int col = c0 + dt * 8 + 2 * t;
-      float x0 = acc[dt][2 * r], x1 = acc[dt][2 * r + 1];
-      if (cos != nullptr) {
-        const long long o = static_cast<long long>(row) * D + col;
-        const float ce = round_bf16(cos[o]), co = round_bf16(cos[o + 1]);
-        const float se = round_bf16(sin[o]), so = round_bf16(sin[o + 1]);
-        const float y0 = x0 * ce + x1 * so, y1 = x1 * co - x0 * se;
-        x0 = y0;
-        x1 = y1;
-      }
-      *reinterpret_cast<float2*>(out + static_cast<long long>(row) * D + col) = make_float2(x0, x1);
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * D + col) =
+          rope_bwd_pair<D>(acc[dt][2 * r], acc[dt][2 * r + 1], cos, sin, row, col);
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dkdv_kernel(const Params<__nv_bfloat16> p) {
+__global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dkdv_kernel(const BwdParams p) {
   using S = Shape<D>;
   constexpr int LD = S::LD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -230,8 +710,7 @@ __global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dkdv_kernel(const
   __nv_bfloat16* sV = sK + BM * LD;
   __nv_bfloat16* sQ = sV + BM * LD;
   __nv_bfloat16* sG = sQ + BM * LD;
-  float* sLse = reinterpret_cast<float*>(sG + BM * LD);
-  float* sDelta = sLse + BM;
+  float2* sStats = reinterpret_cast<float2*>(sG + BM * LD);
 
   const int k0 = blockIdx.x * BM;
   const int h = blockIdx.y;
@@ -242,19 +721,18 @@ __global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dkdv_kernel(const
   const int c0 = (warp / 4) * S::DC;  // warp's first output column
   const long long bh = static_cast<long long>(b) * gridDim.y + h;
 
-  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* qg = p.qr + bh * p.n * D;
+  const __nv_bfloat16* kg = p.kr + bh * p.n * D;
   const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
   const __nv_bfloat16* gg = p.g + b * p.g_sb + h * p.g_sh;
-  const float* lse = p.lse + bh * p.n;
-  const float* delta = p.delta + bh * p.n;
-  const uint8_t* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(b) * p.n;
+  const float2* stats = p.stats + bh * p.n_pad;
+  const float* kbias = p.kbias + static_cast<long long>(b) * p.n_pad;
   const float inv_n = 1.f / p.n;
 
-  load_tile<D>(sK, kg, p.k_sn, k0, p.n, p.cos, p.sin);
-  load_tile<D>(sV, vg, p.v_sn, k0, p.n, nullptr, nullptr);
+  load_tile<D>(sK, kg, D, k0, p.n);
+  load_tile<D>(sV, vg, p.v_sn, k0, p.n);
   // this thread's keys: wr + g (index 0) and wr + g + 8 (index 1)
-  const float bias[2] = {key_bias(mask, k0 + wr + g, p.n), key_bias(mask, k0 + wr + g + 8, p.n)};
+  const float bias[2] = {kbias[k0 + wr + g], kbias[k0 + wr + g + 8]};
 
   float dk[S::DC / 8][4], dv[S::DC / 8][4];
 #pragma unroll
@@ -265,13 +743,9 @@ __global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dkdv_kernel(const
 
   for (int q0 = 0; q0 < p.n; q0 += BM) {
     __syncthreads();  // the previous tile is consumed by every warp
-    load_tile<D>(sQ, qg, p.q_sn, q0, p.n, p.cos, p.sin);
-    load_tile<D>(sG, gg, p.g_sn, q0, p.n, nullptr, nullptr);
-    if (threadIdx.x < BM) {
-      const int row = q0 + threadIdx.x;
-      sLse[threadIdx.x] = row < p.n ? lse[row] : FLT_MAX;  // rows past n get P = 0
-      sDelta[threadIdx.x] = row < p.n ? delta[row] : 0.f;
-    }
+    load_tile<D>(sQ, qg, D, q0, p.n);
+    load_tile<D>(sG, gg, p.g_sn, q0, p.n);
+    if (threadIdx.x < BM) sStats[threadIdx.x] = stats[q0 + threadIdx.x];  // rows past n: P = 0
     __syncthreads();
 
     // P^T: the warp's 16 keys against the tile's 64 queries
@@ -281,7 +755,7 @@ __global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dkdv_kernel(const
     for (int nt = 0; nt < BM / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        pt[nt][e] = prob(pt[nt][e] * p.scale, bias[e >> 1], sLse[nt * 8 + 2 * t + (e & 1)], inv_n);
+        pt[nt][e] = prob(pt[nt][e] * p.scale, bias[e >> 1], sStats[nt * 8 + 2 * t + (e & 1)].x, inv_n);
       }
     }
     // dV += P^T g
@@ -293,21 +767,19 @@ __global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dkdv_kernel(const
     for (int nt = 0; nt < BM / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        ds[nt][e] = pt[nt][e] * (ds[nt][e] - sDelta[nt * 8 + 2 * t + (e & 1)]) * p.scale;
+        ds[nt][e] = pt[nt][e] * (ds[nt][e] - sStats[nt * 8 + 2 * t + (e & 1)].y) * p.scale;
       }
     }
     // dK' += dS^T Q'
     product<D>(dk, ds, sQ, c0);
   }
 
-  float* dk_out = p.dk + bh * p.n * D;
-  float* dv_out = p.dv + bh * p.n * D;
-  store_rows<D>(dk_out, dk, k0 + wr, c0, p.n, p.cos, p.sin);
-  store_rows<D>(dv_out, dv, k0 + wr, c0, p.n, nullptr, nullptr);
+  store_rows<D>(p.dk + bh * p.n * D, dk, k0 + wr, c0, p.n, p.cos, p.sin);
+  store_rows<D>(p.dv + bh * p.n * D, dv, k0 + wr, c0, p.n, nullptr, nullptr);
 }
 
 template <int D>
-__global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dq_kernel(const Params<__nv_bfloat16> p) {
+__global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dq_kernel(const BwdParams p) {
   using S = Shape<D>;
   constexpr int LD = S::LD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -326,23 +798,17 @@ __global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dq_kernel(const P
   const int c0 = (warp / 4) * S::DC;  // warp's first output column
   const long long bh = static_cast<long long>(b) * gridDim.y + h;
 
-  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* qg = p.qr + bh * p.n * D;
+  const __nv_bfloat16* kg = p.kr + bh * p.n * D;
   const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
   const __nv_bfloat16* gg = p.g + b * p.g_sb + h * p.g_sh;
-  const uint8_t* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(b) * p.n;
+  const float* kbias = p.kbias + static_cast<long long>(b) * p.n_pad;
   const float inv_n = 1.f / p.n;
 
-  load_tile<D>(sQ, qg, p.q_sn, q0, p.n, p.cos, p.sin);
-  load_tile<D>(sG, gg, p.g_sn, q0, p.n, nullptr, nullptr);
+  load_tile<D>(sQ, qg, D, q0, p.n);
+  load_tile<D>(sG, gg, p.g_sn, q0, p.n);
   // this thread's rows: wr + g (index 0) and wr + g + 8 (index 1)
-  float lse[2], delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wr + g + 8 * r;
-    lse[r] = row < p.n ? p.lse[bh * p.n + row] : FLT_MAX;
-    delta[r] = row < p.n ? p.delta[bh * p.n + row] : 0.f;
-  }
+  const float2 sd[2] = {p.stats[bh * p.n_pad + q0 + wr + g], p.stats[bh * p.n_pad + q0 + wr + g + 8]};
 
   float dq[S::DC / 8][4];
 #pragma unroll
@@ -350,9 +816,9 @@ __global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dq_kernel(const P
 
   for (int k0 = 0; k0 < p.n; k0 += BM) {
     __syncthreads();  // the previous tile is consumed by every warp
-    load_tile<D>(sK, kg, p.k_sn, k0, p.n, p.cos, p.sin);
-    load_tile<D>(sV, vg, p.v_sn, k0, p.n, nullptr, nullptr);
-    if (threadIdx.x < BM) sBias[threadIdx.x] = key_bias(mask, k0 + threadIdx.x, p.n);
+    load_tile<D>(sK, kg, D, k0, p.n);
+    load_tile<D>(sV, vg, p.v_sn, k0, p.n);
+    if (threadIdx.x < BM) sBias[threadIdx.x] = kbias[k0 + threadIdx.x];
     __syncthreads();
 
     // P: the warp's 16 queries against the tile's 64 keys
@@ -362,7 +828,7 @@ __global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dq_kernel(const P
     for (int nt = 0; nt < BM / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        pr[nt][e] = prob(pr[nt][e] * p.scale, sBias[nt * 8 + 2 * t + (e & 1)], lse[e >> 1], inv_n);
+        pr[nt][e] = prob(pr[nt][e] * p.scale, sBias[nt * 8 + 2 * t + (e & 1)], sd[e >> 1].x, inv_n);
       }
     }
     // dS = P * (g V^T - delta) * scale
@@ -371,7 +837,7 @@ __global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dq_kernel(const P
 #pragma unroll
     for (int nt = 0; nt < BM / 8; ++nt) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) ds[nt][e] = pr[nt][e] * (ds[nt][e] - delta[e >> 1]) * p.scale;
+      for (int e = 0; e < 4; ++e) ds[nt][e] = pr[nt][e] * (ds[nt][e] - sd[e >> 1].y) * p.scale;
     }
     // dQ' += dS K'
     product<D>(dq, ds, sK, c0);
@@ -381,20 +847,36 @@ __global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dq_kernel(const P
 }
 
 template <int D>
-cudaError_t launch(const Params<__nv_bfloat16>& p, int b, int h, cudaStream_t stream) {
+cudaError_t launch_mma(const BwdParams& p, int b, cudaStream_t stream) {
   const int smem = 4 * BM * Shape<D>::LD * static_cast<int>(sizeof(__nv_bfloat16)) +
-                   2 * BM * static_cast<int>(sizeof(float));
+                   BM * static_cast<int>(sizeof(float2));
   cudaError_t err =
       cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.n + BM - 1) / BM, h, b);
+  const dim3 grid((p.n + BM - 1) / BM, p.h, b);
   flash_bwd_dkdv_kernel<D><<<grid, Shape<D>::THREADS, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dq_kernel<D><<<grid, Shape<D>::THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The pre-pass, then the main kernels of d: the TMA + wgmma pair at d = 64
+// and 128, the mma.sync pair at d = 256 (chosen by d, see above).
+template <int D>
+cudaError_t launch(const BwdParams& p, int b, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(b) * p.h * p.n_pad;
+  const long long threads = rows * (D / 8);
+  flash_bwd_prepass_kernel<D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(p, rows);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if constexpr (D == 256) {
+    return launch_mma<D>(p, b, stream);
+  } else {
+    return launch_wgmma<D>(p, b, stream);
+  }
 }
 
 // ---------------------------------------------------------------- float32
@@ -647,25 +1129,57 @@ Params<T> make_params(const void* q, const void* k, const void* v, const void* g
 
 extern "C" {
 
-// Returns the cudaError_t of the launches (0 on success). q, k, v, g are
-// [b, h, n, d] with (batch, head, row) strides in elements in `strides`
-// (q, k, v, g in turn) and a contiguous head dim; lse and delta are
-// contiguous float32 [b, h, n]; dq, dk, dv contiguous float32 [b, h, n, d].
-int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                           const void* delta, const void* mask, const void* cos, const void* sin, void* dq,
-                           void* dk, void* dv, int b, int h, int n, int d, const long long* strides, float scale,
-                           void* stream) {
-  const auto p = make_params<__nv_bfloat16>(q, k, v, g, lse, delta, mask, cos, sin, dq, dk, dv, n, strides, scale);
+// Returns the cudaError_t of the launches (0 on success). The bf16 backward:
+// q, k, v, g and out are [b, h, n, d] with (batch, head, row) strides in
+// elements in `strides` (q, k, v, g, out in turn) and a contiguous head dim;
+// lse is contiguous float32 [b, h, n]. Scratch the caller allocates: qr and
+// kr bf16 [b, h, n, d], stats float32 [b, h, n_pad, 2] and kbias float32
+// [b, n_pad], n_pad = n rounded up to a multiple of 128. dq, dk, dv are
+// contiguous bf16 [b, h, n, d].
+int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const void* g, const void* out,
+                           const void* lse, const void* mask, const void* cos, const void* sin, void* qr, void* kr,
+                           void* stats, void* kbias, void* dq, void* dk, void* dv, int b, int h, int n, int d,
+                           const long long* strides, float scale, void* stream) {
+  BwdParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.g = static_cast<const __nv_bfloat16*>(g);
+  p.out = static_cast<const __nv_bfloat16*>(out);
+  p.lse = static_cast<const float*>(lse);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.cos = static_cast<const float*>(cos);
+  p.sin = static_cast<const float*>(sin);
+  p.qr = static_cast<__nv_bfloat16*>(qr);
+  p.kr = static_cast<__nv_bfloat16*>(kr);
+  p.stats = static_cast<float2*>(stats);
+  p.kbias = static_cast<float*>(kbias);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.h = h;
+  p.n = n;
+  p.n_pad = (n + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
+  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_sn = strides[2];
+  p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_sn = strides[5];
+  p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_sn = strides[8];
+  p.g_sb = strides[9]; p.g_sh = strides[10]; p.g_sn = strides[11];
+  p.o_sb = strides[12]; p.o_sh = strides[13]; p.o_sn = strides[14];
+  p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return static_cast<int>(launch<64>(p, b, h, s));
-    case 128: return static_cast<int>(launch<128>(p, b, h, s));
-    case 256: return static_cast<int>(launch<256>(p, b, h, s));
+    case 64: return static_cast<int>(launch<64>(p, b, s));
+    case 128: return static_cast<int>(launch<128>(p, b, s));
+    case 256: return static_cast<int>(launch<256>(p, b, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The float32 kernels; the same arguments as f5_flash_attention_bwd.
+// The float32 kernels. Returns the cudaError_t of the launches (0 on
+// success). q, k, v, g are [b, h, n, d] with (batch, head, row) strides in
+// elements in `strides` (q, k, v, g in turn) and a contiguous head dim; lse
+// and delta = rowsum(g * out) are contiguous float32 [b, h, n]; dq, dk, dv
+// contiguous float32 [b, h, n, d].
 int f5_flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
                                const void* delta, const void* mask, const void* cos, const void* sin, void* dq,
                                void* dk, void* dv, int b, int h, int n, int d, const long long* strides,

@@ -16,35 +16,52 @@
 //
 // What bounds it on this card. At the main path's m = 2048 a linear does
 // 2 m k n FLOP against k n bytes of codes, far above the ridge point: it is
-// compute-bound and wants the tensor cores. At the time-conditioning
-// linears' m = 31 it is bound by the bytes of W; there the int8 codes are
-// half the bf16 weight's bytes. The TPU kernel held whole [k, 512] weight
-// slabs in VMEM; here W streams through shared memory in 64 x 64 tiles.
+// compute-bound, and only wgmma reaches the tensor cores' full rate. The
+// first version staged x and the codes with plain loads, dequantized into
+// shared memory and ran mma.sync, so loads, dequantization and products
+// never overlapped (96 TFLOP/s against cuBLAS's 288 on the same product).
+// At the time-conditioning linears' m = 31 the kernel is bound by the bytes
+// of the codes, and a 64-row token tile wasted half its rows. The TPU kernel
+// held whole [k, 512] weight slabs in VMEM; here W streams through shared
+// memory one 64-wide quantization group at a time.
 //
-// Design:
-//   - one block of 4 warps per 64 x 64 output tile; each warp owns a 32 x 32
-//     quarter (2 x 4 mma tiles);
-//   - the k loop steps by one quantization group (64), so one scale and one
-//     bias per output column serve a whole tile;
-//   - bf16 activations: the x tile is copied to shared memory as is; the
-//     code tile is read as 16-byte chunks of int8, dequantized in float32 in
-//     registers and stored as bf16 [n][k] rows, which is the column-major B
-//     operand of mma.sync.m16n8k16 (bf16 in, float32 accumulate);
-//   - float32 activations: a SIMT tile with float32 FMA (no TF32), each of
-//     256 threads owning a 4 x 4 block of outputs, x and W staged k-major;
-//   - rows past m and columns past n are zero-filled when staged and not
-//     written, so any m >= 1 and any n are taken; k must be a multiple of 64;
-//   - the scales and biases may be float32 or bf16 (a bf16 model casts them
-//     with its other float tensors); they are read as float32 either way.
+// Design, bf16 activations (qmm_wgmma_kernel): the operands are swapped,
+// y^T = W x^T, so the weight is wgmma's A operand (64 output columns per
+// block, one consumer warpgroup) and the activations its B operand (TN
+// tokens, 32, 64 or 128 by m, so m = 31 wastes one row of 32, not 33 of
+// 64). A producer warp keeps a ring of 4 to 8 stages filled by TMA: each
+// stage holds the x tile [TN][64] (128-byte swizzle, the K-major B layout)
+// and the int8 code tile [64][64] (64-byte swizzle, so the consumers' 16-bit
+// fragment reads hit 16 distinct banks), with a full and an empty mbarrier.
+// The consumer warpgroup dequantizes the code tile straight into wgmma's
+// A-fragment registers (q * s, then + b, in float32 with round-to-nearest,
+// then one bf16 rounding: the plain version's rounding) with the group's
+// scale and bias read one stage ahead, and runs wgmma.m64nTNk16 with A from
+// registers. The epilogue rounds to bf16, adds the bias, rounds again, and
+// writes y through a shared-memory tile so the transposed accumulator is
+// stored as coalesced rows. The tensor maps are kept per host thread, keyed
+// on the tensor's address and shape: the codes' map once per weight, x's
+// for every activation buffer seen (PyTorch's caching allocator hands the
+// same buffers out again and again). Scales and biases are read
+// by the consumers directly (two of each per thread and stage), not by TMA.
+// Rows past m and columns past n arrive as TMA's zero fill and are not
+// written, so any m >= 1 and any n are taken; k must be a multiple of 64.
 //
-// cp.async / TMA double buffering, wgmma and a persistent schedule are not
-// used yet.
+// Design, float32 activations (qmm_f32_kernel, unchanged): a SIMT tile with
+// float32 FMA (no TF32), each of 256 threads owning a 4 x 4 block of outputs
+// of a 64 x 64 tile, x and W staged k-major with plain loads.
+//
+// The scales and biases may be float32 or bf16 (a bf16 model casts them with
+// its other float tensors); they are read as float32 either way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
+#include <unordered_map>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -61,106 +78,165 @@ __device__ __forceinline__ float dequant(int8_t code, float s, float b) {
   return __fadd_rn(__fmul_rn(static_cast<float>(code), s), b);
 }
 
-// ------------------------------------------------------------- bf16, mma.sync
+// ------------------------------------------------------------- bf16, TMA + wgmma
 
-constexpr int T_THREADS = 128;
-constexpr int LD = BK + 8;  // bf16 row stride in shared memory: conflict-free fragment loads
+constexpr int W_ROWS = 64;  // weight rows (output columns) per block: one consumer warpgroup
+constexpr int W_CONSUMERS = 128;
+constexpr int W_THREADS = W_CONSUMERS + 32;  // warps 0-3 consume, warp 4 produces
+constexpr int EPI_LD = W_ROWS + 8;           // bf16 row stride of the epilogue tile
 
-template <typename ST>
-__global__ void __launch_bounds__(T_THREADS)
-qmm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                const ST* __restrict__ scales, const ST* __restrict__ biases,
-                const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y, int m, int n,
-                int k) {
-  __shared__ __align__(16) __nv_bfloat16 sX[BM * LD];  // [m][k]
-  __shared__ __align__(16) __nv_bfloat16 sW[BN * LD];  // [n][k]
+// Shared memory of the bf16 kernel for TN tokens per block: a ring of
+// stages, each an x tile [TN][64] bf16 (128-byte swizzled rows, written by
+// TMA) and a code tile [64][64] int8 (64-byte swizzled rows), then the
+// epilogue tile [TN][EPI_LD] bf16 and the full / empty barriers.
+template <int TN>
+struct QmmTile {
+  static constexpr int STAGES = TN >= 128 ? 4 : 8;
+  static constexpr int X_BYTES = TN * GROUP * 2;
+  static constexpr int W_BYTES = W_ROWS * GROUP;
+  static constexpr int STAGE_BYTES = X_BYTES + W_BYTES;  // a multiple of 1024
+  static constexpr int EPI_OFF = STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = align_up(EPI_OFF + TN * EPI_LD * 2, 8);
+  static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;  // + slack to align the base to 1024
+};
 
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
+// The byte offset of code (row r, k c) in a 64-byte-swizzled [64][64] int8
+// tile: TMA's 64-byte swizzle XORs the 16-byte chunk index (address bits
+// 4-5) with address bits 7-8, here (r / 2) % 4.
+__device__ __forceinline__ int code_offset(int r, int c) {
+  return r * GROUP + ((((c >> 4) ^ (r >> 1)) & 3) << 4) + (c & 15);
+}
+
+__device__ __forceinline__ uint32_t dequant_pair(const unsigned char* tile, int r, int c, float s, float b) {
+  const uint16_t v = *reinterpret_cast<const uint16_t*>(tile + code_offset(r, c));
+  return pack_f32(dequant(static_cast<int8_t>(v & 0xff), s, b), dequant(static_cast<int8_t>(v >> 8), s, b));
+}
+
+// y^T tile [64 output columns][TN tokens] = W x^T: the dequantized weight is
+// wgmma's A operand (registers), the x tile its B operand (shared memory,
+// K-major, since x is [m, k] row-major). Warp 4's lane 0 keeps the ring of
+// stages filled with TMA copies; warps 0-3 wait for a stage, dequantize the
+// 64 x 64 code tile into A fragments (each k step of 64 is one quantization
+// group, so a row needs one scale and one bias per stage), run four
+// wgmma.m64nTNk16, and release the stage.
+template <int TN, typename ST>
+__global__ void __launch_bounds__(W_THREADS)
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap q_map,
+                 const ST* __restrict__ scales, const ST* __restrict__ biases,
+                 const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y, int m, int n, int k) {
+  using T = QmmTile<TN>;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+
+  const int n0 = blockIdx.x * W_ROWS;
+  const int m0 = blockIdx.y * TN;
+  const int groups = k / GROUP;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // row within the 8-row group of an mma fragment
-  const int t = lane % 4;  // column pair within the fragment
-  const int wm = (warp / 2) * 32;
-  const int wn = (warp % 2) * 32;
-  const int groups = k / GROUP;
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    __syncthreads();  // the previous tiles are consumed by every warp
-    // x tile: 64 rows x 8 chunks of 8 bf16
-    for (int i = threadIdx.x; i < BM * (BK / 8); i += T_THREADS) {
-      const int r = i / (BK / 8);
-      const int c = (i % (BK / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < m) val = *reinterpret_cast<const uint4*>(x + static_cast<long long>(m0 + r) * k + k0 + c);
-      *reinterpret_cast<uint4*>(sX + r * LD + c) = val;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W_CONSUMERS);
     }
-    // code tile: 64 columns x 4 chunks of 16 int8, dequantized to bf16
-    for (int i = threadIdx.x; i < BN * (BK / 16); i += T_THREADS) {
-      const int r = i / (BK / 16);
-      const int c = (i % (BK / 16)) * 16;
-      uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
-      if (n0 + r < n) {
-        const long long col = n0 + r;
-        const int4 codes = *reinterpret_cast<const int4*>(q + col * k + k0 + c);
-        const float s = load_f32(scales + col * groups + k0 / GROUP);
-        const float b = load_f32(biases + col * groups + k0 / GROUP);
-        const int8_t* cb = reinterpret_cast<const int8_t*>(&codes);
-        __nv_bfloat162* wl = reinterpret_cast<__nv_bfloat162*>(&lo);
-        __nv_bfloat162* wh = reinterpret_cast<__nv_bfloat162*>(&hi);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          wl[e] = __floats2bfloat162_rn(dequant(cb[2 * e], s, b), dequant(cb[2 * e + 1], s, b));
-          wh[e] = __floats2bfloat162_rn(dequant(cb[8 + 2 * e], s, b), dequant(cb[9 + 2 * e], s, b));
-        }
-      }
-      *reinterpret_cast<uint4*>(sW + r * LD + c) = lo;
-      *reinterpret_cast<uint4*>(sW + r * LD + c + 8) = hi;
-    }
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const __nv_bfloat16* pa = sX + (wm + mi * 16 + g) * LD + kc * 16 + 2 * t;
-        a[mi][0] = ld32(pa);
-        a[mi][1] = ld32(pa + 8 * LD);
-        a[mi][2] = ld32(pa + 8);
-        a[mi][3] = ld32(pa + 8 * LD + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const __nv_bfloat16* pb = sW + (wn + ni * 8 + g) * LD + kc * 16 + 2 * t;
-        const uint32_t b0 = ld32(pb), b1 = ld32(pb + 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_16816(acc[mi][ni], a[mi][0], a[mi][1], a[mi][2], a[mi][3], b0, b1);
+  if (warp == W_CONSUMERS / 32) {  // producer
+    if (lane == 0) {
+      for (int kb = 0; kb < groups; ++kb) {
+        const int s = kb % STAGES;
+        if (kb >= STAGES) mbar_wait(&empty[s], (kb / STAGES - 1) & 1);
+        unsigned char* stage = smem + s * T::STAGE_BYTES;
+        mbar_arrive_expect_tx(&full[s], T::STAGE_BYTES);
+        tma_load_2d(stage, &x_map, &full[s], kb * GROUP, m0);
+        tma_load_2d(stage + T::X_BYTES, &q_map, &full[s], kb * GROUP, n0);
       }
     }
+    return;
   }
 
-  // c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16 + g;  // this thread's weight rows in the tile: r0 and r0 + 8
+  const int col0 = n0 + r0, col1 = col0 + 8;
+  float acc[TN / 2];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+
+  // this group's scale and bias for the thread's two rows; rows past n read
+  // nothing (their codes are TMA's zero fill and their outputs are dropped)
+  auto group_sb = [&](int kb, float (&sb)[4]) {
+    sb[0] = col0 < n ? load_f32(scales + static_cast<long long>(col0) * groups + kb) : 0.f;
+    sb[1] = col0 < n ? load_f32(biases + static_cast<long long>(col0) * groups + kb) : 0.f;
+    sb[2] = col1 < n ? load_f32(scales + static_cast<long long>(col1) * groups + kb) : 0.f;
+    sb[3] = col1 < n ? load_f32(biases + static_cast<long long>(col1) * groups + kb) : 0.f;
+  };
+  float next[4];
+  group_sb(0, next);
+
+  for (int kb = 0; kb < groups; ++kb) {
+    const int s = kb % STAGES;
+    const float sb[4] = {next[0], next[1], next[2], next[3]};
+    if (kb + 1 < groups) group_sb(kb + 1, next);  // in flight while this stage is processed
+    mbar_wait(&full[s], (kb / STAGES) & 1);
+    const unsigned char* stage = smem + s * T::STAGE_BYTES;
+    const unsigned char* codes = stage + T::X_BYTES;
+
+    // A fragments of the four k16 steps: a0 (row r0, k 2t), a1 (r0 + 8, 2t),
+    // a2 (r0, 2t + 8), a3 (r0 + 8, 2t + 8), dequantized q * s + b in float32
+    // and rounded once to bf16
+    uint32_t a[4][4];
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
+    for (int kc = 0; kc < 4; ++kc) {
+      const int c = kc * 16 + 2 * t;
+      a[kc][0] = dequant_pair(codes, r0, c, sb[0], sb[1]);
+      a[kc][1] = dequant_pair(codes, r0 + 8, c, sb[2], sb[3]);
+      a[kc][2] = dequant_pair(codes, r0, c + 8, sb[0], sb[1]);
+      a[kc][3] = dequant_pair(codes, r0 + 8, c + 8, sb[2], sb[3]);
+    }
+    const uint64_t x_desc = sw128_desc(stage);
+    wgmma_fence();
+    fence_regs(acc);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm + mi * 16 + g + (e >> 1) * 8;
-        const int col = n0 + wn + ni * 8 + 2 * t + (e & 1);
-        if (row < m && col < n) {
-          __nv_bfloat16 out = __float2bfloat16(acc[mi][ni][e]);
-          if (bias != nullptr) out = __float2bfloat16(__bfloat162float(out) + __bfloat162float(bias[col]));
-          y[static_cast<long long>(row) * n + col] = out;
-        }
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs<0>(acc, a[kc], x_desc + (kc * 32 >> 4), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[s]);
+  }
+
+  // Epilogue: round to bf16, add the linear's bias in bf16 and round again,
+  // stage y's tile [TN tokens][64 columns] in shared memory, then write it
+  // row by row so the stores are coalesced.
+  __nv_bfloat16* epi = reinterpret_cast<__nv_bfloat16*>(smem + T::EPI_OFF);
+#pragma unroll
+  for (int i = 0; i < TN / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * (e >> 1);
+      const int tok = 8 * i + 2 * t + (e & 1);
+      __nv_bfloat16 out = __float2bfloat16(acc[4 * i + e]);
+      if (bias != nullptr && n0 + r < n) out = __float2bfloat16(__bfloat162float(out) + __bfloat162float(bias[n0 + r]));
+      epi[tok * EPI_LD + r] = out;
+    }
+  }
+  sync_threads_of(W_CONSUMERS);
+  if (n % 8 == 0) {  // 16-byte rows of 8 columns, each wholly inside or outside [0, n)
+    for (int i = threadIdx.x; i < TN * (W_ROWS / 8); i += W_CONSUMERS) {
+      const int tok = i / (W_ROWS / 8), c = (i % (W_ROWS / 8)) * 8;
+      if (m0 + tok < m && n0 + c < n) {
+        *reinterpret_cast<uint4*>(y + static_cast<long long>(m0 + tok) * n + n0 + c) =
+            *reinterpret_cast<const uint4*>(epi + tok * EPI_LD + c);
       }
+    }
+  } else {
+    for (int i = threadIdx.x; i < TN * W_ROWS; i += W_CONSUMERS) {
+      const int tok = i / W_ROWS, c = i % W_ROWS;
+      if (m0 + tok < m && n0 + c < n) y[static_cast<long long>(m0 + tok) * n + n0 + c] = epi[tok * EPI_LD + c];
     }
   }
 }
@@ -235,22 +311,108 @@ qmm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q, const 
   }
 }
 
+// Tensor maps encoded so far, over all host threads: of x
+// (f5_qmatmul_x_maps_encoded) and of int8 codes (f5_qmatmul_codes_maps_encoded).
+std::atomic<long long> x_maps_encoded{0};
+std::atomic<long long> codes_maps_encoded{0};
+
+// Tensor maps kept per host thread, keyed on a tensor's address; an entry
+// is used only for the same two extents, so a hit is the map the encoder
+// would make again.
+struct MapEntry {
+  CUtensorMap map;
+  int rows = 0, cols = 0;
+};
+using MapCache = std::unordered_map<const void*, MapEntry>;
+
+// The cached map of `p` [rows, cols], else a new one from `encode(map)`,
+// counted in `encoded`.
+template <typename Encode>
+cudaError_t cached_map(MapCache& cache, const void* p, int rows, int cols, std::atomic<long long>& encoded,
+                       const Encode& encode, const CUtensorMap** out) {
+  const auto hit = cache.find(p);
+  if (hit != cache.end() && hit->second.rows == rows && hit->second.cols == cols) {
+    *out = &hit->second.map;
+    return cudaSuccess;
+  }
+  if (cache.size() >= 4096) cache.clear();  // bound the cache of a long-lived thread
+  MapEntry& e = cache[p];
+  const cudaError_t err = encode(&e.map);
+  if (err != cudaSuccess) {
+    cache.erase(p);
+    return err;
+  }
+  e.rows = rows;
+  e.cols = cols;
+  ++encoded;
+  *out = &e.map;
+  return cudaSuccess;
+}
+
+// The tensor map of x [m, k] bf16 in [TN][64] boxes with the 128-byte
+// swizzle. PyTorch's caching allocator hands the same activation buffers
+// out again and again, so the maps of every address seen are kept and a
+// sampling request encodes few (chip_smoke.py counts them): an encode costs
+// host time, and the sampling path is bound by the host.
+template <int TN>
+cudaError_t x_tensor_map(const void* x, int m, int k, const CUtensorMap** out) {
+  static thread_local MapCache cache;
+  return cached_map(cache, x, m, k, x_maps_encoded, [&](CUtensorMap* map) {
+    const uint64_t dims[2] = {static_cast<uint64_t>(k), static_cast<uint64_t>(m)};
+    const uint64_t strides[1] = {static_cast<uint64_t>(k) * 2};
+    const uint32_t box[2] = {GROUP, TN};
+    return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+  }, out);
+}
+
+// The tensor map of int8 codes q [n, k] in [64][64] boxes with the 64-byte
+// swizzle: encoded once per weight (a model holds a few hundred), and a
+// buffer swapped in at another address or with another shape gets its own.
+cudaError_t codes_tensor_map(const void* q, int n, int k, const CUtensorMap** out) {
+  static thread_local MapCache cache;
+  return cached_map(cache, q, n, k, codes_maps_encoded, [&](CUtensorMap* map) {
+    const uint64_t dims[2] = {static_cast<uint64_t>(k), static_cast<uint64_t>(n)};
+    const uint64_t strides[1] = {static_cast<uint64_t>(k)};
+    const uint32_t box[2] = {GROUP, W_ROWS};
+    return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
+  }, out);
+}
+
+template <int TN, typename ST>
+cudaError_t launch_wgmma(const void* x, const void* q, const ST* s, const ST* b, const void* bias, void* y, int m,
+                         int n, int k, cudaStream_t stream) {
+  const CUtensorMap* x_map;
+  const CUtensorMap* q_map;
+  cudaError_t err = x_tensor_map<TN>(x, m, k, &x_map);
+  if (err == cudaSuccess) err = codes_tensor_map(q, n, k, &q_map);
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  err = raise_smem_limit(reinterpret_cast<const void*>(qmm_wgmma_kernel<TN, ST>), QmmTile<TN>::SMEM, raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + W_ROWS - 1) / W_ROWS, (m + TN - 1) / TN);
+  qmm_wgmma_kernel<TN, ST><<<grid, W_THREADS, QmmTile<TN>::SMEM, stream>>>(
+      *x_map, *q_map, s, b, static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), m, n, k);
+  return cudaGetLastError();
+}
+
 template <typename ST>
 cudaError_t launch(const void* x, const void* q, const void* scales, const void* biases, const void* bias,
-                   void* y, int m, int n, int k, bool x_bf16, cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  const int8_t* qc = static_cast<const int8_t*>(q);
+                   void* y, int m, int n, int k, bool x_bf16, int bn, cudaStream_t stream) {
   const ST* s = static_cast<const ST*>(scales);
   const ST* b = static_cast<const ST*>(biases);
   if (x_bf16) {
-    qmm_bf16_kernel<ST><<<grid, T_THREADS, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), qc, s, b, static_cast<const __nv_bfloat16*>(bias),
-        static_cast<__nv_bfloat16*>(y), m, n, k);
-  } else {
-    qmm_f32_kernel<ST><<<grid, F_THREADS, 0, stream>>>(static_cast<const float*>(x), qc, s, b,
-                                                       static_cast<const float*>(bias),
-                                                       static_cast<float*>(y), m, n, k);
+    // the token tile is the caller's launch plan (ops/qmatmul.py `plan`)
+    switch (bn) {
+      case 32: return launch_wgmma<32, ST>(x, q, s, b, bias, y, m, n, k, stream);
+      case 64: return launch_wgmma<64, ST>(x, q, s, b, bias, y, m, n, k, stream);
+      case 128: return launch_wgmma<128, ST>(x, q, s, b, bias, y, m, n, k, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  qmm_f32_kernel<ST><<<grid, F_THREADS, 0, stream>>>(static_cast<const float*>(x), static_cast<const int8_t*>(q), s, b,
+                                                     static_cast<const float*>(bias), static_cast<float*>(y), m, n, k);
   return cudaGetLastError();
 }
 
@@ -261,14 +423,22 @@ extern "C" {
 // y [m, n] = x [m, k] @ dequant(q [n, k], scales, biases [n, k / 64]) (+ bias [n]).
 // x, bias and y are bf16 when x_bf16, else float32; scales and biases are
 // bf16 when s_bf16, else float32. All contiguous; k % 64 == 0; x and q
-// 16-byte aligned. Returns the cudaError_t of the launch (0 on success).
+// 16-byte aligned. bf16 activations take the token tile bn (32, 64 or 128);
+// float32 activations ignore it. Returns the cudaError_t of the launch (0 on
+// success).
 int f5_qmatmul(const void* x, const void* q, const void* scales, const void* biases, const void* bias,
-               void* y, int m, int n, int k, int x_bf16, int s_bf16, void* stream) {
+               void* y, int m, int n, int k, int x_bf16, int s_bf16, int bn, void* stream) {
   if (m < 1 || n < 1 || k < GROUP || k % GROUP != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s_bf16) return static_cast<int>(launch<__nv_bfloat16>(x, q, scales, biases, bias, y, m, n, k, x_bf16, st));
-  return static_cast<int>(launch<float>(x, q, scales, biases, bias, y, m, n, k, x_bf16, st));
+  if (s_bf16) {
+    return static_cast<int>(launch<__nv_bfloat16>(x, q, scales, biases, bias, y, m, n, k, x_bf16, bn, st));
+  }
+  return static_cast<int>(launch<float>(x, q, scales, biases, bias, y, m, n, k, x_bf16, bn, st));
 }
+
+// The number of tensor maps of x and of codes encoded so far, over all host threads.
+long long f5_qmatmul_x_maps_encoded() { return x_maps_encoded.load(); }
+long long f5_qmatmul_codes_maps_encoded() { return codes_maps_encoded.load(); }
 
 const char* f5_qmatmul_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -6,9 +6,13 @@ plain C interface at first use (ops/cuda_build.py) and called through ctypes
 on PyTorch's current stream:
   - K1, the forward (csrc/flash_attention_fwd.cu), which can also write each
     row's log-sum-exp for the backward;
-  - K2, the backward (csrc/flash_attention_bwd.cu): dq, dk and dv in float32
-    from q, k, v, the output's gradient, the log-sum-exp and
-    delta = rowsum(g * out).
+  - K2, the backward (csrc/flash_attention_bwd.cu): dq, dk and dv from q,
+    k, v, the output, its gradient and the log-sum-exp. In bf16 a pre-pass
+    kernel rotates q and k once and computes delta = rowsum(g * out), then
+    TMA + wgmma kernels (mma.sync at d = 256) write bf16 gradients; in
+    float32 the wrapper computes delta and the kernels write float32.
+    `bwd_prepass_plain`, `bwd_main_plain` and `bwd_epilogue_plain` are the
+    stages' plain versions; `flash_attention_bwd_plain` composes them.
 Each comes in bf16 on the tensor cores and in float32 on the FMA units (no
 TF32), for models whose compute dtype is float32. The source notes give the
 designs.
@@ -39,6 +43,7 @@ HEAD_DIMS = (64, 128, 256)
 # the C entry point of each kernel, by dtype
 _ENTRY = {torch.bfloat16: "f5_flash_attention_fwd", torch.float32: "f5_flash_attention_fwd_f32"}
 _BWD_ENTRY = {torch.bfloat16: "f5_flash_attention_bwd", torch.float32: "f5_flash_attention_bwd_f32"}
+BWD_ROW_PAD = 128  # K2's bf16 row statistics and key biases are padded to a multiple of this many rows
 
 
 # ------------------------------------------------------------ plain versions
@@ -81,6 +86,61 @@ def attention_lse_plain(q, k, scale, key_mask=None, rope=None) -> torch.Tensor:
     return torch.logsumexp(_logits(q, k, scale, key_mask), dim=-1)
 
 
+def bwd_prepass_plain(
+    q: torch.Tensor,  # [b, h, n, d]
+    k: torch.Tensor,
+    g: torch.Tensor,  # the output's gradient
+    out: torch.Tensor,  # the forward's output
+    rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pre-pass of K2's bf16 path in plain PyTorch: the rotated q', k'
+    in q's dtype and delta = rowsum(g * out) in float32, [b, h, n]."""
+    qr, kr = _rotated(q, k, rope)
+    return qr, kr, (g.float() * out.float()).sum(dim=-1)
+
+
+def bwd_main_plain(
+    qr: torch.Tensor,  # [b, h, n, d], rotated
+    kr: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    delta: torch.Tensor,  # [b, h, n] float32
+    scale: float,
+    key_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's main kernels in plain PyTorch, float32 dQ', dK', dV: the
+    probabilities recomputed in float32, dV = P^T g, dS = P (g V^T - delta)
+    scale (P and dS rounded to q's dtype before their products, as the
+    kernels do), dQ' = dS K', dK' = dS^T Q'."""
+    dtype = qr.dtype
+    probs = torch.softmax(_logits(qr, kr, scale, key_mask), dim=-1)
+    gf = g.float()
+    dv = torch.matmul(probs.to(dtype).float().transpose(-1, -2), gf)
+    dp = torch.matmul(gf, v.float().transpose(-1, -2))
+    ds = (probs * (dp - delta[..., None]) * scale).to(dtype).float()
+    return torch.matmul(ds, kr.float()), torch.matmul(ds.transpose(-1, -2), qr.float()), dv
+
+
+def bwd_epilogue_plain(
+    dqr: torch.Tensor,  # [b, h, n, d] float32
+    dkr: torch.Tensor,
+    dv: torch.Tensor,
+    rope: tuple[torch.Tensor, torch.Tensor] | None,
+    dtype: torch.dtype,  # the inputs' dtype: the tables are rounded to it
+    out_dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's epilogue in plain PyTorch: the RoPE backward
+    dx = dx' cos + (dx' sin) P^T = dx' cos - rotate_half(dx' sin) of dQ' and
+    dK', then one rounding of dq, dk, dv to `out_dtype` (the kernels write
+    q's dtype)."""
+    if rope is not None:
+        n = dqr.shape[-2]
+        cos, sin = (t[-n:].to(dtype).float() for t in rope)
+        dqr = dqr * cos - rotate_half(dqr * sin)
+        dkr = dkr * cos - rotate_half(dkr * sin)
+    return dqr.to(out_dtype), dkr.to(out_dtype), dv.to(out_dtype)
+
+
 def flash_attention_bwd_plain(
     q: torch.Tensor,  # [b, h, n, d]
     k: torch.Tensor,
@@ -90,28 +150,12 @@ def flash_attention_bwd_plain(
     scale: float,
     key_mask: torch.Tensor | None = None,
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+    out_dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2's function in plain PyTorch, float32 dq, dk, dv: the probabilities
-    recomputed in float32, delta = rowsum(g * out), dV = P^T g,
-    dS = P (g V^T - delta) scale (P and dS rounded to q's dtype before their
-    products, as the kernels do), dQ' = dS K', dK' = dS^T Q', then the RoPE
-    backward dx = dx' cos + (dx' sin) P^T = dx' cos - rotate_half(dx' sin)."""
-    dtype = q.dtype
-    qr, kr = _rotated(q, k, rope)
-    probs = torch.softmax(_logits(qr, kr, scale, key_mask), dim=-1)
-    gf = g.float()
-    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
-    dv = torch.matmul(probs.to(dtype).float().transpose(-1, -2), gf)
-    dp = torch.matmul(gf, v.float().transpose(-1, -2))
-    ds = (probs * (dp - delta) * scale).to(dtype).float()
-    dq = torch.matmul(ds, kr.float())
-    dk = torch.matmul(ds.transpose(-1, -2), qr.float())
-    if rope is not None:
-        n = q.shape[-2]
-        cos, sin = (t[-n:].to(dtype).float() for t in rope)
-        dq = dq * cos - rotate_half(dq * sin)
-        dk = dk * cos - rotate_half(dk * sin)
-    return dq, dk, dv
+    """K2's function in plain PyTorch, the pre-pass, main and epilogue
+    stages in turn: dq, dk, dv in `out_dtype` (float32 unless asked)."""
+    qr, kr, delta = bwd_prepass_plain(q, k, g, out, rope)
+    return bwd_epilogue_plain(*bwd_main_plain(qr, kr, v, g, delta, scale, key_mask), rope, q.dtype, out_dtype)
 
 
 # ------------------------------------------------------------ the kernels
@@ -134,10 +178,11 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_build.build(BWD_SOURCE)[0]))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.f5_flash_attention_bwd.argtypes = [ptr] * 16 + [i32] * 4 + [strides, ctypes.c_float, ptr]
+    lib.f5_flash_attention_bwd_f32.argtypes = [ptr] * 12 + [i32] * 4 + [strides, ctypes.c_float, ptr]
     for name in _BWD_ENTRY.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 12 + [i32] * 4 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ptr]
-        fn.restype = i32
+        getattr(lib, name).restype = i32
     lib.f5_cuda_error_string.argtypes = [i32]
     lib.f5_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -219,29 +264,48 @@ def _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse: bool):
 
 
 def _backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin):
-    """Launch K2; returns float32 (dq, dk, dv), contiguous [b, h, n, d]. g
-    is taken as a strided view when its layout allows, else made
-    contiguous."""
+    """Launch K2; returns (dq, dk, dv) in q's dtype, contiguous
+    [b, h, n, d]. g (and v) are taken as strided views when their layout
+    allows, else made contiguous. bf16: the pre-pass, then the main kernels,
+    with the pre-pass's scratch allocated here; float32: delta in PyTorch,
+    then the float32 kernels."""
     b, h, n, d = q.shape
     if g.dtype != q.dtype:
         raise ValueError(f"the output's gradient is {g.dtype}, the inputs {q.dtype}")
-    if not _layout_ok(g):
+    # TMA reads v and g by their strides, and takes no zero stride (an expanded gradient)
+    if not _layout_ok(g) or 0 in g.stride():
         g = g.contiguous()
-    delta = (g.float() * out.float()).sum(dim=-1)  # [b, h, n], as the JAX backward computes it
-    dq, dk, dv = (torch.empty((b, h, n, d), dtype=torch.float32, device=q.device) for _ in range(3))
-    strides = (ctypes.c_longlong * 12)(*[s for x in (q, k, v, g) for s in x.stride()[:3]])
+    if 0 in v.stride():
+        v = v.contiguous()
     lib = _bwd_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.float32:
+        delta = (g.float() * out.float()).sum(dim=-1)  # [b, h, n], as the JAX backward computes it
+        dq, dk, dv = (torch.empty((b, h, n, d), dtype=torch.float32, device=q.device) for _ in range(3))
+        strides = (ctypes.c_longlong * 12)(*[s for x in (q, k, v, g) for s in x.stride()[:3]])
+        with torch.cuda.device(q.device):
+            err = lib.f5_flash_attention_bwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                _ptr(key_mask), _ptr(cos), _ptr(sin), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, h, n, d, strides, float(scale), stream,
+            )
+        _raise_on(err, lib, "flash attention backward")
+        flash_attention.launches_bwd_f32 += 1
+        return dq, dk, dv
+    n_pad = -(-n // BWD_ROW_PAD) * BWD_ROW_PAD
+    qr, kr, dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(5))
+    stats = torch.empty((b, h, n_pad, 2), dtype=torch.float32, device=q.device)
+    kbias = torch.empty((b, n_pad), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(*[s for x in (q, k, v, g, out) for s in x.stride()[:3]])
     with torch.cuda.device(q.device):
-        err = getattr(lib, _BWD_ENTRY[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            _ptr(key_mask), _ptr(cos), _ptr(sin), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, n, d, strides, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        err = lib.f5_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _ptr(key_mask), _ptr(cos), _ptr(sin), qr.data_ptr(), kr.data_ptr(), stats.data_ptr(),
+            kbias.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, d, strides, float(scale),
+            stream,
         )
     _raise_on(err, lib, "flash attention backward")
-    if q.dtype == torch.float32:
-        flash_attention.launches_bwd_f32 += 1
-    else:
-        flash_attention.launches_bwd += 1
+    flash_attention.launches_bwd += 1
     return dq, dk, dv
 
 
@@ -268,10 +332,10 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse, key_mask, cos, sin = ctx.saved_tensors
         if q.device.type == "cpu":
             rope = None if cos is None else (cos, sin)
-            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, g, ctx.scale, key_mask, rope)
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, g, ctx.scale, key_mask, rope, out_dtype=q.dtype)
         else:
             dq, dk, dv = _backward_kernel(q, k, v, out, lse, g, ctx.scale, key_mask, cos, sin)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(

@@ -3,7 +3,10 @@ its plain version.
 
 The kernel (csrc/qmatmul.cu, whose header note gives its design) is built
 by ops/cuda_build.py at first use and called through ctypes on PyTorch's
-current stream.
+current stream. With bf16 activations it is a TMA + wgmma pipeline whose
+token tile `plan` chooses from m; the kernel's library keeps the TMA
+tensor maps of the codes and of x, keyed on each tensor's address and
+shape, so a swapped buffer gets its own map (`maps_encoded` counts them).
 
 Layout (PyTorch's [out, in]): codes q int8 [n, k], centred by -2^(bits-1);
 scales and biases [n, k / 64] in float32 or the model's compute dtype;
@@ -26,6 +29,21 @@ from f5_tts_tpu_torch.ops import cuda_build
 SOURCE = cuda_build.CSRC / "qmatmul.cu"
 GROUP_SIZE = 64
 _DTYPES = (torch.bfloat16, torch.float32)
+W_ROWS = 64  # output columns per block of the bf16 kernel
+TOKEN_TILES = (32, 64, 128)
+
+
+def token_tile(m: int) -> int:
+    """The bf16 kernel's token tile (wgmma's N) for m rows of x: the
+    smallest of TOKEN_TILES that holds m, else the largest."""
+    return 32 if m <= 32 else 64 if m <= 64 else 128
+
+
+def plan(m: int, n: int) -> tuple[int, tuple[int, int]]:
+    """The bf16 kernel's launch plan for x [m, k] and n output columns: the
+    token tile and the grid (column blocks of 64, token blocks)."""
+    tile = token_tile(m)
+    return tile, (-(-n // W_ROWS), -(-m // tile))
 
 
 def dequantize_kernel(q: torch.Tensor, scales: torch.Tensor, biases: torch.Tensor) -> torch.Tensor:
@@ -53,11 +71,21 @@ def qmatmul_plain(
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_build.build(SOURCE)[0]))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.f5_qmatmul.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.f5_qmatmul.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     lib.f5_qmatmul.restype = i32
+    for counter in (lib.f5_qmatmul_x_maps_encoded, lib.f5_qmatmul_codes_maps_encoded):
+        counter.argtypes = []
+        counter.restype = ctypes.c_longlong
     lib.f5_qmatmul_error_string.argtypes = [i32]
     lib.f5_qmatmul_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def maps_encoded() -> dict:
+    """The TMA tensor maps the bf16 kernel's library has encoded so far, of x
+    and of the codes (each cached by address and shape; builds the library)."""
+    lib = _library()
+    return {"x": lib.f5_qmatmul_x_maps_encoded(), "codes": lib.f5_qmatmul_codes_maps_encoded()}
 
 
 def qmatmul(
@@ -106,7 +134,7 @@ def qmatmul(
                 x2.data_ptr(), q.data_ptr(), scales.data_ptr(), biases.data_ptr(),
                 None if bias is None else bias.data_ptr(), y.data_ptr(),
                 m, n, k, int(x.dtype == torch.bfloat16), int(scales.dtype == torch.bfloat16),
-                torch.cuda.current_stream(x.device).cuda_stream,
+                token_tile(m), torch.cuda.current_stream(x.device).cuda_stream,
             )
         if err != 0:
             raise RuntimeError(f"qmatmul kernel launch failed: {_library().f5_qmatmul_error_string(err).decode()}")

@@ -412,3 +412,168 @@ def test_ln_modulate_strided_input_and_rejections(gen):
         ln_modulate(x, scale[:, :128], shift)
     with pytest.raises(ValueError, match=r"\[b, n, d\]"):
         ln_modulate(x[0], scale, shift)
+
+
+# ------------------------------------------------------------ the redesigned K2 and K3 (TMA + wgmma)
+
+
+def _bwd_case(gen, b, h, n, d, key_mask=None):
+    """q, k, v, g as [b, n, h*d] projection views with RoPE; returns the
+    inputs, K2's (dq, dk, dv) through the wrapper, and the plain gradients."""
+    x = [torch.randn(b, n, h * d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4)]
+    q, k, v, g = (t.view(b, n, h, d).transpose(1, 2) for t in x)
+    rope = _rope(n, d)
+    key_mask_k, cos, sin = fa._checked(q, k, v, key_mask, rope)
+    out, lse = fa._forward_kernel(q, k, v, d ** -0.5, key_mask_k, cos, sin, with_lse=True)
+    before = flash_attention.launches_bwd
+    got = fa._backward_kernel(q, k, v, out, lse, g, d ** -0.5, key_mask_k, cos, sin)
+    assert flash_attention.launches_bwd == before + 1  # one count per backward call, pre-pass included
+    ref = flash_attention_bwd_plain(q, k, v, out, g, d ** -0.5, key_mask, rope)
+    return (q, k, v, out, lse, g, key_mask_k, cos, sin), got, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("n", [1, 63, 937, 1024, 4096])
+def test_bwd_bf16_edges(gen, d, n):
+    """Every head dim (d = 256 on the mma.sync kernels, 64 and 128 on wgmma),
+    ragged and long n, strided views, RoPE; bf16 gradients within GRAD_TOL
+    of the plain float32 ones, relative to their largest magnitude."""
+    b, h = (1, 2) if n == 4096 else (2, 3)
+    _, got, ref = _bwd_case(gen, b, h, n, d)
+    torch.cuda.synchronize()
+    for name, a, r in zip("qkv", got, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape and a.is_contiguous() and torch.isfinite(a).all()
+        err = (a.float() - r).abs().max().item() / max(r.abs().max().item(), 0.1)
+        assert err <= GRAD_TOL[torch.bfloat16], (f"d{name}", err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_bwd_bf16_fully_masked_rows(gen, d):
+    """A key mask that leaves batch 0 no key: those rows' P is uniform over
+    the n keys in K1 and K2 alike; batch 1 keeps a ragged run of keys."""
+    n = 150
+    mask = torch.zeros(2, n, dtype=torch.bool, device="cuda")
+    mask[1, :97] = True
+    _, got, ref = _bwd_case(gen, 2, 2, n, d, key_mask=mask)
+    for a, r in zip(got, ref):
+        assert torch.isfinite(a).all()
+        assert (a.float() - r).abs().max().item() <= GRAD_TOL[torch.bfloat16] * max(r.abs().max().item(), 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_bwd_bf16_dv_is_the_float32_sum_rounded_once(gen, d):
+    """With every key masked, P = 1/n exactly (n a power of two), so dV is
+    sum_q g / n, exact in float32 for small integer g; the kernel's bf16 dv
+    must be that sum rounded once to nearest-even (the integers are chosen
+    so that many sums need rounding)."""
+    b, h, n = 1, 2, 64
+    q, k, v = (torch.randn(b, h, n, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    g = torch.randint(-100, 101, (b, h, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+    mask = torch.zeros(b, n, dtype=torch.bool, device="cuda")
+    key_mask, cos, sin = fa._checked(q, k, v, mask, None)
+    out, lse = fa._forward_kernel(q, k, v, 0.125, key_mask, cos, sin, with_lse=True)
+    dv = fa._backward_kernel(q, k, v, out, lse, g, 0.125, key_mask, cos, sin)[2]
+    exact = g.double().sum(dim=2, keepdim=True).expand(-1, -1, n, -1) / n
+    assert (exact.float().double() == exact).all()  # the float32 sum is exact
+    assert not (exact.to(torch.bfloat16).double() == exact).all()  # and bf16 has to round it
+    assert torch.equal(dv, exact.float().to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_bwd_bf16_is_deterministic(gen, d):
+    """No atomics: two runs on the same inputs give the same bits."""
+    args, first, _ = _bwd_case(gen, 2, 4, 300, d)
+    second = fa._backward_kernel(*args[:6], d ** -0.5, *args[6:])
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32], ids=["bf16-scales", "f32-scales"])
+@pytest.mark.parametrize("n", [100, 1024, 6144])
+@pytest.mark.parametrize("m", [1, 31, 2048, 2049])
+def test_qmatmul_wgmma_edges(gen, monkeypatch, m, n, scale_dtype):
+    """The bf16 kernel at every token tile of its launch plan (32, 64, 128)
+    and ragged m and n, int4 codes, with the linear's bias."""
+    k = 1024
+    q, scales, biases = _quantized(gen, n, k, 4)
+    scales, biases = scales.to(scale_dtype), biases.to(scale_dtype)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    bias = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    out = qmatmul(x, q, scales, biases, bias)
+    # the plain matmul sums in float32 too (cuBLAS may otherwise reduce split-k partials in bf16)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction", False)
+    ref = qmatmul_plain(x, q, scales, biases, bias)
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_qmatmul_codes_map_follows_the_buffer(gen):
+    """The codes' tensor map is cached by address and shape: a swapped buffer
+    gets its own map, and codes rewritten in place are read anew."""
+    from f5_tts_tpu_torch.ops import qmatmul as qm
+
+    def encoded():
+        return qm.maps_encoded()["codes"]
+
+    q1, s, b = _quantized(gen, 256, 512, 4)
+    q2 = _quantized(gen, 256, 512, 4)[0]
+    x = torch.randn(40, 512, generator=gen, device="cuda").to(torch.bfloat16)
+    s, b = s.to(torch.bfloat16), b.to(torch.bfloat16)
+    torch.testing.assert_close(qmatmul(x, q1, s, b).float(), qmatmul_plain(x, q1, s, b).float(), atol=TOL, rtol=0)
+    before = encoded()
+    torch.testing.assert_close(qmatmul(x, q1, s, b).float(), qmatmul_plain(x, q1, s, b).float(), atol=TOL, rtol=0)
+    assert encoded() == before  # the same buffer reuses its map
+    torch.testing.assert_close(qmatmul(x, q2, s, b).float(), qmatmul_plain(x, q2, s, b).float(), atol=TOL, rtol=0)
+    assert encoded() == before + 1  # a new map for the new buffer
+    q1.copy_(q2)  # same address and shape: the kept map stays right
+    torch.testing.assert_close(qmatmul(x, q1, s, b).float(), qmatmul_plain(x, q2, s, b).float(), atol=TOL, rtol=0)
+    assert encoded() == before + 1
+    half = q1.view(-1)[: 128 * 512].view(128, 512)  # same address, another shape: its own map
+    torch.testing.assert_close(qmatmul(x, half, s[:128], b[:128]).float(),
+                               qmatmul_plain(x, half, s[:128], b[:128]).float(), atol=TOL, rtol=0)
+    assert encoded() == before + 2
+
+
+@pytest.mark.cuda
+def test_qmatmul_x_map_follows_the_buffer(gen):
+    """x's tensor map is cached by address and shape: the same buffer reuses
+    it, another buffer or the same address with another m gets its own, and
+    values rewritten in place are read anew."""
+    from f5_tts_tpu_torch.ops import qmatmul as qm
+
+    q, s, b = _quantized(gen, 256, 512, 4)
+    s, b = s.to(torch.bfloat16), b.to(torch.bfloat16)
+    # an m no other test uses, so no earlier test's buffer left a map at these addresses
+    x1, x2 = (torch.randn(43, 512, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+
+    def check(x):
+        torch.testing.assert_close(qmatmul(x, q, s, b).float(), qmatmul_plain(x, q, s, b).float(), atol=TOL, rtol=0)
+
+    check(x1)
+    before = qm.maps_encoded()["x"]
+    check(x1)
+    assert qm.maps_encoded()["x"] == before  # the same buffer reuses its map
+    check(x2)
+    assert qm.maps_encoded()["x"] == before + 1  # a new map for the new buffer
+    x1.copy_(x2)  # same address and shape: the kept map stays right
+    check(x1)
+    assert qm.maps_encoded()["x"] == before + 1
+    check(x1[:21])  # same address, another m: its own map
+    assert qm.maps_encoded()["x"] == before + 2
+
+
+@pytest.mark.cuda
+def test_qmatmul_unaligned_x_is_copied(gen):
+    """An x that does not start on 16 bytes is copied before the launch."""
+    q, s, b = _quantized(gen, 128, 256, 8)
+    flat = torch.randn(33 * 256 + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    x = flat[1:].view(33, 256)
+    assert x.data_ptr() % 16
+    out = qmatmul(x, q, s, b)
+    torch.testing.assert_close(out.float(), qmatmul_plain(x, q, s, b).float(), atol=TOL, rtol=0)
