@@ -9,9 +9,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      per source, all at once;
   3. kernels vs plain, timed with CUDA events: the attention kernel in bf16
      at the main path's shape and two edge shapes; the attention kernel in
-     float32 at the duration predictor's shape and at the DiT's; the
-     dequantizing matmul at every linear shape of the main path, int4 and
-     int8, bf16 and float32;
+     float32 at the duration predictor's shape, the duration training
+     shape and the DiT's; the dequantizing matmul at every linear shape of
+     the main path, int4 and int8, bf16 and float32;
   4. snapshot: the base DiT (1024 x 22 layers x 16 heads, bf16), Vocos and a
      float32 duration predictor (DURATION_V2), randomly initialised from a
      seed, written with save_pretrained as float, int4 and int8 DiT files;
@@ -22,7 +22,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   6. quantized main path: from_pretrained(quantization_bits=4), the same
      warm-up and three requests, one request with duration=None (the
      float32 predictor, through the float32 attention kernel), the int4 DiT
-     forward against the float32 CPU path, and one int8 load and request;
+     forward in bf16 and in float32 on the card (the float32 one through the
+     float32 dequantizing matmul and attention kernels, counted) against the
+     float32 CPU path, and one int8 load and request;
   7. attention backward vs plain, timed with CUDA events: the backward
      kernel in bf16 at the CFM training shape and with a key mask at a
      ragged n, in float32 at the duration training shape, and the forward's
@@ -45,10 +47,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      times the kernel's time, summed over the linear shapes) and K2's per
      CFM step (22 calls), each beside the same sum for its library call,
      timed with the card held by a spin kernel while the calls are enqueued
-     (so, unlike phases 3 and 7, the host's enqueue is left out); the host
-     time per wrapper call of K3 and K2 (100 calls enqueued behind a spin
-     kernel; median, least and most of 10 runs); and a torch.profiler
-     breakdown of one int4 request and one CFM step by kernel group.
+     (so, unlike phases 3 and 7, the host's enqueue is left out); K1-f32's
+     and K2-f32's per duration step (8 calls each) beside SDPA float32's,
+     timed the same way; the host time per wrapper call of K3 and K2 (100
+     calls enqueued behind a spin kernel; median, least and most of 10
+     runs); and a torch.profiler breakdown of one int4 request, one CFM
+     step and one duration step by kernel group.
 Phases 1, 2, 4 and 12 alone (device_phase, build_phase, snapshot_phase,
 ranking_phase) measure another checkout's package the same way from a copy
 of this file placed in its root.
@@ -76,12 +80,16 @@ ATTN_TOL = 2e-2  # absolute, on O(1) outputs: both sides round P and the rotated
 QMM_TOL = 2e-2  # absolute, on O(1) outputs: both sides round W to bf16; sums and output rounding differ
 F32_TOL = 1e-4  # absolute, float32 kernels on O(1) outputs: the same math summed in another order
 DIT_TOL = 3e-2  # relative L2 of a bf16 DiT forward against float32, 22 layers
+DIT_F32_TOL = 1e-4  # relative L2 of a float32 DiT forward on the card against the CPU's: sums in another order
 GRAD_TOL = {"bf16": 2e-2, "f32": 1e-4}  # attention backward: max error over the plain gradient's max magnitude
 TRAIN_GRAD_TOL = 5e-2  # relative L2 of the DiT's loss gradient, bf16 compute against float32, 22 layers
 LN_TOL = (1e-2, 8e-3)  # LayerNorm + modulate, bf16: |kernel - plain| <= a + b |plain| (one output rounding)
 TRAIN_BATCH, TRAIN_FRAMES = 4, 1024
-# the card's published peaks at 700 W (NVIDIA H100 SXM data sheet, dense)
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# the card's published peaks at 700 W (NVIDIA H100 SXM data sheet, dense). A float32 product to
+# float32 accuracy runs fastest on the tensor cores as 3xTF32 (three TF32 products of split operands,
+# what the float32 attention kernels do), at a third of the 495 TFLOP/s TF32 rate, above the FMA
+# units' 67: that is the float32 bound, so that no tensor-core kernel reads under it.
+PEAK_FLOPS = {"bf16": 989e12, "f32": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 PROBE_REPS = {"attn_variants": 10, "fusion_probe": 4}
 HOLD_CYCLES = 50_000_000  # the spin kernel before a timed run: about 25 ms at the H100's 1.98 GHz
@@ -134,7 +142,7 @@ def reset_counts():
     from f5_tts_tpu_torch.ops.flash_attention import flash_attention
     from f5_tts_tpu_torch.ops.qmatmul import qmatmul
 
-    flash_attention.launches = flash_attention.launches_f32 = qmatmul.launches = 0
+    flash_attention.launches = flash_attention.launches_f32 = qmatmul.launches = qmatmul.launches_f32 = 0
     flash_attention.launches_bwd = flash_attention.launches_bwd_f32 = 0
 
 
@@ -145,6 +153,7 @@ def counts() -> dict:
     return {"flash_attention_fwd": flash_attention.launches,
             "flash_attention_fwd_f32": flash_attention.launches_f32,
             "qmatmul": qmatmul.launches,
+            "qmatmul_f32": qmatmul.launches_f32,
             "flash_attention_bwd": flash_attention.launches_bwd,
             "flash_attention_bwd_f32": flash_attention.launches_bwd_f32}
 
@@ -299,8 +308,10 @@ def f32_attention_phase():
 
     phase("attention kernel vs plain (float32)")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    # (name, b, h, n, d, valid keys or None)
-    cases = [("duration predictor", 1, 8, 187, 64, None), ("DiT shape", 2, 16, 1024, 64, 937)]
+    # (name, b, h, n, d, valid keys or None): q, k, v as [b, n, h*d] projection views, RoPE
+    cases = [("duration predictor", 1, 8, 187, 64, None),
+             ("duration training", TRAIN_BATCH, 8, TRAIN_FRAMES, 64, None),
+             ("DiT shape", 2, 16, 1024, 64, 937)]
     results = {}
     for name, b, h, n, d, valid in cases:
         x = [torch.randn(b, n, h * d, generator=gen, device="cuda") for _ in range(3)]
@@ -410,7 +421,7 @@ def snapshot_phase(snap: str):
           + ", ".join(f"{f.name} {f.stat().st_size / 2**20:.1f} MiB" for f in sorted(Path(snap).glob("*.safetensors"))))
 
 
-ZERO = {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0, "qmatmul": 0,
+ZERO = {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0, "qmatmul": 0, "qmatmul_f32": 0,
         "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0}
 
 
@@ -441,26 +452,30 @@ def _request(model, ref, duration, card: str, label: str, expect: dict, expect_l
     return wall
 
 
-def _dit_forward_check(model, label: str) -> None:
-    """The model's DiT in bf16 on the card against float32 on the CPU (which
-    the CPU tests hold to the JAX package); moves model.dit to the CPU."""
+def _dit_out(dit, dev: str):
+    """One DiT forward on `dev` on a short input made from a fixed seed (2 x
+    128 frames, the second row 100 valid, its audio condition dropped), as
+    float32 on the CPU."""
     import torch
 
-    phase(f"DiT forward ({label}): bf16 on the card against float32 on the CPU")
-    dit_gpu = model._inference_dit()
-    dit_cpu = model.dit.to("cpu")
     g = torch.Generator().manual_seed(1)
     b, n = 2, 128
     x, cond = torch.randn(b, n, 100, generator=g), torch.randn(b, n, 100, generator=g)
     text = torch.randint(0, 95, (b, 40), generator=g)
     mask = torch.arange(n)[None, :] < torch.tensor([[n], [100]])
     drop = torch.tensor([False, True])
-    outs = []
-    for dit, dev in ((dit_gpu, "cuda"), (dit_cpu, "cpu")):
+    with torch.no_grad():
         te = dit.embed_text(text.to(dev), n)
         mods = {k: v[0] for k, v in dit.time_mods(torch.tensor([0.4], device=dev)).items()}
-        outs.append(dit(x.to(dev), cond.to(dev), te, mods, drop_audio_cond=drop.to(dev),
-                        mask=mask.to(dev)).float().cpu())
+        return dit(x.to(dev), cond.to(dev), te, mods, drop_audio_cond=drop.to(dev), mask=mask.to(dev)).float().cpu()
+
+
+def _dit_forward_check(model, label: str) -> None:
+    """The model's DiT in bf16 on the card against float32 on the CPU (which
+    the CPU tests hold to the JAX package); moves model.dit to the CPU."""
+    phase(f"DiT forward ({label}): bf16 on the card against float32 on the CPU")
+    dit_gpu = model._inference_dit()
+    outs = [_dit_out(dit_gpu, "cuda"), _dit_out(model.dit.to("cpu"), "cpu")]
     rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
     print(f"relative L2 of the bf16 card forward against float32 CPU: {rel:.3e} (tol {DIT_TOL})")
     if not (rel <= DIT_TOL):
@@ -474,6 +489,39 @@ def _setup(model):
     ref = torch.sin(2 * torch.pi * 220 * torch.arange(2 * sr, device="cuda") / sr) * 0.1
     duration = int(10.0 * model.audio_cfg.frames_per_second)
     return ref, duration, (duration - 1) * model.audio_cfg.hop_length
+
+
+def _dit_f32_check(model) -> dict:
+    """The model's quantized DiT in float32 on the card (the float32
+    dequantizing matmul and attention kernels) against float32 on the CPU,
+    on `_dit_out`'s input; returns the kernel launches of the card forward,
+    which must be one K3 per quantized linear and one K1-f32 per block."""
+    import torch
+
+    from f5_tts_tpu_torch.models.dit import DiT
+    from f5_tts_tpu_torch.models.quant import QuantizedLinear, quantize_module_
+
+    phase("DiT forward (int4, float32): the quantized DiT in float32 on the card against the CPU")
+    cfg = model.dit_cfg.replace(compute_dtype="float32")
+    dits = {}
+    for dev in ("cuda", "cpu"):
+        with torch.device(dev):
+            dits[dev] = quantize_module_(DiT(cfg), None)
+        dits[dev].load_state_dict(model.dit.state_dict())
+    reset_counts()
+    outs = [_dit_out(dits["cuda"], "cuda")]
+    launched = counts()
+    outs.append(_dit_out(dits["cpu"], "cpu"))
+    expect = {**ZERO, "flash_attention_fwd_f32": cfg.depth,
+              "qmatmul_f32": sum(isinstance(m, QuantizedLinear) for m in dits["cuda"].modules())}
+    rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
+    print(f"relative L2 of the float32 card forward against float32 CPU: {rel:.3e} (tol {DIT_F32_TOL}); "
+          f"launches {launched}")
+    if not (rel <= DIT_F32_TOL):
+        raise AssertionError(f"the float32 int4 DiT forward on the card disagrees with the CPU path: {rel}")
+    if launched != expect:
+        raise AssertionError(f"float32 DiT forward: kernel launches {launched}, expected {expect}")
+    return launched
 
 
 def float_path_phase(card: str, snap: str):
@@ -561,6 +609,7 @@ def quantized_path_phase(card: str, snap: str):
     with_predictor = {**per_request, "flash_attention_fwd_f32": model.duration_predictor.cfg.depth}
     _request(model, ref, None, card, "request with duration=None", with_predictor, (clamped - 1) * a.hop_length)
     launched = counts()
+    launched = {k: v + launched[k] for k, v in _dit_f32_check(model).items()}
     _dit_forward_check(model, "int4")
     del model
 
@@ -918,6 +967,7 @@ def probe_tools_phase(card: str):
 PROFILE_NAME_CHARS = 80
 # torch.profiler kernel groups, by a substring of the kernel's name; the first match wins
 PROFILE_GROUPS = (
+    ("attention pre-pass (float32)", ("tc_prep",)),
     ("K2 attention backward", ("flash_bwd",)),
     ("K1 attention forward", ("flash_fwd",)),
     ("K3 dequantizing matmul", ("qmm_",)),
@@ -968,12 +1018,13 @@ def _profiled(label: str, fn) -> None:
 
 
 def ranking_phase(card: str, snap: str) -> None:
-    """K3's device time per int4 request and K2's per CFM step beside their
-    library calls' (device times, the host left out), the host time of one
-    wrapper call, and a torch.profiler breakdown of one int4 request and one
-    CFM step. It calls only entry points whose interface the TMA + wgmma
-    redesign of K2 and K3 kept, so a copy of this file in a checkout from
-    before it measures that checkout the same way."""
+    """K3's device time per int4 request, K2's per CFM step and K1-f32's and
+    K2-f32's per duration step beside their library calls' (device times,
+    the host left out), the host time of one wrapper call, and a
+    torch.profiler breakdown of one int4 request, one CFM step and one
+    duration step. It calls only entry points whose interface the kernel
+    redesigns kept, so a copy of this file in a checkout from before them
+    measures that checkout the same way."""
     import statistics
 
     import numpy as np
@@ -981,13 +1032,15 @@ def ranking_phase(card: str, snap: str) -> None:
     import torch.nn.functional as F
 
     from f5_tts_tpu_torch import F5TTS, CFMConfig
-    from f5_tts_tpu_torch.config import F5TTS_V1_BASE
+    from f5_tts_tpu_torch.config import DURATION_V2, F5TTS_V1_BASE
     from f5_tts_tpu_torch.models.cfm import draw_cfm
+    from f5_tts_tpu_torch.models.duration import DurationPredictor
     from f5_tts_tpu_torch.models.quant import quantize_kernel
     from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb, rotary_freqs
     from f5_tts_tpu_torch.ops import flash_attention as fa
     from f5_tts_tpu_torch.ops.qmatmul import dequantize_kernel, qmatmul
     from f5_tts_tpu_torch.training import trainer as T
+    from f5_tts_tpu_torch.training.duration_trainer import make_duration_train_step
 
     phase("ranking: device time per request and step against the library calls; host time per call; profiles")
     cfg = F5TTS_V1_BASE
@@ -1032,6 +1085,28 @@ def ranking_phase(card: str, snap: str) -> None:
           f"({cfg.depth} calls): kernel {cfg.depth * ms:.3f} ms, SDPA backward {cfg.depth * lib:.3f} ms, "
           f"lost {cfg.depth * (ms - lib):.3f} ms; on {card}")
     host[f"K2 [{b}, {h}, {n}, {d}]"] = host_us(lambda: fa._backward_kernel(*args))
+
+    # K1-f32 and K2-f32 at the duration training shape (float32, [b, n, h*d] views, RoPE, no mask):
+    # one forward with the lse and one backward per block of a duration step
+    dcfg = DURATION_V2
+    b, h, n, d = TRAIN_BATCH, dcfg.heads, TRAIN_FRAMES, dcfg.dim_head
+    q, k, v, g = (torch.randn(b, n, h * d, generator=gen, device="cuda").view(b, n, h, d).transpose(1, 2)
+                  for _ in range(4))
+    raw = rotary_freqs(n, d, device="cuda")
+    rope = (torch.cos(raw), torch.sin(raw))
+    key_mask, cos, sin = fa._checked(q, k, v, None, rope)
+    fwd = device_ms(lambda: fa._forward_kernel(q, k, v, d ** -0.5, key_mask, cos, sin, with_lse=True))
+    out, lse = fa._forward_kernel(q, k, v, d ** -0.5, key_mask, cos, sin, with_lse=True)
+    bwd = device_ms(lambda: fa._backward_kernel(q, k, v, out, lse, g, d ** -0.5, key_mask, cos, sin))
+    leaves = [t.detach().requires_grad_() for t in (apply_rotary_pos_emb(q, rope), apply_rotary_pos_emb(k, rope), v)]
+    lib_fwd = device_ms(lambda: _sdpa(*(t.detach() for t in leaves), d ** -0.5))
+    sdpa_out = _sdpa(*leaves, d ** -0.5)
+    lib_bwd = device_ms(lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True), iters=5)
+    calls = dcfg.depth
+    print(f"K1-f32 [{b}, {h}, {n}, {d}]: device {fwd:.4f} ms, SDPA float32 {lib_fwd:.4f} ms; K2-f32: device "
+          f"{bwd:.4f} ms, SDPA float32 backward {lib_bwd:.4f} ms; per duration step ({calls} calls each): "
+          f"K1-f32 {calls * fwd:.3f} ms against {calls * lib_fwd:.3f}, K2-f32 {calls * bwd:.3f} ms against "
+          f"{calls * lib_bwd:.3f}, lost {calls * (fwd + bwd - lib_fwd - lib_bwd):.3f} ms; on {card}")
     for label, us in host.items():
         print(f"host time per wrapper call, {label} (100 calls enqueued behind a spin kernel, 10 runs): "
               f"median {statistics.median(us):.1f} us, least {us[0]:.1f}, most {us[-1]:.1f}")
@@ -1056,6 +1131,16 @@ def ranking_phase(card: str, snap: str) -> None:
     step = T.make_train_step(model.cfm_cfg, opt, ema_decay=0.999)
     step(state, *batch, draws=draws)
     _profiled("CFM step", lambda: step(state, *batch, draws=draws))
+    del model, state
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dmodel = DurationPredictor.init(gen, DURATION_V2, device="cuda")
+    dstate = T.init_train_state(dmodel, opt, ema=True)
+    dbatch = _train_batch(gen)
+    rand_frac = torch.rand(TRAIN_BATCH, generator=gen, device="cuda")
+    dstep = make_duration_train_step(opt, dmodel.audio_cfg.frames_per_second, ema_decay=0.999)
+    dstep(dstate, *dbatch, draws=rand_frac)
+    _profiled("duration step", lambda: dstep(dstate, *dbatch, draws=rand_frac))
 
 
 def main() -> int:
@@ -1094,9 +1179,11 @@ def main() -> int:
         ("flash_attention_fwd", "cuda", csrc + "flash_attention_fwd.cu", "f5_tts_tpu/ops/flash_attention.py:165",
          kernel["main path"]),
         ("flash_attention_fwd_f32", "cuda", csrc + "flash_attention_fwd.cu",
-         "f5_tts_tpu/ops/flash_attention.py:165", f32_attn["duration predictor"]),
+         "f5_tts_tpu/ops/flash_attention.py:165", f32_attn["duration training"]),
         ("qmatmul", "cuda", csrc + "qmatmul.cu", "f5_tts_tpu/ops/qmatmul.py:69",
          qmm[("to_q/k/v/out", 4, torch.bfloat16)]),
+        ("qmatmul_f32", "cuda", csrc + "qmatmul.cu", "f5_tts_tpu/ops/qmatmul.py:69",
+         qmm[("to_q/k/v/out", 4, torch.float32)]),
         ("flash_attention_bwd", "cuda", csrc + "flash_attention_bwd.cu", "f5_tts_tpu/ops/flash_attention.py:349",
          bwd["CFM training"]),
         ("flash_attention_bwd_f32", "cuda", csrc + "flash_attention_bwd.cu",

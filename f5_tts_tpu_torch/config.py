@@ -4,11 +4,14 @@ The port carries its own copy because the JAX package cannot be imported
 without JAX. The field names and defaults are identical, so a `config.json`
 written by either package's `save_pretrained` loads in the other.
 
-Fields that select JAX-only code paths (`use_flash_attention`,
-`int8_compute`) are kept so such snapshots load, and are not read by the
-port: attention goes to the CUDA kernels for a CUDA tensor and to the plain
-PyTorch versions for a CPU tensor. `remat` turns on activation checkpointing
-in the DiT's training forward in both packages.
+`use_flash_attention` selects a JAX-only code path: it is kept so such
+snapshots load and is not read by the port, whose attention goes to the
+CUDA kernels for a CUDA tensor and to the plain PyTorch versions for a CPU
+tensor. `int8_compute` asks for W8A8 int8 compute, which the port does not
+have yet: `load_f5tts_pretrained` and sampling raise for it
+(`models/cfm.py` `refuse_int8_compute`) rather than sample in the compute
+dtype. `remat` turns on activation checkpointing in the DiT's training
+forward in both packages.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ class DiTConfig:
     compute_dtype: str = "float32"
     # read by the JAX package only (see the module docstring)
     use_flash_attention: bool = True
+    # W8A8 in the JAX package; the port refuses it (see the module docstring)
     int8_compute: bool = False
     # activation checkpointing of each block in training
     remat: bool = False

@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): a bf16 kernel pair on the
-// tensor cores and a float32 kernel pair on the FMA units.
+// tensor cores, a float32 kernel pair on the tensor cores in 3xTF32 at
+// d = 64, and a float32 kernel pair on the FMA units at d = 128 and 256.
 //
 // Replaces the Pallas TPU kernel of the JAX package:
 // f5_tts_tpu/ops/flash_attention.py, `_flash_attention_bwd_call` (kernel body
@@ -10,8 +11,8 @@
 //         interleaved RoPE (tables rounded to bf16 in the bf16 kernels);
 //   dV  = P^T g;
 //   dS  = P * (g V^T - delta) * scale, with delta = rowsum(g * out) (the JAX
-//         package computes it outside its kernel; here the bf16 pre-pass
-//         does, and the float32 path's caller);
+//         package computes it outside its kernel; here both paths'
+//         pre-pass kernels do);
 //   dQ' = dS K',  dK' = dS^T Q';
 //   dQ, dK = the RoPE backward of dQ', dK': dx = dx' cos + (dx' sin) P^T,
 //         i.e. dx[2j] = dx'[2j] cos[2j] + dx'[2j+1] sin[2j+1] and
@@ -71,10 +72,47 @@
 //   - the epilogue applies the RoPE backward in registers (the pair
 //     (2j, 2j+1) sits in one thread's accumulator) and writes bf16.
 //
-// float32 design: 8 lanes per row, each owning d/8 of the row's dims in
-// float4 chunks, as the float32 forward; a score is a partial dot product
-// summed over the row's 8 lanes with shuffles. No TF32. delta is computed
-// by the caller; RoPE is applied while rows are staged.
+// The float32 path computes the same function to float32 accuracy (the JAX
+// kernel's HIGHEST precision for float32 inputs: tables not rounded, no
+// rounding of P or dS) and writes float32. Its first kernels ran on the FMA
+// units: 10.7 TFLOP/s counted at 10 n^2 d on the H100 (2.0 ms at
+// [4, 8, 1024, 64], slower than the plain PyTorch version), 8 lanes sharing a
+// row (8 FMAs, 3 shuffles and 3 adds a score), tiles staged with plain loads
+// between two __syncthreads, every Q (or K) tile rotated again in every
+// block, delta left to a PyTorch reduction. This design:
+//   - a float32 pre-pass (`tc_prep_kernel`, csrc/tf32.cuh, shared with the
+//     forward) writes once per call: rope(q), rope(k), v and g split into
+//     TF32 halves (at d = 64), the row stats (lse, delta = rowsum(g * out)
+//     in float32) padded with (FLT_MAX, 0), and the key biases padded with
+//     -FLT_MAX, to a multiple of 128 rows;
+//   - at d = 64 (the duration predictor's head dim, the only float32
+//     training path) a dK/dV and a dQ kernel, each block owning 64 rows, on
+//     3xTF32 products (csrc/tf32.cuh gives the split and which instruction
+//     takes which product): the score-shaped products (S^T = K' Q'^T,
+//     dP^T = V g^T, S = Q' K'^T, dP = g V^T) as wgmma.m64n64k8.tf32 with both
+//     operands in shared memory, cross terms then hi hi; the P V shaped ones
+//     (dV += P^T g, dK' += dS^T Q', dQ' += dS K') as mma.sync.m16n8k8.tf32
+//     with P^T or dS split in registers and the B fragments read from the
+//     streamed g, Q' or K' tile, which wgmma could only take as a K-major
+//     copy (two more 16 KB tiles a stage per operand). Shared memory a
+//     block: the two owned operands, hi and lo, 4 x 16 KB, loaded once by
+//     TMA; two stages of two streamed operands, hi and lo, 4 x 16 KB each,
+//     plus 1 KB of row stats or key biases; 195 KB of the 227 KB, one block
+//     an SM. Two consumer warpgroups work on the block's 64 rows and take
+//     the streamed tiles in turn, each from its own stage, which its first
+//     thread refills by TMA once the warpgroup is past a tile: one
+//     warpgroup's softmax and mma.sync overlap the other's wgmma. There is no
+//     producer warp: a ninth warp puts three warps on one of the SM's four
+//     sub-partitions and caps every thread at 168 registers, where the dK/dV
+//     kernel spills. The second warpgroup's accumulators are added to the
+//     first's through shared memory at the end, in a fixed order, after a
+//     barrier (every warp reads the whole stage for its B fragments, so the
+//     stage is free only when all are past their last tile). No float
+//     atomics: both kernels stay deterministic;
+//   - at d = 128 and 256 (no model of the repo trains them in float32) the
+//     first FMA kernels stay, reading the pre-pass's row stats: 8 lanes per
+//     row, each owning d/8 of the row's dims in float4 chunks, RoPE applied
+//     while rows are staged.
 //
 // q, k, v and g are addressed through (batch, head, row) strides, so
 // [b, n, h, d] projection views are read without a transpose copy; the head
@@ -89,6 +127,7 @@
 
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -104,15 +143,15 @@ struct Params {
   const T* k;
   const T* v;
   const T* g;
-  const float* lse;     // [b, h, n]
-  const float* delta;   // [b, h, n]
+  const float2* stats;  // [b, h, n_pad]: (lse, delta) of each query row, (FLT_MAX, 0) past n (the pre-pass)
+  const float* kbias;   // [b, n_pad]: each key's additive bias (the pre-pass)
   const uint8_t* mask;  // [b, n] or null
   const float* cos;     // [n, d] or null
   const float* sin;     // [n, d] or null
   float* dq;            // [b, h, n, d], contiguous float32
   float* dk;
   float* dv;
-  int n;
+  int n, n_pad;
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
   long long v_sb, v_sh, v_sn;
@@ -273,11 +312,6 @@ struct WShape {
   static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + slack to align the base to 1024
 };
 
-// Descriptor of k16 step kc of a K-major operand: panel kc / 4, 32 bytes a step inside it.
-__device__ __forceinline__ uint64_t kmajor(uint64_t desc, int kc, int panel_bytes) {
-  return desc + (((kc / 4) * panel_bytes + (kc % 4) * 32) >> 4);
-}
-
 // Descriptor of k16 step kc of an MN-major operand: 16 rows of 128 bytes a step.
 __device__ __forceinline__ uint64_t mnmajor(uint64_t desc, int kc) { return desc + ((kc * 16 * 128) >> 4); }
 
@@ -290,10 +324,6 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)
     a[kc][2] = pack_f32(x[8 * kc + 4], x[8 * kc + 5]);
     a[kc][3] = pack_f32(x[8 * kc + 6], x[8 * kc + 7]);
   }
-}
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
 // Store a thread's share of a [64 x D] accumulator (rows row0 + g and
@@ -850,10 +880,11 @@ template <int D>
 cudaError_t launch_mma(const BwdParams& p, int b, cudaStream_t stream) {
   const int smem = 4 * BM * Shape<D>::LD * static_cast<int>(sizeof(__nv_bfloat16)) +
                    BM * static_cast<int>(sizeof(float2));
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static std::atomic<bool> dkdv_raised[MAX_DEVICES], dq_raised[MAX_DEVICES];
+  cudaError_t err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dkdv_kernel<D>), smem, dkdv_raised);
+  if (err == cudaSuccess) {
+    err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>), smem, dq_raised);
+  }
   if (err != cudaSuccess) return err;
   const dim3 grid((p.n + BM - 1) / BM, p.h, b);
   flash_bwd_dkdv_kernel<D><<<grid, Shape<D>::THREADS, smem, stream>>>(p);
@@ -880,6 +911,7 @@ cudaError_t launch(const BwdParams& p, int b, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------- float32
+// ------------------------------------------ d = 128 and 256: FMA
 
 constexpr int F_BM = 32;  // rows per block (keys for dkdv, queries for dq), 4 per warp
 constexpr int F_THREADS = 256;
@@ -984,8 +1016,7 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_dkdv_f32_kernel(const Par
   const int key = blockIdx.x * F_BM + threadIdx.x / F_LANES;
   const long long bh = static_cast<long long>(b) * gridDim.y + h;
   const uint8_t* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(b) * p.n;
-  const float* lse = p.lse + bh * p.n;
-  const float* delta = p.delta + bh * p.n;
+  const float2* stats = p.stats + bh * p.n_pad;
   const float inv_n = 1.f / p.n;
 
   float4 k[CH], v[CH], dk[CH], dv[CH];
@@ -999,10 +1030,10 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_dkdv_f32_kernel(const Par
     __syncthreads();  // the previous tile is consumed by every warp
     stage_pair<D>(sQ, sG, p.q + b * p.q_sb + h * p.q_sh, p.q_sn, p.g + b * p.g_sb + h * p.g_sh, p.g_sn, q0, p.n,
                   p.cos, p.sin);
-    if (threadIdx.x < F_BM) {
-      const int row = q0 + threadIdx.x;
-      sLse[threadIdx.x] = row < p.n ? lse[row] : FLT_MAX;
-      sDelta[threadIdx.x] = row < p.n ? delta[row] : 0.f;
+    if (threadIdx.x < F_BM) {  // rows past n: (FLT_MAX, 0), P = 0
+      const float2 sd = stats[q0 + threadIdx.x];
+      sLse[threadIdx.x] = sd.x;
+      sDelta[threadIdx.x] = sd.y;
     }
     __syncthreads();
 
@@ -1052,8 +1083,8 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_dq_f32_kernel(const Param
   load_row<D>(g, p.g + b * p.g_sb + h * p.g_sh, p.g_sn, row, p.n, sub, nullptr, nullptr);
 #pragma unroll
   for (int i = 0; i < CH; ++i) dq[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float lse = row < p.n ? p.lse[bh * p.n + row] : FLT_MAX;
-  const float delta = row < p.n ? p.delta[bh * p.n + row] : 0.f;
+  const float2 sd = p.stats[bh * p.n_pad + row];  // (FLT_MAX, 0) past n
+  const float lse = sd.x, delta = sd.y;
 
   for (int k0 = 0; k0 < p.n; k0 += F_BM) {
     __syncthreads();  // the previous tile is consumed by every warp
@@ -1086,10 +1117,11 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_dq_f32_kernel(const Param
 template <int D>
 cudaError_t launch_f32(const Params<float>& p, int b, int h, cudaStream_t stream) {
   const int smem = (2 * F_BM * D + 2 * F_BM) * static_cast<int>(sizeof(float));
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static std::atomic<bool> dkdv_raised[MAX_DEVICES], dq_raised[MAX_DEVICES];
+  cudaError_t err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dkdv_f32_kernel<D>), smem, dkdv_raised);
+  if (err == cudaSuccess) {
+    err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dq_f32_kernel<D>), smem, dq_raised);
+  }
   if (err != cudaSuccess) return err;
   const dim3 grid((p.n + F_BM - 1) / F_BM, h, b);
   flash_bwd_dkdv_f32_kernel<D><<<grid, F_THREADS, smem, stream>>>(p);
@@ -1099,30 +1131,308 @@ cudaError_t launch_f32(const Params<float>& p, int b, int h, cudaStream_t stream
   return cudaGetLastError();
 }
 
-template <typename T>
-Params<T> make_params(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                      const void* delta, const void* mask, const void* cos, const void* sin, void* dq, void* dk,
-                      void* dv, int n, const long long* strides, float scale) {
-  Params<T> p;
-  p.q = static_cast<const T*>(q);
-  p.k = static_cast<const T*>(k);
-  p.v = static_cast<const T*>(v);
-  p.g = static_cast<const T*>(g);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.cos = static_cast<const float*>(cos);
-  p.sin = static_cast<const float*>(sin);
-  p.dq = static_cast<float*>(dq);
-  p.dk = static_cast<float*>(dk);
-  p.dv = static_cast<float*>(dv);
-  p.n = n;
-  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_sn = strides[2];
-  p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_sn = strides[5];
-  p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_sn = strides[8];
-  p.g_sb = strides[9]; p.g_sh = strides[10]; p.g_sn = strides[11];
-  p.scale = scale;
-  return p;
+// ------------------------------------------ d = 64: 3xTF32, TMA + wgmma
+
+// 64 owned rows, two owned operands (hi and lo). Two consumer warpgroups work
+// on the same 64 rows and take the streamed tiles in turn (tile i from stage
+// i % 2), so the SM has two warpgroups' work to overlap without more shared
+// memory. No producer warp: each warpgroup refills its own stage, so the
+// block is 8 warps, two on each of the SM's four sub-partitions, and a
+// thread may hold 255 registers (a ninth warp puts three warps on one
+// sub-partition and caps every thread at 168, where the dK/dV kernel spills).
+using BwdTc = TcShape<1, 4>;
+constexpr int BWD_TC_THREADS = 2 * BwdTc::CONSUMERS;
+
+__device__ __forceinline__ void tc_init_barriers(uint64_t* own, uint64_t* full) {
+  if (threadIdx.x == 0) {
+    mbar_init(own, 1);
+    for (int s = 0; s < BwdTc::STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// The owned rows' four tiles (two operands, hi and lo), once; one thread.
+__device__ __forceinline__ void tc_load_owned(unsigned char* smem, uint64_t* own, const CUtensorMap* const (&maps)[4],
+                                              int row0, int h, int b) {
+  mbar_arrive_expect_tx(own, 4 * BwdTc::OWN);
+  for (int i = 0; i < 4; ++i) {
+    for (int pn = 0; pn < 2; ++pn) {
+      tma_load_4d(smem + i * BwdTc::OWN + pn * BwdTc::OWN_PANEL, maps[i], own, pn * 32, row0, h, b);
+    }
+  }
+}
+
+// Streamed tile `it` into stage `st`: four tiles (two operands, hi and lo)
+// and `extra_bytes` of row stats or key biases from `extra` (extra_bytes a
+// tile); one thread.
+__device__ __forceinline__ void tc_load_tile(unsigned char* st, uint64_t* full, const CUtensorMap* const (&maps)[4],
+                                             const unsigned char* extra, int extra_bytes, int it, int h, int b) {
+  mbar_arrive_expect_tx(full, 4 * BwdTc::TILE + extra_bytes);
+  for (int i = 0; i < 4; ++i) {
+    for (int pn = 0; pn < 2; ++pn) {
+      tma_load_4d(st + i * BwdTc::TILE + pn * TC_PANEL, maps[i], full, pn * 32, it * TC_BM, h, b);
+    }
+  }
+  bulk_load(st + 4 * BwdTc::TILE, extra + static_cast<long long>(it) * extra_bytes, extra_bytes, full);
+}
+
+// After a warpgroup's tile `it`: once all its threads are done with the
+// stage, its first thread loads tile it + 2 there.
+__device__ __forceinline__ void tc_refill(unsigned char* st, uint64_t* full, const CUtensorMap* const (&maps)[4],
+                                          const unsigned char* extra, int extra_bytes, int it, int tiles, int h,
+                                          int b) {
+  if (it + 2 >= tiles) return;
+  bar_sync(2 + threadIdx.x / 128, 128);
+  if (threadIdx.x % 128 == 0) tc_load_tile(st, full, maps, extra, extra_bytes, it + 2, h, b);
+}
+
+// Store a warp's share of a [64 x 64] float32 accumulator (rows row0 + g and
+// row0 + g + 8 of a contiguous [n, 64] head), with the RoPE backward when
+// tables are given: dx[2j] = dx'[2j] c[2j] + dx'[2j+1] s[2j+1],
+// dx[2j+1] = dx'[2j+1] c[2j+1] - dx'[2j] s[2j], each product and sum rounded
+// once, as the plain version.
+__device__ __forceinline__ void tc_store(float* out, const float (&acc)[32], int row0, int n, const float* cos,
+                                         const float* sin) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = row0 + g + 8 * hi;
+    if (row >= n) continue;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const int col = 8 * nb + 2 * t;
+      const long long o = static_cast<long long>(row) * TC_D + col;
+      float x0 = acc[4 * nb + 2 * hi], x1 = acc[4 * nb + 2 * hi + 1];
+      if (cos != nullptr) {
+        const float2 c = *reinterpret_cast<const float2*>(cos + o), sn = *reinterpret_cast<const float2*>(sin + o);
+        const float y0 = __fadd_rn(__fmul_rn(x0, c.x), __fmul_rn(x1, sn.y));
+        const float y1 = __fsub_rn(__fmul_rn(x1, c.y), __fmul_rn(x0, sn.x));
+        x0 = y0;
+        x1 = y1;
+      }
+      *reinterpret_cast<float2*>(out + o) = make_float2(x0, x1);
+    }
+  }
+}
+
+// Sum the second warpgroup's accumulator into the first's, in a fixed order
+// (deterministic): once every warp is past its last tile (a warp still reads
+// the whole stage for its B fragments, so the stage is free only then), the
+// second writes it to slot `slot` of its stage, and the first adds it after
+// a second barrier.
+template <int N>
+__device__ __forceinline__ void tc_sum_split(unsigned char* smem, float (&acc)[N], int slot) {
+  using S = BwdTc;
+  static_assert(2 * N * 128 * 4 <= S::STAGE, "two slots of partial sums fit in a stage");
+  float* part = reinterpret_cast<float*>(smem + 4 * S::OWN + S::STAGE) + slot * N * 128;  // stage 1
+  const int tid = threadIdx.x % 128;
+  bar_sync(1, BWD_TC_THREADS);
+  if (threadIdx.x >= 128) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) part[i * 128 + tid] = acc[i];
+  }
+  bar_sync(1, BWD_TC_THREADS);
+  if (threadIdx.x < 128) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] += part[i * 128 + tid];
+  }
+}
+
+// dK, dV for 64 keys. Owned: K' and V (hi, lo); streamed: Q' and g (hi,
+// lo) and the row stats of each 64-query tile. S^T = K' Q'^T and
+// dP^T = V g^T as wgmma (both operands K-major), P^T and dS^T in registers,
+// then dV += P^T g and dK' += dS^T Q' as mma.sync with g and Q' read from
+// the stage. The two warpgroups take the query tiles in turn.
+__global__ void __launch_bounds__(BWD_TC_THREADS, 1)
+flash_bwd_dkdv_f32_tc_kernel(const __grid_constant__ CUtensorMap qh_map, const __grid_constant__ CUtensorMap ql_map,
+                             const __grid_constant__ CUtensorMap kh_map, const __grid_constant__ CUtensorMap kl_map,
+                             const __grid_constant__ CUtensorMap vh_map, const __grid_constant__ CUtensorMap vl_map,
+                             const __grid_constant__ CUtensorMap gh_map, const __grid_constant__ CUtensorMap gl_map,
+                             const Params<float> p) {
+  using S = BwdTc;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);  // K' hi, K' lo, V hi, V lo, then the stages
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* full = own + 1;
+  const int k0 = blockIdx.x * S::ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long bh = static_cast<long long>(b) * gridDim.y + h;
+  const int tiles = (p.n + TC_BM - 1) / TC_BM;
+  const int split = threadIdx.x / 128;  // this warpgroup takes tiles split, split + 2, ... into stage split
+  unsigned char* st = smem + 4 * S::OWN + split * S::STAGE;  // Q' hi, Q' lo, g hi, g lo, row stats
+  // the maps stay in parameter space, where TMA reads them
+  const CUtensorMap* const streamed[4] = {&qh_map, &ql_map, &gh_map, &gl_map};
+  const unsigned char* stats_src = reinterpret_cast<const unsigned char*>(p.stats + bh * p.n_pad);
+  tc_init_barriers(own, full);
+  if (threadIdx.x == 0) {
+    const CUtensorMap* const owned[4] = {&kh_map, &kl_map, &vh_map, &vl_map};
+    tc_load_owned(smem, own, owned, k0, h, b);
+  }
+  if (threadIdx.x % 128 == 0 && split < tiles) tc_load_tile(st, &full[split], streamed, stats_src, TC_BM * 8, split, h, b);
+
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row0 = (threadIdx.x / 32 % 4) * 16;  // this warp's first key in the block
+  const float* kbias = p.kbias + static_cast<long long>(b) * p.n_pad + k0 + row0 + g;
+  const float bias[2] = {kbias[0], kbias[8]};  // keys row0 + g and row0 + g + 8
+  const float inv_n = 1.f / p.n;
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(own, 0);
+  const uint64_t kh = sw128_desc(smem), kl = sw128_desc(smem + S::OWN);
+  const uint64_t vh = sw128_desc(smem + 2 * S::OWN), vl = sw128_desc(smem + 3 * S::OWN);
+
+  for (int it = split; it < tiles; it += 2) {
+    mbar_wait(&full[split], (it / 2) & 1);
+    const float2* stats = reinterpret_cast<const float2*>(st + 4 * S::TILE);
+
+    float sc[32], dp[32];
+    wgmma_fence();
+    scores_3xtf32(sc, kh, kl, S::OWN_PANEL, sw128_desc(st), sw128_desc(st + S::TILE));
+    scores_3xtf32(dp, vh, vl, S::OWN_PANEL, sw128_desc(st + 2 * S::TILE), sw128_desc(st + 3 * S::TILE));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P^T = exp(s + bias - lse); dS^T = P^T (dP^T - delta) scale
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 sd = stats[8 * i + 2 * t + (e & 1)];
+        const float pr = prob_f32(sc[4 * i + e] * p.scale, bias[e >> 1], sd.x, inv_n);
+        sc[4 * i + e] = pr;
+        dp[4 * i + e] = pr * (dp[4 * i + e] - sd.y) * p.scale;
+      }
+    }
+    pv_3xtf32(dv, sc, st + 2 * S::TILE, st + 3 * S::TILE);  // dV += P^T g
+    pv_3xtf32(dk, dp, st, st + S::TILE);                    // dK' += dS^T Q'
+    tc_refill(st, &full[split], streamed, stats_src, TC_BM * 8, it, tiles, h, b);
+  }
+
+  tc_sum_split(smem, dk, 0);
+  tc_sum_split(smem, dv, 1);
+  if (split == 0) {
+    tc_store(p.dk + bh * p.n * TC_D, dk, k0 + row0, p.n, p.cos, p.sin);
+    tc_store(p.dv + bh * p.n * TC_D, dv, k0 + row0, p.n, nullptr, nullptr);
+  }
+}
+
+// dQ for 64 queries. Owned: Q' and g (hi, lo); streamed: K' and V (hi, lo)
+// and the key biases of each 64-key tile. S = Q' K'^T and dP = g V^T as
+// wgmma, P and dS in registers, dQ' += dS K' as mma.sync with K' read from
+// the stage. The two warpgroups take the key tiles in turn.
+__global__ void __launch_bounds__(BWD_TC_THREADS, 1)
+flash_bwd_dq_f32_tc_kernel(const __grid_constant__ CUtensorMap qh_map, const __grid_constant__ CUtensorMap ql_map,
+                           const __grid_constant__ CUtensorMap kh_map, const __grid_constant__ CUtensorMap kl_map,
+                           const __grid_constant__ CUtensorMap vh_map, const __grid_constant__ CUtensorMap vl_map,
+                           const __grid_constant__ CUtensorMap gh_map, const __grid_constant__ CUtensorMap gl_map,
+                           const Params<float> p) {
+  using S = BwdTc;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);  // Q' hi, Q' lo, g hi, g lo, then the stages
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* full = own + 1;
+  const int q0 = blockIdx.x * S::ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long bh = static_cast<long long>(b) * gridDim.y + h;
+  const int tiles = (p.n + TC_BM - 1) / TC_BM;
+  const int split = threadIdx.x / 128;  // this warpgroup takes tiles split, split + 2, ... into stage split
+  unsigned char* st = smem + 4 * S::OWN + split * S::STAGE;  // K' hi, K' lo, V hi, V lo, key biases
+  const CUtensorMap* const streamed[4] = {&kh_map, &kl_map, &vh_map, &vl_map};
+  const unsigned char* bias_src = reinterpret_cast<const unsigned char*>(p.kbias + static_cast<long long>(b) * p.n_pad);
+  tc_init_barriers(own, full);
+  if (threadIdx.x == 0) {
+    const CUtensorMap* const owned[4] = {&qh_map, &ql_map, &gh_map, &gl_map};
+    tc_load_owned(smem, own, owned, q0, h, b);
+  }
+  if (threadIdx.x % 128 == 0 && split < tiles) tc_load_tile(st, &full[split], streamed, bias_src, TC_BM * 4, split, h, b);
+
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row0 = (threadIdx.x / 32 % 4) * 16;  // this warp's first query in the block
+  const float2* rs = p.stats + bh * p.n_pad + q0 + row0 + g;
+  const float2 sd[2] = {rs[0], rs[8]};  // rows row0 + g and row0 + g + 8
+  const float inv_n = 1.f / p.n;
+
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+
+  mbar_wait(own, 0);
+  const uint64_t qh = sw128_desc(smem), ql = sw128_desc(smem + S::OWN);
+  const uint64_t gh = sw128_desc(smem + 2 * S::OWN), gl = sw128_desc(smem + 3 * S::OWN);
+
+  for (int it = split; it < tiles; it += 2) {
+    mbar_wait(&full[split], (it / 2) & 1);
+    const float* kb = reinterpret_cast<const float*>(st + 4 * S::TILE);
+
+    float sc[32], dp[32];
+    wgmma_fence();
+    scores_3xtf32(sc, qh, ql, S::OWN_PANEL, sw128_desc(st), sw128_desc(st + S::TILE));
+    scores_3xtf32(dp, gh, gl, S::OWN_PANEL, sw128_desc(st + 2 * S::TILE), sw128_desc(st + 3 * S::TILE));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS = P (dP - delta) scale, P = exp(s + bias - lse)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = prob_f32(sc[4 * i + e] * p.scale, kb[8 * i + 2 * t + (e & 1)], sd[e >> 1].x, inv_n);
+        dp[4 * i + e] = pr * (dp[4 * i + e] - sd[e >> 1].y) * p.scale;
+      }
+    }
+    pv_3xtf32(dq, dp, st, st + S::TILE);  // dQ' += dS K'
+    tc_refill(st, &full[split], streamed, bias_src, TC_BM * 4, it, tiles, h, b);
+  }
+
+  tc_sum_split(smem, dq, 0);
+  if (split == 0) tc_store(p.dq + bh * p.n * TC_D, dq, q0 + row0, p.n, p.cos, p.sin);
+}
+
+cudaError_t launch_f32_tc(const Params<float>& p, const TcPrep& pp, int b, int h, cudaStream_t stream) {
+  CUtensorMap maps[8];
+  const float* halves[8] = {pp.qh, pp.ql, pp.kh, pp.kl, pp.vh, pp.vl, pp.gh, pp.gl};
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 8 && err == cudaSuccess; ++i) err = tc_head_map(&maps[i], halves[i], b, h, p.n);
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> dkdv_raised[MAX_DEVICES], dq_raised[MAX_DEVICES];
+  err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dkdv_f32_tc_kernel), BwdTc::SMEM, dkdv_raised);
+  if (err == cudaSuccess) {
+    err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dq_f32_tc_kernel), BwdTc::SMEM, dq_raised);
+  }
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n + BwdTc::ROWS - 1) / BwdTc::ROWS, h, b);
+  flash_bwd_dkdv_f32_tc_kernel<<<grid, BWD_TC_THREADS, BwdTc::SMEM, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                                                              maps[4], maps[5], maps[6], maps[7], p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32_tc_kernel<<<grid, BWD_TC_THREADS, BwdTc::SMEM, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                                                            maps[4], maps[5], maps[6], maps[7], p);
+  return cudaGetLastError();
+}
+
+// The float32 backward: the pre-pass (at every d: the row stats and key
+// biases; at d = 64 also the TF32 halves), then the 3xTF32 kernels at d = 64
+// or the FMA kernels at d = 128 and 256.
+template <int D>
+cudaError_t launch_f32_all(Params<float>& p, TcPrep& pp, float* scratch, int b, int h, cudaStream_t stream) {
+  tc_carve(pp, scratch, b, true, D == TC_D ? 8 : 0);
+  p.stats = pp.stats;
+  p.kbias = pp.kbias;
+  const cudaError_t err = launch_tc_prep<D>(pp, b, stream);
+  if (err != cudaSuccess) return err;
+  if constexpr (D == TC_D) {
+    return launch_f32_tc(p, pp, b, h, stream);
+  } else {
+    return launch_f32<D>(p, b, h, stream);
+  }
 }
 
 }  // namespace
@@ -1176,20 +1486,58 @@ int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
 }
 
 // The float32 kernels. Returns the cudaError_t of the launches (0 on
-// success). q, k, v, g are [b, h, n, d] with (batch, head, row) strides in
-// elements in `strides` (q, k, v, g in turn) and a contiguous head dim; lse
-// and delta = rowsum(g * out) are contiguous float32 [b, h, n]; dq, dk, dv
+// success). q, k, v, g and out are [b, h, n, d] with (batch, head, row)
+// strides in elements in `strides` (q, k, v, g, out in turn) and a contiguous
+// head dim; lse is contiguous float32 [b, h, n]; `scratch` is the pre-pass's
+// float32 scratch (`tc_carve`, csrc/tf32.cuh: the row stats, key biases
+// and, at d = 64, the TF32 halves); dq, dk, dv are
 // contiguous float32 [b, h, n, d].
-int f5_flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                               const void* delta, const void* mask, const void* cos, const void* sin, void* dq,
-                               void* dk, void* dv, int b, int h, int n, int d, const long long* strides,
+int f5_flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* g, const void* out,
+                               const void* lse, const void* mask, const void* cos, const void* sin, void* scratch,
+                               void* dq, void* dk, void* dv, int b, int h, int n, int d, const long long* strides,
                                float scale, void* stream) {
-  const auto p = make_params<float>(q, k, v, g, lse, delta, mask, cos, sin, dq, dk, dv, n, strides, scale);
+  Params<float> p{};
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.g = static_cast<const float*>(g);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.cos = static_cast<const float*>(cos);
+  p.sin = static_cast<const float*>(sin);
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.n = n;
+  p.n_pad = align_up(n, TC_ROW_PAD);
+  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_sn = strides[2];
+  p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_sn = strides[5];
+  p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_sn = strides[8];
+  p.g_sb = strides[9]; p.g_sh = strides[10]; p.g_sn = strides[11];
+  p.scale = scale;
+  TcPrep pp{};
+  pp.q = p.q;
+  pp.k = p.k;
+  pp.v = p.v;
+  pp.g = p.g;
+  pp.out = static_cast<const float*>(out);
+  pp.lse = static_cast<const float*>(lse);
+  pp.mask = p.mask;
+  pp.cos = p.cos;
+  pp.sin = p.sin;
+  pp.h = h;
+  pp.n = n;
+  pp.n_pad = p.n_pad;
+  pp.q_sb = p.q_sb; pp.q_sh = p.q_sh; pp.q_sn = p.q_sn;
+  pp.k_sb = p.k_sb; pp.k_sh = p.k_sh; pp.k_sn = p.k_sn;
+  pp.v_sb = p.v_sb; pp.v_sh = p.v_sh; pp.v_sn = p.v_sn;
+  pp.g_sb = p.g_sb; pp.g_sh = p.g_sh; pp.g_sn = p.g_sn;
+  pp.o_sb = strides[12]; pp.o_sh = strides[13]; pp.o_sn = strides[14];
+  float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return static_cast<int>(launch_f32<64>(p, b, h, s));
-    case 128: return static_cast<int>(launch_f32<128>(p, b, h, s));
-    case 256: return static_cast<int>(launch_f32<256>(p, b, h, s));
+    case 64: return static_cast<int>(launch_f32_all<64>(p, pp, sc, b, h, s));
+    case 128: return static_cast<int>(launch_f32_all<128>(p, pp, sc, b, h, s));
+    case 256: return static_cast<int>(launch_f32_all<256>(p, pp, sc, b, h, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a): a bf16 kernel on the tensor
-// cores and a float32 kernel on the FMA units.
+// cores (mma.sync), a float32 kernel on the tensor cores in 3xTF32 at d = 64
+// (TMA + wgmma), and a float32 kernel on the FMA units at d = 128 and 256.
 //
 // Replaces the Pallas TPU kernel of the JAX package:
 // f5_tts_tpu/ops/flash_attention.py, `_flash_attention_call` (kernel body
@@ -35,31 +36,43 @@
 //     strides, so [b, n, h, d] projections are read without a transpose copy.
 //     The head dim must be contiguous and rows 16-byte aligned.
 //
-// The float32 kernel (flash_fwd_f32_kernel) computes the same function in
-// float32 throughout, as the JAX kernel does for float32 inputs (HIGHEST
-// precision): no bf16 rounding of P or of the rotated q and k, no TF32. It
-// serves models whose compute dtype is float32, such as the duration
-// predictor. Design:
-//   - one block of 8 warps per (32-row q tile, head, batch row); 8 lanes
-//     share a query row, each owning D/8 of its dims in float4 chunks
-//     (lane j of the row takes chunks j, j + 8, ...), so q and the output
-//     accumulator live in registers (32 floats each at d = 256);
-//   - K and V stream through shared memory in 32-row float32 tiles (64 KB at
-//     d = 256, within the 227 KB a block may use); a score is a partial dot
-//     product per lane summed over the row's 8 lanes with shuffles;
-//   - the same online softmax and the same -1e30 / -FLT_MAX masking as the
-//     bf16 kernel, so fully masked rows stay finite and uniform;
-//   - RoPE in float32 registers while q is loaded and while a K tile is
-//     staged (tables not rounded).
+// The float32 kernels compute the same function to float32 accuracy, as the
+// JAX kernel does for float32 inputs (HIGHEST precision): no bf16 rounding of
+// P or of the rotated q and k, tables not rounded. They serve models whose
+// compute dtype is float32, such as the duration predictor.
 //
-// Both kernels optionally write the per-row log-sum-exp of the scaled,
+// At d = 64 (the duration predictor's head dim), 3xTF32 on the tensor cores
+// (csrc/tf32.cuh gives the split, its accuracy and which instruction takes
+// which product). The first float32 kernel, on the FMA units, reached 10.6
+// TFLOP/s of the 67 the FMA units offer on the H100 (0.81 ms at
+// [2, 16, 1024, 64]): 8 lanes shared a row, so a score cost a lane 8 FMAs,
+// 3 shuffles and 3 adds; its K/V tiles were staged with plain loads between
+// two __syncthreads, so no copy overlapped compute; every block rotated every
+// K tile it staged (32 times a head at n = 1024); and it set the
+// shared-memory limit on every launch. This design:
+//   - a pre-pass kernel (`tc_prep_kernel`) writes rope(q), rope(k) and v
+//     once, split into TF32 halves, and each key's bias padded to 128 keys;
+//   - the main kernel is warp specialised: one producer warp loads the
+//     block's 128 rows of Q' (hi, lo) once and keeps a 2-stage ring of K'
+//     and V tiles (hi, lo: 64 KB) and their key biases filled with TMA
+//     copies, each stage guarded by a full and an empty mbarrier; two
+//     consumer warpgroups (64 query rows each) run S = Q' K'^T as 24
+//     wgmma.m64n64k8.tf32 from shared memory (the cross terms, then hi hi),
+//     the online softmax in registers, and O += P V as mma.sync.m16n8k8.tf32
+//     with P split in registers and V's fragments read from the stage;
+//   - 195 KB of shared memory, one block an SM; the limit is raised once per
+//     device.
+// At d = 128 and 256 (no model of the repo uses them in float32) the first
+// kernel stays: one block of 8 warps per 32-row q tile, 8 lanes a row each
+// owning d/8 of its dims in float4 chunks, 32-row K/V tiles staged through
+// shared memory, RoPE in registers, the same online softmax and masking.
+//
+// Every kernel optionally writes the per-row log-sum-exp of the scaled,
 // biased scores, m + log(l) in float32 [b, h, n], when the lse pointer is not
 // null: the backward (flash_attention_bwd.cu) recomputes P = exp(s - lse)
 // from it instead of rescanning a whole row of keys.
 //
 // The Python wrapper raises ValueError for any dtype but bf16 and float32.
-// cp.async / TMA double buffering, wgmma and warp specialisation are not
-// used yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,7 +80,9 @@
 #include <cfloat>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -258,8 +273,8 @@ template <int D>
 cudaError_t launch(const Params& p, int b, int h, cudaStream_t stream) {
   const int smem = (BM + 2 * BN) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16)) +
                    BN * static_cast<int>(sizeof(float));
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static std::atomic<bool> raised[MAX_DEVICES];
+  const cudaError_t err = raise_smem_limit(reinterpret_cast<const void*>(flash_fwd_kernel<D>), smem, raised);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.n + BM - 1) / BM, h, b);
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(p);
@@ -267,11 +282,6 @@ cudaError_t launch(const Params& p, int b, int h, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------- float32
-
-constexpr int F_BM = 32;  // query rows per block, 4 per warp
-constexpr int F_BN = 32;  // keys per K/V tile
-constexpr int F_THREADS = 256;
-constexpr int F_LANES = 8;  // lanes per query row
 
 struct ParamsF32 {
   const float* q;
@@ -289,6 +299,188 @@ struct ParamsF32 {
   long long o_sb, o_sh, o_sn;
   float scale;
 };
+
+// ------------------------------------------ float32, d = 64: 3xTF32, TMA + wgmma
+
+using FwdTc = TcShape<2, 2>;  // two consumer warpgroups, 128 query rows; Q' hi and lo owned
+
+// One block per (128 query rows, head, batch row). The producer (lane 0 of
+// the last warp) loads the block's Q' (hi, lo) once, then streams K' and V
+// (hi, lo) and the key biases of each 64-key tile through the ring.
+__global__ void __launch_bounds__(FwdTc::THREADS, 1)
+flash_fwd_f32_tc_kernel(const __grid_constant__ CUtensorMap qh_map, const __grid_constant__ CUtensorMap ql_map,
+                        const __grid_constant__ CUtensorMap kh_map, const __grid_constant__ CUtensorMap kl_map,
+                        const __grid_constant__ CUtensorMap vh_map, const __grid_constant__ CUtensorMap vl_map,
+                        const ParamsF32 p, const float* kbias, int n_pad) {
+  using S = FwdTc;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sQh = smem;
+  unsigned char* sQl = smem + S::OWN;
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* full = own + 1;
+  uint64_t* empty = full + S::STAGES;
+  // a stage: K' hi, K' lo, V hi, V lo, then 64 key biases
+  auto stage = [&](int s) { return smem + 2 * S::OWN + s * S::STAGE; };
+
+  const int q0 = blockIdx.x * S::ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tiles = (p.n + TC_BM - 1) / TC_BM;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own, 1);
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], S::CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= S::CONSUMERS) {  // producer warp
+    if (threadIdx.x == S::CONSUMERS) {
+      mbar_arrive_expect_tx(own, 2 * S::OWN);
+      for (int pn = 0; pn < 2; ++pn) {
+        for (int r = 0; r < 2; ++r) {
+          const int off = pn * S::OWN_PANEL + r * TC_PANEL;
+          tma_load_4d(sQh + off, &qh_map, own, pn * 32, q0 + r * TC_BM, h, b);
+          tma_load_4d(sQl + off, &ql_map, own, pn * 32, q0 + r * TC_BM, h, b);
+        }
+      }
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % S::STAGES;
+        if (it >= S::STAGES) mbar_wait(&empty[s], (it / S::STAGES - 1) & 1);
+        unsigned char* st = stage(s);
+        mbar_arrive_expect_tx(&full[s], 4 * S::TILE + TC_BM * 4);
+        for (int pn = 0; pn < 2; ++pn) {
+          const int off = pn * TC_PANEL;
+          tma_load_4d(st + off, &kh_map, &full[s], pn * 32, it * TC_BM, h, b);
+          tma_load_4d(st + S::TILE + off, &kl_map, &full[s], pn * 32, it * TC_BM, h, b);
+          tma_load_4d(st + 2 * S::TILE + off, &vh_map, &full[s], pn * 32, it * TC_BM, h, b);
+          tma_load_4d(st + 3 * S::TILE + off, &vl_map, &full[s], pn * 32, it * TC_BM, h, b);
+        }
+        bulk_load(st + 4 * S::TILE, kbias + static_cast<long long>(b) * n_pad + it * TC_BM, TC_BM * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row0 = wg * 64 + (threadIdx.x / 32 % 4) * 16;  // this warp's first query in the block
+
+  // thread's rows: row0 + g (index 0) and row0 + g + 8 (index 1)
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m[2] = {-FLT_MAX, -FLT_MAX};
+  float l[2] = {0.f, 0.f};
+
+  mbar_wait(own, 0);
+  const uint64_t qh_desc = sw128_desc(sQh + wg * TC_PANEL), ql_desc = sw128_desc(sQl + wg * TC_PANEL);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % S::STAGES;
+    mbar_wait(&full[s], (it / S::STAGES) & 1);
+    const unsigned char* st = stage(s);
+    const float* bias = reinterpret_cast<const float*>(st + 4 * S::TILE);
+
+    float sc[32];
+    wgmma_fence();
+    scores_3xtf32(sc, qh_desc, ql_desc, S::OWN_PANEL, sw128_desc(st), sw128_desc(st + S::TILE));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // scale, bias, online softmax update
+    float mt[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * i + e] = sc[4 * i + e] * p.scale + bias[8 * i + 2 * t + (e & 1)];
+        mt[e >> 1] = fmaxf(mt[e >> 1], sc[4 * i + e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      alpha[r] = expf(m[r] - mt[r]);
+      m[r] = mt[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = expf(sc[i] - m[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += sc[i];
+    }
+
+    // O += P V
+    pv_3xtf32(acc, sc, st + 2 * S::TILE, st + 3 * S::TILE);
+    mbar_arrive(&empty[s]);
+  }
+
+  float* og = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + row0 + g + 8 * r;
+    if (row < p.n) {
+      const float inv = 1.f / l[r];
+      if (p.lse != nullptr && t == 0) {
+        p.lse[(static_cast<long long>(b) * gridDim.y + h) * p.n + row] = m[r] + logf(l[r]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        *reinterpret_cast<float2*>(og + row * p.o_sn + 8 * nb + 2 * t) =
+            make_float2(acc[4 * nb + 2 * r] * inv, acc[4 * nb + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+// The pre-pass into `scratch` (laid out by `tc_carve`), then the main kernel.
+cudaError_t launch_f32_tc(const ParamsF32& p, float* scratch, int b, int h, cudaStream_t stream) {
+  TcPrep pp{};
+  pp.q = p.q;
+  pp.k = p.k;
+  pp.v = p.v;
+  pp.mask = p.mask;
+  pp.cos = p.cos;
+  pp.sin = p.sin;
+  pp.h = h;
+  pp.n = p.n;
+  pp.n_pad = align_up(p.n, TC_ROW_PAD);
+  pp.q_sb = p.q_sb; pp.q_sh = p.q_sh; pp.q_sn = p.q_sn;
+  pp.k_sb = p.k_sb; pp.k_sh = p.k_sh; pp.k_sn = p.k_sn;
+  pp.v_sb = p.v_sb; pp.v_sh = p.v_sh; pp.v_sn = p.v_sn;
+  tc_carve(pp, scratch, b, false, 6);
+  cudaError_t err = launch_tc_prep<TC_D>(pp, b, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[6];
+  float* halves[6] = {pp.qh, pp.ql, pp.kh, pp.kl, pp.vh, pp.vl};
+  for (int i = 0; i < 6 && err == cudaSuccess; ++i) err = tc_head_map(&maps[i], halves[i], b, h, p.n);
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  err = raise_smem_limit(reinterpret_cast<const void*>(flash_fwd_f32_tc_kernel), FwdTc::SMEM, raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n + FwdTc::ROWS - 1) / FwdTc::ROWS, h, b);
+  flash_fwd_f32_tc_kernel<<<grid, FwdTc::THREADS, FwdTc::SMEM, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                                                         maps[4], maps[5], p, pp.kbias, pp.n_pad);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------ float32, d = 128 and 256: FMA
+
+constexpr int F_BM = 32;  // query rows per block, 4 per warp
+constexpr int F_BN = 32;  // keys per K/V tile
+constexpr int F_THREADS = 256;
+constexpr int F_LANES = 8;  // lanes per query row
 
 // x * cos + rotate_half(x) * sin on one float4 chunk that starts at an even
 // lane of row `row`: lane 2j takes -x[2j+1], lane 2j+1 takes x[2j].
@@ -417,8 +609,8 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32_kernel(const ParamsF3
 template <int D>
 cudaError_t launch_f32(const ParamsF32& p, int b, int h, cudaStream_t stream) {
   const int smem = (2 * F_BN * D + F_BN) * static_cast<int>(sizeof(float));
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static std::atomic<bool> raised[MAX_DEVICES];
+  const cudaError_t err = raise_smem_limit(reinterpret_cast<const void*>(flash_fwd_f32_kernel<D>), smem, raised);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.n + F_BM - 1) / F_BM, h, b);
   flash_fwd_f32_kernel<D><<<grid, F_THREADS, smem, stream>>>(p);
@@ -461,9 +653,11 @@ int f5_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// The float32 kernel; the same arguments as f5_flash_attention_fwd.
+// The float32 kernels; the same arguments as f5_flash_attention_fwd, and
+// at d = 64 the pre-pass's float32 scratch (`tc_carve`, csrc/tf32.cuh; null
+// at d = 128 and 256).
 int f5_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, const void* mask,
-                               const void* cos, const void* sin, int b, int h, int n, int d,
+                               const void* cos, const void* sin, void* scratch, int b, int h, int n, int d,
                                long long q_sb, long long q_sh, long long q_sn, long long k_sb,
                                long long k_sh, long long k_sn, long long v_sb, long long v_sh,
                                long long v_sn, long long o_sb, long long o_sh, long long o_sn,
@@ -485,7 +679,7 @@ int f5_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return static_cast<int>(launch_f32<64>(p, b, h, s));
+    case 64: return static_cast<int>(launch_f32_tc(p, static_cast<float*>(scratch), b, h, s));
     case 128: return static_cast<int>(launch_f32<128>(p, b, h, s));
     case 256: return static_cast<int>(launch_f32<256>(p, b, h, s));
     default: return static_cast<int>(cudaErrorInvalidValue);

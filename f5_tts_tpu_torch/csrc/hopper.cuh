@@ -130,6 +130,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (m64 x n64, float32) (+)= A * B with TF32 operands, both read from
+// shared memory through their descriptors, both K-major (64 x 8 each: 32
+// bytes of a 128-byte swizzled row a step, as a bf16 k16 step). wgmma has no
+// transpose for 32-bit operands, so an MN-major operand cannot be read this
+// way. The registers of a 32-bit float whose low 13 mantissa bits are not
+// zero are truncated to TF32 by the tensor cores: the callers keep operands
+// split into TF32 halves (csrc/tf32.cuh).
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -184,13 +207,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
 }
 
+// Descriptor of k step kc of a K-major operand stored as 128-byte swizzled
+// panels `panel_bytes` apart: panel kc / 4, 32 bytes a step inside it (k16
+// for bf16, k8 for TF32).
+__device__ __forceinline__ uint64_t kmajor(uint64_t desc, int kc, int panel_bytes) {
+  return desc + (((kc / 4) * panel_bytes + (kc % 4) * 32) >> 4);
+}
+
+// The dynamic shared memory's start rounded up to 1024 bytes, the 128-byte
+// swizzle's period (launches ask for 1024 bytes of slack).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
 
 // Round x up to a multiple of a.
 __host__ __device__ constexpr int align_up(int x, int a) { return (x + a - 1) / a * a; }
 
-// Named barrier over the first `threads` threads of the block (id 1; id 0 is __syncthreads).
-__device__ __forceinline__ void sync_threads_of(int threads) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+// Named barrier `id` (1 to 15; 0 is __syncthreads) over `threads` threads, a
+// multiple of 32.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---------------------------------------------------------------- host

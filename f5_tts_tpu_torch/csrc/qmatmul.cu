@@ -224,7 +224,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constan
       epi[tok * EPI_LD + r] = out;
     }
   }
-  sync_threads_of(W_CONSUMERS);
+  bar_sync(1, W_CONSUMERS);
   if (n % 8 == 0) {  // 16-byte rows of 8 columns, each wholly inside or outside [0, n)
     for (int i = threadIdx.x; i < TN * (W_ROWS / 8); i += W_CONSUMERS) {
       const int tok = i / (W_ROWS / 8), c = (i % (W_ROWS / 8)) * 8;

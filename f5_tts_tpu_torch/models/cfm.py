@@ -28,6 +28,7 @@ from f5_tts_tpu_torch.config import AudioConfig, CFMConfig, DiTConfig
 from f5_tts_tpu_torch.models.dit import DiT
 from f5_tts_tpu_torch.models.duration import DurationPredictor
 from f5_tts_tpu_torch.models.ode import odeint
+from f5_tts_tpu_torch.models.quant import QuantizedLinear
 from f5_tts_tpu_torch.models.vocos import Vocos
 from f5_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
 from f5_tts_tpu_torch.utils.modules import init_parameters_
@@ -213,6 +214,24 @@ def clamp_duration(
     return np.clip(duration, 0, max_duration)
 
 
+def refuse_int8_compute(cfg: DiTConfig, weight_only_quantized: bool) -> None:
+    """Raise for a config with `int8_compute` (W8A8: int8 weights and
+    activations), which this package does not have yet, rather than sample
+    with the float or weight-only quantized weights the config did not ask
+    for. A weight-only quantized model is refused as the JAX package refuses
+    it (`w8a8_blocks`)."""
+    if not cfg.int8_compute:
+        return
+    msg = ("DiTConfig.int8_compute=True asks for W8A8 int8 compute, which is not ported to the PyTorch "
+           "package yet; load the snapshot with int8_compute false in its config.json to sample in the "
+           "compute dtype")
+    if weight_only_quantized:
+        msg += (". Besides, int8_compute (W8A8) requires float kernels, but this DiT is weight-only quantized "
+                "({q, scales, biases}): the --q snapshots and --w8a8 are separate paths, load the float "
+                "snapshot for int8 compute")
+    raise NotImplementedError(msg)
+
+
 def sway_time_grid(steps: int, sway_sampling_coef: float | None, t_start: float = 0.0) -> np.ndarray:
     """linspace warped by sway sampling t += s*(cos(pi/2 t) - 1 + t)."""
     t = np.linspace(t_start, 1.0, steps, dtype=np.float32)
@@ -329,7 +348,8 @@ class F5TTS:
         int8 codes stay), rebuilt when any parameter or buffer is replaced or
         modified in place. LayerNorm and GRN statistics, the timestep
         sinusoid, the DiT output and the ODE state stay float32 all the
-        same."""
+        same. Raises for `int8_compute` (`refuse_int8_compute`)."""
+        refuse_int8_compute(self.dit_cfg, any(isinstance(m, QuantizedLinear) for m in self.dit.modules()))
         dtype = self.dit.compute_dtype
         if dtype == torch.float32:
             return self.dit

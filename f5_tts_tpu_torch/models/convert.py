@@ -329,8 +329,9 @@ def load_f5tts_pretrained(
     `vocos/` subdirectory): vocab, `config.json` when present, the DiT
     weights (model_v1.safetensors, or model_v1_{b}b.safetensors with
     `quantization_bits=b`), the duration predictor when the snapshot has
-    duration_v2.safetensors, and the vocoder."""
-    from f5_tts_tpu_torch.models.cfm import F5TTS
+    duration_v2.safetensors, and the vocoder. Raises NotImplementedError
+    for a config with `int8_compute` (W8A8), which is not ported yet."""
+    from f5_tts_tpu_torch.models.cfm import F5TTS, refuse_int8_compute
     from f5_tts_tpu_torch.models.dit import DiT
     from f5_tts_tpu_torch.models.duration import DurationPredictor
     from f5_tts_tpu_torch.models.quant import quantize_module_
@@ -350,6 +351,7 @@ def load_f5tts_pretrained(
         dit_cfg = F5TTS_V1_BASE.replace(text_num_embeds=len(vocab) - 1)
     else:
         dit_cfg = F5TTS_V1_BASE
+    refuse_int8_compute(dit_cfg, weight_only_quantized=quantization_bits is not None)
     with torch.device(device):
         dit = DiT(dit_cfg)
     model_file = "model_v1.safetensors" if quantization_bits is None else f"model_v1_{quantization_bits}b.safetensors"

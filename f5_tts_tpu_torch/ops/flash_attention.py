@@ -7,15 +7,18 @@ on PyTorch's current stream:
   - K1, the forward (csrc/flash_attention_fwd.cu), which can also write each
     row's log-sum-exp for the backward;
   - K2, the backward (csrc/flash_attention_bwd.cu): dq, dk and dv from q,
-    k, v, the output, its gradient and the log-sum-exp. In bf16 a pre-pass
-    kernel rotates q and k once and computes delta = rowsum(g * out), then
-    TMA + wgmma kernels (mma.sync at d = 256) write bf16 gradients; in
-    float32 the wrapper computes delta and the kernels write float32.
-    `bwd_prepass_plain`, `bwd_main_plain` and `bwd_epilogue_plain` are the
-    stages' plain versions; `flash_attention_bwd_plain` composes them.
-Each comes in bf16 on the tensor cores and in float32 on the FMA units (no
-TF32), for models whose compute dtype is float32. The source notes give the
-designs.
+    k, v, the output, its gradient and the log-sum-exp. A pre-pass kernel
+    rotates q and k once and computes delta = rowsum(g * out), then TMA +
+    wgmma kernels (mma.sync at d = 256) write bf16 gradients, or the
+    float32 kernels float32 ones. `bwd_prepass_plain`, `bwd_main_plain` and
+    `bwd_epilogue_plain` are the stages' plain versions;
+    `flash_attention_bwd_plain` composes them.
+Each comes in bf16 and in float32, for models whose compute dtype is
+float32. At d = 64 the float32 kernels run on the tensor cores in 3xTF32
+(each operand split into two TF32 halves, three products: as accurate as
+float32 FMA; `tf32_split_plain` is the split), after a pre-pass that
+rotates and splits the inputs into scratch the wrapper allocates; at d = 128
+and 256 on the FMA units. The source notes give the designs.
 
 `flash_attention` computes softmax(rope(q) rope(k)^T * scale, keys masked by
 key_mask) v. When q, k or v requires grad it goes through `FlashAttentionFn`,
@@ -43,7 +46,8 @@ HEAD_DIMS = (64, 128, 256)
 # the C entry point of each kernel, by dtype
 _ENTRY = {torch.bfloat16: "f5_flash_attention_fwd", torch.float32: "f5_flash_attention_fwd_f32"}
 _BWD_ENTRY = {torch.bfloat16: "f5_flash_attention_bwd", torch.float32: "f5_flash_attention_bwd_f32"}
-BWD_ROW_PAD = 128  # K2's bf16 row statistics and key biases are padded to a multiple of this many rows
+BWD_ROW_PAD = 128  # the row statistics and key biases of the pre-passes are padded to a multiple of this many rows
+TC_HEAD_DIM = 64  # the head dim of the float32 kernels on the tensor cores (3xTF32)
 
 
 # ------------------------------------------------------------ plain versions
@@ -141,6 +145,25 @@ def bwd_epilogue_plain(
     return dqr.to(out_dtype), dkr.to(out_dtype), dv.to(out_dtype)
 
 
+def tf32_split_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32 kernels' operand split (3xTF32) in plain PyTorch,
+    bit-exact to `cvt.rna.tf32.f32`: hi is x rounded to TF32 (10 mantissa
+    bits, to nearest, ties away from zero), lo is x - hi (exact in float32)
+    rounded the same way, so |x - hi - lo| <= 2^-22 |x| for normal x. The
+    kernels sum lo*hi' + hi*lo' and then hi*hi' on the tensor cores. Used by
+    the tests and chip_smoke.py, not by the wrappers."""
+
+    def rna(t: torch.Tensor) -> torch.Tensor:
+        # float32 bits are sign and magnitude: adding half of the 13 dropped
+        # bits' range to the pattern rounds the magnitude half away from zero
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 def flash_attention_bwd_plain(
     q: torch.Tensor,  # [b, h, n, d]
     k: torch.Tensor,
@@ -165,10 +188,11 @@ def flash_attention_bwd_plain(
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_build.build(SOURCE)[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    tail = [i32] * 4 + [i64] * 12 + [ctypes.c_float, ptr]
+    lib.f5_flash_attention_fwd.argtypes = [ptr] * 8 + tail
+    lib.f5_flash_attention_fwd_f32.argtypes = [ptr] * 9 + tail  # + the pre-pass's scratch
     for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 12 + [ctypes.c_float, ptr]
-        fn.restype = i32
+        getattr(lib, name).restype = i32
     lib.f5_cuda_error_string.argtypes = [i32]
     lib.f5_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -180,7 +204,7 @@ def _bwd_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     strides = ctypes.POINTER(ctypes.c_longlong)
     lib.f5_flash_attention_bwd.argtypes = [ptr] * 16 + [i32] * 4 + [strides, ctypes.c_float, ptr]
-    lib.f5_flash_attention_bwd_f32.argtypes = [ptr] * 12 + [i32] * 4 + [strides, ctypes.c_float, ptr]
+    lib.f5_flash_attention_bwd_f32.argtypes = [ptr] * 13 + [i32] * 4 + [strides, ctypes.c_float, ptr]
     for name in _BWD_ENTRY.values():
         getattr(lib, name).restype = i32
     lib.f5_cuda_error_string.argtypes = [i32]
@@ -235,6 +259,20 @@ def _ptr(x: torch.Tensor | None):
     return None if x is None else x.data_ptr()
 
 
+def _f32_scratch(b: int, h: int, n: int, d: int, backward: bool, device) -> torch.Tensor | None:
+    """The float32 kernels' pre-pass scratch (laid out by `tc_carve` in
+    csrc/tf32.cuh): the backward's row stats (2 b h n_pad floats), the key
+    biases (b n_pad), and at d = 64 the TF32 halves of rope(q), rope(k), v
+    (and g in the backward), each [b, h, n, d]. None for the forward at
+    d = 128 and 256, which has no pre-pass."""
+    n_pad = -(-n // BWD_ROW_PAD) * BWD_ROW_PAD
+    if d != TC_HEAD_DIM:
+        floats = 2 * b * h * n_pad + b * n_pad if backward else 0
+    else:
+        floats = (2 * b * h * n_pad if backward else 0) + b * n_pad + (8 if backward else 6) * b * h * n * d
+    return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
+
+
 def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: {lib.f5_cuda_error_string(err).decode()}")
@@ -249,11 +287,12 @@ def _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse: bool):
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
     lib = _library()
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(key_mask), _ptr(cos), _ptr(sin)]
+    if q.dtype == torch.float32:
+        ptrs.append(_ptr(_f32_scratch(b, h, n, d, False, q.device)))
     with torch.cuda.device(q.device):
         err = getattr(lib, _ENTRY[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(key_mask),
-            _ptr(cos), _ptr(sin), b, h, n, d, *strides, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            *ptrs, b, h, n, d, *strides, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, lib, "flash attention")
     if q.dtype == torch.float32:
@@ -266,9 +305,8 @@ def _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse: bool):
 def _backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin):
     """Launch K2; returns (dq, dk, dv) in q's dtype, contiguous
     [b, h, n, d]. g (and v) are taken as strided views when their layout
-    allows, else made contiguous. bf16: the pre-pass, then the main kernels,
-    with the pre-pass's scratch allocated here; float32: delta in PyTorch,
-    then the float32 kernels."""
+    allows, else made contiguous. The pre-pass, then the main kernels, with
+    the pre-pass's scratch allocated here."""
     b, h, n, d = q.shape
     if g.dtype != q.dtype:
         raise ValueError(f"the output's gradient is {g.dtype}, the inputs {q.dtype}")
@@ -279,15 +317,15 @@ def _backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin):
         v = v.contiguous()
     lib = _bwd_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = (ctypes.c_longlong * 15)(*[s for x in (q, k, v, g, out) for s in x.stride()[:3]])
     if q.dtype == torch.float32:
-        delta = (g.float() * out.float()).sum(dim=-1)  # [b, h, n], as the JAX backward computes it
+        scratch = _f32_scratch(b, h, n, d, True, q.device)
         dq, dk, dv = (torch.empty((b, h, n, d), dtype=torch.float32, device=q.device) for _ in range(3))
-        strides = (ctypes.c_longlong * 12)(*[s for x in (q, k, v, g) for s in x.stride()[:3]])
         with torch.cuda.device(q.device):
             err = lib.f5_flash_attention_bwd_f32(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                _ptr(key_mask), _ptr(cos), _ptr(sin), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, h, n, d, strides, float(scale), stream,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                _ptr(key_mask), _ptr(cos), _ptr(sin), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), b, h, n, d, strides, float(scale), stream,
             )
         _raise_on(err, lib, "flash attention backward")
         flash_attention.launches_bwd_f32 += 1
@@ -296,7 +334,6 @@ def _backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin):
     qr, kr, dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(5))
     stats = torch.empty((b, h, n_pad, 2), dtype=torch.float32, device=q.device)
     kbias = torch.empty((b, n_pad), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 15)(*[s for x in (q, k, v, g, out) for s in x.stride()[:3]])
     with torch.cuda.device(q.device):
         err = lib.f5_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(),

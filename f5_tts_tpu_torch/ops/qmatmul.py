@@ -14,7 +14,8 @@ dequant(W)[j, i] = q[j, i] * scales[j, i // 64] + biases[j, i // 64].
 
 `qmatmul` launches the kernel for CUDA tensors and runs `qmatmul_plain` for
 CPU tensors. Both compute x @ dequant(W)^T (+ bias) with W dequantized in
-float32 and rounded to x's dtype. `qmatmul.launches` counts kernel launches.
+float32 and rounded to x's dtype. `qmatmul.launches` counts the kernel's
+launches with bf16 activations, `qmatmul.launches_f32` with float32 ones.
 """
 
 from __future__ import annotations
@@ -138,8 +139,12 @@ def qmatmul(
             )
         if err != 0:
             raise RuntimeError(f"qmatmul kernel launch failed: {_library().f5_qmatmul_error_string(err).decode()}")
-        qmatmul.launches += 1
+        if x.dtype == torch.bfloat16:
+            qmatmul.launches += 1
+        else:
+            qmatmul.launches_f32 += 1
     return y.view(*lead, n)
 
 
 qmatmul.launches = 0
+qmatmul.launches_f32 = 0

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions on an NVIDIA GPU: the
-attention forward (K1) and backward (K2), bf16 and float32, the
+attention forward (K1) and backward (K2), bf16 and float32 (at d = 64 on the
+tensor cores in 3xTF32, held to the float32 tolerance all the same), the
 dequantizing matmul, and the probe tools' kernels (the attention variants
 P1-P4 and the Triton LayerNorm + modulate P5).
 
@@ -258,6 +259,87 @@ def test_bwd_rejects_what_the_kernel_does_not_take(gen):
         assert (a - r).abs().max().item() <= GRAD_TOL[torch.bfloat16] * r.abs().max().item()
 
 
+# ------------------------------------------------------------ float32 attention on the tensor cores
+
+
+def _f32_case(gen, b, h, n, d, key_mask):
+    """q, k, v, g float32 as [b, n, h*d] projection views with RoPE: K1-f32's
+    output and lse and K2-f32's gradients through the wrappers, each launch
+    counted once, and their plain versions."""
+    x = [torch.randn(b, n, h * d, generator=gen, device="cuda") for _ in range(4)]
+    q, k, v, g = (t.view(b, n, h, d).transpose(1, 2) for t in x)
+    rope = _rope(n, d)
+    km, cos, sin = fa._checked(q, k, v, key_mask, rope)
+    before = (flash_attention.launches, flash_attention.launches_f32, flash_attention.launches_bwd,
+              flash_attention.launches_bwd_f32)
+    out, lse = fa._forward_kernel(q, k, v, d ** -0.5, km, cos, sin, with_lse=True)
+    got = fa._backward_kernel(q, k, v, out, lse, g, d ** -0.5, km, cos, sin)
+    after = (flash_attention.launches, flash_attention.launches_f32, flash_attention.launches_bwd,
+             flash_attention.launches_bwd_f32)
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 0, 1]  # the pre-passes count with their calls
+    ref_out = flash_attention_plain(q, k, v, d ** -0.5, key_mask, rope)
+    ref = flash_attention_bwd_plain(q, k, v, out, g, d ** -0.5, key_mask, rope)
+    torch.cuda.synchronize()
+    return (q, k, v, out, lse, g, km, cos, sin), out, ref_out, got, ref
+
+
+def _check_f32_case(case, key_mask):
+    (q, k, _, _, lse, _, _, _, _), out, ref_out, got, ref = case
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref_out, atol=TOL_F32, rtol=0)
+    # the lse of rows with a kept key (a fully masked row is -1e30 in the kernel, the float32 minimum in plain)
+    kept = torch.ones(q.shape[:3], dtype=torch.bool, device="cuda")
+    if key_mask is not None:
+        kept = key_mask.any(dim=1)[:, None, None].expand(q.shape[:3])
+    ref_lse = attention_lse_plain(q, k, q.shape[-1] ** -0.5, key_mask, _rope(*q.shape[2:]))
+    torch.testing.assert_close(lse[kept], ref_lse[kept], atol=TOL_F32, rtol=0)
+    for name, a, r in zip("qkv", got, ref):
+        assert a.dtype == torch.float32 and a.shape == r.shape and a.is_contiguous() and torch.isfinite(a).all()
+        err = (a - r).abs().max().item() / max(r.abs().max().item(), 0.1)
+        assert err <= GRAD_TOL[torch.float32], (f"d{name}", err)
+
+
+@pytest.mark.cuda
+def test_f32_duration_training_shape(gen):
+    """The duration step's shape: [4, 8, 1024, 64] strided projection views,
+    RoPE, no mask; K1-f32 (output and lse) and K2-f32 on the 3xTF32 kernels."""
+    _check_f32_case(_f32_case(gen, 4, 8, 1024, 64, None), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["none", "ragged", "fully-masked-row"])
+@pytest.mark.parametrize("n", [187, 937, 1000])
+def test_f32_ragged_n_and_masks(gen, n, mask):
+    """Ragged n (the last tile partial), without a mask, with a ragged key
+    mask, and with every key of batch 0 masked (uniform rows)."""
+    key_mask = None
+    if mask != "none":
+        key_mask = torch.arange(n, device="cuda")[None, :] < torch.tensor([[n - 61], [n]], device="cuda")
+        if mask == "fully-masked-row":
+            key_mask[0] = False
+    _check_f32_case(_f32_case(gen, 2, 3, n, 64, key_mask), key_mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256])
+def test_f32_wide_heads_on_the_fma_kernels(gen, d):
+    """d = 128 and 256 keep the FMA kernels (the backward reads the pre-pass's
+    row stats), with a ragged mask and a fully masked row."""
+    n = 187
+    key_mask = torch.arange(n, device="cuda")[None, :] < torch.tensor([[0], [150]], device="cuda")
+    _check_f32_case(_f32_case(gen, 2, 2, n, d, key_mask), key_mask)
+
+
+@pytest.mark.cuda
+def test_f32_bwd_is_deterministic(gen):
+    """The two warpgroups' partial sums are added in a fixed order: two runs
+    give the same bits."""
+    args, _, _, first, _ = _f32_case(gen, 2, 4, 1000, 64, None)
+    second = fa._backward_kernel(*args[:6], 64 ** -0.5, *args[6:])
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 # ------------------------------------------------------------ dequantizing matmul
 
 
@@ -282,10 +364,13 @@ def test_qmatmul_matches_plain(gen, m, n, bits, dtype):
     scales, biases = scales.to(dtype), biases.to(dtype)
     x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
     bias = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(dtype)
+    counter = "launches" if dtype == torch.bfloat16 else "launches_f32"
     for b in (None, bias):
-        before = qmatmul.launches
+        before = (qmatmul.launches, qmatmul.launches_f32)
         out = qmatmul(x, q, scales, biases, b)
-        assert qmatmul.launches == before + 1
+        after = (qmatmul.launches, qmatmul.launches_f32)
+        assert after[counter == "launches_f32"] == before[counter == "launches_f32"] + 1
+        assert after[counter == "launches"] == before[counter == "launches"]
         ref = qmatmul_plain(x, q, scales, biases, b)
         assert out.shape == (m, n) and out.dtype == dtype
         torch.testing.assert_close(out.float(), ref.float(), atol=TOL if dtype == torch.bfloat16 else TOL_F32, rtol=0)
