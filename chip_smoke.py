@@ -38,9 +38,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   9. duration training: DURATION_V2 in float32 on the same batch shape, a
      few steps with exact float32 attention launches and a falling loss;
  10. probe kernels vs plain, timed with CUDA events: the attention variants
-     (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope, also
-     at a ragged n) in bf16 and the Triton LayerNorm + modulate at the probe
-     tools' shapes and at a ragged n;
+     (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope; the
+     last two also at a ragged n, and with their device time as in phase 12,
+     their pre-pass's own device time and the host time per call) in bf16
+     and the Triton LayerNorm + modulate at the probe tools' shapes and at a
+     ragged n;
  11. probe tools: both tools' entry points once at their full shapes with
      few repetitions, counting each probe kernel's launches there;
  12. ranking: K3's device time per int4 request (launches per request
@@ -54,8 +56,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      runs); and a torch.profiler breakdown of one int4 request, one CFM
      step and one duration step by kernel group.
 Phases 1, 2, 4 and 12 alone (device_phase, build_phase, snapshot_phase,
-ranking_phase) measure another checkout's package the same way from a copy
-of this file placed in its root.
+ranking_phase), and phase 10 after phase 1 (probe_kernel_phase), measure
+another checkout's package the same way from a copy of this file placed in
+its root.
 Each kernel phase also times one PyTorch call that computes the same
 function, where there is one (the library yardstick), and computes the
 kernel's bound on this card from its inputs. The line before the last is a
@@ -129,7 +132,8 @@ def build_phase():
 
     phase("build")
     t0 = time.perf_counter()
-    sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE, qmatmul.SOURCE, attn_variants.SOURCE)
+    sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE, qmatmul.SOURCE, attn_variants.SOURCE,
+               attn_variants.ROPE_SOURCE)
     libs = cuda_build.build(*sources)
     print(f"built {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} in {time.perf_counter() - t0:.1f} s")
     for src in sources:
@@ -875,9 +879,9 @@ def probe_kernel_phase():
     plain = {"attn_pack2": av.attention_plain, "attn_flat": av.attention_plain,
              "flash_nhd": av.flash_nhd_plain, "flash_bhnd_rope": av.flash_bhnd_rope_plain}
     results = {}
-    # (label, kernel, b, h, n, d): the probe tools' shape, and flash_bhnd_rope at a ragged n
+    # (label, kernel, b, h, n, d): the probe tools' shape, and the RoPE kernels at a ragged n
     cases = [(name, name, 2, 16, 1024, 64) for name in PROBE_ATTN]
-    cases.append(("flash_bhnd_rope, ragged n", "flash_bhnd_rope", 2, 16, 1000, 64))
+    cases += [(f"{name}, ragged n", name, 2, 16, 1000, 64) for name in ("flash_nhd", "flash_bhnd_rope")]
     for label, name, b, h, n, d in cases:
         nhd = name == "flash_nhd"
         q, k, v = (torch.randn(*((b, n, h, d) if nhd else (b, h, n, d)), generator=gen, device="cuda",
@@ -908,6 +912,9 @@ def probe_kernel_phase():
         _library_line(label, "SDPA, RoPE outside" if rope else "SDPA", library_ms, bound_ms, bound_by)
         results[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by}
+        if rope:  # the pre-pass takes q and k unrotated, as [b, h, n, d] views of the call's layout
+            views = [t.transpose(1, 2) if nhd else t for t in (q, k)]
+            _rope_device_times(label, av, fn, (q, k, v, *rope, scale), *views, rope)
 
     for label, (b, n, d) in (("ln_modulate", (2, 1024, 1024)), ("ln_modulate, ragged n", (2, 1000, 1024))):
         x, scale, shift = (torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -931,6 +938,21 @@ def probe_kernel_phase():
         results[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                           "bound_ms": bound_ms, "bound_by": bound_by}
     return results
+
+
+def _rope_device_times(label, av, fn, args, qh, kh, rope) -> None:
+    """A RoPE kernel's device time (`device_ms`), its pre-pass's alone (where
+    the checkout has one) and the host's time per wrapper call."""
+    import statistics
+
+    dev = device_ms(lambda: fn(*args))
+    pre = "none in this checkout"
+    if hasattr(av, "rope_prepass"):
+        n_pad = -(-qh.shape[2] // av.ROPE_ROW_PAD) * av.ROPE_ROW_PAD
+        pre = f"{device_ms(lambda: av.rope_prepass(qh, kh, *rope, n_pad)):.4f} ms"
+    us = host_us(lambda: fn(*args))
+    print(f"{label}: device {dev:.4f} ms, pre-pass alone {pre}; host per call (100 calls enqueued behind a spin "
+          f"kernel, 10 runs) median {statistics.median(us):.1f} us, least {us[0]:.1f}, most {us[-1]:.1f}")
 
 
 def probe_tools_phase(card: str):
@@ -1190,8 +1212,8 @@ def main() -> int:
          "f5_tts_tpu/ops/flash_attention.py:349", bwd["duration training"]),
         ("attn_pack2", "cuda", csrc + "attn_variants.cu", "tools/attn_variants.py:76", probe["attn_pack2"]),
         ("attn_flat", "cuda", csrc + "attn_variants.cu", "tools/attn_variants.py:115", probe["attn_flat"]),
-        ("flash_nhd", "cuda", csrc + "attn_variants.cu", "tools/fusion_probe.py:128", probe["flash_nhd"]),
-        ("flash_bhnd_rope", "cuda", csrc + "attn_variants.cu", "tools/fusion_probe.py:165",
+        ("flash_nhd", "cuda", csrc + "attn_rope_wgmma.cu", "tools/fusion_probe.py:128", probe["flash_nhd"]),
+        ("flash_bhnd_rope", "cuda", csrc + "attn_rope_wgmma.cu", "tools/fusion_probe.py:165",
          probe["flash_bhnd_rope"]),
         ("ln_modulate", "triton", "f5_tts_tpu_torch/ops/ln_modulate.py", "tools/fusion_probe.py:318",
          probe["ln_modulate"]),

@@ -1,26 +1,20 @@
-// The probe tools' attention variants for Hopper (sm_90a), bf16 on the
-// tensor cores: one kernel template for four functions.
+// The probe tools' attention variants without rotary embedding for Hopper
+// (sm_90a), bf16 on the tensor cores: one kernel template for two functions.
 //
 // Replaces the Pallas TPU kernels of the JAX package's probe tools:
 //   - tools/attn_variants.py `attn_pack2` (body `_attn_kernel_pack2`): two
-//     heads per grid step;                        here HEADS = 2, ROPE = false
+//     heads per grid step;                                    here HEADS = 2
 //   - tools/attn_variants.py `attn_flat` (body `_attn_kernel_flat`): one head
-//     of a flat b * h grid per step;               here HEADS = 1, ROPE = false
-//   - tools/fusion_probe.py `flash_bhnd_rope` (body `_kernel_bhnd_rope`), in
-//     [b, h, n, d];                               here HEADS = 1, ROPE = true
-//   - tools/fusion_probe.py `flash_nhd` (body `_kernel_nhd`), the same
-//     function in [b, n, h, d]: the same instantiation as flash_bhnd_rope,
-//     given other strides, so the layout is read in place.
-// The function: softmax(q k^T * scale) v with no mask, after, with ROPE, the
-// rotary embedding x * cos + (x @ P) * sin of q and k in bf16, where P [d, d]
-// is an input (a pair swap in the tools, but not hard-wired here).
+//     of a flat b * h grid per step;                          here HEADS = 1
+// The function: softmax(q k^T * scale) v with no mask. (The RoPE probe
+// kernels, flash_bhnd_rope and flash_nhd, are in attn_rope_wgmma.cu.)
 //
-// What bounds it on this card. Per head the work is 4 n^2 d FLOP (plus
-// 4 n d^2 for the rotation as a product) against 4 n d bf16 values of q, k,
-// v and the output: at n = 1024, d = 64 about 128 FLOP per byte, so it wants
-// the tensor cores. The TPU kernels hold a whole head's sequence in VMEM; K
-// and V of one head at n = 1024, d = 64 are 256 KB of bf16 against 227 KB of
-// shared memory per block here, so this kernel tiles.
+// What bounds it on this card. Per head the work is 4 n^2 d FLOP against
+// 4 n d bf16 values of q, k, v and the output: at n = 1024, d = 64 about 128
+// FLOP per byte, so it wants the tensor cores. The TPU kernels hold a whole
+// head's sequence in VMEM; K and V of one head at n = 1024, d = 64 are
+// 256 KB of bf16 against 227 KB of shared memory per block here, so this
+// kernel tiles.
 //
 // Design (the same plan as the attention forward in
 // flash_attention_fwd.cu, sharing its bf16 helpers through mma_bf16.cuh but
@@ -39,16 +33,10 @@
 //     against the running max, where the Pallas body rounds it against the
 //     row's final max: both divide the float32 PV sum by the float32 sum of
 //     the unrounded p, and the two differ by bf16 rounding of p only;
-//   - with ROPE, P is staged once per block in shared memory (transposed,
-//     rounded to bf16: 8 KB at d = 64), and each q and k tile, once staged,
-//     is rotated in place by its warps: x @ P on mma.sync, rounded to bf16,
-//     then bf16(bf16(x * cos) + bf16(xP * sin)) with cos and sin rounded to
-//     bf16 — the Pallas body's rounding points. Each block rotates every K
-//     tile it reads, so the rotation costs a third product per tile;
 //   - q, k, v and the output are addressed through (batch, head, row)
 //     strides; the head dim must be contiguous and rows 16-byte aligned.
 // cp.async / TMA double buffering, wgmma and warp specialisation are not
-// used yet.
+// used yet (attn_rope_wgmma.cu's main kernel is that design).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,9 +59,6 @@ struct Params {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
-  const float* cos;  // [n, d] or null
-  const float* sin;  // [n, d] or null
-  const float* P;    // [d, d] or null
   int bh, h, n;
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
@@ -98,56 +83,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16*
   }
 }
 
-// Rotate one warp's 16 staged rows (wr .. wr + 15 of a tile whose first row
-// is sequence position row0) in place:
-// x <- bf16(bf16(x * c) + bf16(bf16(x @ P) * s)), c and s the tables rounded
-// to bf16; sPT holds P transposed in bf16. Rows >= n stay zero.
-template <int D>
-__device__ __forceinline__ void rope_rows(__nv_bfloat16* s, const __nv_bfloat16* sPT, const float* cos,
-                                          const float* sin, int wr, int row0, int n, int g, int t) {
-  constexpr int LD = D + PAD;
-  float xp[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) xp[i][0] = xp[i][1] = xp[i][2] = xp[i][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const __nv_bfloat16* xa = s + (wr + g) * LD + kc * 16 + 2 * t;
-    const uint32_t a0 = ld32(xa), a1 = ld32(xa + 8 * LD), a2 = ld32(xa + 8), a3 = ld32(xa + 8 * LD + 8);
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const __nv_bfloat16* pb = sPT + (nt * 8 + g) * LD + kc * 16 + 2 * t;
-      mma_16816(xp[nt], a0, a1, a2, a3, ld32(pb), ld32(pb + 8));
-    }
-  }
-  // the thread's own elements: rows wr + g + 8 r, columns nt * 8 + 2 t (+1)
-  uint32_t xs[D / 8][2];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) xs[nt][r] = ld32(s + (wr + g + 8 * r) * LD + nt * 8 + 2 * t);
-  }
-  __syncwarp();  // every lane has read its A fragments before any element is overwritten
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + wr + g + 8 * r;
-    if (row >= n) continue;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const int col = nt * 8 + 2 * t;
-      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[nt][r]));
-      const float2 c = *reinterpret_cast<const float2*>(cos + static_cast<long long>(row) * D + col);
-      const float2 sn = *reinterpret_cast<const float2*>(sin + static_cast<long long>(row) * D + col);
-      const float y0 = __fadd_rn(round_bf16(__fmul_rn(x.x, round_bf16(c.x))),
-                                 round_bf16(__fmul_rn(round_bf16(xp[nt][2 * r]), round_bf16(sn.x))));
-      const float y1 = __fadd_rn(round_bf16(__fmul_rn(x.y, round_bf16(c.y))),
-                                 round_bf16(__fmul_rn(round_bf16(xp[nt][2 * r + 1]), round_bf16(sn.y))));
-      *reinterpret_cast<uint32_t*>(s + (wr + g + 8 * r) * LD + col) = pack_f32(y0, y1);
-    }
-  }
-  __syncwarp();
-}
-
-template <int D, int HEADS, bool ROPE>
+template <int D, int HEADS>
 __global__ void __launch_bounds__(HEADS * GROUP_THREADS) attn_variant_kernel(const Params p) {
   constexpr int LD = D + PAD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -156,7 +92,6 @@ __global__ void __launch_bounds__(HEADS * GROUP_THREADS) attn_variant_kernel(con
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem) + grp * (BM + 2 * BN) * LD;
   __nv_bfloat16* sK = sQ + BM * LD;
   __nv_bfloat16* sV = sK + BN * LD;
-  __nv_bfloat16* sPT = reinterpret_cast<__nv_bfloat16*>(smem) + HEADS * (BM + 2 * BN) * LD;  // [D][LD]
 
   const int q0 = blockIdx.x * BM;
   const int flat = blockIdx.y * HEADS + grp;
@@ -175,13 +110,6 @@ __global__ void __launch_bounds__(HEADS * GROUP_THREADS) attn_variant_kernel(con
   __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
 
   load_tile<D>(sQ, qg, p.q_sn, q0, p.n, tid);
-  if (ROPE) {
-    for (int i = threadIdx.x; i < D * D; i += HEADS * GROUP_THREADS) {
-      sPT[(i % D) * LD + i / D] = __float2bfloat16(p.P[i]);  // P[r][c] -> sPT[c][r]
-    }
-  }
-  __syncthreads();
-  if (ROPE) rope_rows<D>(sQ, sPT, p.cos, p.sin, wr, q0, p.n, g, t);
 
   // thread's rows: wr + g (index 0) and wr + g + 8 (index 1)
   float acc[D / 8][4];
@@ -195,10 +123,6 @@ __global__ void __launch_bounds__(HEADS * GROUP_THREADS) attn_variant_kernel(con
     load_tile<D>(sK, kg, p.k_sn, k0, p.n, tid);
     load_tile<D>(sV, vg, p.v_sn, k0, p.n, tid);
     __syncthreads();
-    if (ROPE) {
-      rope_rows<D>(sK, sPT, p.cos, p.sin, wr, k0, p.n, g, t);
-      __syncthreads();  // every warp reads the whole rotated tile
-    }
 
     // S = Q K^T for the warp's 16 rows and the tile's 64 keys
     float s[BN / 8][4];
@@ -283,22 +207,21 @@ __global__ void __launch_bounds__(HEADS * GROUP_THREADS) attn_variant_kernel(con
   }
 }
 
-template <int D, int HEADS, bool ROPE>
+template <int D, int HEADS>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int smem = (HEADS * (BM + 2 * BN) + (ROPE ? D : 0)) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(attn_variant_kernel<D, HEADS, ROPE>,
+  const int smem = HEADS * (BM + 2 * BN) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
+  cudaError_t err = cudaFuncSetAttribute(attn_variant_kernel<D, HEADS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.n + BM - 1) / BM, (p.bh + HEADS - 1) / HEADS);
-  attn_variant_kernel<D, HEADS, ROPE><<<grid, HEADS * GROUP_THREADS, smem, stream>>>(p);
+  attn_variant_kernel<D, HEADS><<<grid, HEADS * GROUP_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t dispatch(const Params& p, int heads_per_block, cudaStream_t stream) {
-  const bool rope = p.cos != nullptr;
-  if (heads_per_block == 2) return rope ? launch<D, 2, true>(p, stream) : launch<D, 2, false>(p, stream);
-  if (heads_per_block == 1) return rope ? launch<D, 1, true>(p, stream) : launch<D, 1, false>(p, stream);
+  if (heads_per_block == 2) return launch<D, 2>(p, stream);
+  if (heads_per_block == 1) return launch<D, 1>(p, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -308,21 +231,16 @@ extern "C" {
 
 // Returns the cudaError_t of the launch (0 on success). bh = b * h heads of
 // a flat index, head i at batch row i / h and head i % h; strides are in
-// elements, the head dim contiguous. cos, sin [n, d] and P [d, d] are
-// float32, all three null for no rotary embedding.
-int f5_attn_variant(const void* q, const void* k, const void* v, void* o, const void* cos, const void* sin,
-                    const void* P, int bh, int h, int n, int d, int heads_per_block, long long q_sb,
-                    long long q_sh, long long q_sn, long long k_sb, long long k_sh, long long k_sn,
-                    long long v_sb, long long v_sh, long long v_sn, long long o_sb, long long o_sh,
-                    long long o_sn, float scale, void* stream) {
+// elements, the head dim contiguous.
+int f5_attn_variant(const void* q, const void* k, const void* v, void* o, int bh, int h, int n, int d,
+                    int heads_per_block, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+                    long long k_sh, long long k_sn, long long v_sb, long long v_sh, long long v_sn,
+                    long long o_sb, long long o_sh, long long o_sn, float scale, void* stream) {
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
-  p.cos = static_cast<const float*>(cos);
-  p.sin = static_cast<const float*>(sin);
-  p.P = static_cast<const float*>(P);
   p.bh = bh;
   p.h = h;
   p.n = n;
@@ -331,7 +249,7 @@ int f5_attn_variant(const void* q, const void* k, const void* v, void* o, const 
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
   p.scale = scale;
-  if ((cos == nullptr) != (sin == nullptr) || (cos == nullptr) != (P == nullptr) || bh < 1 || n < 1) {
+  if (bh < 1 || n < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,14 +1,18 @@
 """The probe tools' attention variants: the CUDA kernels' wrappers and their
 plain versions.
 
-Four functions, one kernel template (csrc/attn_variants.cu, whose header
-note gives the design), each with its own launch count:
+Four functions, each with its own launch count (one a wrapper call):
   - `attn_pack2` and `attn_flat`: softmax(q k^T * scale) v over [b, h, n, d]
-    with no mask and no rotary embedding; the kernel takes two heads per
-    block for the first and one for the second;
+    with no mask and no rotary embedding; one kernel template
+    (csrc/attn_variants.cu) takes two heads per block for the first and one
+    for the second;
   - `flash_bhnd_rope` ([b, h, n, d]) and `flash_nhd` ([b, n, h, d]): the same
     attention after a rotary embedding of q and k written as a product with
-    an input matrix P, x * cos + (x @ P) * sin, computed in q's dtype.
+    an input matrix P, x * cos + (x @ P) * sin, computed in q's dtype. Both
+    run csrc/attn_rope_wgmma.cu: a pre-pass that rotates q and k once into a
+    bf16 scratch (`rope_prepass_plain` is its function), then a TMA + wgmma
+    attention forward over the scratch and v. The source's header notes give
+    the designs.
 
 They are the counterparts of the Pallas probe kernels of the JAX package's
 `tools/attn_variants.py` and `tools/fusion_probe.py`, and the plain versions
@@ -32,11 +36,12 @@ import functools
 import torch
 
 from f5_tts_tpu_torch.ops import cuda_build
-from f5_tts_tpu_torch.ops.flash_attention import _layout_ok
 
 SOURCE = cuda_build.CSRC / "attn_variants.cu"
+ROPE_SOURCE = cuda_build.CSRC / "attn_rope_wgmma.cu"
 HEAD_DIMS = (64, 128)
 MAX_HEAD_BLOCKS = 65535  # the grid's y dimension
+ROPE_ROW_PAD = 128  # the RoPE kernels' scratch rows: n rounded up to a multiple of this
 
 
 # ------------------------------------------------------------ plain versions
@@ -72,6 +77,18 @@ def flash_nhd_plain(q, k, v, cos, sin, P, scale: float) -> torch.Tensor:
     return flash_bhnd_rope_plain(*bhnd, cos, sin, P, scale).transpose(1, 2)
 
 
+def rope_prepass_plain(q, k, cos, sin, P, n_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RoPE kernels' pre-pass: rope(q) and rope(k) of [b, h, n, d] views
+    as [b * h, n_pad, d] in q's dtype, rows n to n_pad zero."""
+    b, h, n, d = q.shape
+    out = []
+    for x in (q, k):
+        pad = x.new_zeros(b * h, n_pad, d)
+        pad[:, :n] = rope_plain(x, cos, sin, P).reshape(b * h, n, d)
+        out.append(pad)
+    return out[0], out[1]
+
+
 # ------------------------------------------------------------ the kernel
 
 
@@ -79,68 +96,118 @@ def flash_nhd_plain(q, k, v, cos, sin, P, scale: float) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_build.build(SOURCE)[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.f5_attn_variant.argtypes = [ptr] * 7 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, ptr]
+    lib.f5_attn_variant.argtypes = [ptr] * 4 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, ptr]
     lib.f5_attn_variant.restype = i32
     lib.f5_attn_variant_error_string.argtypes = [i32]
     lib.f5_attn_variant_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(name: str, q, k, v, rope, heads_per_block: int) -> None:
-    """Raise ValueError for CUDA inputs the kernel does not take; q, k, v are
-    [b, h, n, d] views."""
-    b, h, n, d = q.shape
+@functools.lru_cache(maxsize=None)
+def _rope_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(cuda_build.build(ROPE_SOURCE)[0]))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.f5_rope_prepass.argtypes = [ptr] * 6 + [i32] * 5 + [i64] * 6 + [i32, ptr]
+    lib.f5_rope_prepass.restype = i32
+    lib.f5_rope_attention.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, i32, ptr]
+    lib.f5_rope_attention.restype = i32
+    lib.f5_rope_attention_error_string.argtypes = [i32]
+    lib.f5_rope_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, q, k, v, rope, heads_per_block: int, nhd: bool = False) -> tuple:
+    """Raise ValueError for CUDA inputs the kernels do not take; q, k, v are
+    [b, h, n, d], or [b, n, h, d] with `nhd`. Returns (b, h, n, d) and the
+    (batch, head, row) strides of q, k and v, nine ints. Each tensor's
+    strides and address are read once, and devices as indices: the RoPE
+    kernels' whole call takes a few tens of us of device time, so the host's
+    work shows."""
+    shape = q.shape
+    b, h, n, d = (shape[0], shape[2], shape[1], shape[3]) if nhd else shape
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{name} runs bfloat16 on the card (head dims {HEAD_DIMS}); got {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"{name} runs head dims {HEAD_DIMS} in bfloat16 on the card; got head dim {d}")
     if n < 1:
         raise ValueError(f"{name} needs at least one key")
+    dev = q.get_device()
+    strides = []
     for label, x in (("q", q), ("k", k), ("v", v)):
-        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+        if x.shape != shape or x.dtype != q.dtype or x.get_device() != dev:
             raise ValueError(f"{label} is {x.dtype} {tuple(x.shape)} on {x.device}; "
-                             f"q is {q.dtype} {tuple(q.shape)} on {q.device}")
-        if not _layout_ok(x):
+                             f"q is {q.dtype} {tuple(shape)} on {q.device}")
+        s = x.stride()
+        if s[3] != 1 or s[0] % 8 or s[1] % 8 or s[2] % 8 or x.data_ptr() % 16:  # 16 bytes: 8 bf16
             raise ValueError(f"{name} needs a contiguous head dim, strides that are multiples of 8 and a "
-                             f"16-byte aligned start; {label} has strides {x.stride()}")
+                             f"16-byte aligned start; {label} has strides {s}")
+        strides += (s[0], s[2], s[1]) if nhd else s[:3]
     if rope is not None:
         cos, sin, P = rope
         for label, t in (("cos", cos), ("sin", sin)):
-            if t.ndim != 2 or t.shape[0] < n or t.shape[1] != d or t.device != q.device:
+            if t.ndim != 2 or t.shape[0] < n or t.shape[1] != d or t.get_device() != dev:
                 raise ValueError(f"{label} must be [n' >= {n}, {d}] on {q.device}; got {tuple(t.shape)}")
-        if P.shape != (d, d) or P.device != q.device:
+        if P.shape != (d, d) or P.get_device() != dev:
             raise ValueError(f"P must be [{d}, {d}] on {q.device}; got {tuple(P.shape)}")
     if -(-b * h // heads_per_block) > MAX_HEAD_BLOCKS:
         raise ValueError(f"{name} takes at most {MAX_HEAD_BLOCKS * heads_per_block} heads; got b * h = {b * h}")
+    return b, h, n, d, strides
 
 
-def _launch(q, k, v, o, scale: float, heads_per_block: int, rope) -> None:
-    """Launch the kernel on [b, h, n, d] views (o written in place)."""
-    b, h, n, d = q.shape
-    cos = sin = P = None
-    if rope is not None:
-        cos, sin, P = (t.float().contiguous() for t in (rope[0][:n], rope[1][:n], rope[2]))
-    strides = [s for x in (q, k, v, o) for s in x.stride()[:3]]
+def _run(fn, name: str, q, k, v, scale, heads_per_block: int) -> torch.Tensor:
+    """Launch the template kernel on [b, h, n, d] tensors: one count on `fn`."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {q.device.type}")
+    b, h, n, d, strides = _check(name, q, k, v, None, heads_per_block)
+    out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.f5_attn_variant(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
-            None if P is None else P.data_ptr(),
-            b * h, h, n, d, heads_per_block, *strides, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, h, n, d, heads_per_block, *strides,
+            *out.stride()[:3], float(scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"attention variant kernel launch failed: {lib.f5_attn_variant_error_string(err).decode()}")
+    fn.launches += 1
+    return out
 
 
-def _run(fn, name: str, q, k, v, scale, heads_per_block: int, rope=None, nhd: bool = False) -> torch.Tensor:
-    if q.device.type != "cuda":
+# ------------------------------------------------------------ the RoPE kernels
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A table or P as the RoPE kernels read it: float32 and contiguous (no
+    copy when it already is; the kernels read a table's first n rows)."""
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
+
+
+def _rope_error(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.f5_rope_attention_error_string(err).decode()}")
+
+
+def _run_rope(fn, name: str, q, k, v, cos, sin, P, scale: float, nhd: bool) -> torch.Tensor:
+    """The pre-pass into a fresh scratch, then the attention kernel, on the
+    current stream of q's device (which need not be the current device):
+    one count on `fn`."""
+    if not q.is_cuda:
         raise ValueError(f"{name} runs on CPU or CUDA tensors, not {q.device.type}")
+    if 0 in v.stride():  # a tensor map takes no zero stride
+        v = v.contiguous()
+    b, h, n, d, strides = _check(name, q, k, v, (cos, sin, P), 1, nhd)
     out = torch.empty_like(q)
-    views = [t.transpose(1, 2) if nhd else t for t in (q, k, v, out)]
-    _check(name, *views[:3], rope, heads_per_block)
-    _launch(*views, scale, heads_per_block, rope)
+    s = out.stride()
+    n_pad = -(-n // ROPE_ROW_PAD) * ROPE_ROW_PAD
+    cos, sin, P = _f32(cos), _f32(sin), _f32(P)
+    rot = q.new_empty((2, b * h, n_pad, d))
+    dev = q.get_device()
+    lib = _rope_library()
+    err = lib.f5_rope_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), cos.data_ptr(), sin.data_ptr(), P.data_ptr(),
+        rot.data_ptr(), b, h, n, n_pad, d, *strides, *((s[0], s[2], s[1]) if nhd else s[:3]), float(scale),
+        dev, torch._C._cuda_getCurrentRawStream(dev),  # the raw stream getter torch's compiled code calls
+    )
+    _rope_error(lib, err, "RoPE attention kernel")
     fn.launches += 1
     return out
 
@@ -166,18 +233,43 @@ def flash_bhnd_rope(q, k, v, cos, sin, P, scale: float) -> torch.Tensor:
     """Attention over [b, h, n, d] after the rotary embedding
     x * cos + (x @ P) * sin of q and k; cos and sin [n' >= n, d] (first n
     rows), P [d, d]."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return flash_bhnd_rope_plain(q, k, v, cos, sin, P, scale)
-    return _run(flash_bhnd_rope, "flash_bhnd_rope", q, k, v, scale, 1, (cos, sin, P))
+    return _run_rope(flash_bhnd_rope, "flash_bhnd_rope", q, k, v, cos, sin, P, scale, nhd=False)
 
 
 def flash_nhd(q, k, v, cos, sin, P, scale: float) -> torch.Tensor:
     """`flash_bhnd_rope`'s function on q, k, v and the output in the
     [b, n, h, d] layout, read and written in place through strides."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return flash_nhd_plain(q, k, v, cos, sin, P, scale)
-    return _run(flash_nhd, "flash_nhd", q, k, v, scale, 1, (cos, sin, P), nhd=True)
+    return _run_rope(flash_nhd, "flash_nhd", q, k, v, cos, sin, P, scale, nhd=True)
 
 
-for _fn in (attn_pack2, attn_flat, flash_bhnd_rope, flash_nhd):
+def rope_prepass(q, k, cos, sin, P, n_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RoPE kernels' pre-pass alone (`rope_prepass_plain`'s function):
+    rope(q), rope(k) of [b, h, n, d] views as [b * h, n_pad, d]; on the card
+    n_pad is a multiple of ROPE_ROW_PAD and the two are views of one
+    scratch."""
+    if q.is_cpu:
+        return rope_prepass_plain(q, k, cos, sin, P, n_pad)
+    if not q.is_cuda:
+        raise ValueError(f"rope_prepass runs on CPU or CUDA tensors, not {q.device.type}")
+    b, h, n, d, strides = _check("rope_prepass", q, k, k, (cos, sin, P), 1)
+    if n_pad < n or n_pad % ROPE_ROW_PAD:
+        raise ValueError(f"n_pad must be a multiple of {ROPE_ROW_PAD} of at least n = {n}; got {n_pad}")
+    cos, sin, P = _f32(cos), _f32(sin), _f32(P)
+    rot = q.new_empty((2, b * h, n_pad, d))
+    dev = q.get_device()
+    lib = _rope_library()
+    err = lib.f5_rope_prepass(
+        q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(), P.data_ptr(), rot.data_ptr(),
+        b, h, n, n_pad, d, *strides[:6], dev, torch._C._cuda_getCurrentRawStream(dev),
+    )
+    _rope_error(lib, err, "RoPE pre-pass kernel")
+    rope_prepass.launches += 1
+    return rot[0], rot[1]
+
+
+for _fn in (attn_pack2, attn_flat, flash_bhnd_rope, flash_nhd, rope_prepass):
     _fn.launches = 0

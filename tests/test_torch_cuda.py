@@ -2,7 +2,8 @@
 attention forward (K1) and backward (K2), bf16 and float32 (at d = 64 on the
 tensor cores in 3xTF32, held to the float32 tolerance all the same), the
 dequantizing matmul, and the probe tools' kernels (the attention variants
-P1-P4 and the Triton LayerNorm + modulate P5).
+P1-P4, with the RoPE pre-pass of P3 and P4 held exactly or within an ulp,
+and the Triton LayerNorm + modulate P5).
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -426,6 +427,10 @@ def _variant(name, q, k, v, scale, rope):
 @pytest.mark.parametrize("shape", [(2, 16, 1024, 64), (2, 16, 1000, 64), (1, 3, 37, 128), (2, 2, 130, 128)],
                          ids=["main", "ragged", "odd-heads", "d128"])
 def test_attn_variant_matches_plain(gen, name, shape):
+    _check_variant(gen, name, shape)
+
+
+def _check_variant(gen, name, shape):
     b, h, n, d = shape
     nhd = name == "flash_nhd"
     q, k, v = (torch.randn(*((b, n, h, d) if nhd else shape), generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -435,6 +440,73 @@ def test_attn_variant_matches_plain(gen, name, shape):
     torch.cuda.synchronize()
     assert out.shape == q.shape and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_bhnd_rope", "flash_nhd"])
+@pytest.mark.parametrize("shape", [(1, 3, 129, 64), (3, 5, 255, 64), (1, 4, 4096, 64), (2, 3, 1000, 128),
+                                   (1, 5, 127, 128)],
+                         ids=["n%128=1", "n%128=127", "n=4096", "d128", "d128-n%128=127"])
+def test_rope_attention_edges(gen, name, shape):
+    """The RoPE kernels (pre-pass, then the TMA + wgmma forward) at ragged
+    n (a last 128-row block of one row or of 127, odd b * h), at n = 4096
+    (64 key tiles through the ring) and at d = 128 (two swizzled panels a
+    tile), in both layouts."""
+    _check_variant(gen, name, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_bhnd_rope", "flash_nhd"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_rope_attention_is_deterministic(gen, name, d):
+    """Two calls give the same bits: no atomics, and no stage of the ring is
+    refilled while a warp still reads it."""
+    shape = (2, 1000, 16, d) if name == "flash_nhd" else (2, 16, 1000, d)
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    args = (q, k, v, *_rope_inputs(1000, d), d ** -0.5)
+    first = getattr(av, name)(*args)
+    for _ in range(3):
+        assert torch.equal(getattr(av, name)(*args), first)
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("perm", ["pair swap", "random"])
+@pytest.mark.parametrize("layout", ["bhnd", "nhd"])
+def test_rope_prepass_matches_plain(gen, layout, perm, d):
+    """The pre-pass kernel's scratch against `rope_prepass_plain`: equal for
+    the pair swap; for a random P within one bf16 ulp of the result or of its
+    larger term (bf16(x @ P) of float32 sums in another order may round the
+    other way); rows n to n_pad zero."""
+    b, h, n, n_pad = 2, 3, 300, 384
+    shape = (b, n, h, d) if layout == "nhd" else (b, h, n, d)
+    q, k = (torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+    if layout == "nhd":
+        q, k = q.transpose(1, 2), k.transpose(1, 2)
+    cos, sin, P = _rope_inputs(n, d)
+    if perm == "random":
+        P = torch.randn(d, d, generator=gen, device="cuda") / d ** 0.5
+    before = av.rope_prepass.launches
+    got = av.rope_prepass(q, k, cos, sin, P, n_pad)
+    assert av.rope_prepass.launches == before + 1
+    ref = av.rope_prepass_plain(q, k, cos, sin, P, n_pad)
+    torch.cuda.synchronize()
+    for x, g, r in zip((q, k), got, ref):
+        assert g.shape == (b * h, n_pad, d) and g.dtype == torch.bfloat16
+        assert not g[:, n:].any()
+        if perm == "pair swap":
+            assert torch.equal(g, r)
+            continue
+        c, s, Pb = (t.to(torch.bfloat16) for t in (cos, sin, P))
+        terms = [(x * c).reshape(b * h, n, d),
+                 (torch.matmul(x.float(), Pb.float()).to(torch.bfloat16) * s).reshape(b * h, n, d)]
+        big = torch.maximum(terms[0].abs(), terms[1].abs())
+        tol = torch.maximum(_bf16_ulp(r[:, :n]), _bf16_ulp(big))
+        assert ((g[:, :n].float() - r[:, :n].float()).abs() <= tol).all()
 
 
 @pytest.mark.cuda

@@ -105,6 +105,54 @@ def test_rope_attention_matches_pallas(tools, name, perm, d, dtype):
     _close(got, ref.astype(jnp.float32), dtype)
 
 
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each value's magnitude (8 significant bits)."""
+    mag = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("perm", ["pair swap", "random"])
+@pytest.mark.parametrize("layout", ["bhnd", "nhd"])
+def test_rope_prepass_matches_the_pallas_rotation(tools, layout, perm, d):
+    """The RoPE kernels' pre-pass (its plain version) against the Pallas
+    bodies' rotation, q * cos + bf16(q @ P) * sin in bf16, computed op by op
+    in jnp for each head: equal for the pair swap (one nonzero term a
+    column, so no sum to reorder); for a random P within one bf16 ulp of the
+    result or of its larger term (the float32 sums of x @ P in another order
+    may round bf16(x @ P) the other way, which moves its term by up to an ulp
+    of that term, also where the two terms cancel); the rows past n are
+    zero."""
+    _, jfp = tools
+    b, h, n, n_pad = 2, 3, 100, 128
+    rng = np.random.default_rng(d + 11)
+    shape = (b, n, h, d) if layout == "nhd" else (b, h, n, d)
+    q, k = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    cos, sin = (np.asarray(t) for t in jfp.rope_tables(n, d))
+    P = jfp.perm_matrix(d) if perm == "pair swap" else \
+        (rng.standard_normal((d, d)) / np.sqrt(d)).astype(np.float32)
+    tq, tk = (torch.tensor(x).to(torch.bfloat16) for x in (q, k))
+    if layout == "nhd":
+        tq, tk = tq.transpose(1, 2), tk.transpose(1, 2)
+    got = AV.rope_prepass_plain(tq, tk, torch.tensor(cos), torch.tensor(sin), torch.tensor(P), n_pad)
+    bf = jnp.bfloat16
+    c, s, Pb = jnp.asarray(cos, bf), jnp.asarray(sin, bf), jnp.asarray(P, bf)
+    for x, out in zip((q, k), got):
+        assert out.dtype == torch.bfloat16 and out.shape == (b * h, n_pad, d)
+        xh = x.transpose(0, 2, 1, 3) if layout == "nhd" else x
+        for i in range(b * h):
+            xj = jnp.asarray(xh[i // h, i % h], bf)
+            terms = (xj * c, jax.lax.dot(xj, Pb, preferred_element_type=jnp.float32).astype(bf) * s)
+            ref = np.asarray((terms[0] + terms[1]).astype(jnp.float32))
+            row = out[i, :n].float().numpy()
+            if perm == "pair swap":
+                np.testing.assert_array_equal(row, ref)
+            else:
+                big = np.maximum(*(np.abs(np.asarray(t.astype(jnp.float32))) for t in terms))
+                assert (np.abs(row - ref) <= np.maximum(_bf16_ulp(ref), _bf16_ulp(big))).all()
+        assert not out[:, n:].any()
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_ln_modulate_matches_pallas(tools, dtype):
     """P5 at [2, 256, 128], n a multiple of the TPU kernel's 256-row block."""
