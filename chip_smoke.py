@@ -11,7 +11,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      at the main path's shape and two edge shapes; the attention kernel in
      float32 at the duration predictor's shape, the duration training
      shape and the DiT's; the dequantizing matmul at every linear shape of
-     the main path, int4 and int8, bf16 and float32;
+     the main path, int4 and int8, bf16 and float32, with the float32
+     kernel's device time (as in phase 12) at the DiT blocks' shape and at
+     the widest time-conditioning shape;
   4. snapshot: the base DiT (1024 x 22 layers x 16 heads, bf16), Vocos and a
      float32 duration predictor (DURATION_V2), randomly initialised from a
      seed, written with save_pretrained as float, int4 and int8 DiT files;
@@ -38,9 +40,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   9. duration training: DURATION_V2 in float32 on the same batch shape, a
      few steps with exact float32 attention launches and a falling loss;
  10. probe kernels vs plain, timed with CUDA events: the attention variants
-     (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope; the
-     last two also at a ragged n, and with their device time as in phase 12,
-     their pre-pass's own device time and the host time per call) in bf16
+     (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope; all
+     but attn_flat also at a ragged n, and with their device time as in
+     phase 12, the RoPE pre-pass's own device time and the host time per
+     call) in bf16
      and the Triton LayerNorm + modulate at the probe tools' shapes and at a
      ragged n;
  11. probe tools: both tools' entry points once at their full shapes with
@@ -51,7 +54,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      timed with the card held by a spin kernel while the calls are enqueued
      (so, unlike phases 3 and 7, the host's enqueue is left out); K1-f32's
      and K2-f32's per duration step (8 calls each) beside SDPA float32's,
-     timed the same way; the host time per wrapper call of K3 and K2 (100
+     and K3-f32's per float32 forward of the int4 DiT (its 166 launches by
+     shape) beside F.linear float32's, timed the same way; the host time per wrapper call of K3 and K2 (100
      calls enqueued behind a spin kernel; median, least and most of 10
      runs); and a torch.profiler breakdown of one int4 request, one CFM
      step and one duration step by kernel group.
@@ -354,6 +358,10 @@ QMM_SHAPES = [
 ]
 
 
+# the float32 rows whose device time the quantized phase prints: the DiT blocks' linears, the widest m = 31 one
+QMM_F32_DEVICE_SHAPES = ((2048, 1024, 1024), (31, 1024, 6144))
+
+
 def qmatmul_phase():
     import numpy as np
     import torch
@@ -393,6 +401,9 @@ def qmatmul_phase():
                 bound_ms, bound_by = bound(2 * m * k * n, nbytes(x, q, s, b, bb, out),
                                            "bf16" if dtype == torch.bfloat16 else "f32")
                 _library_line(label, "F.linear, no dequantization", library_ms, bound_ms, bound_by)
+                if dtype == torch.float32 and (m, k, n) in QMM_F32_DEVICE_SHAPES:
+                    print(f"{label}: device {device_ms(lambda: qmatmul(x, q, s, b, bb)):.4f} ms, F.linear float32 "
+                          f"device {device_ms(lambda: torch.nn.functional.linear(x, w_deq, bb)):.4f} ms")
                 results[(name, bits, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
                                                 "library_ms": library_ms, "bound_ms": bound_ms,
                                                 "bound_by": bound_by}
@@ -525,6 +536,9 @@ def _dit_f32_check(model) -> dict:
         raise AssertionError(f"the float32 int4 DiT forward on the card disagrees with the CPU path: {rel}")
     if launched != expect:
         raise AssertionError(f"float32 DiT forward: kernel launches {launched}, expected {expect}")
+    if sum(dit_f32_launches_by_shape(cfg).values()) != expect["qmatmul_f32"]:
+        raise AssertionError(f"the ranking phase's K3-f32 shapes {dit_f32_launches_by_shape(cfg)} do not sum to the "
+                             f"forward's {expect['qmatmul_f32']} launches")
     return launched
 
 
@@ -879,9 +893,9 @@ def probe_kernel_phase():
     plain = {"attn_pack2": av.attention_plain, "attn_flat": av.attention_plain,
              "flash_nhd": av.flash_nhd_plain, "flash_bhnd_rope": av.flash_bhnd_rope_plain}
     results = {}
-    # (label, kernel, b, h, n, d): the probe tools' shape, and the RoPE kernels at a ragged n
+    # (label, kernel, b, h, n, d): the probe tools' shape, and the kernels on the TMA + wgmma core at a ragged n
     cases = [(name, name, 2, 16, 1024, 64) for name in PROBE_ATTN]
-    cases += [(f"{name}, ragged n", name, 2, 16, 1000, 64) for name in ("flash_nhd", "flash_bhnd_rope")]
+    cases += [(f"{name}, ragged n", name, 2, 16, 1000, 64) for name in ("attn_pack2", "flash_nhd", "flash_bhnd_rope")]
     for label, name, b, h, n, d in cases:
         nhd = name == "flash_nhd"
         q, k, v = (torch.randn(*((b, n, h, d) if nhd else (b, h, n, d)), generator=gen, device="cuda",
@@ -914,7 +928,9 @@ def probe_kernel_phase():
                           "bound_ms": bound_ms, "bound_by": bound_by}
         if rope:  # the pre-pass takes q and k unrotated, as [b, h, n, d] views of the call's layout
             views = [t.transpose(1, 2) if nhd else t for t in (q, k)]
-            _rope_device_times(label, av, fn, (q, k, v, *rope, scale), *views, rope)
+            _device_times(label, av, fn, (q, k, v, *rope, scale), (*views, rope))
+        elif name == "attn_pack2":
+            _device_times(label, av, fn, (q, k, v, scale))
 
     for label, (b, n, d) in (("ln_modulate", (2, 1024, 1024)), ("ln_modulate, ragged n", (2, 1000, 1024))):
         x, scale, shift = (torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -940,18 +956,23 @@ def probe_kernel_phase():
     return results
 
 
-def _rope_device_times(label, av, fn, args, qh, kh, rope) -> None:
-    """A RoPE kernel's device time (`device_ms`), its pre-pass's alone (where
-    the checkout has one) and the host's time per wrapper call."""
+def _device_times(label, av, fn, args, prepass=None) -> None:
+    """A probe attention kernel's device time (`device_ms`), for a RoPE
+    kernel its pre-pass's alone (`prepass`: the unrotated [b, h, n, d] views
+    of q and k and the rope inputs; where the checkout has a pre-pass), and
+    the host's time per wrapper call."""
     import statistics
 
     dev = device_ms(lambda: fn(*args))
-    pre = "none in this checkout"
-    if hasattr(av, "rope_prepass"):
-        n_pad = -(-qh.shape[2] // av.ROPE_ROW_PAD) * av.ROPE_ROW_PAD
-        pre = f"{device_ms(lambda: av.rope_prepass(qh, kh, *rope, n_pad)):.4f} ms"
+    pre = ""
+    if prepass is not None:
+        qh, kh, rope = prepass
+        pre = ", pre-pass alone none in this checkout"
+        if hasattr(av, "rope_prepass"):
+            n_pad = -(-qh.shape[2] // av.ROPE_ROW_PAD) * av.ROPE_ROW_PAD
+            pre = f", pre-pass alone {device_ms(lambda: av.rope_prepass(qh, kh, *rope, n_pad)):.4f} ms"
     us = host_us(lambda: fn(*args))
-    print(f"{label}: device {dev:.4f} ms, pre-pass alone {pre}; host per call (100 calls enqueued behind a spin "
+    print(f"{label}: device {dev:.4f} ms{pre}; host per call (100 calls enqueued behind a spin "
           f"kernel, 10 runs) median {statistics.median(us):.1f} us, least {us[0]:.1f}, most {us[-1]:.1f}")
 
 
@@ -1039,6 +1060,20 @@ def _profiled(label: str, fn) -> None:
         raise AssertionError(f"the profile of the {label} shows no device time")
 
 
+def dit_f32_launches_by_shape(cfg) -> dict:
+    """The quantized-linear launches of one float32 DiT forward on
+    `_dit_out`'s input (2 x 128 frames, one flow time), by (m, k, n): the
+    time conditioning at m = 1 (the time MLP from its 256 frequencies, one
+    AdaLN linear per block, norm_out), the text branch and the blocks at 256
+    rows."""
+    d, depth, conv, rows = cfg.dim, cfg.depth, cfg.conv_layers, 2 * 128
+    wide_text = cfg.text_dim * cfg.conv_mult
+    return {(1, 256, d): 1, (1, d, d): 1, (1, d, 6 * d): depth, (1, d, 2 * d): 1,
+            (rows, cfg.text_dim, wide_text): conv, (rows, wide_text, cfg.text_dim): conv,
+            (rows, d, d): 4 * depth, (rows, d, cfg.ff_mult * d): depth, (rows, cfg.ff_mult * d, d): depth,
+            (rows, d, cfg.mel_dim): 1}
+
+
 def ranking_phase(card: str, snap: str) -> None:
     """K3's device time per int4 request, K2's per CFM step and K1-f32's and
     K2-f32's per duration step beside their library calls' (device times,
@@ -1088,6 +1123,24 @@ def ranking_phase(card: str, snap: str) -> None:
     print(f"K3 int4 bf16, per int4 request ({sum(per_shape.values())} launches over the {len(QMM_SHAPES)} "
           f"shapes): kernel {k3_ms:.3f} ms, F.linear on the dequantized weights {k3_lib:.3f} ms, "
           f"lost {k3_ms - k3_lib:.3f} ms; on {card}")
+
+    # K3-f32 over one float32 forward of the int4 DiT (`_dit_f32_check`): int4 codes with float32 scales and
+    # biases, as the float32 DiT holds them, and the linears' biases
+    by_shape = dit_f32_launches_by_shape(cfg)
+    k3f_ms = k3f_lib = 0.0
+    for (m, k, n), calls in by_shape.items():
+        p = quantize_kernel((rng.uniform(-1, 1, (k, n)) / np.sqrt(k)).astype(np.float32), 4)
+        q, s, b = (torch.from_numpy(np.ascontiguousarray(p[t].T)).cuda() for t in ("q", "scales", "biases"))
+        x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32), device="cuda")
+        bias = torch.tensor(rng.standard_normal(n).astype(np.float32) * 0.1, device="cuda")
+        w = dequantize_kernel(q, s, b)
+        ms, lib = device_ms(lambda: qmatmul(x, q, s, b, bias)), device_ms(lambda: F.linear(x, w, bias))
+        k3f_ms, k3f_lib = k3f_ms + calls * ms, k3f_lib + calls * lib
+        print(f"K3-f32 int4 float32 [m={m}, k={k}, n={n}]: device {ms:.4f} ms, F.linear float32 on the dequantized "
+              f"weight {lib:.4f} ms; {calls} launches per forward")
+    print(f"K3-f32 int4 float32, per float32 forward of the int4 DiT ({sum(by_shape.values())} launches over "
+          f"{len(by_shape)} shapes): kernel {k3f_ms:.3f} ms, F.linear float32 on the dequantized weights "
+          f"{k3f_lib:.3f} ms, lost {k3f_ms - k3f_lib:.3f} ms; on {card}")
 
     # K2 at the CFM training shape: q, k, v and g as [b, n, h*d] projection views, RoPE, no mask
     b, h, n, d = TRAIN_BATCH, 16, TRAIN_FRAMES, 64
@@ -1210,7 +1263,7 @@ def main() -> int:
          bwd["CFM training"]),
         ("flash_attention_bwd_f32", "cuda", csrc + "flash_attention_bwd.cu",
          "f5_tts_tpu/ops/flash_attention.py:349", bwd["duration training"]),
-        ("attn_pack2", "cuda", csrc + "attn_variants.cu", "tools/attn_variants.py:76", probe["attn_pack2"]),
+        ("attn_pack2", "cuda", csrc + "attn_rope_wgmma.cu", "tools/attn_variants.py:76", probe["attn_pack2"]),
         ("attn_flat", "cuda", csrc + "attn_variants.cu", "tools/attn_variants.py:115", probe["attn_flat"]),
         ("flash_nhd", "cuda", csrc + "attn_rope_wgmma.cu", "tools/fusion_probe.py:128", probe["flash_nhd"]),
         ("flash_bhnd_rope", "cuda", csrc + "attn_rope_wgmma.cu", "tools/fusion_probe.py:165",

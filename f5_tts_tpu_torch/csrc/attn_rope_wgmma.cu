@@ -1,17 +1,23 @@
-// The probe tools' RoPE attention for Hopper (sm_90a), bf16: a rotation
-// pre-pass, then a TMA-fed wgmma attention forward.
+// The probe tools' attention without a mask for Hopper (sm_90a), bf16: a
+// TMA-fed wgmma attention forward (the core), after a rotation pre-pass for
+// the RoPE variants.
 //
 // Replaces the Pallas TPU kernels of the JAX package's probe tools:
 //   - tools/fusion_probe.py `flash_bhnd_rope` (body `_kernel_bhnd_rope`),
 //     q, k, v and the output in [b, h, n, d];
 //   - tools/fusion_probe.py `flash_nhd` (body `_kernel_nhd`), the same
-//     function in [b, n, h, d].
-// Both layouts take the same kernels: q, k, v and the output are addressed
+//     function in [b, n, h, d];
+//   - tools/attn_variants.py `attn_pack2` (body `_attn_kernel_pack2`),
+//     the same function without the rotation: the core alone, reading q and
+//     k in place (f5_attention). The Pallas kernel's two heads a grid step
+//     are a TPU grid choice; here each head has its own blocks, and b * h
+//     may be odd.
+// Every layout takes the same kernels: q, k, v and the output are addressed
 // through (batch, head, row) strides, so a [b, n, h, d] view is read and
-// written in place. The function: softmax(rope(q) rope(k)^T * scale) v with
-// no mask, where rope(x) = bf16(bf16(x * cos) + bf16(bf16(x @ P) * sin)),
-// cos, sin and P rounded to bf16 and x @ P accumulated in float32. P [d, d]
-// is an input (a pair swap in the tools, but not hard-wired here).
+// written in place. The RoPE function: softmax(rope(q) rope(k)^T * scale) v
+// with no mask, where rope(x) = bf16(bf16(x * cos) + bf16(bf16(x @ P) *
+// sin)), cos, sin and P rounded to bf16 and x @ P accumulated in float32.
+// P [d, d] is an input (a pair swap in the tools, but not hard-wired here).
 //
 // What bounds it on this card. Per head the work is 4 n^2 d FLOP, plus
 // 4 n d^2 for the rotation of q and k as a product, against 4 n d bf16 values
@@ -33,12 +39,14 @@
 //     as bf16 scratch
 //     [2, b * h, n_pad, d] (rope(q), then rope(k)), n_pad a multiple of 128
 //     and rows past n zero;
-//   - the main kernel is warp specialised: a block owns 128 query rows of
-//     one head, two consumer warpgroups of 64; one producer warp loads the
-//     block's rotated Q once and streams 128-key tiles of rotated K and of
+//   - the main kernel (the core) is warp specialised: a block owns 128
+//     query rows of one head, two consumer warpgroups of 64; one producer
+//     warp loads the block's Q once and streams 128-key tiles of K and of
 //     V through a ring of 3 stages (2 at d = 128: 160 KB) by TMA, with the
-//     128-byte swizzle; rotated K through a 4-d map over the scratch, V
-//     through a 4-d map over its (batch, head, row) strides; each stage has
+//     128-byte swizzle; Q, K and V each through a 4-d map with coordinates
+//     (column, row, head, batch): over the scratch's halves (rope(q),
+//     rope(k)) after the pre-pass, over q and k's own (batch, head, row)
+//     strides without it, and over v's always; each stage has
 //     a full and an empty mbarrier, and a stage is refilled only after all
 //     256 consumer threads have arrived on its empty barrier, which each
 //     does after its last wgmma on the stage has completed. 128-key tiles
@@ -46,8 +54,9 @@
 //     ones, at about 160 registers a thread and one block an SM;
 //   - S = Q K^T runs on wgmma.m64n128k16 with both operands K-major in
 //     shared memory; the online softmax runs in float32 registers, in base 2 with
-//     the scale folded in; keys past n (the last tile's zero rows) score
-//     -inf by index; P is rounded to bf16 A fragments against the running
+//     the scale folded in; keys past n (the last tile's zero rows: the
+//     scratch's padding, or TMA's zero fill) score -inf by index; query rows
+//     past n are zero and not written; P is rounded to bf16 A fragments against the running
 //     max (the Pallas body rounds against the row's final max: both divide
 //     the float32 P V sum by the float32 sum of the unrounded p, and differ
 //     by the bf16 rounding of p only); O += P V runs on wgmma with P from
@@ -60,9 +69,10 @@
 //     serialized the wgmmas and spilled at d = 128);
 //   - the epilogue divides by the row sum and writes bf16 through the
 //     output's strides. No atomics: the kernels are deterministic.
-// The main kernel is the attention forward core: it takes rotated q and k,
-// so a variant without rotation would skip the pre-pass and map q and k
-// directly.
+// Without the rotation (attn_pack2), the earlier kernel was an mma.sync
+// template (csrc/attn_variants.cu, which keeps attn_flat): 8x the 8.69 us
+// bound at [2, 16, 1024, 64]. The core runs it with the same arithmetic as
+// the RoPE variants, with no pre-pass and no scratch.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -95,8 +105,8 @@ struct Params {
   const float* cos;  // [n, d]
   const float* sin;  // [n, d]
   const float* P;    // [d, d]
-  __nv_bfloat16* rot;  // [2, b * h, n_pad, d]: rope(q), then rope(k)
-  int b, h, n, n_pad;
+  __nv_bfloat16* rot;  // [2, b * h, n_pad, d]: rope(q), then rope(k); unused without the rotation
+  int b, h, n, n_pad;  // n_pad: n rounded up to a multiple of ROW_PAD
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
   long long v_sb, v_sh, v_sn;
@@ -301,13 +311,13 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[KC][4], const float (&x
 }
 
 // One block per (128 query rows, head, batch row). The producer (lane 0 of
-// the last warp) loads the block's rotated Q once, then streams rotated K
-// and V of each KN-key tile through the ring. Each consumer warpgroup owns
-// 64 queries; a thread holds rows row0 + g and row0 + g + 8 of them.
+// the last warp) loads the block's Q once, then streams K and V of each
+// KN-key tile through the ring. Each consumer warpgroup owns 64 queries; a
+// thread holds rows row0 + g and row0 + g + 8 of them.
 template <int D>
 __global__ void __launch_bounds__(FwdShape<D>::THREADS, 1)
-rope_attn_fwd_kernel(const __grid_constant__ CUtensorMap rot_map, const __grid_constant__ CUtensorMap v_map,
-                     const Params p) {
+attn_core_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map, const Params p) {
   using S = FwdShape<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -319,7 +329,6 @@ rope_attn_fwd_kernel(const __grid_constant__ CUtensorMap rot_map, const __grid_c
 
   const int q0 = blockIdx.x * ROWS;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int head = b * p.h + h;
   const int tiles = (p.n + KN - 1) / KN;
 
   if (threadIdx.x == 0) {
@@ -333,11 +342,11 @@ rope_attn_fwd_kernel(const __grid_constant__ CUtensorMap rot_map, const __grid_c
   __syncthreads();
 
   if (threadIdx.x >= S::CONSUMERS) {  // producer warp
-    if (threadIdx.x == S::CONSUMERS) {  // the scratch map's coordinates: (dim, row, head, 0 for q or 1 for k)
+    if (threadIdx.x == S::CONSUMERS) {  // every map's coordinates: (dim, row, head, batch row)
       mbar_arrive_expect_tx(own, S::OWN);
       for (int pn = 0; pn < S::PANELS; ++pn) {
         for (int r = 0; r < WGS; ++r) {
-          tma_load_4d(sQ + pn * S::OWN_PANEL + r * S::BOX_BYTES, &rot_map, own, pn * 64, q0 + r * BOX, head, 0);
+          tma_load_4d(sQ + pn * S::OWN_PANEL + r * S::BOX_BYTES, &q_map, own, pn * 64, q0 + r * BOX, h, b);
         }
       }
       for (int it = 0; it < tiles; ++it) {
@@ -348,7 +357,7 @@ rope_attn_fwd_kernel(const __grid_constant__ CUtensorMap rot_map, const __grid_c
         for (int pn = 0; pn < S::PANELS; ++pn) {
           for (int x = 0; x < S::BOXES; ++x) {
             const int off = pn * S::KPANEL + x * S::BOX_BYTES, row = it * KN + x * BOX;
-            tma_load_4d(st + off, &rot_map, &full[s], pn * 64, row, head, 1);
+            tma_load_4d(st + off, &k_map, &full[s], pn * 64, row, h, b);
             tma_load_4d(st + S::TILE + off, &v_map, &full[s], pn * 64, row, h, b);
           }
         }
@@ -387,7 +396,7 @@ rope_attn_fwd_kernel(const __grid_constant__ CUtensorMap rot_map, const __grid_c
     wgmma_wait<0>();
     fence_regs(sc);
 
-    // keys past n (zero rows of the scratch) score -inf; the first tile
+    // keys past n (zero rows) score -inf; the first tile
     // holds key 0, so the running max is finite from then on
     const int k0 = it * KN;
     if (k0 + KN > p.n) {
@@ -472,23 +481,44 @@ cudaError_t launch_prepass(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The core over q and k as tensor maps with coordinates (dim, row, head,
+// batch row), and over v by its strides.
 template <int D>
-cudaError_t launch_attention(const Params& p, cudaStream_t stream) {
+cudaError_t launch_core(const CUtensorMap& q_map, const CUtensorMap& k_map, const Params& p, cudaStream_t stream) {
   using S = FwdShape<D>;
+  CUtensorMap v_map;
+  cudaError_t err = tile_map<D>(&v_map, p.v, p.n, p.h, p.b, p.v_sn, p.v_sh, p.v_sb);
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  err = raise_smem_limit(reinterpret_cast<const void*>(attn_core_fwd_kernel<D>), S::SMEM, raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.n_pad / ROWS, p.h, p.b);
+  attn_core_fwd_kernel<D><<<grid, S::THREADS, S::SMEM, stream>>>(q_map, k_map, v_map, p);
+  return cudaGetLastError();
+}
+
+// The pre-pass, then the core over the scratch's halves, each a contiguous
+// [b, h, n_pad, d].
+template <int D>
+cudaError_t launch_rope_attention(const Params& p, cudaStream_t stream) {
   cudaError_t err = launch_prepass<D>(p, stream);
   if (err != cudaSuccess) return err;
   const long long hn = static_cast<long long>(p.n_pad) * D;
-  const int bh = p.b * p.h;
-  CUtensorMap rot_map, v_map;
-  err = tile_map<D>(&rot_map, p.rot, p.n_pad, bh, 2, D, hn, bh * hn);
-  if (err == cudaSuccess) err = tile_map<D>(&v_map, p.v, p.n, p.h, p.b, p.v_sn, p.v_sh, p.v_sb);
+  CUtensorMap q_map, k_map;
+  err = tile_map<D>(&q_map, p.rot, p.n_pad, p.h, p.b, D, hn, p.h * hn);
+  if (err == cudaSuccess) err = tile_map<D>(&k_map, p.rot + p.b * p.h * hn, p.n_pad, p.h, p.b, D, hn, p.h * hn);
   if (err != cudaSuccess) return err;
-  static std::atomic<bool> raised[MAX_DEVICES];
-  err = raise_smem_limit(reinterpret_cast<const void*>(rope_attn_fwd_kernel<D>), S::SMEM, raised);
+  return launch_core<D>(q_map, k_map, p, stream);
+}
+
+// The core alone, over q and k in place (rows past n arrive as TMA's zero fill).
+template <int D>
+cudaError_t launch_plain_attention(const Params& p, cudaStream_t stream) {
+  CUtensorMap q_map, k_map;
+  cudaError_t err = tile_map<D>(&q_map, p.q, p.n, p.h, p.b, p.q_sn, p.q_sh, p.q_sb);
+  if (err == cudaSuccess) err = tile_map<D>(&k_map, p.k, p.n, p.h, p.b, p.k_sn, p.k_sh, p.k_sb);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.n_pad / ROWS, p.h, p.b);
-  rope_attn_fwd_kernel<D><<<grid, S::THREADS, S::SMEM, stream>>>(rot_map, v_map, p);
-  return cudaGetLastError();
+  return launch_core<D>(q_map, k_map, p, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* cos, const void* sin, const void* P, void* rot, int b,
@@ -574,8 +604,35 @@ int f5_rope_attention(const void* q, const void* k, const void* v, void* o, cons
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return static_cast<int>(launch_attention<64>(p, s));
-    case 128: return static_cast<int>(launch_attention<128>(p, s));
+    case 64: return static_cast<int>(launch_rope_attention<64>(p, s));
+    case 128: return static_cast<int>(launch_rope_attention<128>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The attention without the rotation (the core alone): q, k, v and o
+// [b, h, n, d] by (batch, head, row) strides in elements, the head dim
+// contiguous, strides multiples of 8 and the tensors 16-byte aligned, none
+// with a zero stride (a tensor map takes none).
+int f5_attention(const void* q, const void* k, const void* v, void* o, int b, int h, int n, int d, long long q_sb,
+                 long long q_sh, long long q_sn, long long k_sb, long long k_sh, long long k_sn, long long v_sb,
+                 long long v_sh, long long v_sn, long long o_sb, long long o_sh, long long o_sn, float scale,
+                 int device, void* stream) {
+  const int n_pad = align_up(n, ROW_PAD);
+  if (!shape_ok(b, h, n, n_pad)) return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
+  Params p = make_params(q, k, nullptr, nullptr, nullptr, nullptr, b, h, n, n_pad, q_sb, q_sh, q_sn, k_sb, k_sh,
+                         k_sn);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return static_cast<int>(launch_plain_attention<64>(p, s));
+    case 128: return static_cast<int>(launch_plain_attention<128>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,17 +1,16 @@
-// The probe tools' attention variants without rotary embedding for Hopper
-// (sm_90a), bf16 on the tensor cores: one kernel template for two functions.
+// The probe tools' `attn_flat` for Hopper (sm_90a), bf16 on the tensor
+// cores with mma.sync.
 //
-// Replaces the Pallas TPU kernels of the JAX package's probe tools:
-//   - tools/attn_variants.py `attn_pack2` (body `_attn_kernel_pack2`): two
-//     heads per grid step;                                    here HEADS = 2
-//   - tools/attn_variants.py `attn_flat` (body `_attn_kernel_flat`): one head
-//     of a flat b * h grid per step;                          here HEADS = 1
-// The function: softmax(q k^T * scale) v with no mask. (The RoPE probe
-// kernels, flash_bhnd_rope and flash_nhd, are in attn_rope_wgmma.cu.)
+// Replaces the Pallas TPU kernel tools/attn_variants.py `attn_flat` (body
+// `_attn_kernel_flat`) of the JAX package's probe tools: one head of a flat
+// b * h grid per step. The function: softmax(q k^T * scale) v with no mask.
+// (`attn_pack2`, the same function, and the RoPE probe kernels,
+// flash_bhnd_rope and flash_nhd, run the TMA + wgmma core in
+// attn_rope_wgmma.cu.)
 //
 // What bounds it on this card. Per head the work is 4 n^2 d FLOP against
 // 4 n d bf16 values of q, k, v and the output: at n = 1024, d = 64 about 128
-// FLOP per byte, so it wants the tensor cores. The TPU kernels hold a whole
+// FLOP per byte, so it wants the tensor cores. The TPU kernel holds a whole
 // head's sequence in VMEM; K and V of one head at n = 1024, d = 64 are
 // 256 KB of bf16 against 227 KB of shared memory per block here, so this
 // kernel tiles.
@@ -19,10 +18,8 @@
 // Design (the same plan as the attention forward in
 // flash_attention_fwd.cu, sharing its bf16 helpers through mma_bf16.cuh but
 // with new kernels, so that the probes compare distinct kernels):
-//   - a block holds HEADS groups of 4 warps; each group owns one head of the
-//     flat b * h index and a 64-row q tile of it, 16 rows per warp; a group
-//     past the last head (odd b * h with two heads per block) recomputes the
-//     last head and writes nothing;
+//   - a block of 4 warps owns one head of the flat b * h index and a 64-row
+//     q tile of it, 16 rows per warp;
 //   - K and V stream through shared memory in 64-row tiles with an online
 //     softmax (running max and sum in float32, output accumulated in float32
 //     registers); keys past n score -inf and are zero-filled, so they add
@@ -36,7 +33,7 @@
 //   - q, k, v and the output are addressed through (batch, head, row)
 //     strides; the head dim must be contiguous and rows 16-byte aligned.
 // cp.async / TMA double buffering, wgmma and warp specialisation are not
-// used yet (attn_rope_wgmma.cu's main kernel is that design).
+// used (attn_rope_wgmma.cu's core is that design).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,7 +48,7 @@ namespace {
 
 constexpr int BM = 64;  // query rows per head group, 16 per warp
 constexpr int BN = 64;  // keys per K/V tile
-constexpr int GROUP_THREADS = 4 * 32;  // the warps of one head
+constexpr int THREADS = 4 * 32;  // the warps of one head
 constexpr int PAD = 8;  // bf16 padding per shared-memory row: conflict-free fragment loads
 
 struct Params {
@@ -68,12 +65,12 @@ struct Params {
 };
 
 // Copy rows [row0, row0 + 64) of one head into shared memory (row stride
-// D + PAD) with the head group's threads, zero-filling rows >= n.
+// D + PAD) with the block's threads, zero-filling rows >= n.
 template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g, long long sn,
                                           int row0, int n, int tid) {
   constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < BN * CHUNKS; i += GROUP_THREADS) {
+  for (int i = tid; i < BN * CHUNKS; i += THREADS) {
     const int r = i / CHUNKS;
     const int c = (i % CHUNKS) * 8;
     const int row = row0 + r;
@@ -83,20 +80,17 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16*
   }
 }
 
-template <int D, int HEADS>
-__global__ void __launch_bounds__(HEADS * GROUP_THREADS) attn_variant_kernel(const Params p) {
+template <int D>
+__global__ void __launch_bounds__(THREADS) attn_variant_kernel(const Params p) {
   constexpr int LD = D + PAD;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int grp = threadIdx.x / GROUP_THREADS;
-  const int tid = threadIdx.x % GROUP_THREADS;
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem) + grp * (BM + 2 * BN) * LD;
+  const int tid = threadIdx.x;
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sK = sQ + BM * LD;
   __nv_bfloat16* sV = sK + BN * LD;
 
   const int q0 = blockIdx.x * BM;
-  const int flat = blockIdx.y * HEADS + grp;
-  const bool owner = flat < p.bh;
-  const int head = owner ? flat : p.bh - 1;
+  const int head = blockIdx.y;
   const int b = head / p.h;
   const int h = head % p.h;
   const int lane = tid % 32;
@@ -196,7 +190,7 @@ __global__ void __launch_bounds__(HEADS * GROUP_THREADS) attn_variant_kernel(con
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = q0 + wr + g + 8 * r;
-    if (owner && row < p.n) {
+    if (row < p.n) {
       const float inv = 1.f / l[r];
       __nv_bfloat16* orow = og + row * p.o_sn + 2 * t;
 #pragma unroll
@@ -207,22 +201,14 @@ __global__ void __launch_bounds__(HEADS * GROUP_THREADS) attn_variant_kernel(con
   }
 }
 
-template <int D, int HEADS>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int smem = HEADS * (BM + 2 * BN) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(attn_variant_kernel<D, HEADS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.n + BM - 1) / BM, (p.bh + HEADS - 1) / HEADS);
-  attn_variant_kernel<D, HEADS><<<grid, HEADS * GROUP_THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int D>
-cudaError_t dispatch(const Params& p, int heads_per_block, cudaStream_t stream) {
-  if (heads_per_block == 2) return launch<D, 2>(p, stream);
-  if (heads_per_block == 1) return launch<D, 1>(p, stream);
-  return cudaErrorInvalidValue;
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  const int smem = (BM + 2 * BN) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
+  cudaError_t err = cudaFuncSetAttribute(attn_variant_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n + BM - 1) / BM, p.bh);
+  attn_variant_kernel<D><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -233,7 +219,7 @@ extern "C" {
 // a flat index, head i at batch row i / h and head i % h; strides are in
 // elements, the head dim contiguous.
 int f5_attn_variant(const void* q, const void* k, const void* v, void* o, int bh, int h, int n, int d,
-                    int heads_per_block, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+                    long long q_sb, long long q_sh, long long q_sn, long long k_sb,
                     long long k_sh, long long k_sn, long long v_sb, long long v_sh, long long v_sn,
                     long long o_sb, long long o_sh, long long o_sn, float scale, void* stream) {
   Params p;
@@ -254,8 +240,8 @@ int f5_attn_variant(const void* q, const void* k, const void* v, void* o, int bh
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return static_cast<int>(dispatch<64>(p, heads_per_block, s));
-    case 128: return static_cast<int>(dispatch<128>(p, heads_per_block, s));
+    case 64: return static_cast<int>(launch<64>(p, s));
+    case 128: return static_cast<int>(launch<128>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -47,9 +47,39 @@
 // Rows past m and columns past n arrive as TMA's zero fill and are not
 // written, so any m >= 1 and any n are taken; k must be a multiple of 64.
 //
-// Design, float32 activations (qmm_f32_kernel, unchanged): a SIMT tile with
-// float32 FMA (no TF32), each of 256 threads owning a 4 x 4 block of outputs
-// of a 64 x 64 tile, x and W staged k-major with plain loads.
+// Design, float32 activations (qmm_tf32_kernel): the product is float32-
+// accurate 3xTF32 on the tensor cores (csrc/tf32.cuh explains the split),
+// bound at [2048, 1024, 1024] by 3 x 2 m k n TF32 operations (26 us at
+// 495 / 3 TFLOP/s). The first version was a SIMT FMA tile that staged x
+// transposed with scalar loads (bank conflicts, two __syncthreads a k step,
+// nothing overlapped): 10x that bound and slower than its plain version.
+// This one keeps the bf16 kernel's orientation, since TF32 wgmma takes its
+// operands K-major only and both W [n, k] and x [m, k] are K-major:
+//   - the weight is A, from registers: each code is dequantized exactly as
+//     above (in float32, not rounded to bf16), split into TF32 hi and lo
+//     A fragments, and multiplied by wgmma.m64nTNk8.tf32. Codes become floats
+//     and values are split without conversion instructions (integer and
+//     float32 operations only), which run at a fraction of those rates;
+//   - x is B, from shared memory: a producer warp fills a ring of stages by
+//     TMA (x [TN][64] float32 as two 128-byte swizzled 32-column panels, and
+//     the code tiles), with full and empty mbarriers as above. The consumers
+//     split each landed x tile in shared memory, hi in place and lo into one
+//     of two lo tiles, fence the writes to the async proxy and sync, so
+//     wgmma reads both halves; the next tile is split while a stage's
+//     products run. A per-call split pre-pass would move about 24 MB at
+//     m = 2048 and add a launch and fresh tensor maps to the m = 31 calls;
+//   - per k8 step lo_W hi_x, hi_W lo_x, then hi_W hi_x, float32 sums; each
+//     k8 step's A fragments are dequantized while the steps before it run;
+//   - a block has one consumer warpgroup (64 weight rows) or two that share
+//     each x tile and its split (x is then read from L2 and split half as
+//     often), and a token tile of 32, 64 or 128. A block's time grows far
+//     less than its work, so the plan (ops/qmatmul.py `plan_f32`) takes the
+//     most work a block that still leaves about three quarters of a wave of
+//     blocks: two warpgroups and 128 tokens at the DiT blocks' m = 2048,
+//     one and 32 tokens at m = 31;
+//   - the epilogue adds the linear's bias in float32 and writes y's rows
+//     through a shared-memory tile. The float32 x maps have caches of their
+//     own (f5_qmatmul_x32_maps_encoded counts them).
 //
 // The scales and biases may be float32 or bf16 (a bf16 model casts them with
 // its other float tensors); they are read as float32 either way.
@@ -63,13 +93,11 @@
 
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 constexpr int GROUP = 64;  // quantization group along k
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = GROUP;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
@@ -241,79 +269,230 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constan
   }
 }
 
-// ------------------------------------------------------------- float32, FMA
+// ------------------------------------------------------------- float32, 3xTF32 TMA + wgmma
 
-constexpr int F_THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int F_PAD = 4;
+// Shared memory of the float32 kernel for TN tokens and WGS consumer
+// warpgroups of 64 weight rows each: a ring of stages, each an x tile
+// [TN][64] float32 as two 32-column panels (128-byte swizzled rows, written
+// by TMA; the consumers overwrite it in place with its TF32 hi half) and WGS
+// code tiles [64][64] int8 (64-byte swizzle); then two lo tiles in the x
+// tile's layout, taken in turn, and the full / empty barriers. The epilogue
+// tile [TN][EPI_LD] float32 reuses the ring.
+template <int TN, int WGS>
+struct QmmTf32Tile {
+  static constexpr int ROWS = W_ROWS * WGS;  // weight rows (output columns) per block
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int THREADS = CONSUMERS + 32;  // + one producer warp
+  static constexpr int STAGES = TN == 32 ? 8 : TN == 64 ? 4 : 3;
+  static constexpr int PANEL = TN * 128;  // one 32-column panel of an x tile
+  static constexpr int X_BYTES = 2 * PANEL;
+  static constexpr int W_BYTES = W_ROWS * GROUP;
+  static constexpr int STAGE_BYTES = X_BYTES + WGS * W_BYTES;  // a multiple of 1024
+  static constexpr int LO_OFF = STAGES * STAGE_BYTES;
+  static constexpr int EPI_LD = ROWS + 4;  // float32 row stride of the epilogue tile
+  static constexpr int BAR_OFF = LO_OFF + 2 * X_BYTES;
+  static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;  // + slack to align the base to 1024
+  static_assert(TN * EPI_LD * 4 <= LO_OFF, "the epilogue tile fits in the ring");
+  static_assert(SMEM <= 232448, "a block may use at most 227 KB of shared memory");
+};
 
-template <typename ST>
-__global__ void __launch_bounds__(F_THREADS)
-qmm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q, const ST* __restrict__ scales,
-               const ST* __restrict__ biases, const float* __restrict__ bias, float* __restrict__ y, int m,
-               int n, int k) {
-  __shared__ float sX[BK][BM + F_PAD];  // [k][m]
-  __shared__ float sW[BK][BN + F_PAD];  // [k][n]
-
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int ty = threadIdx.x / 16;  // rows ty + 16 i
-  const int tx = threadIdx.x % 16;  // columns tx + 16 j
-  const int groups = k / GROUP;
-
-  float acc[4][4];
+// Split a landed x tile into TF32 halves: hi in place, lo into `lo` at the
+// same offsets. The split is elementwise, so the swizzled layout carries
+// over to both halves.
+template <int BYTES, int THREADS>
+__device__ __forceinline__ void split_tile(unsigned char* x, unsigned char* lo, int tid) {
+  float4* px = reinterpret_cast<float4*>(x);
+  float4* pl = reinterpret_cast<float4*>(lo);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * BK; i += F_THREADS) {
-      const int r = i / BK;
-      const int c = i % BK;
-      sX[c][r] = m0 + r < m ? x[static_cast<long long>(m0 + r) * k + k0 + c] : 0.f;
-    }
-    for (int i = threadIdx.x; i < BN * BK; i += F_THREADS) {
-      const int r = i / BK;
-      const int c = i % BK;
-      float w = 0.f;
-      if (n0 + r < n) {
-        const long long col = n0 + r;
-        w = dequant(q[col * k + k0 + c], load_f32(scales + col * groups + k0 / GROUP),
-                    load_f32(biases + col * groups + k0 / GROUP));
-      }
-      sW[c][r] = w;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sX[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sW[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+  for (int j = 0; j < BYTES / 16 / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    float4 h, l;
+    tf32_split4_int(px[i], h, l);
+    px[i] = h;
+    pl[i] = l;
   }
+}
 
+// The A fragments of k8 step kc of a 64-wide quantization group for rows lr
+// and lr + 8 of a code tile: weight (q * s, then + b, in float32 with
+// round-to-nearest, the plain version's dequantization), split into TF32
+// halves; (lr, 8 kc + t), (lr + 8, 8 kc + t), (lr, 8 kc + t + 4) and
+// (lr + 8, 8 kc + t + 4). sb holds the two rows' scale and bias. A row's
+// eight codes of the step are one 8-byte load (the 64-byte swizzle moves
+// 16-byte chunks, so they stay together), and a code becomes a float
+// without a conversion instruction: its byte with the sign bit flipped
+// (code + 128) under the exponent bits of 2^23 is the float 2^23 + code +
+// 128, and subtracting 2^23 + 128 is exact.
+__device__ __forceinline__ void dequant_tf32(const unsigned char* codes, int kc, int lr, int t,
+                                             const float (&sb)[4], uint32_t (&ah)[4], uint32_t (&al)[4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int hi_row = 0; hi_row < 2; ++hi_row) {
+    const uint2 v = *reinterpret_cast<const uint2*>(codes + code_offset(lr + 8 * hi_row, 8 * kc));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = m0 + ty + 16 * i;
-      const int col = n0 + tx + 16 * j;
-      if (row < m && col < n) {
-        y[static_cast<long long>(row) * n + col] = bias != nullptr ? acc[i][j] + bias[col] : acc[i][j];
-      }
+    for (int half = 0; half < 2; ++half) {  // k 8 kc + t, then 8 kc + t + 4
+      const uint32_t bits = __byte_perm((half ? v.y : v.x) ^ 0x80808080u, 0x4B000000u, 0x7650u | t);
+      const float code = __uint_as_float(bits) - 8388736.f;
+      const float w = __fadd_rn(__fmul_rn(code, sb[2 * hi_row]), sb[2 * hi_row + 1]);
+      tf32_split_int(w, ah[2 * half + hi_row], al[2 * half + hi_row]);
     }
   }
 }
 
-// Tensor maps encoded so far, over all host threads: of x
-// (f5_qmatmul_x_maps_encoded) and of int8 codes (f5_qmatmul_codes_maps_encoded).
+// y^T tile [64 WGS output columns][TN tokens] = W x^T in 3xTF32. The last
+// warp's lane 0 keeps the ring of stages filled with TMA copies; the consumer
+// warpgroups split each landed x tile into TF32 halves in shared memory
+// (together, since they share it), and each dequantizes its own 64 x 64 code
+// tile into hi and lo A fragments and runs, per k8 step, lo_W hi_x, hi_W
+// lo_x and hi_W hi_x as wgmma.m64nTNk8 with A from registers. A k8 step is
+// dequantized while the products of the steps before it run, and the next
+// tile is split while the stage's last products run; a consumer arrives on
+// a stage's empty barrier only after its products there have completed.
+template <int TN, int WGS, typename ST>
+__global__ void __launch_bounds__(QmmTf32Tile<TN, WGS>::THREADS, 1)
+qmm_tf32_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap q_map,
+                const ST* __restrict__ scales, const ST* __restrict__ biases, const float* __restrict__ bias,
+                float* __restrict__ y, int m, int n, int k) {
+  using T = QmmTf32Tile<TN, WGS>;
+  constexpr int STAGES = T::STAGES;
+  constexpr int KC = GROUP / 8;  // k8 steps a group
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  auto stage = [&](int s) { return smem + s * T::STAGE_BYTES; };
+  auto lo_tile = [&](int kb) { return smem + T::LO_OFF + (kb & 1) * T::X_BYTES; };
+
+  const int n0 = blockIdx.x * T::ROWS;
+  const int m0 = blockIdx.y * TN;
+  const int groups = k / GROUP;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], T::CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= T::CONSUMERS) {  // producer
+    if (tid == T::CONSUMERS) {
+      for (int kb = 0; kb < groups; ++kb) {
+        const int s = kb % STAGES;
+        if (kb >= STAGES) mbar_wait(&empty[s], (kb / STAGES - 1) & 1);
+        unsigned char* st = stage(s);
+        mbar_arrive_expect_tx(&full[s], T::STAGE_BYTES);
+        tma_load_2d(st, &x_map, &full[s], kb * GROUP, m0);
+        tma_load_2d(st + T::PANEL, &x_map, &full[s], kb * GROUP + 32, m0);
+        for (int w = 0; w < WGS; ++w) {
+          tma_load_2d(st + T::X_BYTES + w * T::W_BYTES, &q_map, &full[s], kb * GROUP, n0 + w * W_ROWS);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int lr = (tid / 32 % 4) * 16 + g;  // this thread's rows in its warpgroup's code tile: lr and lr + 8
+  const int col0 = n0 + wg * W_ROWS + lr, col1 = col0 + 8;
+  float acc[TN / 2];
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+
+  // this group's scale and bias for the thread's two rows; rows past n read
+  // nothing (their codes are TMA's zero fill and their outputs are dropped)
+  auto group_sb = [&](int kb, float (&sb)[4]) {
+    sb[0] = col0 < n ? load_f32(scales + static_cast<long long>(col0) * groups + kb) : 0.f;
+    sb[1] = col0 < n ? load_f32(biases + static_cast<long long>(col0) * groups + kb) : 0.f;
+    sb[2] = col1 < n ? load_f32(scales + static_cast<long long>(col1) * groups + kb) : 0.f;
+    sb[3] = col1 < n ? load_f32(biases + static_cast<long long>(col1) * groups + kb) : 0.f;
+  };
+  float next[4];
+  group_sb(0, next);
+
+  mbar_wait(&full[0], 0);
+  split_tile<T::X_BYTES, T::CONSUMERS>(stage(0), lo_tile(0), tid);
+  fence_proxy_async();
+  bar_sync(1, T::CONSUMERS);
+
+  for (int kb = 0; kb < groups; ++kb) {
+    const int s = kb % STAGES;
+    const float sb[4] = {next[0], next[1], next[2], next[3]};
+    if (kb + 1 < groups) group_sb(kb + 1, next);  // in flight while this stage is processed
+    const unsigned char* codes = stage(s) + T::X_BYTES + wg * T::W_BYTES;
+    const uint64_t xh = sw128_desc(stage(s)), xl = sw128_desc(lo_tile(kb));
+    uint32_t ah[KC][4], al[KC][4];
+    fence_regs(acc);
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      dequant_tf32(codes, kc, lr, t, sb, ah[kc], al[kc]);
+      fence_regs(ah[kc]);  // this step's A registers are written before the fence, and the fence
+      fence_regs(al[kc]);  // before the products that read them
+      wgmma_fence();
+      wgmma_tf32_rs(acc, al[kc], kmajor(xh, kc, T::PANEL), 1);
+      wgmma_tf32_rs(acc, ah[kc], kmajor(xl, kc, T::PANEL), 1);
+      wgmma_tf32_rs(acc, ah[kc], kmajor(xh, kc, T::PANEL), 1);
+    }
+    wgmma_commit();
+    if (kb + 1 < groups) {  // split the next tile while this stage's products run
+      const int s1 = (kb + 1) % STAGES;
+      mbar_wait(&full[s1], ((kb + 1) / STAGES) & 1);
+      split_tile<T::X_BYTES, T::CONSUMERS>(stage(s1), lo_tile(kb + 1), tid);
+      fence_proxy_async();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      fence_regs(ah[kc]);
+      fence_regs(al[kc]);
+    }
+    mbar_arrive(&empty[s]);
+    // every consumer's products on this stage are done (so the lo tile they
+    // read may be written again) and the next tile's halves are in place
+    bar_sync(1, T::CONSUMERS);
+  }
+
+  // Epilogue: add the linear's bias in float32, stage y's tile [TN tokens]
+  // [64 WGS columns] in shared memory (the ring, free now), then write it
+  // row by row so the stores are coalesced.
+  float* epi = reinterpret_cast<float*>(smem);
+  const int r0 = wg * W_ROWS + lr;
+  const float bias0 = bias != nullptr && col0 < n ? bias[col0] : 0.f;
+  const float bias1 = bias != nullptr && col1 < n ? bias[col1] : 0.f;
+#pragma unroll
+  for (int i = 0; i < TN / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int tok = 8 * i + 2 * t + (e & 1);
+      float out = acc[4 * i + e];
+      if (bias != nullptr) out += e >> 1 ? bias1 : bias0;
+      epi[tok * T::EPI_LD + r0 + 8 * (e >> 1)] = out;
+    }
+  }
+  bar_sync(1, T::CONSUMERS);
+  if (n % 4 == 0) {  // 16-byte rows of 4 columns, each wholly inside or outside [0, n)
+    for (int i = tid; i < TN * (T::ROWS / 4); i += T::CONSUMERS) {
+      const int tok = i / (T::ROWS / 4), c = (i % (T::ROWS / 4)) * 4;
+      if (m0 + tok < m && n0 + c < n) {
+        *reinterpret_cast<float4*>(y + static_cast<long long>(m0 + tok) * n + n0 + c) =
+            *reinterpret_cast<const float4*>(epi + tok * T::EPI_LD + c);
+      }
+    }
+  } else {
+    for (int i = tid; i < TN * T::ROWS; i += T::CONSUMERS) {
+      const int tok = i / T::ROWS, c = i % T::ROWS;
+      if (m0 + tok < m && n0 + c < n) y[static_cast<long long>(m0 + tok) * n + n0 + c] = epi[tok * T::EPI_LD + c];
+    }
+  }
+}
+
+// Tensor maps encoded so far, over all host threads: of bf16 x
+// (f5_qmatmul_x_maps_encoded), of float32 x (f5_qmatmul_x32_maps_encoded)
+// and of int8 codes (f5_qmatmul_codes_maps_encoded).
 std::atomic<long long> x_maps_encoded{0};
+std::atomic<long long> x32_maps_encoded{0};
 std::atomic<long long> codes_maps_encoded{0};
 
 // Tensor maps kept per host thread, keyed on a tensor's address; an entry
@@ -366,6 +545,22 @@ cudaError_t x_tensor_map(const void* x, int m, int k, const CUtensorMap** out) {
   }, out);
 }
 
+// The tensor map of x [m, k] float32 in [TN][32] boxes (one 128-byte
+// panel) with the 128-byte swizzle, kept as the bf16 maps are but in caches
+// of their own: PyTorch's allocator can hand a float32 buffer out at an
+// address where a bf16 one of the same shape was mapped.
+template <int TN>
+cudaError_t x32_tensor_map(const void* x, int m, int k, const CUtensorMap** out) {
+  static thread_local MapCache cache;
+  return cached_map(cache, x, m, k, x32_maps_encoded, [&](CUtensorMap* map) {
+    const uint64_t dims[2] = {static_cast<uint64_t>(k), static_cast<uint64_t>(m)};
+    const uint64_t strides[1] = {static_cast<uint64_t>(k) * 4};
+    const uint32_t box[2] = {32, TN};
+    return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, x, dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+  }, out);
+}
+
 // The tensor map of int8 codes q [n, k] in [64][64] boxes with the 64-byte
 // swizzle: encoded once per weight (a model holds a few hundred), and a
 // buffer swapped in at another address or with another shape gets its own.
@@ -396,13 +591,33 @@ cudaError_t launch_wgmma(const void* x, const void* q, const ST* s, const ST* b,
   return cudaGetLastError();
 }
 
+template <int TN, int WGS, typename ST>
+cudaError_t launch_tf32(const void* x, const void* q, const ST* s, const ST* b, const void* bias, void* y, int m,
+                        int n, int k, cudaStream_t stream) {
+  using T = QmmTf32Tile<TN, WGS>;
+  const CUtensorMap* x_map;
+  const CUtensorMap* q_map;
+  cudaError_t err = x32_tensor_map<TN>(x, m, k, &x_map);
+  if (err == cudaSuccess) err = codes_tensor_map(q, n, k, &q_map);
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  err = raise_smem_limit(reinterpret_cast<const void*>(qmm_tf32_kernel<TN, WGS, ST>), T::SMEM, raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + T::ROWS - 1) / T::ROWS, (m + TN - 1) / TN);
+  qmm_tf32_kernel<TN, WGS, ST><<<grid, T::THREADS, T::SMEM, stream>>>(
+      *x_map, *q_map, s, b, static_cast<const float*>(bias), static_cast<float*>(y), m, n, k);
+  return cudaGetLastError();
+}
+
+// The token tile bn and the weight rows a block are the caller's launch
+// plan (ops/qmatmul.py `plan`, `plan_f32`).
 template <typename ST>
 cudaError_t launch(const void* x, const void* q, const void* scales, const void* biases, const void* bias,
-                   void* y, int m, int n, int k, bool x_bf16, int bn, cudaStream_t stream) {
+                   void* y, int m, int n, int k, bool x_bf16, int bn, int rows, cudaStream_t stream) {
   const ST* s = static_cast<const ST*>(scales);
   const ST* b = static_cast<const ST*>(biases);
   if (x_bf16) {
-    // the token tile is the caller's launch plan (ops/qmatmul.py `plan`)
+    if (rows != W_ROWS) return cudaErrorInvalidValue;
     switch (bn) {
       case 32: return launch_wgmma<32, ST>(x, q, s, b, bias, y, m, n, k, stream);
       case 64: return launch_wgmma<64, ST>(x, q, s, b, bias, y, m, n, k, stream);
@@ -410,10 +625,16 @@ cudaError_t launch(const void* x, const void* q, const void* scales, const void*
       default: return cudaErrorInvalidValue;
     }
   }
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  qmm_f32_kernel<ST><<<grid, F_THREADS, 0, stream>>>(static_cast<const float*>(x), static_cast<const int8_t*>(q), s, b,
-                                                     static_cast<const float*>(bias), static_cast<float*>(y), m, n, k);
-  return cudaGetLastError();
+  if (rows == 2 * W_ROWS) {
+    return bn == 128 ? launch_tf32<128, 2, ST>(x, q, s, b, bias, y, m, n, k, stream) : cudaErrorInvalidValue;
+  }
+  if (rows != W_ROWS) return cudaErrorInvalidValue;
+  switch (bn) {
+    case 32: return launch_tf32<32, 1, ST>(x, q, s, b, bias, y, m, n, k, stream);
+    case 64: return launch_tf32<64, 1, ST>(x, q, s, b, bias, y, m, n, k, stream);
+    case 128: return launch_tf32<128, 1, ST>(x, q, s, b, bias, y, m, n, k, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -423,21 +644,23 @@ extern "C" {
 // y [m, n] = x [m, k] @ dequant(q [n, k], scales, biases [n, k / 64]) (+ bias [n]).
 // x, bias and y are bf16 when x_bf16, else float32; scales and biases are
 // bf16 when s_bf16, else float32. All contiguous; k % 64 == 0; x and q
-// 16-byte aligned. bf16 activations take the token tile bn (32, 64 or 128);
-// float32 activations ignore it. Returns the cudaError_t of the launch (0 on
-// success).
+// 16-byte aligned. bn is the token tile (32, 64 or 128) and rows the weight
+// rows a block: 64, or for float32 activations 128 with bn = 128. Returns
+// the cudaError_t of the launch (0 on success).
 int f5_qmatmul(const void* x, const void* q, const void* scales, const void* biases, const void* bias,
-               void* y, int m, int n, int k, int x_bf16, int s_bf16, int bn, void* stream) {
+               void* y, int m, int n, int k, int x_bf16, int s_bf16, int bn, int rows, void* stream) {
   if (m < 1 || n < 1 || k < GROUP || k % GROUP != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (s_bf16) {
-    return static_cast<int>(launch<__nv_bfloat16>(x, q, scales, biases, bias, y, m, n, k, x_bf16, bn, st));
+    return static_cast<int>(launch<__nv_bfloat16>(x, q, scales, biases, bias, y, m, n, k, x_bf16, bn, rows, st));
   }
-  return static_cast<int>(launch<float>(x, q, scales, biases, bias, y, m, n, k, x_bf16, bn, st));
+  return static_cast<int>(launch<float>(x, q, scales, biases, bias, y, m, n, k, x_bf16, bn, rows, st));
 }
 
-// The number of tensor maps of x and of codes encoded so far, over all host threads.
+// The number of tensor maps of bf16 x, of float32 x and of codes encoded so
+// far, over all host threads.
 long long f5_qmatmul_x_maps_encoded() { return x_maps_encoded.load(); }
+long long f5_qmatmul_x32_maps_encoded() { return x32_maps_encoded.load(); }
 long long f5_qmatmul_codes_maps_encoded() { return codes_maps_encoded.load(); }
 
 const char* f5_qmatmul_error_string(int err) {

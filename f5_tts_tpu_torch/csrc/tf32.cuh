@@ -68,6 +68,29 @@ __device__ __forceinline__ void tf32_split4(float4 x, float4& hi, float4& lo) {
   lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
 }
 
+// The same split in integer operations, bit for bit: the rounding adds half
+// of the 13 dropped bits' range to the pattern and clears them, which rounds
+// the magnitude half away from zero (ops/flash_attention.py
+// `tf32_split_plain` computes it so). cvt is a conversion, which runs at a
+// fraction of the integer and float32 rate; the float32 dequantizing matmul
+// splits every weight and activation it reads with this form.
+__device__ __forceinline__ uint32_t tf32_round_int(float x) { return (__float_as_uint(x) + 0x1000u) & ~0x1FFFu; }
+
+__device__ __forceinline__ void tf32_split_int(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_round_int(x);
+  lo = tf32_round_int(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void tf32_split4_int(float4 x, float4& hi, float4& lo) {
+  uint32_t h[4], l[4];
+  tf32_split_int(x.x, h[0], l[0]);
+  tf32_split_int(x.y, h[1], l[1]);
+  tf32_split_int(x.z, h[2], l[2]);
+  tf32_split_int(x.w, h[3], l[3]);
+  hi = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]), __uint_as_float(h[3]));
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+}
+
 // ---------------------------------------------------------------- tiles
 
 constexpr int TC_BM = 64;             // rows of a streamed tile (queries or keys)

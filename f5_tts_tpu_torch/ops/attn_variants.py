@@ -3,16 +3,16 @@ plain versions.
 
 Four functions, each with its own launch count (one a wrapper call):
   - `attn_pack2` and `attn_flat`: softmax(q k^T * scale) v over [b, h, n, d]
-    with no mask and no rotary embedding; one kernel template
-    (csrc/attn_variants.cu) takes two heads per block for the first and one
-    for the second;
+    with no mask and no rotary embedding. `attn_pack2` runs the TMA + wgmma
+    attention core of csrc/attn_rope_wgmma.cu over q, k and v in place;
+    `attn_flat` an mma.sync kernel (csrc/attn_variants.cu), one head of the
+    flat b * h index per block;
   - `flash_bhnd_rope` ([b, h, n, d]) and `flash_nhd` ([b, n, h, d]): the same
     attention after a rotary embedding of q and k written as a product with
     an input matrix P, x * cos + (x @ P) * sin, computed in q's dtype. Both
     run csrc/attn_rope_wgmma.cu: a pre-pass that rotates q and k once into a
-    bf16 scratch (`rope_prepass_plain` is its function), then a TMA + wgmma
-    attention forward over the scratch and v. The source's header notes give
-    the designs.
+    bf16 scratch (`rope_prepass_plain` is its function), then the core over
+    the scratch and v. The sources' header notes give the designs.
 
 They are the counterparts of the Pallas probe kernels of the JAX package's
 `tools/attn_variants.py` and `tools/fusion_probe.py`, and the plain versions
@@ -96,7 +96,7 @@ def rope_prepass_plain(q, k, cos, sin, P, n_pad: int) -> tuple[torch.Tensor, tor
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_build.build(SOURCE)[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.f5_attn_variant.argtypes = [ptr] * 4 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, ptr]
+    lib.f5_attn_variant.argtypes = [ptr] * 4 + [i32] * 4 + [i64] * 12 + [ctypes.c_float, ptr]
     lib.f5_attn_variant.restype = i32
     lib.f5_attn_variant_error_string.argtypes = [i32]
     lib.f5_attn_variant_error_string.restype = ctypes.c_char_p
@@ -104,19 +104,21 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _rope_library() -> ctypes.CDLL:
+def _core_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_build.build(ROPE_SOURCE)[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.f5_rope_prepass.argtypes = [ptr] * 6 + [i32] * 5 + [i64] * 6 + [i32, ptr]
     lib.f5_rope_prepass.restype = i32
     lib.f5_rope_attention.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, i32, ptr]
     lib.f5_rope_attention.restype = i32
+    lib.f5_attention.argtypes = [ptr] * 4 + [i32] * 4 + [i64] * 12 + [ctypes.c_float, i32, ptr]
+    lib.f5_attention.restype = i32
     lib.f5_rope_attention_error_string.argtypes = [i32]
     lib.f5_rope_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(name: str, q, k, v, rope, heads_per_block: int, nhd: bool = False) -> tuple:
+def _check(name: str, q, k, v, rope, nhd: bool = False) -> tuple:
     """Raise ValueError for CUDA inputs the kernels do not take; q, k, v are
     [b, h, n, d], or [b, n, h, d] with `nhd`. Returns (b, h, n, d) and the
     (batch, head, row) strides of q, k and v, nine ints. Each tensor's
@@ -149,21 +151,21 @@ def _check(name: str, q, k, v, rope, heads_per_block: int, nhd: bool = False) ->
                 raise ValueError(f"{label} must be [n' >= {n}, {d}] on {q.device}; got {tuple(t.shape)}")
         if P.shape != (d, d) or P.get_device() != dev:
             raise ValueError(f"P must be [{d}, {d}] on {q.device}; got {tuple(P.shape)}")
-    if -(-b * h // heads_per_block) > MAX_HEAD_BLOCKS:
-        raise ValueError(f"{name} takes at most {MAX_HEAD_BLOCKS * heads_per_block} heads; got b * h = {b * h}")
+    if b * h > MAX_HEAD_BLOCKS:
+        raise ValueError(f"{name} takes at most {MAX_HEAD_BLOCKS} heads; got b * h = {b * h}")
     return b, h, n, d, strides
 
 
-def _run(fn, name: str, q, k, v, scale, heads_per_block: int) -> torch.Tensor:
-    """Launch the template kernel on [b, h, n, d] tensors: one count on `fn`."""
+def _run_flat(fn, name: str, q, k, v, scale) -> torch.Tensor:
+    """Launch the mma.sync kernel on [b, h, n, d] tensors: one count on `fn`."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, not {q.device.type}")
-    b, h, n, d, strides = _check(name, q, k, v, None, heads_per_block)
+    b, h, n, d, strides = _check(name, q, k, v, None)
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.f5_attn_variant(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, h, n, d, heads_per_block, *strides,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, h, n, d, *strides,
             *out.stride()[:3], float(scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -172,7 +174,38 @@ def _run(fn, name: str, q, k, v, scale, heads_per_block: int) -> torch.Tensor:
     return out
 
 
-# ------------------------------------------------------------ the RoPE kernels
+# ------------------------------------------------------------ the TMA + wgmma core
+
+
+def _core_error(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.f5_rope_attention_error_string(err).decode()}")
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """t as a tensor map can take it: copied contiguous if a stride is zero
+    (an expanded tensor), else as it is."""
+    return t.contiguous() if 0 in t.stride() else t
+
+
+def _run_core(fn, name: str, q, k, v, scale: float) -> torch.Tensor:
+    """The core alone over [b, h, n, d] tensors in place, on the current
+    stream of q's device (which need not be the current device): one count
+    on `fn`."""
+    if not q.is_cuda:
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {q.device.type}")
+    q, k, v = _dense(q), _dense(k), _dense(v)
+    b, h, n, d, strides = _check(name, q, k, v, None)
+    out = torch.empty_like(q)
+    dev = q.get_device()
+    lib = _core_library()
+    err = lib.f5_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d, *strides, *out.stride()[:3],
+        float(scale), dev, torch._C._cuda_getCurrentRawStream(dev),  # the raw stream getter torch's compiled code calls
+    )
+    _core_error(lib, err, "attention core")
+    fn.launches += 1
+    return out
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -181,44 +214,38 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
 
 
-def _rope_error(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.f5_rope_attention_error_string(err).decode()}")
-
-
 def _run_rope(fn, name: str, q, k, v, cos, sin, P, scale: float, nhd: bool) -> torch.Tensor:
     """The pre-pass into a fresh scratch, then the attention kernel, on the
     current stream of q's device (which need not be the current device):
     one count on `fn`."""
     if not q.is_cuda:
         raise ValueError(f"{name} runs on CPU or CUDA tensors, not {q.device.type}")
-    if 0 in v.stride():  # a tensor map takes no zero stride
-        v = v.contiguous()
-    b, h, n, d, strides = _check(name, q, k, v, (cos, sin, P), 1, nhd)
+    v = _dense(v)  # q and k are read by the pre-pass, v by a tensor map
+    b, h, n, d, strides = _check(name, q, k, v, (cos, sin, P), nhd)
     out = torch.empty_like(q)
     s = out.stride()
     n_pad = -(-n // ROPE_ROW_PAD) * ROPE_ROW_PAD
     cos, sin, P = _f32(cos), _f32(sin), _f32(P)
     rot = q.new_empty((2, b * h, n_pad, d))
     dev = q.get_device()
-    lib = _rope_library()
+    lib = _core_library()
     err = lib.f5_rope_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), cos.data_ptr(), sin.data_ptr(), P.data_ptr(),
         rot.data_ptr(), b, h, n, n_pad, d, *strides, *((s[0], s[2], s[1]) if nhd else s[:3]), float(scale),
         dev, torch._C._cuda_getCurrentRawStream(dev),  # the raw stream getter torch's compiled code calls
     )
-    _rope_error(lib, err, "RoPE attention kernel")
+    _core_error(lib, err, "RoPE attention kernel")
     fn.launches += 1
     return out
 
 
 def attn_pack2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """Attention over [b, h, n, d], no mask, no rotary embedding; on the card
-    two heads of the flat b * h index per block (the last block of an odd
-    b * h takes one)."""
+    the TMA + wgmma core, 128 query rows of one head per block, reading q, k
+    and v through their strides."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale)
-    return _run(attn_pack2, "attn_pack2", q, k, v, scale, 2)
+    return _run_core(attn_pack2, "attn_pack2", q, k, v, scale)
 
 
 def attn_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -226,7 +253,7 @@ def attn_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
     per block."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale)
-    return _run(attn_flat, "attn_flat", q, k, v, scale, 1)
+    return _run_flat(attn_flat, "attn_flat", q, k, v, scale)
 
 
 def flash_bhnd_rope(q, k, v, cos, sin, P, scale: float) -> torch.Tensor:
@@ -255,18 +282,18 @@ def rope_prepass(q, k, cos, sin, P, n_pad: int) -> tuple[torch.Tensor, torch.Ten
         return rope_prepass_plain(q, k, cos, sin, P, n_pad)
     if not q.is_cuda:
         raise ValueError(f"rope_prepass runs on CPU or CUDA tensors, not {q.device.type}")
-    b, h, n, d, strides = _check("rope_prepass", q, k, k, (cos, sin, P), 1)
+    b, h, n, d, strides = _check("rope_prepass", q, k, k, (cos, sin, P))
     if n_pad < n or n_pad % ROPE_ROW_PAD:
         raise ValueError(f"n_pad must be a multiple of {ROPE_ROW_PAD} of at least n = {n}; got {n_pad}")
     cos, sin, P = _f32(cos), _f32(sin), _f32(P)
     rot = q.new_empty((2, b * h, n_pad, d))
     dev = q.get_device()
-    lib = _rope_library()
+    lib = _core_library()
     err = lib.f5_rope_prepass(
         q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(), P.data_ptr(), rot.data_ptr(),
         b, h, n, n_pad, d, *strides[:6], dev, torch._C._cuda_getCurrentRawStream(dev),
     )
-    _rope_error(lib, err, "RoPE pre-pass kernel")
+    _core_error(lib, err, "RoPE pre-pass kernel")
     rope_prepass.launches += 1
     return rot[0], rot[1]
 

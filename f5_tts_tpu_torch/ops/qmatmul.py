@@ -3,10 +3,13 @@ its plain version.
 
 The kernel (csrc/qmatmul.cu, whose header note gives its design) is built
 by ops/cuda_build.py at first use and called through ctypes on PyTorch's
-current stream. With bf16 activations it is a TMA + wgmma pipeline whose
-token tile `plan` chooses from m; the kernel's library keeps the TMA
-tensor maps of the codes and of x, keyed on each tensor's address and
-shape, so a swapped buffer gets its own map (`maps_encoded` counts them).
+current stream. It is a TMA + wgmma pipeline: with bf16 activations in
+bf16 (`plan` chooses its token tile from m), with float32 ones in 3xTF32
+(`plan_f32` chooses its token tile and its weight rows a block). The
+kernel's library keeps the TMA tensor maps of the codes and of x, keyed on
+each tensor's address and shape, with the float32 x maps apart from the
+bf16 ones, so a swapped buffer gets its own map (`maps_encoded` counts
+them).
 
 Layout (PyTorch's [out, in]): codes q int8 [n, k], centred by -2^(bits-1);
 scales and biases [n, k / 64] in float32 or the model's compute dtype;
@@ -30,8 +33,17 @@ from f5_tts_tpu_torch.ops import cuda_build
 SOURCE = cuda_build.CSRC / "qmatmul.cu"
 GROUP_SIZE = 64
 _DTYPES = (torch.bfloat16, torch.float32)
-W_ROWS = 64  # output columns per block of the bf16 kernel
+W_ROWS = 64  # output columns per consumer warpgroup
 TOKEN_TILES = (32, 64, 128)
+# the float32 kernel's plans, (token tile, weight rows a block), the most work a block first: two consumer
+# warpgroups sharing each x tile, then one. A block's time grows far less than its work, so the plan takes the
+# most work a block that still leaves this many blocks, about three quarters of a wave on the H100's 132 SMs
+F32_PLANS = ((128, 128), (128, 64), (64, 64), (32, 64))
+F32_MIN_BLOCKS = 96
+# the float32 kernel's shared memory (csrc/qmatmul.cu `QmmTf32Tile`): ring stages by token tile, each an x
+# tile [tile][64] float32 and a [64][64] int8 code tile a warpgroup; two lo tiles; barriers; 1 KB of slack
+F32_STAGES = {32: 8, 64: 4, 128: 3}
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on the H100
 
 
 def token_tile(m: int) -> int:
@@ -45,6 +57,24 @@ def plan(m: int, n: int) -> tuple[int, tuple[int, int]]:
     token tile and the grid (column blocks of 64, token blocks)."""
     tile = token_tile(m)
     return tile, (-(-n // W_ROWS), -(-m // tile))
+
+
+def plan_f32(m: int, n: int) -> tuple[int, int, tuple[int, int]]:
+    """The float32 kernel's launch plan for x [m, k] and n output columns:
+    the token tile, the weight rows a block and the grid (column blocks,
+    token blocks). The first of F32_PLANS whose token tile is at most the
+    bf16 kernel's for m and whose grid has F32_MIN_BLOCKS blocks; where none
+    has, the one with the most blocks."""
+    plans = [(tile, rows, (-(-n // rows), -(-m // tile))) for tile, rows in F32_PLANS if tile <= token_tile(m)]
+    return next((p for p in plans if p[2][0] * p[2][1] >= F32_MIN_BLOCKS), plans[-1])
+
+
+def f32_smem_bytes(tile: int, rows: int) -> int:
+    """The float32 kernel's dynamic shared memory for a plan's token tile
+    and weight rows."""
+    x_tile = tile * GROUP_SIZE * 4
+    stages = F32_STAGES[tile]
+    return stages * (x_tile + (rows // W_ROWS) * W_ROWS * GROUP_SIZE) + 2 * x_tile + 2 * stages * 8 + 1024
 
 
 def dequantize_kernel(q: torch.Tensor, scales: torch.Tensor, biases: torch.Tensor) -> torch.Tensor:
@@ -72,9 +102,10 @@ def qmatmul_plain(
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_build.build(SOURCE)[0]))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.f5_qmatmul.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.f5_qmatmul.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.f5_qmatmul.restype = i32
-    for counter in (lib.f5_qmatmul_x_maps_encoded, lib.f5_qmatmul_codes_maps_encoded):
+    for counter in (lib.f5_qmatmul_x_maps_encoded, lib.f5_qmatmul_x32_maps_encoded,
+                    lib.f5_qmatmul_codes_maps_encoded):
         counter.argtypes = []
         counter.restype = ctypes.c_longlong
     lib.f5_qmatmul_error_string.argtypes = [i32]
@@ -83,10 +114,12 @@ def _library() -> ctypes.CDLL:
 
 
 def maps_encoded() -> dict:
-    """The TMA tensor maps the bf16 kernel's library has encoded so far, of x
-    and of the codes (each cached by address and shape; builds the library)."""
+    """The TMA tensor maps the kernel's library has encoded so far, of bf16 x
+    ("x"), of float32 x ("x_f32") and of the codes (each cached by address
+    and shape; builds the library)."""
     lib = _library()
-    return {"x": lib.f5_qmatmul_x_maps_encoded(), "codes": lib.f5_qmatmul_codes_maps_encoded()}
+    return {"x": lib.f5_qmatmul_x_maps_encoded(), "x_f32": lib.f5_qmatmul_x32_maps_encoded(),
+            "codes": lib.f5_qmatmul_codes_maps_encoded()}
 
 
 def qmatmul(
@@ -130,16 +163,18 @@ def qmatmul(
     m = x2.shape[0]
     y = torch.empty(m, n, dtype=x.dtype, device=x.device)
     if m:
+        x_bf16 = x.dtype == torch.bfloat16
+        tile, rows = (token_tile(m), W_ROWS) if x_bf16 else plan_f32(m, n)[:2]
         with torch.cuda.device(x.device):
             err = _library().f5_qmatmul(
                 x2.data_ptr(), q.data_ptr(), scales.data_ptr(), biases.data_ptr(),
                 None if bias is None else bias.data_ptr(), y.data_ptr(),
-                m, n, k, int(x.dtype == torch.bfloat16), int(scales.dtype == torch.bfloat16),
-                token_tile(m), torch.cuda.current_stream(x.device).cuda_stream,
+                m, n, k, int(x_bf16), int(scales.dtype == torch.bfloat16),
+                tile, rows, torch.cuda.current_stream(x.device).cuda_stream,
             )
         if err != 0:
             raise RuntimeError(f"qmatmul kernel launch failed: {_library().f5_qmatmul_error_string(err).decode()}")
-        if x.dtype == torch.bfloat16:
+        if x_bf16:
             qmatmul.launches += 1
         else:
             qmatmul.launches_f32 += 1

@@ -5,8 +5,9 @@ package's `tools/attn_variants.py`.
 
 At [2, 16, 1024, 64] bf16, no mask and no rotary embedding, five variants:
 the port's attention forward (K1, one (q tile, head, batch row) per block),
-`attn_flat` (one head of a flat b * h grid per block), `attn_pack2` (two
-heads per block), the unfused plain version, and PyTorch's
+`attn_flat` (one head of a flat b * h grid per block, mma.sync),
+`attn_pack2` (the TMA + wgmma attention core, 128 query rows of one head
+per block), the unfused plain version, and PyTorch's
 scaled_dot_product_attention as a yardstick only. Prints each one's time
 (the least of REPS CUDA-event times of one call, launch included) and its
 largest error against the unfused version.
@@ -35,7 +36,7 @@ def variants(scale: float) -> dict:
     return {
         "current (K1, b,h,q grid)": lambda q, k, v: flash_attention(q, k, v, scale),
         "flat (b*h grid)": lambda q, k, v: attn_flat(q, k, v, scale),
-        "pack2 (2 heads/block)": lambda q, k, v: attn_pack2(q, k, v, scale),
+        "pack2 (TMA/wgmma core)": lambda q, k, v: attn_pack2(q, k, v, scale),
         UNFUSED: lambda q, k, v: sdpa_reference(q, k, v, scale),
         "torch sdpa (yardstick)": lambda q, k, v: F.scaled_dot_product_attention(q, k, v, scale=scale),
     }

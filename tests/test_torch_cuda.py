@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain versions on an NVIDIA GPU: the
 attention forward (K1) and backward (K2), bf16 and float32 (at d = 64 on the
 tensor cores in 3xTF32, held to the float32 tolerance all the same), the
-dequantizing matmul, and the probe tools' kernels (the attention variants
-P1-P4, with the RoPE pre-pass of P3 and P4 held exactly or within an ulp,
-and the Triton LayerNorm + modulate P5).
+dequantizing matmul (its float32 kernel in 3xTF32 too), and the probe
+tools' kernels (the attention variants P1-P4, with the RoPE pre-pass of P3
+and P4 held exactly or within an ulp, and the Triton LayerNorm + modulate
+P5).
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -400,6 +401,66 @@ def test_qmatmul_rejects_what_the_kernel_does_not_take(gen):
         qmatmul(x, q, scales.half(), biases)
 
 
+# the quantized linears of the main path, (m, k, n): time conditioning (m = 31), the text branch, the DiT blocks
+QMM_SHAPES = [(31, 256, 1024), (31, 1024, 1024), (31, 1024, 6144), (31, 1024, 2048), (1024, 512, 1024),
+              (1024, 1024, 512), (2048, 1024, 1024), (2048, 1024, 2048), (2048, 2048, 1024), (2048, 1024, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32], ids=["bf16-scales", "f32-scales"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", QMM_SHAPES, ids=[f"{m}x{k}x{n}" for m, k, n in QMM_SHAPES])
+def test_qmatmul_f32_main_path_shapes(gen, shape, bits, scale_dtype):
+    """The float32 kernel (3xTF32 wgmma) at every quantized linear shape of
+    the main path, each plan of `plan_f32` among them, with the linear's
+    bias: one launch counted, held to the plain version at the float32
+    tolerance."""
+    m, k, n = shape
+    q, scales, biases = _quantized(gen, n, k, bits)
+    scales, biases = scales.to(scale_dtype), biases.to(scale_dtype)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    bias = torch.randn(n, generator=gen, device="cuda") * 0.1
+    before = qmatmul.launches_f32
+    out = qmatmul(x, q, scales, biases, bias)
+    assert qmatmul.launches_f32 == before + 1
+    ref = qmatmul_plain(x, q, scales, biases, bias)
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, atol=TOL_F32, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [31, 2048])
+def test_qmatmul_f32_is_deterministic(gen, m):
+    """Two calls give the same bits: no atomics, and no stage or lo tile is
+    written while a warpgroup's products still read it."""
+    q, scales, biases = _quantized(gen, 1024, 1024, 4)
+    x = torch.randn(m, 1024, generator=gen, device="cuda")
+    assert torch.equal(qmatmul(x, q, scales, biases), qmatmul(x, q, scales, biases))
+
+
+@pytest.mark.cuda
+def test_qmatmul_f32_x_map_is_kept_apart_from_bf16(gen):
+    """A float32 x at an address where a bf16 x of the same shape was mapped
+    gets a float32 tensor map of its own (the float32 maps are cached
+    apart), and the right result."""
+    from f5_tts_tpu_torch.ops import qmatmul as qm
+
+    q, s, b = _quantized(gen, 256, 512, 4)
+    m, k = 45, 512  # an m no other test uses
+    buf = torch.empty(m, k, device="cuda")
+    x16 = buf.view(-1).view(torch.bfloat16)[: m * k].view(m, k)
+    assert x16.data_ptr() == buf.data_ptr()
+    x16.copy_(torch.randn(m, k, generator=gen, device="cuda"))
+    s16, b16 = s.to(torch.bfloat16), b.to(torch.bfloat16)
+    torch.testing.assert_close(qmatmul(x16, q, s16, b16).float(), qmatmul_plain(x16, q, s16, b16).float(),
+                               atol=TOL, rtol=0)
+    before = qm.maps_encoded()
+    buf.copy_(torch.randn(m, k, generator=gen, device="cuda"))
+    torch.testing.assert_close(qmatmul(buf, q, s, b), qmatmul_plain(buf, q, s, b), atol=TOL_F32, rtol=0)
+    after = qm.maps_encoded()
+    assert after["x_f32"] == before["x_f32"] + 1 and after["x"] == before["x"]
+
+
 # ------------------------------------------------------------ probe kernels P1-P5
 
 
@@ -467,6 +528,35 @@ def test_rope_attention_is_deterministic(gen, name, d):
     first = getattr(av, name)(*args)
     for _ in range(3):
         assert torch.equal(getattr(av, name)(*args), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 130, 1000, 4096])
+def test_attn_pack2_core_edges(gen, n):
+    """P1 on the TMA + wgmma core: ragged n (q and k rows past n arrive as
+    TMA's zero fill), d = 128 (two swizzled panels a tile), odd b * h = 3,
+    q and k as [b, h, n, d] views of [b, n, h, d] data, and v expanded over
+    the heads (a zero stride, copied before its tensor map is built)."""
+    b, h, d = 1, 3, 128
+    q, k = (torch.randn(b, n, h, d, generator=gen, device="cuda", dtype=torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    v = torch.randn(b, n, 1, d, generator=gen, device="cuda", dtype=torch.bfloat16).transpose(1, 2).expand(b, h, n, d)
+    assert v.stride()[1] == 0 and (n == 1 or not q.is_contiguous())  # at n = 1 the view is contiguous
+    out, ref = _variant("attn_pack2", q, k, v, d ** -0.5, None)
+    torch.cuda.synchronize()
+    assert out.shape == (b, h, n, d) and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_attn_pack2_is_deterministic(gen, d):
+    """Four calls give the same bits: no atomics, and no stage of the ring is
+    refilled while a warp still reads it."""
+    q, k, v = _qkv(gen, 2, 16, 1000, d)
+    first = av.attn_pack2(q, k, v, d ** -0.5)
+    for _ in range(3):
+        assert torch.equal(av.attn_pack2(q, k, v, d ** -0.5), first)
 
 
 def _bf16_ulp(x):

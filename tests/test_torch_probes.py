@@ -74,14 +74,18 @@ def _qkv(shape, seed):
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("name", ["attn_pack2", "attn_flat"])
 def test_attention_variants_match_pallas(tools, name, d, dtype):
-    """P1 and P2: the plain versions against the Pallas kernels."""
+    """P1 and P2: the plain versions against the Pallas kernels, at n = 128
+    and at a ragged n = 100 with b * h = 4 (the kernels on the card pad
+    to 128-row and 64-row blocks; their card tests hold them to these plain
+    versions)."""
     jav, _ = tools
-    pairs = [_both(x, dtype) for x in _qkv((1, 2, 128, d), seed=d)]
     scale = 1.0 / np.sqrt(d)
-    ref = getattr(jav, name)(*(p[0] for p in pairs), scale)
-    got = getattr(AV, name)(*(p[1] for p in pairs), scale)
-    assert got.dtype == DTYPES[dtype][1] and got.shape == (1, 2, 128, d)
-    _close(got, ref.astype(jnp.float32), dtype)
+    for i, shape in enumerate(((1, 2, 128, d), (2, 2, 100, d))):
+        pairs = [_both(x, dtype) for x in _qkv(shape, seed=d + 1000 * i)]
+        ref = getattr(jav, name)(*(p[0] for p in pairs), scale)
+        got = getattr(AV, name)(*(p[1] for p in pairs), scale)
+        assert got.dtype == DTYPES[dtype][1] and got.shape == shape
+        _close(got, ref.astype(jnp.float32), dtype)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
