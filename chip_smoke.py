@@ -8,7 +8,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   2. build: compiles every kernel from the sources in this checkout, one nvcc
      per source, all at once;
   3. kernels vs plain, timed with CUDA events: the attention kernel in bf16
-     at the main path's shape and two edge shapes; the attention kernel in
+     at the main path's shape and edge shapes (d 64 and 128 on the
+     pre-pass + TMA/wgmma core, d 256 on the mma.sync kernel, a mask
+     without RoPE), with the pre-pass's own device time; the attention kernel in
      float32 at the duration predictor's shape, the duration training
      shape and the DiT's; the dequantizing matmul at every linear shape of
      the main path, int4 and int8, bf16 and float32, with the float32
@@ -40,29 +42,30 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   9. duration training: DURATION_V2 in float32 on the same batch shape, a
      few steps with exact float32 attention launches and a falling loss;
  10. probe kernels vs plain, timed with CUDA events: the attention variants
-     (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope; all
-     but attn_flat also at a ragged n, and with their device time as in
-     phase 12, the RoPE pre-pass's own device time and the host time per
-     call) in bf16
+     (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope; each
+     also at a ragged n, and with their device time as in phase 12, the
+     RoPE pre-pass's own device time and the host time per call) in bf16,
+     with the outputs of P1, P3 and P4 at fixed inputs hashed
      and the Triton LayerNorm + modulate at the probe tools' shapes and at a
      ragged n;
  11. probe tools: both tools' entry points once at their full shapes with
      few repetitions, counting each probe kernel's launches there;
  12. ranking: K3's device time per int4 request (launches per request
-     times the kernel's time, summed over the linear shapes) and K2's per
-     CFM step (22 calls), each beside the same sum for its library call,
+     times the kernel's time, summed over the linear shapes), K1's per
+     request (682 calls) and per CFM step (22), and K2's per CFM step (22
+     calls), each beside the same sum for its library call,
      timed with the card held by a spin kernel while the calls are enqueued
      (so, unlike phases 3 and 7, the host's enqueue is left out); K1-f32's
      and K2-f32's per duration step (8 calls each) beside SDPA float32's,
      and K3-f32's per float32 forward of the int4 DiT (its 166 launches by
-     shape) beside F.linear float32's, timed the same way; the host time per wrapper call of K3 and K2 (100
+     shape) beside F.linear float32's, timed the same way; the host time per wrapper call of K3, K1 and K2 (100
      calls enqueued behind a spin kernel; median, least and most of 10
      runs); and a torch.profiler breakdown of one int4 request, one CFM
      step and one duration step by kernel group.
 Phases 1, 2, 4 and 12 alone (device_phase, build_phase, snapshot_phase,
 ranking_phase), and phase 10 after phase 1 (probe_kernel_phase), measure
 another checkout's package the same way from a copy of this file placed in
-its root.
+its root; `core_hashes` after phase 1 prints the P1, P3 and P4 hashes alone.
 Each kernel phase also times one PyTorch call that computes the same
 function, where there is one (the library yardstick), and computes the
 kernel's bound on this card from its inputs. The line before the last is a
@@ -136,8 +139,9 @@ def build_phase():
 
     phase("build")
     t0 = time.perf_counter()
-    sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE, qmatmul.SOURCE, attn_variants.SOURCE,
-               attn_variants.ROPE_SOURCE)
+    sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE, qmatmul.SOURCE, attn_variants.ROPE_SOURCE)
+    if hasattr(attn_variants, "SOURCE"):  # a checkout from before attn_flat moved onto the core
+        sources += (attn_variants.SOURCE,)
     libs = cuda_build.build(*sources)
     print(f"built {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} in {time.perf_counter() - t0:.1f} s")
     for src in sources:
@@ -248,15 +252,20 @@ def kernel_phase():
     import torch
 
     from f5_tts_tpu_torch.models.rope import rotary_freqs
+    from f5_tts_tpu_torch.ops import flash_attention as fa
     from f5_tts_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     phase("kernel vs plain (bf16)")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # (name, b, h, n, d, valid keys or None, rope, q/k/v as [b, n, h*d] projection views)
+    # (name, b, h, n, d, valid keys or None, rope, q/k/v as [b, n, h*d] projection views): d 64 and 128 run
+    # the pre-pass and the TMA + wgmma core, d 256 the mma.sync kernel
     cases = [
         ("main path", 2, 16, 1024, 64, 937, True, True),
         ("ragged n, no mask", 2, 16, 937, 64, None, True, False),
         ("n=4096", 1, 16, 4096, 64, 4000, True, False),
+        ("mask, no RoPE", 2, 16, 1024, 64, 937, False, True),
+        ("d=128, ragged n", 2, 8, 1000, 128, 999, True, True),
+        ("d=256 (mma.sync)", 1, 8, 1024, 256, 937, True, True),
     ]
     results = {}
     for name, b, h, n, d, valid, use_rope, strided in cases:
@@ -287,6 +296,19 @@ def kernel_phase():
               f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
         if not (err <= ATTN_TOL):
             raise AssertionError(f"kernel disagrees with its plain version at {name}: {err}")
+        if d in fa.CORE_HEAD_DIMS and (rope is not None or mask is not None):
+            # the pre-pass alone against its plain version: the rotation and the biases bit for bit
+            key_mask, cos, sin = fa._checked(q, k, v, mask, rope)
+            n_pad = -(-n // fa.CORE_ROW_PAD) * fa.CORE_ROW_PAD
+            got = fa.flash_prepass(q, k, mask, rope, n_pad)
+            want = fa.flash_prepass_plain(q, k, mask, rope, n_pad)
+            torch.cuda.synchronize()
+            if not all((g is None and w is None) or torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"K1's pre-pass disagrees with its plain version at {name}")
+            pre_ms = device_ms(lambda: fa.flash_prepass(q, k, mask, rope, n_pad))
+            dev_ms = device_ms(lambda: fa._forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse=False))
+            print(f"{name}: device {dev_ms:.4f} ms, of which the pre-pass alone {pre_ms:.4f} ms "
+                  f"(its outputs equal to the plain pre-pass's)")
         results[name] = {"err": err, "ms": ms, "plain_ms": plain_ms,
                          **_attention_yardstick(name, q, k, v, scale, mask, rope, valid, "bf16")}
     return results
@@ -893,9 +915,9 @@ def probe_kernel_phase():
     plain = {"attn_pack2": av.attention_plain, "attn_flat": av.attention_plain,
              "flash_nhd": av.flash_nhd_plain, "flash_bhnd_rope": av.flash_bhnd_rope_plain}
     results = {}
-    # (label, kernel, b, h, n, d): the probe tools' shape, and the kernels on the TMA + wgmma core at a ragged n
+    # (label, kernel, b, h, n, d): the probe tools' shape, and each kernel (all on the TMA + wgmma core) at a ragged n
     cases = [(name, name, 2, 16, 1024, 64) for name in PROBE_ATTN]
-    cases += [(f"{name}, ragged n", name, 2, 16, 1000, 64) for name in ("attn_pack2", "flash_nhd", "flash_bhnd_rope")]
+    cases += [(f"{name}, ragged n", name, 2, 16, 1000, 64) for name in PROBE_ATTN]
     for label, name, b, h, n, d in cases:
         nhd = name == "flash_nhd"
         q, k, v = (torch.randn(*((b, n, h, d) if nhd else (b, h, n, d)), generator=gen, device="cuda",
@@ -929,7 +951,7 @@ def probe_kernel_phase():
         if rope:  # the pre-pass takes q and k unrotated, as [b, h, n, d] views of the call's layout
             views = [t.transpose(1, 2) if nhd else t for t in (q, k)]
             _device_times(label, av, fn, (q, k, v, *rope, scale), (*views, rope))
-        elif name == "attn_pack2":
+        else:
             _device_times(label, av, fn, (q, k, v, scale))
 
     for label, (b, n, d) in (("ln_modulate", (2, 1024, 1024)), ("ln_modulate, ragged n", (2, 1000, 1024))):
@@ -953,7 +975,34 @@ def probe_kernel_phase():
             raise AssertionError(f"ln_modulate disagrees with its plain version at {label}: {err}")
         results[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                           "bound_ms": bound_ms, "bound_by": bound_by}
+    core_hashes()
     return results
+
+
+def core_hashes() -> dict:
+    """SHA-256 of P1's, P3's and P4's outputs at fixed inputs made with numpy
+    from a seed (d 64 and 128, a ragged n), printed and returned: the same
+    bits in two checkouts show that a change left their arithmetic as it was."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from f5_tts_tpu_torch.ops import attn_variants as av
+    from f5_tts_tpu_torch.tools.fusion_probe import perm_matrix, rope_tables
+
+    hashes = {}
+    for name in ("attn_pack2", "flash_nhd", "flash_bhnd_rope"):
+        for b, h, n, d in ((2, 16, 1024, 64), (2, 4, 1000, 128)):
+            rng = np.random.default_rng(n + d)
+            shape = (b, n, h, d) if name == "flash_nhd" else (b, h, n, d)
+            q, k, v = (torch.tensor(rng.standard_normal(shape, dtype=np.float32), device="cuda").to(torch.bfloat16)
+                       for _ in range(3))
+            rope = () if name == "attn_pack2" else (*rope_tables(n, d, "cuda"), torch.tensor(perm_matrix(d), device="cuda"))
+            out = getattr(av, name)(q, k, v, *rope, d ** -0.5)
+            hashes[f"{name} [{b}, {h}, {n}, {d}]"] = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    print("output hashes: " + json.dumps(hashes))
+    return hashes
 
 
 def _device_times(label, av, fn, args, prepass=None) -> None:
@@ -1012,7 +1061,8 @@ PROFILE_NAME_CHARS = 80
 PROFILE_GROUPS = (
     ("attention pre-pass (float32)", ("tc_prep",)),
     ("K2 attention backward", ("flash_bwd",)),
-    ("K1 attention forward", ("flash_fwd",)),
+    ("K1 pre-pass (bf16)", ("flash_fwd_prepass",)),
+    ("K1 attention forward", ("flash_fwd", "attn_core")),
     ("K3 dequantizing matmul", ("qmm_",)),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "splitkreduce")),
@@ -1075,7 +1125,8 @@ def dit_f32_launches_by_shape(cfg) -> dict:
 
 
 def ranking_phase(card: str, snap: str) -> None:
-    """K3's device time per int4 request, K2's per CFM step and K1-f32's and
+    """K3's device time per int4 request, K1's per request and per CFM step,
+    K2's per CFM step and K1-f32's and
     K2-f32's per duration step beside their library calls' (device times,
     the host left out), the host time of one wrapper call, and a
     torch.profiler breakdown of one int4 request, one CFM step and one
@@ -1101,6 +1152,8 @@ def ranking_phase(card: str, snap: str) -> None:
 
     phase("ranking: device time per request and step against the library calls; host time per call; profiles")
     cfg = F5TTS_V1_BASE
+    if cfg.depth * EVALS_PER_REQUEST != 682:
+        raise AssertionError(f"K1 calls a request: {cfg.depth * EVALS_PER_REQUEST}, expected 682")
     per_shape = qmm_launches_by_shape(cfg)
     if sum(per_shape.values()) != qmm_launches_per_request(cfg):
         raise AssertionError(f"launches by shape {per_shape} do not sum to {qmm_launches_per_request(cfg)}")
@@ -1141,6 +1194,30 @@ def ranking_phase(card: str, snap: str) -> None:
     print(f"K3-f32 int4 float32, per float32 forward of the int4 DiT ({sum(by_shape.values())} launches over "
           f"{len(by_shape)} shapes): kernel {k3f_ms:.3f} ms, F.linear float32 on the dequantized weights "
           f"{k3f_lib:.3f} ms, lost {k3f_ms - k3f_lib:.3f} ms; on {card}")
+
+    # K1 at the request's shape ([2, 16, 1024, 64], mask 937, no lse) and at the CFM step's ([4, 16, 1024, 64],
+    # no mask, with the lse): q, k, v as [b, n, h*d] projection views, RoPE; SDPA on q and k rotated beforehand
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k1_calls = {"request": cfg.depth * EVALS_PER_REQUEST, "CFM step": cfg.depth}
+    for label, b, valid, with_lse in (("request", 2, 937, False), ("CFM step", TRAIN_BATCH, None, True)):
+        h, n, d = cfg.heads, 1024, cfg.dim_head
+        q, k, v = (torch.randn(b, n, h * d, generator=gen, device="cuda", dtype=torch.bfloat16)
+                   .view(b, n, h, d).transpose(1, 2) for _ in range(3))
+        mask = None if valid is None else (torch.arange(n, device="cuda") < valid)[None, :].expand(b, n).contiguous()
+        raw = rotary_freqs(n, d, device="cuda")
+        rope = (torch.cos(raw), torch.sin(raw))
+        key_mask, cos, sin = fa._checked(q, k, v, mask, rope)
+        ms = device_ms(lambda: fa._forward_kernel(q, k, v, d ** -0.5, key_mask, cos, sin, with_lse=with_lse))
+        qr, kr = apply_rotary_pos_emb(q, rope), apply_rotary_pos_emb(k, rope)
+        lib = device_ms(lambda: _sdpa(qr, kr, v, d ** -0.5, mask))
+        calls = k1_calls[label]
+        print(f"K1 bf16 [{b}, {h}, {n}, {d}] mask={valid} lse={with_lse}: device {ms:.4f} ms, SDPA (RoPE outside) "
+              f"{lib:.4f} ms; per {label} ({calls} calls): kernel {calls * ms:.3f} ms, SDPA {calls * lib:.3f} ms, "
+              f"lost {calls * (ms - lib):.3f} ms; on {card}")
+        if label == "request":
+            with torch.no_grad():
+                host[f"K1 [{b}, {h}, {n}, {d}] mask {valid}"] = host_us(
+                    lambda: fa.flash_attention(q, k, v, d ** -0.5, key_mask=mask, rope=rope))
 
     # K2 at the CFM training shape: q, k, v and g as [b, n, h*d] projection views, RoPE, no mask
     b, h, n, d = TRAIN_BATCH, 16, TRAIN_FRAMES, 64
@@ -1251,7 +1328,7 @@ def main() -> int:
     launches.update(probe_launches)
     csrc = "f5_tts_tpu_torch/csrc/"
     rows = [
-        ("flash_attention_fwd", "cuda", csrc + "flash_attention_fwd.cu", "f5_tts_tpu/ops/flash_attention.py:165",
+        ("flash_attention_fwd", "cuda", csrc + "attn_core.cuh", "f5_tts_tpu/ops/flash_attention.py:165",
          kernel["main path"]),
         ("flash_attention_fwd_f32", "cuda", csrc + "flash_attention_fwd.cu",
          "f5_tts_tpu/ops/flash_attention.py:165", f32_attn["duration training"]),
@@ -1264,7 +1341,7 @@ def main() -> int:
         ("flash_attention_bwd_f32", "cuda", csrc + "flash_attention_bwd.cu",
          "f5_tts_tpu/ops/flash_attention.py:349", bwd["duration training"]),
         ("attn_pack2", "cuda", csrc + "attn_rope_wgmma.cu", "tools/attn_variants.py:76", probe["attn_pack2"]),
-        ("attn_flat", "cuda", csrc + "attn_variants.cu", "tools/attn_variants.py:115", probe["attn_flat"]),
+        ("attn_flat", "cuda", csrc + "attn_rope_wgmma.cu", "tools/attn_variants.py:115", probe["attn_flat"]),
         ("flash_nhd", "cuda", csrc + "attn_rope_wgmma.cu", "tools/fusion_probe.py:128", probe["flash_nhd"]),
         ("flash_bhnd_rope", "cuda", csrc + "attn_rope_wgmma.cu", "tools/fusion_probe.py:165",
          probe["flash_bhnd_rope"]),

@@ -1,17 +1,18 @@
-// The probe tools' attention without a mask for Hopper (sm_90a), bf16: a
-// TMA-fed wgmma attention forward (the core), after a rotation pre-pass for
-// the RoPE variants.
+// The probe tools' attention without a mask for Hopper (sm_90a), bf16: the
+// TMA-fed wgmma attention forward (the core, csrc/attn_core.cuh), after a
+// rotation pre-pass for the RoPE variants.
 //
 // Replaces the Pallas TPU kernels of the JAX package's probe tools:
 //   - tools/fusion_probe.py `flash_bhnd_rope` (body `_kernel_bhnd_rope`),
 //     q, k, v and the output in [b, h, n, d];
 //   - tools/fusion_probe.py `flash_nhd` (body `_kernel_nhd`), the same
 //     function in [b, n, h, d];
-//   - tools/attn_variants.py `attn_pack2` (body `_attn_kernel_pack2`),
-//     the same function without the rotation: the core alone, reading q and
-//     k in place (f5_attention). The Pallas kernel's two heads a grid step
-//     are a TPU grid choice; here each head has its own blocks, and b * h
-//     may be odd.
+//   - tools/attn_variants.py `attn_pack2` (body `_attn_kernel_pack2`) and
+//     `attn_flat` (body `_attn_kernel_flat`), the same function without the
+//     rotation: the core alone, reading q and k in place (f5_attention). The
+//     Pallas kernels' two heads a grid step (pack2) and flat b * h grid
+//     (flat) are TPU grid choices; here each head has its own blocks, and
+//     b * h may be odd.
 // Every layout takes the same kernels: q, k, v and the output are addressed
 // through (batch, head, row) strides, so a [b, n, h, d] view is read and
 // written in place. The RoPE function: softmax(rope(q) rope(k)^T * scale) v
@@ -39,59 +40,35 @@
 //     as bf16 scratch
 //     [2, b * h, n_pad, d] (rope(q), then rope(k)), n_pad a multiple of 128
 //     and rows past n zero;
-//   - the main kernel (the core) is warp specialised: a block owns 128
-//     query rows of one head, two consumer warpgroups of 64; one producer
-//     warp loads the block's Q once and streams 128-key tiles of K and of
-//     V through a ring of 3 stages (2 at d = 128: 160 KB) by TMA, with the
-//     128-byte swizzle; Q, K and V each through a 4-d map with coordinates
-//     (column, row, head, batch): over the scratch's halves (rope(q),
-//     rope(k)) after the pre-pass, over q and k's own (batch, head, row)
-//     strides without it, and over v's always; each stage has
-//     a full and an empty mbarrier, and a stage is refilled only after all
-//     256 consumer threads have arrived on its empty barrier, which each
-//     does after its last wgmma on the stage has completed. 128-key tiles
-//     halve the per-tile softmax reductions and barrier waits of 64-key
-//     ones, at about 160 registers a thread and one block an SM;
-//   - S = Q K^T runs on wgmma.m64n128k16 with both operands K-major in
-//     shared memory; the online softmax runs in float32 registers, in base 2 with
-//     the scale folded in; keys past n (the last tile's zero rows: the
-//     scratch's padding, or TMA's zero fill) score -inf by index; query rows
-//     past n are zero and not written; P is rounded to bf16 A fragments against the running
-//     max (the Pallas body rounds against the row's final max: both divide
-//     the float32 P V sum by the float32 sum of the unrounded p, and differ
-//     by the bf16 rounding of p only); O += P V runs on wgmma with P from
-//     registers and V as an MN-major operand (the transpose bit), so no
-//     thread loads an operand element by element;
-//   - each warpgroup runs a tile's two products and its softmax in turn;
-//     the other warpgroup's work fills the tensor cores meanwhile. (Issuing
-//     tile it's scores beside tile it - 1's P V, FA3's overlap within a
-//     warpgroup, ran slower on the H100 in both forms tried: ptxas
-//     serialized the wgmmas and spilled at d = 128);
-//   - the epilogue divides by the row sum and writes bf16 through the
-//     output's strides. No atomics: the kernels are deterministic.
-// Without the rotation (attn_pack2), the earlier kernel was an mma.sync
-// template (csrc/attn_variants.cu, which keeps attn_flat): 8x the 8.69 us
-// bound at [2, 16, 1024, 64]. The core runs it with the same arithmetic as
-// the RoPE variants, with no pre-pass and no scratch.
+//   - the core (csrc/attn_core.cuh, without a key bias or an lse) reads Q, K and V
+//     each through a 4-d map with coordinates (column, row, head, batch):
+//     over the scratch's halves (rope(q), rope(k)) after the pre-pass, over
+//     q and k's own (batch, head, row) strides without it, and over v's
+//     always. 128-key tiles halve the per-tile softmax reductions and
+//     barrier waits of 64-key ones, at about 160 registers a thread and one
+//     block an SM. P is rounded to bf16 against the running max (the Pallas
+//     body rounds against the row's final max: both divide the float32 P V
+//     sum by the float32 sum of the unrounded p, and differ by the bf16
+//     rounding of p only). (Issuing tile it's scores beside tile it - 1's
+//     P V, FA3's overlap within a warpgroup, ran slower on the H100 in both
+//     forms tried: ptxas serialized the wgmmas and spilled at d = 128.)
+// Without the rotation (attn_pack2, attn_flat), the earlier kernels were
+// mma.sync templates: 8x the 8.69 us bound at [2, 16, 1024, 64]. The core
+// runs them with the same arithmetic as the RoPE variants, with no pre-pass
+// and no scratch.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <cfloat>
-#include <cmath>
 #include <cstdint>
 
+#include "attn_core.cuh"
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int BOX = 64;         // rows of a TMA box
-constexpr int KN = 128;         // keys a streamed tile, two boxes a panel
-constexpr int WGS = 2;          // consumer warpgroups, 64 query rows each
-constexpr int ROWS = 64 * WGS;  // query rows a block owns
-constexpr int ROW_PAD = 128;    // n_pad is a multiple of this (= ROWS)
 constexpr int PAD = 8;          // bf16 padding per shared-memory row of the pre-pass
 constexpr int PRE_ROWS = 64;    // rows a pre-pass block rotates, 16 a warp
 constexpr int PRE_HEADS = 2;    // heads a pre-pass block rotates, 4 warps each
@@ -119,19 +96,6 @@ struct Params {
 template <int D>
 constexpr int prepass_smem() {  // P^T, the two tables' rows, and q and k rows of PRE_HEADS heads
   return (D + (2 + 2 * PRE_HEADS) * PRE_ROWS) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
-}
-
-// bf16 pairs: a * b and a + b, each rounded once to nearest even (the .rn
-// form is never contracted into an fma, which would skip a rounding).
-__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
 }
 
 // Rotate one warp's 16 staged rows (wr .. wr + 15 of sX) in place:
@@ -270,206 +234,6 @@ __global__ void __launch_bounds__(PRE_THREADS) rope_prepass_kernel(const Params 
   }
 }
 
-// ---------------------------------------------------------------- main kernel
-
-template <int D>
-struct FwdShape {
-  static constexpr int PANELS = D / 64;          // 64-dim panels of a tile (128-byte swizzled rows)
-  static constexpr int CONSUMERS = 128 * WGS;
-  static constexpr int THREADS = CONSUMERS + 32;  // + one producer warp
-  static constexpr int BOXES = KN / BOX;          // TMA boxes of a key tile's panel
-  static constexpr int BOX_BYTES = BOX * 128;     // one 64-row box of one panel
-  static constexpr int KPANEL = KN * 128;         // bytes of one panel of a key tile
-  static constexpr int TILE = PANELS * KPANEL;    // a streamed K or V tile
-  static constexpr int STAGES = D == 64 ? 3 : 2;
-  static constexpr int OWN_PANEL = ROWS * 128;    // bytes of one panel of the owned Q
-  static constexpr int OWN = PANELS * OWN_PANEL;
-  static constexpr int STAGE = 2 * TILE;          // K, then V
-  static constexpr int BAR_OFF = OWN + STAGES * STAGE;
-  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + slack to align the base to 1024
-};
-
-// Descriptor of k16 step kc of an MN-major operand: 16 rows of 128 bytes a step.
-__device__ __forceinline__ uint64_t mnmajor(uint64_t desc, int kc) { return desc + ((kc * 16 * 128) >> 4); }
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Round a [64 x 16 KC] score-shaped accumulator to bf16 A fragments, one per k16 step.
-template <int KC>
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[KC][4], const float (&x)[8 * KC]) {
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    a[kc][0] = pack_f32(x[8 * kc + 0], x[8 * kc + 1]);
-    a[kc][1] = pack_f32(x[8 * kc + 2], x[8 * kc + 3]);
-    a[kc][2] = pack_f32(x[8 * kc + 4], x[8 * kc + 5]);
-    a[kc][3] = pack_f32(x[8 * kc + 6], x[8 * kc + 7]);
-  }
-}
-
-// One block per (128 query rows, head, batch row). The producer (lane 0 of
-// the last warp) loads the block's Q once, then streams K and V of each
-// KN-key tile through the ring. Each consumer warpgroup owns 64 queries; a
-// thread holds rows row0 + g and row0 + g + 8 of them.
-template <int D>
-__global__ void __launch_bounds__(FwdShape<D>::THREADS, 1)
-attn_core_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-                     const __grid_constant__ CUtensorMap v_map, const Params p) {
-  using S = FwdShape<D>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = aligned_smem(smem_raw);
-  unsigned char* sQ = smem;
-  uint64_t* own = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
-  uint64_t* full = own + 1;
-  uint64_t* empty = full + S::STAGES;
-  auto stage = [&](int s) { return smem + S::OWN + s * S::STAGE; };
-
-  const int q0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tiles = (p.n + KN - 1) / KN;
-
-  if (threadIdx.x == 0) {
-    mbar_init(own, 1);
-    for (int s = 0; s < S::STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], S::CONSUMERS);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= S::CONSUMERS) {  // producer warp
-    if (threadIdx.x == S::CONSUMERS) {  // every map's coordinates: (dim, row, head, batch row)
-      mbar_arrive_expect_tx(own, S::OWN);
-      for (int pn = 0; pn < S::PANELS; ++pn) {
-        for (int r = 0; r < WGS; ++r) {
-          tma_load_4d(sQ + pn * S::OWN_PANEL + r * S::BOX_BYTES, &q_map, own, pn * 64, q0 + r * BOX, h, b);
-        }
-      }
-      for (int it = 0; it < tiles; ++it) {
-        const int s = it % S::STAGES;
-        if (it >= S::STAGES) mbar_wait(&empty[s], (it / S::STAGES - 1) & 1);
-        unsigned char* st = stage(s);
-        mbar_arrive_expect_tx(&full[s], S::STAGE);
-        for (int pn = 0; pn < S::PANELS; ++pn) {
-          for (int x = 0; x < S::BOXES; ++x) {
-            const int off = pn * S::KPANEL + x * S::BOX_BYTES, row = it * KN + x * BOX;
-            tma_load_4d(st + off, &k_map, &full[s], pn * 64, row, h, b);
-            tma_load_4d(st + S::TILE + off, &v_map, &full[s], pn * 64, row, h, b);
-          }
-        }
-      }
-    }
-    return;
-  }
-
-  const int wg = threadIdx.x / 128;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int row0 = wg * 64 + (threadIdx.x / 32 % 4) * 16;  // this warp's first query in the block
-  const float sl2 = p.scale * 1.4426950408889634f;         // scale * log2(e): softmax in base 2
-
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores of rows g and g + 8
-  float l[2] = {0.f, 0.f};
-
-  mbar_wait(own, 0);
-  const uint64_t q_desc = sw128_desc(sQ + wg * S::BOX_BYTES);
-
-  for (int it = 0; it < tiles; ++it) {
-    const int s = it % S::STAGES;
-    mbar_wait(&full[s], (it / S::STAGES) & 1);
-    unsigned char* st = stage(s);
-
-    float sc[KN / 2];
-    const uint64_t k_desc = sw128_desc(st);
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      wgmma_ss(sc, kmajor(q_desc, kc, S::OWN_PANEL), kmajor(k_desc, kc, S::KPANEL), kc > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-
-    // keys past n (zero rows) score -inf; the first tile
-    // holds key 0, so the running max is finite from then on
-    const int k0 = it * KN;
-    if (k0 + KN > p.n) {
-#pragma unroll
-      for (int i = 0; i < KN / 2; ++i) {
-        if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= p.n) sc[i] = -INFINITY;
-      }
-    }
-    float mt[2] = {m[0], m[1]};
-#pragma unroll
-    for (int i = 0; i < KN / 2; ++i) mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], sc[i]);
-    float alpha[2], ms[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      alpha[r] = exp2_approx((m[r] - mt[r]) * sl2);
-      m[r] = mt[r];
-      ms[r] = mt[r] * sl2;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-#pragma unroll
-    for (int i = 0; i < KN / 2; ++i) {
-      sc[i] = exp2_approx(fmaf(sc[i], sl2, -ms[(i >> 1) & 1]));
-      l[(i >> 1) & 1] += sc[i];
-    }
-
-    // O += P V: P rounded to bf16 from the score registers, V MN-major
-    uint32_t pa[KN / 16][4];
-    to_a_frags<KN / 16>(pa, sc);
-    const uint64_t v_desc = sw128_desc(st + S::TILE, S::KPANEL);
-    wgmma_fence();
-    fence_regs(acc);
-#pragma unroll
-    for (int kc = 0; kc < KN / 16; ++kc) wgmma_rs<1>(acc, pa[kc], mnmajor(v_desc, kc), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    mbar_arrive(&empty[s]);
-  }
-
-  __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = q0 + row0 + g + 8 * r;
-    if (row < p.n) {
-      const float inv = 1.f / l[r];
-      __nv_bfloat16* orow = og + row * p.o_sn + 2 * t;
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        *reinterpret_cast<uint32_t*>(orow + 8 * i) = pack_f32(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
-      }
-    }
-  }
-}
-
-// A 4-d tensor map over bf16 rows of D with three outer strides in elements:
-// dims (D, rows, d2, d3), 64 x 64 boxes, 128-byte swizzle.
-template <int D>
-cudaError_t tile_map(CUtensorMap* map, const void* base, int rows, int d2, int d3, long long s_row, long long s2,
-                     long long s3) {
-  const uint64_t dims[4] = {D, static_cast<uint64_t>(rows), static_cast<uint64_t>(d2), static_cast<uint64_t>(d3)};
-  const uint64_t strides[3] = {static_cast<uint64_t>(s_row) * 2, static_cast<uint64_t>(s2) * 2,
-                               static_cast<uint64_t>(s3) * 2};
-  const uint32_t box[4] = {64, BOX, 1, 1};
-  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
-                           CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 template <int D>
 cudaError_t launch_prepass(const Params& p, cudaStream_t stream) {
   static std::atomic<bool> raised[MAX_DEVICES];
@@ -481,20 +245,21 @@ cudaError_t launch_prepass(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The core over q and k as tensor maps with coordinates (dim, row, head,
-// batch row), and over v by its strides.
+// The core's arguments from the entry points' (no key bias, no lse).
+CoreParams core_params(const Params& p) {
+  CoreParams c{};
+  c.o = p.o;
+  c.h = p.h;
+  c.n = p.n;
+  c.n_pad = p.n_pad;
+  c.o_sb = p.o_sb; c.o_sh = p.o_sh; c.o_sn = p.o_sn;
+  c.scale = p.scale;
+  return c;
+}
+
 template <int D>
-cudaError_t launch_core(const CUtensorMap& q_map, const CUtensorMap& k_map, const Params& p, cudaStream_t stream) {
-  using S = FwdShape<D>;
-  CUtensorMap v_map;
-  cudaError_t err = tile_map<D>(&v_map, p.v, p.n, p.h, p.b, p.v_sn, p.v_sh, p.v_sb);
-  if (err != cudaSuccess) return err;
-  static std::atomic<bool> raised[MAX_DEVICES];
-  err = raise_smem_limit(reinterpret_cast<const void*>(attn_core_fwd_kernel<D>), S::SMEM, raised);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.n_pad / ROWS, p.h, p.b);
-  attn_core_fwd_kernel<D><<<grid, S::THREADS, S::SMEM, stream>>>(q_map, k_map, v_map, p);
-  return cudaGetLastError();
+cudaError_t run_core(const CUtensorMap& q_map, const CUtensorMap& k_map, const Params& p, cudaStream_t stream) {
+  return launch_core<D, false, false>(q_map, k_map, p.v, p.v_sb, p.v_sh, p.v_sn, p.b, core_params(p), stream);
 }
 
 // The pre-pass, then the core over the scratch's halves, each a contiguous
@@ -508,7 +273,7 @@ cudaError_t launch_rope_attention(const Params& p, cudaStream_t stream) {
   err = tile_map<D>(&q_map, p.rot, p.n_pad, p.h, p.b, D, hn, p.h * hn);
   if (err == cudaSuccess) err = tile_map<D>(&k_map, p.rot + p.b * p.h * hn, p.n_pad, p.h, p.b, D, hn, p.h * hn);
   if (err != cudaSuccess) return err;
-  return launch_core<D>(q_map, k_map, p, stream);
+  return run_core<D>(q_map, k_map, p, stream);
 }
 
 // The core alone, over q and k in place (rows past n arrive as TMA's zero fill).
@@ -518,7 +283,7 @@ cudaError_t launch_plain_attention(const Params& p, cudaStream_t stream) {
   cudaError_t err = tile_map<D>(&q_map, p.q, p.n, p.h, p.b, p.q_sn, p.q_sh, p.q_sb);
   if (err == cudaSuccess) err = tile_map<D>(&k_map, p.k, p.n, p.h, p.b, p.k_sn, p.k_sh, p.k_sb);
   if (err != cudaSuccess) return err;
-  return launch_core<D>(q_map, k_map, p, stream);
+  return run_core<D>(q_map, k_map, p, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* cos, const void* sin, const void* P, void* rot, int b,
@@ -543,24 +308,6 @@ Params make_params(const void* q, const void* k, const void* cos, const void* si
 bool shape_ok(int b, int h, int n, int n_pad) {
   return b >= 1 && h >= 1 && n >= 1 && n_pad >= n && n_pad % ROW_PAD == 0;
 }
-
-// Makes `device` current for the launches and the caller's device current
-// again after them (the tensors' device need not be the current one).
-struct DeviceScope {
-  int prev = -1;
-  cudaError_t err = cudaSuccess;
-  explicit DeviceScope(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) {
-      err = cudaSetDevice(device);
-    } else {
-      prev = -1;
-    }
-  }
-  ~DeviceScope() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
 
 }  // namespace
 

@@ -48,8 +48,8 @@
 // products from scalar shared-memory loads; and left delta and three
 // float32-to-bf16 casts to PyTorch around it. This design:
 //   - a pre-pass kernel, one launch over the rows, writes rope(q) and rope(k)
-//     once as bf16 scratch (tables rounded to bf16, one bf16 rounding of the
-//     float32 rotation, as the forward rounds), the row statistics
+//     once as bf16 scratch (tables rounded to bf16, each product and the sum
+//     rounded to bf16, as the JAX body and the forward round), the row statistics
 //     (lse, delta = rowsum(g * out) in float32) padded to a multiple of 128
 //     rows with (FLT_MAX, 0), and each key's bias (0, -1e30 masked, -FLT_MAX
 //     past n), so rows and keys past n contribute exactly 0 whatever TMA's
@@ -210,28 +210,15 @@ struct BwdParams {
 };
 
 // Copy one 16-byte chunk (8 dims from an even dim c) of a row, rotated with
-// the row's tables when given: the tables are rounded to bf16, then
-// x'[2j] = x[2j] c[2j] - x[2j+1] s[2j] and x'[2j+1] = x[2j+1] c[2j+1] +
-// x[2j] s[2j+1] in float32, rounded once to bf16 (the forward's rounding).
+// the row's tables when given (rope_chunk_bf16: the JAX body's x * cos +
+// bf16(x @ P) * sin with each product and the sum rounded to bf16, cos and
+// sin rounded first, as the forward's pre-pass rotates, so the scores
+// recomputed here are the forward's).
 template <int D>
-__device__ __forceinline__ void rope_chunk_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src, const float* cos,
-                                                const float* sin, int row, int c) {
+__device__ __forceinline__ void copy_rotated_chunk(__nv_bfloat16* dst, const __nv_bfloat16* src, const float* cos,
+                                                   const float* sin, int row, int c) {
   uint4 val = *reinterpret_cast<const uint4*>(src);
-  if (cos != nullptr) {
-    const float4* cr = reinterpret_cast<const float4*>(cos + static_cast<long long>(row) * D + c);
-    const float4* sr = reinterpret_cast<const float4*>(sin + static_cast<long long>(row) * D + c);
-    const float4 c0 = cr[0], c1 = cr[1], s0 = sr[0], s1 = sr[1];
-    const float cs[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-    const float ss[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 xf = __bfloat1622float2(x[j]);
-      const float ce = round_bf16(cs[2 * j]), co = round_bf16(cs[2 * j + 1]);
-      const float se = round_bf16(ss[2 * j]), so = round_bf16(ss[2 * j + 1]);
-      x[j] = __floats2bfloat162_rn(xf.x * ce - xf.y * se, xf.y * co + xf.x * so);
-    }
-  }
+  if (cos != nullptr) val = rope_chunk_bf16(val, table_chunk_bf16<D>(cos, row, c), table_chunk_bf16<D>(sin, row, c));
   *reinterpret_cast<uint4*>(dst) = val;
 }
 
@@ -253,8 +240,8 @@ __global__ void __launch_bounds__(256) flash_bwd_prepass_kernel(const BwdParams 
   float delta = 0.f;
   if (i < p.n) {
     const long long o = (bh * p.n + i) * D + c;
-    rope_chunk_bf16<D>(p.qr + o, p.q + b * p.q_sb + h * p.q_sh + i * p.q_sn + c, p.cos, p.sin, i, c);
-    rope_chunk_bf16<D>(p.kr + o, p.k + b * p.k_sb + h * p.k_sh + i * p.k_sn + c, p.cos, p.sin, i, c);
+    copy_rotated_chunk<D>(p.qr + o, p.q + b * p.q_sb + h * p.q_sh + i * p.q_sn + c, p.cos, p.sin, i, c);
+    copy_rotated_chunk<D>(p.kr + o, p.k + b * p.k_sb + h * p.k_sh + i * p.k_sn + c, p.cos, p.sin, i, c);
     const uint4 gv = *reinterpret_cast<const uint4*>(p.g + b * p.g_sb + h * p.g_sh + i * p.g_sn + c);
     const uint4 ov = *reinterpret_cast<const uint4*>(p.out + b * p.o_sb + h * p.o_sh + i * p.o_sn + c);
     const __nv_bfloat162* gx = reinterpret_cast<const __nv_bfloat162*>(&gv);

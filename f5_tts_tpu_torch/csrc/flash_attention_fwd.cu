@@ -1,41 +1,53 @@
-// Flash-attention forward for Hopper (sm_90a): a bf16 kernel on the tensor
-// cores (mma.sync), a float32 kernel on the tensor cores in 3xTF32 at d = 64
-// (TMA + wgmma), and a float32 kernel on the FMA units at d = 128 and 256.
+// Flash-attention forward for Hopper (sm_90a): in bf16 a rotation pre-pass
+// and the TMA-fed wgmma attention core (csrc/attn_core.cuh) at d = 64 and
+// 128, an mma.sync kernel at d = 256; in float32 a kernel on the tensor
+// cores in 3xTF32 at d = 64 (TMA + wgmma), and a kernel on the FMA units at
+// d = 128 and 256.
 //
 // Replaces the Pallas TPU kernel of the JAX package:
 // f5_tts_tpu/ops/flash_attention.py, `_flash_attention_call` (kernel body
 // `_make_kernel`, wrapper `flash_attention`). It computes the same function:
 // non-causal softmax(q k^T * scale - (1 - mask) * 1e30) v over [b, h, n, d],
 // with an optional key-padding mask and an optional interleaved rotary
-// embedding of q and k (x * cos + rotate_half(x) * sin, tables cast to bf16
-// first) applied inside the kernel. Softmax statistics are float32.
+// embedding of q and k, x * cos + bf16(x @ P) * sin with P the pair swap
+// (rotate_half), computed in q's dtype. Softmax statistics are float32.
 //
 // What bounds it on this card. Per (b, h) the work is 4 n^2 d FLOP against
 // 4 n d bytes of q, k, v and the output, so at the model's n = 1024, d = 64
-// it sits above the bf16 ridge point and wants the tensor cores. The TPU
-// kernel held all of K and V of one head in fast memory (1 MB at n = 4096);
-// a Hopper block has 227 KB of shared memory, so this kernel tiles K and V.
+// (about 500 FLOP a byte) it is bound by the tensor cores, which only wgmma
+// drives at full rate. The TPU kernel held all of K and V of one head in
+// fast memory (1 MB at n = 4096); a Hopper block has 227 KB of shared
+// memory, so K and V stream through it in tiles with an online softmax.
 //
-// Design:
-//   - one block of 4 warps per (64-row q tile, head, batch row); each warp
-//     owns 16 query rows;
-//   - K and V stream through shared memory in 64-row tiles, with an online
-//     softmax (running max and sum in float32, output accumulated in float32
-//     registers), so shared memory is 3 tiles whatever n is;
-//   - both products run on the tensor cores through mma.sync m16n8k16 (bf16
-//     operands, float32 accumulation); the score accumulator's register
-//     layout is the A-operand layout of the second product, so P never
-//     leaves registers;
-//   - masked keys get the finite bias -1e30 (never -inf), so a fully masked
-//     row averages its keys uniformly, as the plain version does; keys past
-//     n (the ragged last tile) get -FLT_MAX, are zero-filled in shared
-//     memory, and contribute exactly 0;
-//   - the rotary embedding is applied in registers while a q or k tile is
-//     copied to shared memory: lane 2j takes -x[2j+1], lane 2j+1 takes x[2j];
-//   - q, k, v and the output are addressed through (batch, head, row)
-//     strides, so [b, n, h, d] projections are read without a transpose copy.
-//     The head dim must be contiguous and rows 16-byte aligned.
-//
+// bf16 at d = 64 and 128 (every sampling and CFM training call of the
+// models). The first kernel (mma.sync, 4 warps a 64-row q tile) staged
+// 64-row K/V tiles with plain loads between two __syncthreads, rotated every
+// K tile again in every block that read it (16 times a head at n = 1024),
+// read P V's B fragments from shared memory element by element, and rounded
+// the rotation once in float32 where the JAX body rounds three times. This
+// design is two launches:
+//   - a pre-pass (flash_fwd_prepass_kernel) rotates q and k once into a
+//     bf16 scratch [2, b * h, n_pad, d] (rope(q), then rope(k); n_pad a
+//     multiple of 128, rows past n zero) with the JAX body's roundings,
+//     bf16(bf16(x * cos) + bf16(rotate_half(x) * sin)), cos and sin rounded to
+//     bf16 (packed bf16 multiplies and adds; the pair swap is a lane swap in
+//     registers, exact as the body's x @ P is), each thread taking one
+//     16-byte chunk of a row for PRE_HEADS heads with the row's tables read
+//     once; and, with a key mask, each key's bias [b, n_pad] (0 kept, -1e30
+//     masked or past n: the body's -(1 - mask) * 1e30). Without RoPE it
+//     writes only the biases, and the core reads q and k in place; with
+//     neither, the core runs alone;
+//   - the core, with the key bias when there is a mask, reads q and k (or
+//     the scratch's halves) and v through tensor maps over their (batch,
+//     head, row) strides and writes the output through its strides, and the
+//     row log-sum-exp for the backward when asked.
+// bf16 at d = 256 keeps the first kernel (a warpgroup's 64 x 256 float32
+// accumulator does not fit beside the scores, as in the backward): one
+// block of 4 warps per (64-row q tile, head, batch row), 64-row K/V tiles
+// through shared memory, both products on mma.sync m16n8k16 with P kept in
+// registers, masked keys at -1e30 and keys past n at -FLT_MAX, the rotation
+// in registers while a tile is copied (the same roundings as the pre-pass).
+
 // The float32 kernels compute the same function to float32 accuracy, as the
 // JAX kernel does for float32 inputs (HIGHEST precision): no bf16 rounding of
 // P or of the rotated q and k, tables not rounded. They serve models whose
@@ -80,6 +92,7 @@
 #include <cfloat>
 #include <cstdint>
 
+#include "attn_core.cuh"
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
 #include "tf32.cuh"
@@ -111,7 +124,8 @@ struct Params {
 };
 
 // Copy rows [row0, row0 + 64) of one head into shared memory (row stride
-// D + PAD), zero-filling rows >= n. With tables, rotate each (2j, 2j+1) pair.
+// D + PAD), zero-filling rows >= n. With tables, rotate each (2j, 2j+1) pair
+// (rope_pair_bf16: the JAX body's three roundings, tables rounded to bf16).
 template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g, long long sn,
                                           int row0, int n, const float* cos, const float* sin) {
@@ -123,21 +137,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16*
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row < n) {
       val = *reinterpret_cast<const uint4*>(g + row * sn + c);
-      if (cos != nullptr) {
-        const float4* cr = reinterpret_cast<const float4*>(cos + static_cast<long long>(row) * D + c);
-        const float4* sr = reinterpret_cast<const float4*>(sin + static_cast<long long>(row) * D + c);
-        const float4 c0 = cr[0], c1 = cr[1], s0 = sr[0], s1 = sr[1];
-        const float cs[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-        const float ss[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-        __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 xf = __bfloat1622float2(x[j]);
-          const float ce = round_bf16(cs[2 * j]), co = round_bf16(cs[2 * j + 1]);
-          const float se = round_bf16(ss[2 * j]), so = round_bf16(ss[2 * j + 1]);
-          x[j] = __floats2bfloat162_rn(xf.x * ce - xf.y * se, xf.y * co + xf.x * so);
-        }
-      }
+      if (cos != nullptr) val = rope_chunk_bf16(val, table_chunk_bf16<D>(cos, row, c), table_chunk_bf16<D>(sin, row, c));
     }
     *reinterpret_cast<uint4*>(s + r * (D + PAD) + c) = val;
   }
@@ -279,6 +279,130 @@ cudaError_t launch(const Params& p, int b, int h, cudaStream_t stream) {
   const dim3 grid((p.n + BM - 1) / BM, h, b);
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// ------------------------------------------ bf16, d = 64 and 128: pre-pass + the core
+
+constexpr int PRE_THREADS = 256;
+constexpr int PRE_HEADS = 4;  // heads a pre-pass thread rotates with its chunk of the tables
+
+struct PrepassParams {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const uint8_t* mask;  // [b, n] or null
+  const float* cos;     // [n, d] or null
+  const float* sin;
+  __nv_bfloat16* rot;   // [2, b * h, n_pad, d] (rope(q), then rope(k)), written when cos is not null
+  float* kbias;         // [b, n_pad], written when mask is not null
+  int b, h, n, n_pad;
+  long long q_sb, q_sh, q_sn;
+  long long k_sb, k_sh, k_sn;
+};
+
+// One thread per 16-byte chunk of a scratch row (grid x over n_pad * D / 8
+// chunks) and PRE_HEADS heads (grid y); the heads' q and k chunks are loaded
+// before any is rotated, so eight loads are in flight a thread. The first
+// row of blocks also writes the key biases of its rows.
+template <int D>
+__global__ void __launch_bounds__(PRE_THREADS) flash_fwd_prepass_kernel(const PrepassParams p) {
+  constexpr int CH = D / 8;
+  const int i = blockIdx.x * PRE_THREADS + threadIdx.x;
+  const int row = i / CH, c = (i % CH) * 8;
+  if (row >= p.n_pad) return;
+  const bool valid = row < p.n;
+  if (p.kbias != nullptr && blockIdx.y == 0 && c == 0) {
+    for (int b = 0; b < p.b; ++b) {
+      p.kbias[static_cast<long long>(b) * p.n_pad + row] =
+          valid && p.mask[static_cast<long long>(b) * p.n + row] ? 0.f : MASKED;
+    }
+  }
+  if (p.cos == nullptr) return;
+  const int bh = p.b * p.h;
+  uint4 x[2 * PRE_HEADS];
+#pragma unroll
+  for (int j = 0; j < PRE_HEADS; ++j) {
+    const int head = blockIdx.y * PRE_HEADS + j;
+    x[2 * j] = x[2 * j + 1] = make_uint4(0u, 0u, 0u, 0u);
+    if (valid && head < bh) {
+      const int b = head / p.h, h = head % p.h;
+      x[2 * j] = *reinterpret_cast<const uint4*>(p.q + b * p.q_sb + h * p.q_sh + row * p.q_sn + c);
+      x[2 * j + 1] = *reinterpret_cast<const uint4*>(p.k + b * p.k_sb + h * p.k_sh + row * p.k_sn + c);
+    }
+  }
+  uint4 cs = make_uint4(0u, 0u, 0u, 0u), sn = cs;  // the chunk's tables as bf16 pairs; zero past n
+  if (valid) {
+    cs = table_chunk_bf16<D>(p.cos, row, c);
+    sn = table_chunk_bf16<D>(p.sin, row, c);
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * PRE_HEADS; ++j) {
+    const int head = blockIdx.y * PRE_HEADS + j / 2;
+    if (head < bh) {
+      *reinterpret_cast<uint4*>(p.rot + (static_cast<long long>((j % 2) * bh + head) * p.n_pad + row) * D + c) =
+          rope_chunk_bf16(x[j], cs, sn);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_prepass(const PrepassParams& p, cudaStream_t stream) {
+  const int bh = p.b * p.h;
+  const dim3 grid(p.n_pad * (D / 8) / PRE_THREADS, p.cos == nullptr ? 1 : (bh + PRE_HEADS - 1) / PRE_HEADS);
+  flash_fwd_prepass_kernel<D><<<grid, PRE_THREADS, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The pre-pass (when there is a rotation or a mask), then the core: over the
+// scratch's halves, each a contiguous [b, h, n_pad, d], or over q and k in
+// place (rows past n arrive as TMA's zero fill); with the key biases when
+// there is a mask, and writing the lse when asked.
+template <int D>
+cudaError_t launch_core_fwd(const PrepassParams& pp, const void* v, long long v_sb, long long v_sh, long long v_sn,
+                            const CoreParams& c, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (pp.cos != nullptr || pp.mask != nullptr) err = launch_fwd_prepass<D>(pp, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap q_map, k_map;
+  if (pp.cos != nullptr) {
+    const long long hn = static_cast<long long>(pp.n_pad) * D;
+    err = tile_map<D>(&q_map, pp.rot, pp.n_pad, pp.h, pp.b, D, hn, pp.h * hn);
+    if (err == cudaSuccess) err = tile_map<D>(&k_map, pp.rot + pp.b * pp.h * hn, pp.n_pad, pp.h, pp.b, D, hn, pp.h * hn);
+  } else {
+    err = tile_map<D>(&q_map, pp.q, pp.n, pp.h, pp.b, pp.q_sn, pp.q_sh, pp.q_sb);
+    if (err == cudaSuccess) err = tile_map<D>(&k_map, pp.k, pp.n, pp.h, pp.b, pp.k_sn, pp.k_sh, pp.k_sb);
+  }
+  if (err != cudaSuccess) return err;
+  const bool bias = pp.mask != nullptr, lse = c.lse != nullptr;
+  auto run = [&](auto launch) { return launch(q_map, k_map, v, v_sb, v_sh, v_sn, pp.b, c, stream); };
+  if (bias) return lse ? run(launch_core<D, true, true>) : run(launch_core<D, true, false>);
+  return lse ? run(launch_core<D, false, true>) : run(launch_core<D, false, false>);
+}
+
+PrepassParams prepass_params(const void* q, const void* k, const void* mask, const void* cos, const void* sin,
+                             void* rot, void* kbias, int b, int h, int n, int n_pad, long long q_sb,
+                             long long q_sh, long long q_sn, long long k_sb, long long k_sh, long long k_sn) {
+  PrepassParams p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.cos = static_cast<const float*>(cos);
+  p.sin = static_cast<const float*>(sin);
+  p.rot = static_cast<__nv_bfloat16*>(rot);
+  p.kbias = static_cast<float*>(kbias);
+  p.b = b;
+  p.h = h;
+  p.n = n;
+  p.n_pad = n_pad;
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
+  return p;
+}
+
+// The scratch the pre-pass writes must be there for what it writes, and
+// n_pad the rows the core's blocks cover.
+bool core_args_ok(const PrepassParams& p) {
+  return p.b >= 1 && p.h >= 1 && p.n >= 1 && p.n_pad >= p.n && p.n_pad % ROW_PAD == 0 &&
+         (p.cos == nullptr || p.rot != nullptr) && (p.mask == nullptr || p.kbias != nullptr);
 }
 
 // ---------------------------------------------------------------- float32
@@ -621,8 +745,8 @@ cudaError_t launch_f32(const ParamsF32& p, int b, int h, cudaStream_t stream) {
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success). Strides are in
-// elements; the head dim is contiguous.
+// The bf16 mma.sync kernel (d = 256). Returns the cudaError_t of the launch
+// (0 on success). Strides are in elements; the head dim is contiguous.
 int f5_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, const void* mask,
                            const void* cos, const void* sin, int b, int h, int n, int d,
                            long long q_sb, long long q_sh, long long q_sn, long long k_sb,
@@ -646,9 +770,62 @@ int f5_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return static_cast<int>(launch<64>(p, b, h, s));
-    case 128: return static_cast<int>(launch<128>(p, b, h, s));
     case 256: return static_cast<int>(launch<256>(p, b, h, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// bf16 at d = 64 and 128: the pre-pass into `rot` (with cos) and `kbias`
+// (with a mask), then the core. q, k, v and o [b, h, n, d] by (batch, head,
+// row) strides in elements, the head dim contiguous, strides multiples of 8
+// and the tensors 16-byte aligned, v without a zero stride (q and k too
+// without cos: the core reads them through tensor maps); rot
+// [2, b * h, n_pad, d] bf16, kbias [b, n_pad] float32 (16-byte aligned),
+// n_pad a multiple of 128; lse [b, h, n] or null. The tensors on `device`,
+// the stream one of its streams. Returns the cudaError_t (0 on success).
+int f5_flash_attention_fwd_core(const void* q, const void* k, const void* v, void* o, void* lse, const void* mask,
+                                const void* cos, const void* sin, void* rot, void* kbias, int b, int h, int n,
+                                int n_pad, int d, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+                                long long k_sh, long long k_sn, long long v_sb, long long v_sh, long long v_sn,
+                                long long o_sb, long long o_sh, long long o_sn, float scale, int device,
+                                void* stream) {
+  const PrepassParams pp =
+      prepass_params(q, k, mask, cos, sin, rot, kbias, b, h, n, n_pad, q_sb, q_sh, q_sn, k_sb, k_sh, k_sn);
+  if (!core_args_ok(pp)) return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
+  CoreParams c{};
+  c.o = static_cast<__nv_bfloat16*>(o);
+  c.lse = static_cast<float*>(lse);
+  c.kbias = pp.kbias;
+  c.h = h;
+  c.n = n;
+  c.n_pad = n_pad;
+  c.o_sb = o_sb; c.o_sh = o_sh; c.o_sn = o_sn;
+  c.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return static_cast<int>(launch_core_fwd<64>(pp, v, v_sb, v_sh, v_sn, c, s));
+    case 128: return static_cast<int>(launch_core_fwd<128>(pp, v, v_sb, v_sh, v_sn, c, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The pre-pass alone (the arguments of f5_flash_attention_fwd_core that it
+// reads); with neither cos nor mask it launches nothing.
+int f5_flash_fwd_prepass(const void* q, const void* k, const void* mask, const void* cos, const void* sin, void* rot,
+                         void* kbias, int b, int h, int n, int n_pad, int d, long long q_sb, long long q_sh,
+                         long long q_sn, long long k_sb, long long k_sh, long long k_sn, int device, void* stream) {
+  const PrepassParams pp =
+      prepass_params(q, k, mask, cos, sin, rot, kbias, b, h, n, n_pad, q_sb, q_sh, q_sn, k_sb, k_sh, k_sn);
+  if (!core_args_ok(pp)) return static_cast<int>(cudaErrorInvalidValue);
+  if (cos == nullptr && mask == nullptr) return 0;
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return static_cast<int>(launch_fwd_prepass<64>(pp, s));
+    case 128: return static_cast<int>(launch_fwd_prepass<128>(pp, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -3,10 +3,11 @@ plain versions.
 
 Four functions, each with its own launch count (one a wrapper call):
   - `attn_pack2` and `attn_flat`: softmax(q k^T * scale) v over [b, h, n, d]
-    with no mask and no rotary embedding. `attn_pack2` runs the TMA + wgmma
-    attention core of csrc/attn_rope_wgmma.cu over q, k and v in place;
-    `attn_flat` an mma.sync kernel (csrc/attn_variants.cu), one head of the
-    flat b * h index per block;
+    with no mask and no rotary embedding. Both run the TMA + wgmma attention
+    core (csrc/attn_core.cuh, built from csrc/attn_rope_wgmma.cu) over q, k
+    and v in place: the Pallas kernels' two grids (two heads a step, a flat
+    b * h index) are TPU grid choices, and on the card each head has its own
+    blocks;
   - `flash_bhnd_rope` ([b, h, n, d]) and `flash_nhd` ([b, n, h, d]): the same
     attention after a rotary embedding of q and k written as a product with
     an input matrix P, x * cos + (x @ P) * sin, computed in q's dtype. Both
@@ -37,7 +38,6 @@ import torch
 
 from f5_tts_tpu_torch.ops import cuda_build
 
-SOURCE = cuda_build.CSRC / "attn_variants.cu"
 ROPE_SOURCE = cuda_build.CSRC / "attn_rope_wgmma.cu"
 HEAD_DIMS = (64, 128)
 MAX_HEAD_BLOCKS = 65535  # the grid's y dimension
@@ -93,17 +93,6 @@ def rope_prepass_plain(q, k, cos, sin, P, n_pad: int) -> tuple[torch.Tensor, tor
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(cuda_build.build(SOURCE)[0]))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.f5_attn_variant.argtypes = [ptr] * 4 + [i32] * 4 + [i64] * 12 + [ctypes.c_float, ptr]
-    lib.f5_attn_variant.restype = i32
-    lib.f5_attn_variant_error_string.argtypes = [i32]
-    lib.f5_attn_variant_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
 def _core_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_build.build(ROPE_SOURCE)[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -154,24 +143,6 @@ def _check(name: str, q, k, v, rope, nhd: bool = False) -> tuple:
     if b * h > MAX_HEAD_BLOCKS:
         raise ValueError(f"{name} takes at most {MAX_HEAD_BLOCKS} heads; got b * h = {b * h}")
     return b, h, n, d, strides
-
-
-def _run_flat(fn, name: str, q, k, v, scale) -> torch.Tensor:
-    """Launch the mma.sync kernel on [b, h, n, d] tensors: one count on `fn`."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {q.device.type}")
-    b, h, n, d, strides = _check(name, q, k, v, None)
-    out = torch.empty_like(q)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.f5_attn_variant(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, h, n, d, *strides,
-            *out.stride()[:3], float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"attention variant kernel launch failed: {lib.f5_attn_variant_error_string(err).decode()}")
-    fn.launches += 1
-    return out
 
 
 # ------------------------------------------------------------ the TMA + wgmma core
@@ -249,11 +220,11 @@ def attn_pack2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) 
 
 
 def attn_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """`attn_pack2`'s function; on the card one head of the flat b * h index
-    per block."""
+    """`attn_pack2`'s function (the Pallas kernel's flat b * h grid); on the
+    card the same TMA + wgmma core, counted on `attn_flat`."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale)
-    return _run_flat(attn_flat, "attn_flat", q, k, v, scale)
+    return _run_core(attn_flat, "attn_flat", q, k, v, scale)
 
 
 def flash_bhnd_rope(q, k, v, cos, sin, P, scale: float) -> torch.Tensor:

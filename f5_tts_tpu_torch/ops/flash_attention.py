@@ -5,7 +5,12 @@ The kernels are compiled with nvcc for sm_90a into shared libraries with a
 plain C interface at first use (ops/cuda_build.py) and called through ctypes
 on PyTorch's current stream:
   - K1, the forward (csrc/flash_attention_fwd.cu), which can also write each
-    row's log-sum-exp for the backward;
+    row's log-sum-exp for the backward. In bf16 at d = 64 and 128 a
+    pre-pass rotates q and k once into a bf16 scratch and writes each key's
+    bias (`flash_prepass` launches it alone; `flash_prepass_plain` is its
+    function), then the TMA + wgmma attention core (csrc/attn_core.cuh)
+    reads the scratch (or q and k in place without RoPE) and v; at d = 256
+    an mma.sync kernel;
   - K2, the backward (csrc/flash_attention_bwd.cu): dq, dk and dv from q,
     k, v, the output, its gradient and the log-sum-exp. A pre-pass kernel
     rotates q and k once and computes delta = rowsum(g * out), then TMA +
@@ -26,7 +31,8 @@ whose backward launches K2 for CUDA tensors and runs
 `flash_attention_bwd_plain` for CPU tensors; otherwise (every sampling path,
 under torch.no_grad) it launches K1 alone, or runs `flash_attention_plain`
 for CPU tensors. Counts: `flash_attention.launches` and `.launches_f32` (K1
-bf16 and float32), `.launches_bwd` and `.launches_bwd_f32` (K2).
+bf16 and float32; one a call, pre-pass included), `.launches_bwd` and
+`.launches_bwd_f32` (K2), `flash_prepass.launches` (K1's pre-pass alone).
 """
 
 from __future__ import annotations
@@ -39,10 +45,14 @@ import torch
 from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb, rotate_half
 from f5_tts_tpu_torch.ops import cuda_build
 from f5_tts_tpu_torch.ops.attention import sdpa_reference
+from f5_tts_tpu_torch.ops.attn_variants import _dense
 
 SOURCE = cuda_build.CSRC / "flash_attention_fwd.cu"
 BWD_SOURCE = cuda_build.CSRC / "flash_attention_bwd.cu"
 HEAD_DIMS = (64, 128, 256)
+CORE_HEAD_DIMS = (64, 128)  # bf16 head dims on the pre-pass + TMA/wgmma core; d = 256 keeps mma.sync
+CORE_ROW_PAD = 128  # the core's scratch rows and key biases: n rounded up to a multiple of this
+MASKED = -1e30  # the key bias of a masked key: the JAX kernel body's -(1 - mask) * 1e30
 # the C entry point of each kernel, by dtype
 _ENTRY = {torch.bfloat16: "f5_flash_attention_fwd", torch.float32: "f5_flash_attention_fwd_f32"}
 _BWD_ENTRY = {torch.bfloat16: "f5_flash_attention_bwd", torch.float32: "f5_flash_attention_bwd_f32"}
@@ -88,6 +98,31 @@ def attention_lse_plain(q, k, scale, key_mask=None, rope=None) -> torch.Tensor:
     version masks with the float32 minimum."""
     q, k = _rotated(q, k, rope)
     return torch.logsumexp(_logits(q, k, scale, key_mask), dim=-1)
+
+
+def flash_prepass_plain(
+    q: torch.Tensor,  # [b, h, n, d]
+    k: torch.Tensor,
+    key_mask: torch.Tensor | None,  # [b, n] bool, True = keep
+    rope: tuple[torch.Tensor, torch.Tensor] | None,  # (cos, sin), each [n, d] f32
+    n_pad: int,
+) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
+    """K1's bf16 pre-pass in plain PyTorch: rope(q) and rope(k) as
+    [b * h, n_pad, d] in q's dtype, rows n to n_pad zero (None without
+    `rope`), and each key's bias [b, n_pad] float32, 0 kept and -1e30
+    masked or past n (None without `key_mask`). The rotation is
+    `apply_rotary_pos_emb`'s: x * cos + rotate_half(x) * sin in q's dtype,
+    the tables cast first, each product and the sum rounded."""
+    b, h, n, d = q.shape
+    qr = kr = kbias = None
+    if rope is not None:
+        qr, kr = (x.new_zeros(b * h, n_pad, d) for x in (q, k))
+        for pad, x in ((qr, q), (kr, k)):
+            pad[:, :n] = apply_rotary_pos_emb(x, rope).reshape(b * h, n, d)
+    if key_mask is not None:
+        kbias = torch.full((b, n_pad), MASKED, dtype=torch.float32, device=q.device)
+        kbias[:, :n] = torch.where(key_mask, 0.0, MASKED)
+    return qr, kr, kbias
 
 
 def bwd_prepass_plain(
@@ -191,7 +226,9 @@ def _library() -> ctypes.CDLL:
     tail = [i32] * 4 + [i64] * 12 + [ctypes.c_float, ptr]
     lib.f5_flash_attention_fwd.argtypes = [ptr] * 8 + tail
     lib.f5_flash_attention_fwd_f32.argtypes = [ptr] * 9 + tail  # + the pre-pass's scratch
-    for name in _ENTRY.values():
+    lib.f5_flash_attention_fwd_core.argtypes = [ptr] * 10 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, i32, ptr]
+    lib.f5_flash_fwd_prepass.argtypes = [ptr] * 7 + [i32] * 5 + [i64] * 6 + [i32, ptr]
+    for name in (*_ENTRY.values(), "f5_flash_attention_fwd_core", "f5_flash_fwd_prepass"):
         getattr(lib, name).restype = i32
     lib.f5_cuda_error_string.argtypes = [i32]
     lib.f5_cuda_error_string.restype = ctypes.c_char_p
@@ -278,11 +315,51 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {lib.f5_cuda_error_string(err).decode()}")
 
 
+def _core_scratch(b: int, h: int, n_pad: int, d: int, rotate: bool, masked: bool, device):
+    """One allocation for what K1's bf16 pre-pass writes: the rotated q and
+    k, bf16 [2, b * h, n_pad, d] (with RoPE), then the key biases, float32
+    [b, n_pad] (with a mask). Returns (buffer, rot pointer, kbias pointer);
+    the pointers are None for what is not written."""
+    rot_bytes = 4 * b * h * n_pad * d if rotate else 0
+    bias_bytes = 4 * b * n_pad if masked else 0
+    if not rot_bytes + bias_bytes:
+        return None, None, None
+    buf = torch.empty(rot_bytes + bias_bytes, dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    return buf, base if rotate else None, base + rot_bytes if masked else None
+
+
+def _core_forward(q, k, v, scale, key_mask, cos, sin, with_lse: bool):
+    """K1 bf16 at d = 64 and 128 on checked inputs: the pre-pass (with RoPE
+    or a mask), then the core, on the current stream of q's device (which
+    need not be the current device). Returns (out, lse or None)."""
+    b, h, n, d = q.shape
+    out = torch.empty_like(q)
+    if cos is None:  # the core reads q and k through tensor maps
+        q, k = _dense(q), _dense(k)
+    v = _dense(v)
+    dev = q.get_device()
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
+    n_pad = -(-n // CORE_ROW_PAD) * CORE_ROW_PAD
+    _, rot, kbias = _core_scratch(b, h, n_pad, d, cos is not None, key_mask is not None, q.device)
+    lib = _library()
+    err = lib.f5_flash_attention_fwd_core(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(key_mask), _ptr(cos), _ptr(sin),
+        rot, kbias, b, h, n, n_pad, d, *[s for x in (q, k, v, out) for s in x.stride()[:3]], float(scale), dev,
+        torch._C._cuda_getCurrentRawStream(dev),  # the raw stream getter torch's compiled code calls
+    )
+    _raise_on(err, lib, "flash attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
 def _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse: bool):
     """Launch K1 on checked inputs; returns (out, lse or None). The output
     has q's strides when q is dense, else it is contiguous; d stays
     innermost, so the other strides are multiples of d."""
     b, h, n, d = q.shape
+    if q.dtype == torch.bfloat16 and d in CORE_HEAD_DIMS:
+        return _core_forward(q, k, v, scale, key_mask, cos, sin, with_lse)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
@@ -302,11 +379,49 @@ def _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse: bool):
     return out, lse
 
 
+def flash_prepass(q, k, key_mask, rope, n_pad: int):
+    """K1's bf16 pre-pass alone (`flash_prepass_plain`'s function): on the
+    card rope(q) and rope(k) as [b * h, n_pad, d] views of one scratch and
+    the key biases [b, n_pad], for bf16 at head dims 64 and 128 and n_pad a
+    multiple of CORE_ROW_PAD. CPU tensors run the plain version."""
+    if q.device.type == "cpu":
+        return flash_prepass_plain(q, k, key_mask, rope, n_pad)
+    key_mask, cos, sin = _checked(q, k, k, key_mask, rope)
+    b, h, n, d = q.shape
+    if q.dtype != torch.bfloat16 or d not in CORE_HEAD_DIMS:
+        raise ValueError(f"the pre-pass takes bfloat16 at head dims {CORE_HEAD_DIMS}; got {q.dtype}, {d}")
+    if n_pad < n or n_pad % CORE_ROW_PAD:
+        raise ValueError(f"n_pad must be a multiple of {CORE_ROW_PAD} of at least n = {n}; got {n_pad}")
+    scratch, rot, kbias = _core_scratch(b, h, n_pad, d, cos is not None, key_mask is not None, q.device)
+    dev = q.get_device()
+    lib = _library()
+    err = lib.f5_flash_fwd_prepass(
+        q.data_ptr(), k.data_ptr(), _ptr(key_mask), _ptr(cos), _ptr(sin), rot, kbias, b, h, n, n_pad, d,
+        *q.stride()[:3], *k.stride()[:3], dev, torch._C._cuda_getCurrentRawStream(dev),
+    )
+    _raise_on(err, lib, "flash attention pre-pass")
+    flash_prepass.launches += 1
+    rot_bytes = 4 * b * h * n_pad * d if cos is not None else 0
+    qr = kr = bias = None
+    if cos is not None:
+        qr, kr = scratch[:rot_bytes].view(torch.bfloat16).view(2, b * h, n_pad, d).unbind(0)
+    if key_mask is not None:
+        bias = scratch[rot_bytes:].view(torch.float32).view(b, n_pad)
+    return qr, kr, bias
+
+
 def _backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin):
     """Launch K2; returns (dq, dk, dv) in q's dtype, contiguous
     [b, h, n, d]. g (and v) are taken as strided views when their layout
     allows, else made contiguous. The pre-pass, then the main kernels, with
     the pre-pass's scratch allocated here."""
+    return _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin)[:3]
+
+
+def _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin):
+    """`_backward_kernel`'s launch; returns (dq, dk, dv, qr, kr), where qr
+    and kr are the bf16 pre-pass's rope(q) and rope(k) [b, h, n, d] (None in
+    float32)."""
     b, h, n, d = q.shape
     if g.dtype != q.dtype:
         raise ValueError(f"the output's gradient is {g.dtype}, the inputs {q.dtype}")
@@ -329,7 +444,7 @@ def _backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin):
             )
         _raise_on(err, lib, "flash attention backward")
         flash_attention.launches_bwd_f32 += 1
-        return dq, dk, dv
+        return dq, dk, dv, None, None
     n_pad = -(-n // BWD_ROW_PAD) * BWD_ROW_PAD
     qr, kr, dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(5))
     stats = torch.empty((b, h, n_pad, 2), dtype=torch.float32, device=q.device)
@@ -343,7 +458,7 @@ def _backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin):
         )
     _raise_on(err, lib, "flash attention backward")
     flash_attention.launches_bwd += 1
-    return dq, dk, dv
+    return dq, dk, dv, qr, kr
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -406,3 +521,4 @@ flash_attention.launches = 0
 flash_attention.launches_f32 = 0
 flash_attention.launches_bwd = 0
 flash_attention.launches_bwd_f32 = 0
+flash_prepass.launches = 0

@@ -4,10 +4,11 @@ package's `tools/attn_variants.py`.
     PYTHONPATH=. python -m f5_tts_tpu_torch.tools.attn_variants
 
 At [2, 16, 1024, 64] bf16, no mask and no rotary embedding, five variants:
-the port's attention forward (K1, one (q tile, head, batch row) per block),
-`attn_flat` (one head of a flat b * h grid per block, mma.sync),
-`attn_pack2` (the TMA + wgmma attention core, 128 query rows of one head
-per block), the unfused plain version, and PyTorch's
+the port's attention forward (K1, which without a mask or RoPE runs the
+TMA + wgmma attention core alone), `attn_flat` and `attn_pack2` (the
+counterparts of the Pallas kernels' flat b * h grid and two-heads-a-step
+grid; both run the same core, 128 query rows of one head per block), the
+unfused plain version, and PyTorch's
 scaled_dot_product_attention as a yardstick only. Prints each one's time
 (the least of REPS CUDA-event times of one call, launch included) and its
 largest error against the unfused version.

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions on an NVIDIA GPU: the
-attention forward (K1) and backward (K2), bf16 and float32 (at d = 64 on the
-tensor cores in 3xTF32, held to the float32 tolerance all the same), the
+attention forward (K1; in bf16 at d = 64 and 128 a rotation pre-pass held
+bit for bit and the TMA + wgmma core) and backward (K2), bf16 and float32
+(at d = 64 on the tensor cores in 3xTF32, held to the float32 tolerance all
+the same), the
 dequantizing matmul (its float32 kernel in 3xTF32 too), and the probe
 tools' kernels (the attention variants P1-P4, with the RoPE pre-pass of P3
 and P4 held exactly or within an ulp, and the Triton LayerNorm + modulate
@@ -27,7 +29,7 @@ import pytest
 import torch
 
 from f5_tts_tpu_torch.models.quant import quantize_kernel
-from f5_tts_tpu_torch.models.rope import rotary_freqs
+from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb, rotary_freqs
 from f5_tts_tpu_torch.ops import flash_attention as fa
 from f5_tts_tpu_torch.ops.flash_attention import (
     attention_lse_plain,
@@ -824,3 +826,225 @@ def test_qmatmul_unaligned_x_is_copied(gen):
     assert x.data_ptr() % 16
     out = qmatmul(x, q, s, b)
     torch.testing.assert_close(out.float(), qmatmul_plain(x, q, s, b).float(), atol=TOL, rtol=0)
+
+
+# ------------------------------------------------------------ K1 bf16 on the TMA + wgmma core
+
+
+def _cuda_kernel_names(fn):
+    """The names of the CUDA kernels `fn` launches, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _projection_views(gen, b, h, n, d, count=3):
+    """q, k, v (and more) as [b, h, n, d] views of [b, n, h*d] projections."""
+    return [torch.randn(b, n, h * d, generator=gen, device="cuda", dtype=torch.bfloat16).view(b, n, h, d).transpose(1, 2)
+            for _ in range(count)]
+
+
+def _valid_mask(b, n, valid):
+    return (torch.arange(n, device="cuda") < valid)[None, :].expand(b, n).contiguous()
+
+
+# (b, h, n, valid keys): the sampling shape with its mask, ragged n, and n = 4096 (32 key tiles through the ring)
+K1_CORE_SHAPES = [(2, 16, 1024, 937), (2, 3, 937, 900), (2, 3, 1000, 999), (1, 4, 4096, 4000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape", K1_CORE_SHAPES, ids=["main", "n937", "n1000", "n4096"])
+def test_k1_core_matches_plain(gen, shape, d):
+    """K1 bf16 on the pre-pass + core against flash_attention_plain, q, k, v
+    as projection views, with the mask and RoPE in every combination (a mask
+    without RoPE runs the core over q and k in place with the key biases);
+    one count a call, and the output in q's strides."""
+    b, h, n, valid = shape
+    q, k, v = _projection_views(gen, b, h, n, d)
+    mask = _valid_mask(b, n, valid)
+    for key_mask, rope in ((mask, _rope(n, d)), (None, _rope(n, d)), (mask, None), (None, None)):
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, d ** -0.5, key_mask=key_mask, rope=rope)
+        assert flash_attention.launches == before + 1
+        assert out.stride() == q.stride() and out.dtype == torch.bfloat16
+        ref = flash_attention_plain(q, k, v, d ** -0.5, key_mask, rope)
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d64-mask-rope", "d64-mask", "d64-rope", "d64", "d128-mask-rope", "d256-mask-rope"])
+def test_k1_launches_the_core_and_not_the_old_kernel(gen, case):
+    """bf16 at d = 64 and 128 launches the core (after the pre-pass when there
+    is a mask or RoPE) and never flash_fwd_kernel; d = 256 keeps
+    flash_fwd_kernel."""
+    d = int(case.split("-")[0][1:])
+    b, h, n = 2, 2, 300
+    q, k, v = _qkv(gen, b, h, n, d)
+    mask = _valid_mask(b, n, 250) if "mask" in case else None
+    rope = _rope(n, d) if "rope" in case else None
+    names = _cuda_kernel_names(lambda: flash_attention(q, k, v, d ** -0.5, key_mask=mask, rope=rope))
+    core = sum("attn_core_fwd_kernel" in x for x in names)
+    prepass = sum("flash_fwd_prepass_kernel" in x for x in names)
+    old = sum("flash_fwd_kernel" in x for x in names)
+    if d == 256:
+        assert (core, prepass, old) == (0, 0, 1), names
+    else:
+        assert (core, prepass, old) == (1, int(mask is not None or rope is not None), 0), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_k1_core_fully_masked_rows_and_lse(gen, d):
+    """Batch 0 keeps no key: its rows average v over the n keys (not the
+    padded length) and its lse is about -1e30; batch 1's lse matches
+    attention_lse_plain. Keys of the first tiles all masked in batch 1 too, so
+    the running max starts at -1e30 * log2(e) and must drop out exactly."""
+    b, h, n = 2, 3, 300
+    q, k, v = _projection_views(gen, b, h, n, d)
+    mask = torch.zeros(b, n, dtype=torch.bool, device="cuda")
+    mask[1, 200:290] = True  # batch 1: the first key tile all masked, then a run of kept keys
+    rope = _rope(n, d)
+    key_mask, cos, sin = fa._checked(q, k, v, mask, rope)
+    out, lse = fa._forward_kernel(q, k, v, d ** -0.5, key_mask, cos, sin, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    uniform = v[0].float().mean(dim=1, keepdim=True).expand(-1, n, -1)
+    torch.testing.assert_close(out[0].float(), uniform, atol=TOL, rtol=0)
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v, d ** -0.5, mask, rope).float(),
+                               atol=TOL, rtol=0)
+    assert (lse[0] < -1e29).all()
+    torch.testing.assert_close(lse[1], attention_lse_plain(q, k, d ** -0.5, mask, rope)[1], atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_k1_core_lse_matches_plain(gen, d, masked):
+    """The lse the core writes for K2, at the CFM shape's layout (projection
+    views, RoPE), without and with a ragged mask."""
+    b, h, n = 2, 4, 1000
+    q, k, v = _projection_views(gen, b, h, n, d)
+    mask = _valid_mask(b, n, 937) if masked else None
+    key_mask, cos, sin = fa._checked(q, k, v, mask, _rope(n, d))
+    out, lse = fa._forward_kernel(q, k, v, d ** -0.5, key_mask, cos, sin, with_lse=True)
+    assert lse.shape == (b, h, n) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, attention_lse_plain(q, k, d ** -0.5, mask, _rope(n, d)), atol=2e-2, rtol=0)
+    plain_out, none = fa._forward_kernel(q, k, v, d ** -0.5, key_mask, cos, sin, with_lse=False)
+    assert none is None and torch.equal(out, plain_out)  # writing the lse leaves the output's bits alone
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_k1_core_is_deterministic(gen, d):
+    """Two calls give the same bits (no atomics; no stage refilled while a
+    warp still reads it), with a mask and RoPE and without either."""
+    q, k, v = _projection_views(gen, 2, 16, 1000, d)
+    for mask, rope in ((_valid_mask(2, 1000, 937), _rope(1000, d)), (None, None)):
+        first = flash_attention(q, k, v, d ** -0.5, key_mask=mask, rope=rope)
+        for _ in range(2):
+            assert torch.equal(flash_attention(q, k, v, d ** -0.5, key_mask=mask, rope=rope), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_k1_prepass_matches_plain_bit_for_bit(gen, d, masked):
+    """The pre-pass's scratch against flash_prepass_plain: rope(q), rope(k)
+    equal to apply_rotary_pos_emb (the JAX body's three roundings), rows
+    past n zero, and the key biases; with a mask and no RoPE only the biases."""
+    b, h, n = 2, 3, 937
+    n_pad = 1024
+    q, k = _projection_views(gen, b, h, n, d, count=2)
+    mask = _valid_mask(b, n, 900) if masked else None
+    for rope in (_rope(n, d), None):
+        if rope is None and mask is None:
+            continue
+        before = fa.flash_prepass.launches
+        got = fa.flash_prepass(q, k, mask, rope, n_pad)
+        assert fa.flash_prepass.launches == before + 1
+        want = fa.flash_prepass_plain(q, k, mask, rope, n_pad)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+        if rope is not None:
+            assert torch.equal(got[0][:, :n].view(b, h, n, d), apply_rotary_pos_emb(q, rope))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_k2_rotation_matches_apply_rotary_pos_emb(gen, d):
+    """K2's pre-pass rotates q and k with the forward's roundings: its qr and
+    kr equal apply_rotary_pos_emb bit for bit."""
+    b, h, n = 2, 3, 300
+    q, k, v, g = _projection_views(gen, b, h, n, d, count=4)
+    rope = _rope(n, d)
+    key_mask, cos, sin = fa._checked(q, k, v, None, rope)
+    out, lse = fa._forward_kernel(q, k, v, d ** -0.5, key_mask, cos, sin, with_lse=True)
+    qr, kr = fa._backward_launch(q, k, v, out, lse, g, d ** -0.5, key_mask, cos, sin)[3:]
+    torch.cuda.synchronize()
+    assert torch.equal(qr, apply_rotary_pos_emb(q, rope)) and torch.equal(kr, apply_rotary_pos_emb(k, rope))
+
+
+@pytest.mark.cuda
+def test_k1_core_to_k2_gradients_at_the_main_shape(gen):
+    """K1 (the core, writing the lse) then K2 through autograd at the
+    sampling shape with its mask and RoPE, against the plain backward."""
+    mask = _valid_mask(2, 1024, 937)
+    got, ref = _grads_vs_plain(gen, 2, 16, 1024, 64, torch.bfloat16, mask, _rope(1024, 64), strided=True)
+    for name, a, r in zip("qkv", got, ref):
+        err = (a.float() - r).abs().max().item() / max(r.abs().max().item(), 0.1)
+        assert err <= GRAD_TOL[torch.bfloat16], (f"d{name}", err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_attn_flat_is_deterministic_on_the_core(gen, d):
+    """P2 runs the same core as P1: four calls give the same bits, equal to
+    attn_pack2's."""
+    q, k, v = _qkv(gen, 2, 16, 1000, d)
+    first = av.attn_flat(q, k, v, d ** -0.5)
+    for _ in range(3):
+        assert torch.equal(av.attn_flat(q, k, v, d ** -0.5), first)
+    assert torch.equal(av.attn_pack2(q, k, v, d ** -0.5), first)
+
+
+# P1's, P3's and P4's outputs at fixed inputs before K1 and P2 moved onto the core (NVIDIA H100 80GB HBM3,
+# torch 2.11.0+cu128): moving the core into csrc/attn_core.cuh and giving it a key bias and an lse left
+# their arithmetic as it was. `chip_smoke.core_hashes` prints the same hashes.
+CORE_HASHES = {
+    "attn_pack2 [2, 16, 1024, 64]": "3a668cf2ac034abd68b99111975527610294fee3df4d58a698ca938ba387d799",
+    "attn_pack2 [2, 4, 1000, 128]": "8de9df862ff3c1b2c4a6a88bf1afe1b2e4747aad5e176749500b1a8147a39375",
+    "flash_nhd [2, 16, 1024, 64]": "c6e05453c86a49e9dc8b301e5da2c4862c81d015acdfcb564b4ce523691a0c63",
+    "flash_nhd [2, 4, 1000, 128]": "457a6052546abe5a5cd6b35a0633aa12715cdd2b79233bad600fe10dece7721e",
+    "flash_bhnd_rope [2, 16, 1024, 64]": "b4c2279a4aa40ee6e8a619c318c5d9a3ebd29e1b4cf0213a91e43b206bda42b3",
+    "flash_bhnd_rope [2, 4, 1000, 128]": "3057c5214186f0ee1bc996ec278bad2abb71c72586c4744a4757b0884ed1c039",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", list(CORE_HASHES))
+def test_core_variants_keep_their_bits(gen, key):
+    """P1, P3 and P4 on inputs made with numpy from a seed hash as they did
+    before the core took a key bias and an lse."""
+    import hashlib
+
+    import numpy as np
+
+    from f5_tts_tpu_torch.tools.fusion_probe import perm_matrix, rope_tables
+
+    name, dims = key.split(" ", 1)
+    b, h, n, d = (int(x) for x in dims.strip("[]").split(", "))
+    rng = np.random.default_rng(n + d)
+    shape = (b, n, h, d) if name == "flash_nhd" else (b, h, n, d)
+    q, k, v = (torch.tensor(rng.standard_normal(shape, dtype=np.float32), device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    rope = () if name == "attn_pack2" else (*rope_tables(n, d, "cuda"), torch.tensor(perm_matrix(d), device="cuda"))
+    out = getattr(av, name)(q, k, v, *rope, d ** -0.5)
+    assert hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest() == CORE_HASHES[key]
