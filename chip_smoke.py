@@ -8,13 +8,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   2. build: compiles every kernel from the sources in this checkout, one nvcc
      per source, all at once;
   3. kernels vs plain, timed with CUDA events: the attention kernel in bf16
-     at the main path's shape and edge shapes (d 64 and 128 on the
+     at the main path's shape, the serving phase's (a group of four
+     requests with each row's own key mask in both CFG halves, and the
+     latency tool's burst) and edge shapes (d 64 and 128 on the
      pre-pass + TMA/wgmma core, d 256 on the mma.sync kernel, a mask
      without RoPE), with the pre-pass's own device time; the attention kernel in
-     float32 at the duration predictor's shape, the duration training
-     shape and the DiT's; the dequantizing matmul at every linear shape of
+     float32 at the duration predictor's shape and its serving window, the
+     duration training shape and the DiT's; the dequantizing matmul at every linear shape of
      the main path, int4 and int8, bf16 and float32, with the float32
-     kernel's device time (as in phase 12) at the DiT blocks' shape and at
+     kernel's device time (as in phase 13) at the DiT blocks' shape and at
      the widest time-conditioning shape;
   4. snapshot: the base DiT (1024 x 22 layers x 16 heads, bf16), Vocos and a
      float32 duration predictor (DURATION_V2), randomly initialised from a
@@ -29,41 +31,53 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      forward in bf16 and in float32 on the card (the float32 one through the
      float32 dequantizing matmul and attention kernels, counted) against the
      float32 CPU path, and one int8 load and request;
-  7. attention backward vs plain, timed with CUDA events: the backward
+  7. serving, on the float snapshot: the generate CLI in-process twice
+     (two sentences through the batched branch, and one sentence with
+     --duration 7 --cfg-interval 0.2,0.8; each WAV finite, not silent, of
+     the length its durations give), then serve() with warm-ups at 7 s
+     (batch 1 and 4), /healthz, four concurrent /synthesize requests of one
+     bucket (RK4, 8 steps; grouped, of the expected lengths; the largest
+     group's waves and mels held against the same sample call with plain
+     attention), a request
+     whose duration the float32 predictor sets (K1-f32 launched), a
+     3-sentence /synthesize_stream (the first PCM before the end, the
+     lengths of its sentences), a malformed request (400), and the
+     serve_latency tool's three latencies; K1 launches per group (616);
+  8. attention backward vs plain, timed with CUDA events: the backward
      kernel in bf16 at the CFM training shape and with a key mask at a
      ragged n, in float32 at the duration training shape, and the forward's
      log-sum-exp output;
-  8. CFM training: the base DiT with float32 master weights and bf16
+  9. CFM training: the base DiT with float32 master weights and bf16
      compute, AdamW and EMA, on a fixed synthetic batch of 4 x 1024 frames
      with fixed draws: one warm-up and eight timed steps (exact attention
      launches per step, a finite falling loss, parameters and EMA moving),
      one grad_accum=2 step, a save_checkpoint / load_checkpoint round trip,
      and the gradient on the card against the float32 CPU path;
-  9. duration training: DURATION_V2 in float32 on the same batch shape, a
+ 10. duration training: DURATION_V2 in float32 on the same batch shape, a
      few steps with exact float32 attention launches and a falling loss;
- 10. probe kernels vs plain, timed with CUDA events: the attention variants
+ 11. probe kernels vs plain, timed with CUDA events: the attention variants
      (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope; each
-     also at a ragged n, and with their device time as in phase 12, the
+     also at a ragged n, and with their device time as in phase 13, the
      RoPE pre-pass's own device time and the host time per call) in bf16,
      with the outputs of P1, P3 and P4 at fixed inputs hashed
      and the Triton LayerNorm + modulate at the probe tools' shapes and at a
      ragged n;
- 11. probe tools: both tools' entry points once at their full shapes with
+ 12. probe tools: both tools' entry points once at their full shapes with
      few repetitions, counting each probe kernel's launches there;
- 12. ranking: K3's device time per int4 request (launches per request
+ 13. ranking: K3's device time per int4 request (launches per request
      times the kernel's time, summed over the linear shapes), K1's per
      request (682 calls) and per CFM step (22), and K2's per CFM step (22
      calls), each beside the same sum for its library call,
      timed with the card held by a spin kernel while the calls are enqueued
-     (so, unlike phases 3 and 7, the host's enqueue is left out); K1-f32's
+     (so, unlike phases 3 and 8, the host's enqueue is left out); K1-f32's
      and K2-f32's per duration step (8 calls each) beside SDPA float32's,
      and K3-f32's per float32 forward of the int4 DiT (its 166 launches by
      shape) beside F.linear float32's, timed the same way; the host time per wrapper call of K3, K1 and K2 (100
      calls enqueued behind a spin kernel; median, least and most of 10
      runs); and a torch.profiler breakdown of one int4 request, one CFM
      step and one duration step by kernel group.
-Phases 1, 2, 4 and 12 alone (device_phase, build_phase, snapshot_phase,
-ranking_phase), and phase 10 after phase 1 (probe_kernel_phase), measure
+Phases 1, 2, 4 and 13 alone (device_phase, build_phase, snapshot_phase,
+ranking_phase), and phase 11 after phase 1 (probe_kernel_phase), measure
 another checkout's package the same way from a copy of this file placed in
 its root; `core_hashes` after phase 1 prints the P1, P3 and P4 hashes alone.
 Each kernel phase also times one PyTorch call that computes the same
@@ -257,10 +271,14 @@ def kernel_phase():
 
     phase("kernel vs plain (bf16)")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # (name, b, h, n, d, valid keys or None, rope, q/k/v as [b, n, h*d] projection views): d 64 and 128 run
-    # the pre-pass and the TMA + wgmma core, d 256 the mma.sync kernel
+    # (name, b, h, n, d, valid keys (one count for every row, or one per row) or None, rope, q/k/v as
+    # [b, n, h*d] projection views): d 64 and 128 run the pre-pass and the TMA + wgmma core, d 256 the
+    # mma.sync kernel. The serving group is the serving phase's four requests of 6 to 7.5 s (562 to 703
+    # frames, one 768-frame bucket) in both CFG halves; the burst is the latency tool's three 9 s requests.
     cases = [
         ("main path", 2, 16, 1024, 64, 937, True, True),
+        ("serving group", 8, 16, 768, 64, SERVE_FRAMES * 2, True, True),
+        ("serving burst", 6, 16, 1024, 64, 843, True, True),
         ("ragged n, no mask", 2, 16, 937, 64, None, True, False),
         ("n=4096", 1, 16, 4096, 64, 4000, True, False),
         ("mask, no RoPE", 2, 16, 1024, 64, 937, False, True),
@@ -278,7 +296,8 @@ def kernel_phase():
         q, k, v = make(), make(), make()
         mask = None
         if valid is not None:
-            mask = (torch.arange(n, device="cuda") < valid)[None, :].expand(b, n).contiguous()
+            mask = (torch.arange(n, device="cuda")[None, :]
+                    < torch.tensor(valid, device="cuda").reshape(-1, 1)).expand(b, n).contiguous()
         rope = None
         if use_rope:
             raw = rotary_freqs(n, d, device="cuda")
@@ -296,6 +315,14 @@ def kernel_phase():
               f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
         if not (err <= ATTN_TOL):
             raise AssertionError(f"kernel disagrees with its plain version at {name}: {err}")
+        if isinstance(valid, tuple):
+            # the case tells the rows' masks apart: the plain version with each row given the next row's
+            # mask must miss the tolerance
+            wrong = flash_attention_plain(q, k, v, scale, mask.roll(1, 0), rope)
+            wrong_err = (wrong.float() - ref.float()).abs().max().item()
+            print(f"{name}: with each row's mask taken from the next row, max|plain - plain| = {wrong_err:.3e}")
+            if not (wrong_err > ATTN_TOL):
+                raise AssertionError(f"{name}: the rows' masks give outputs within the tolerance of each other")
         if d in fa.CORE_HEAD_DIMS and (rope is not None or mask is not None):
             # the pre-pass alone against its plain version: the rotation and the biases bit for bit
             key_mask, cos, sin = fa._checked(q, k, v, mask, rope)
@@ -310,21 +337,22 @@ def kernel_phase():
             print(f"{name}: device {dev_ms:.4f} ms, of which the pre-pass alone {pre_ms:.4f} ms "
                   f"(its outputs equal to the plain pre-pass's)")
         results[name] = {"err": err, "ms": ms, "plain_ms": plain_ms,
-                         **_attention_yardstick(name, q, k, v, scale, mask, rope, valid, "bf16")}
+                         **_attention_yardstick(name, q, k, v, scale, mask, rope, "bf16")}
     return results
 
 
-def _attention_yardstick(label, q, k, v, scale, mask, rope, valid, peak) -> dict:
+def _attention_yardstick(label, q, k, v, scale, mask, rope, peak) -> dict:
     """SDPA on q and k already rotated, with the same key mask (the rotation
-    is not timed), and the forward's bound: 4 b h n n_keys d operations over
-    the keys the mask keeps, q, k, v and the output, the mask and the
+    is not timed), and the forward's bound: 4 h n d operations for each key
+    the mask keeps in each row, q, k, v and the output, the mask and the
     tables moved once."""
     from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb
 
     b, h, n, d = q.shape
     qr, kr = (q, k) if rope is None else (apply_rotary_pos_emb(q, rope), apply_rotary_pos_emb(k, rope))
     library_ms = _time_ms(lambda: _sdpa(qr, kr, v, scale, mask))
-    bound_ms, bound_by = bound(4 * b * h * n * (valid or n) * d,
+    keys = b * n if mask is None else int(mask.sum())
+    bound_ms, bound_by = bound(4 * h * n * keys * d,
                                nbytes(q, k, v, q, mask, *(rope or ())), peak)
     _library_line(label, "SDPA, RoPE outside" if rope is not None else "SDPA", library_ms, bound_ms, bound_by)
     return {"library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
@@ -338,8 +366,10 @@ def f32_attention_phase():
 
     phase("attention kernel vs plain (float32)")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    # (name, b, h, n, d, valid keys or None): q, k, v as [b, n, h*d] projection views, RoPE
+    # (name, b, h, n, d, valid keys or None): q, k, v as [b, n, h*d] projection views, RoPE. The serving
+    # window is the predictor's input in the server: the bundled clip's 499 frames padded to 512.
     cases = [("duration predictor", 1, 8, 187, 64, None),
+             ("predictor serving window", 1, 8, 512, 64, None),
              ("duration training", TRAIN_BATCH, 8, TRAIN_FRAMES, 64, None),
              ("DiT shape", 2, 16, 1024, 64, 937)]
     results = {}
@@ -364,7 +394,7 @@ def f32_attention_phase():
         if not (err <= F32_TOL):
             raise AssertionError(f"float32 attention kernel disagrees with its plain version at {name}: {err}")
         results[name] = {"err": err, "ms": ms, "plain_ms": plain_ms,
-                         **_attention_yardstick(name, q, k, v, scale, mask, rope, valid, "f32")}
+                         **_attention_yardstick(name, q, k, v, scale, mask, rope, "f32")}
     return results
 
 
@@ -659,6 +689,308 @@ def quantized_path_phase(card: str, snap: str):
     _request(model8, ref, duration, card, "int8 request", per_request, expect_len)
     launched = {k: v + launched[k] for k, v in counts().items()}
     return times, launched
+
+
+SERVE_STEPS = 8  # RK4 over an 8-point grid: 7 intervals x 4 flow evaluations
+SERVE_DURATIONS = (6.0, 6.5, 7.0, 7.5)  # 562 to 703 frames: one 256-frame bucket
+SERVE_FRAMES = (562, 609, 656, 703)
+# relative L2 of each row's generated mel frames and wave samples, K1 against plain attention over 28
+# evaluations of the random base DiT (measured 2.3e-3 and 6.9e-3 on the H100; a row given the next row's
+# key mask moves the mel by 0.74 to 2.6%)
+SERVE_TOL = {"mel": 5e-3, "wave": 1.5e-2}
+CLI_TEXT = "The first sentence is short. The second sentence of this request is longer than the first one."
+STREAM_TEXT = "A stream starts here. It goes on a little. And then it ends."
+
+
+def _expected_samples(model, ref_audio, ref_text, texts, ref_frames) -> list:
+    """Samples of each generated piece whose duration comes from the
+    text-length heuristic: the clamped frames, less the last, less the
+    reference's."""
+    import numpy as np
+
+    from f5_tts_tpu_torch.generate import estimated_duration
+    from f5_tts_tpu_torch.models.cfm import clamp_duration
+    from f5_tts_tpu_torch.utils.tokenizer import convert_char_to_pinyin
+
+    a = model.audio_cfg
+    out = []
+    for s in texts:
+        est = int(estimated_duration(ref_audio, ref_text, s, hop_length=a.hop_length,
+                                     frames_per_second=a.frames_per_second) * a.frames_per_second)
+        n_text = int((model._tokenize(convert_char_to_pinyin([ref_text + " " + s])) != -1).sum())
+        dur = int(clamp_duration(np.array([est]), np.array([ref_frames]), np.array([n_text]),
+                                 model.cfm_cfg.max_duration)[0])
+        out.append((dur - 1 - ref_frames) * a.hop_length)
+    return out
+
+
+def _check_wav(path: str, expect_len: int, label: str) -> None:
+    import numpy as np
+
+    from f5_tts_tpu_torch.audio.io import read_wav
+
+    audio, sr = read_wav(path)
+    print(f"{label}: {audio.shape[0]} samples at {sr} Hz (expected {expect_len}), peak {np.abs(audio).max():.4f}")
+    if audio.shape != (expect_len,) or not np.isfinite(audio).all() or not (audio != 0).any():
+        raise AssertionError(f"{label}: the WAV is {audio.shape} samples, not ({expect_len},), or not finite, "
+                             "or silent")
+
+
+def _post(port: int, payload: dict, path: str = "/synthesize"):
+    """POST JSON; returns (status, body), reading the error body too."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _ok(port: int, payload: dict, label: str) -> bytes:
+    status, body = _post(port, payload)
+    if status != 200 or body[:4] != b"RIFF":
+        raise AssertionError(f"{label}: HTTP {status} {body[:300]!r}")
+    return body
+
+
+def _stream(port: int, payload: dict) -> tuple[list, float, float]:
+    """A /synthesize_stream request over a raw socket: (chunks, seconds to
+    the first PCM chunk, seconds to the terminal chunk)."""
+    import socket
+
+    body = json.dumps(payload).encode()
+    req = (f"POST /synthesize_stream HTTP/1.1\r\nHost: 127.0.0.1\r\nContent-Type: application/json\r\n"
+           f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n").encode() + body
+    raw, chunks, t_first, t_end = b"", [], None, None
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port), timeout=600) as s:
+        s.sendall(req)
+        while True:
+            data = s.recv(1 << 16)
+            if not data:
+                break
+            raw += data
+            head, sep, rest = raw.partition(b"\r\n\r\n")
+            if not sep:
+                continue
+            if not head.startswith(b"HTTP/1.1 200"):
+                continue
+            chunks, done = [], False
+            while rest:
+                size_hex, crlf, tail = rest.partition(b"\r\n")
+                if not crlf or len(tail) < int(size_hex, 16) + 2:
+                    break
+                size = int(size_hex, 16)
+                if size == 0:
+                    done = True
+                    break
+                chunks.append(tail[:size])
+                rest = tail[size + 2:]
+            if len(chunks) > 1 and t_first is None:
+                t_first = time.perf_counter() - t0
+            if done and t_end is None:
+                t_end = time.perf_counter() - t0
+    status = raw.split(b"\r\n", 1)[0]
+    if b" 200 " not in status + b" " or t_end is None:
+        raise AssertionError(f"stream: {status!r}, ended {'normally' if t_end else 'without its terminal chunk'}")
+    return chunks, t_first, t_end
+
+
+def serving_phase(card: str, snap: str) -> dict:
+    """The user-facing entry points on the float snapshot: the generate CLI
+    twice (the batched branch, and one sentence with a guidance interval),
+    then `serve` with warm-ups, four concurrent requests of one bucket, a
+    request whose duration the predictor sets, a stream, a malformed
+    request, and the serve_latency measurement. Returns the kernels'
+    launches over the phase."""
+    import threading
+
+    import torch
+
+    from f5_tts_tpu_torch import generate as gen
+    from f5_tts_tpu_torch.models.cfm import F5TTS
+    from f5_tts_tpu_torch.serve import serve, warmup
+    from f5_tts_tpu_torch.tools import serve_latency
+
+    phase("serving: the generate CLI (batched; one sentence with cfg_interval), then serve() -> warm-up, "
+          "4 concurrent requests, duration=None, a stream, a 400, serve_latency")
+    reset_counts()
+    t_phase = time.perf_counter()
+    ref_audio, ref_text = gen._load_ref_audio(None, None)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        gen.main(["--model", snap, "--text", CLI_TEXT, "--seed", "0", "--estimate-duration",
+                  "--output", f"{tmp}/two.wav"])
+        t1 = time.perf_counter()
+        gen.main(["--model", snap, "--text", "One sentence with guidance in an interval.", "--duration", "7",
+                  "--cfg-interval", "0.2,0.8", "--seed", "0", "--output", f"{tmp}/one.wav"])
+        t2 = time.perf_counter()
+        model = F5TTS.from_pretrained(snap, device="cuda")
+        a = model.audio_cfg
+        ref_frames = ref_audio.shape[0] // a.hop_length
+        _check_wav(f"{tmp}/two.wav", sum(_expected_samples(model, ref_audio, ref_text,
+                                                           gen.split_sentences(CLI_TEXT), ref_frames)),
+                   f"CLI, batched branch ({t1 - t0:.1f} s with the load)")
+        _check_wav(f"{tmp}/one.wav", (int(7 * a.frames_per_second) - 1) * a.hop_length - ref_audio.shape[0],
+                   f"CLI, --duration 7 --cfg-interval 0.2,0.8 ({t2 - t1:.1f} s with the load)")
+
+    httpd = serve(model, "127.0.0.1", 0, max_batch=4, max_wait_ms=80)
+    port = httpd.server_address[1]
+    try:
+        t0 = time.perf_counter()
+        warmup(model, [7.0], steps=SERVE_STEPS, method="rk4", batch_sizes=(1, 4), batcher=httpd.batcher)
+        print(f"warm-up (7 s at batch 1 and 4, and the predictor): {time.perf_counter() - t0:.1f} s")
+        groups = []  # (size, K1 launches, K1-f32 launches) of each group, in the batcher thread
+        run_group = httpd.batcher._run_group
+
+        def recording(group):
+            before = counts()
+            run_group(group)
+            after = counts()
+            groups.append((len(group), after["flash_attention_fwd"] - before["flash_attention_fwd"],
+                           after["flash_attention_fwd_f32"] - before["flash_attention_fwd_f32"]))
+
+        httpd.batcher._run_group = recording
+        calls = []  # (args, kwargs, output) of each sample() call of the four concurrent requests
+        sample = model.sample
+
+        def recording_sample(*args, **kw):
+            out = sample(*args, **kw)
+            calls.append((args, kw, out))
+            return out
+
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            if r.status != 200 or json.loads(r.read()) != {"status": "ok"}:
+                raise AssertionError("healthz did not answer ok")
+
+        bodies, errors = {}, []
+
+        def hit(sec):
+            try:
+                bodies[sec] = _ok(port, {"text": f"A request of {sec} seconds in all.", "duration": sec,
+                                         "steps": SERVE_STEPS, "method": "rk4", "seed": 0}, f"{sec} s request")
+            except Exception as e:  # re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=hit, args=(sec,)) for sec in SERVE_DURATIONS]
+        model.sample = recording_sample
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        concurrent_s = time.perf_counter() - t0
+        del model.sample
+        if errors or len(bodies) != len(SERVE_DURATIONS):
+            raise AssertionError(f"concurrent requests failed: {errors}")
+        sizes = [g[0] for g in groups]
+        print(f"4 concurrent requests ({', '.join(map(str, SERVE_DURATIONS))} s): {concurrent_s:.3f} s; "
+              f"group sizes {sizes}")
+        if sum(sizes) != 4 or max(sizes) < 2:
+            raise AssertionError(f"the four requests of one bucket ran in groups {sizes}")
+        for sec, body in bodies.items():
+            want = 44 + 2 * ((int(sec * a.frames_per_second) - 1 - ref_frames) * a.hop_length)
+            if len(body) != want:
+                raise AssertionError(f"the {sec} s answer is {len(body)} bytes, expected {want}")
+
+        f32_before = counts()["flash_attention_fwd_f32"]
+        body = _ok(port, {"text": "The predictor sets this request's duration.", "steps": SERVE_STEPS,
+                          "method": "rk4", "seed": 0}, "duration=None request")
+        f32 = counts()["flash_attention_fwd_f32"] - f32_before
+        print(f"duration=None request: {len(body)} bytes; K1-f32 launches {f32}")
+        if f32 <= 0:
+            raise AssertionError("the duration=None request did not launch K1-f32")
+
+        chunks, t_first, t_end = _stream(port, {"text": STREAM_TEXT, "estimate_duration": True,
+                                                "steps": SERVE_STEPS, "method": "rk4", "seed": 0})
+        pcm = sum(map(len, chunks[1:]))
+        want = 2 * sum(_expected_samples(model, ref_audio, ref_text, gen.split_sentences(STREAM_TEXT), ref_frames))
+        print(f"stream of 3 sentences: first PCM at {t_first:.3f} s, end at {t_end:.3f} s, {len(chunks) - 1} "
+              f"PCM chunks, {pcm} bytes (expected {want})")
+        if chunks[0][:4] != b"RIFF" or t_first is None or not t_first < t_end or pcm != want:
+            raise AssertionError("the stream's header, first PCM chunk or length is wrong")
+
+        status, body = _post(port, {"text": "hi", "steps": "many"})
+        print(f"malformed request: HTTP {status} {body[:80]!r}")
+        if status != 400:
+            raise AssertionError(f"a malformed request got HTTP {status}, not 400")
+
+        t0 = time.perf_counter()
+        lat = serve_latency.measure(port)
+        print(f"serve_latency ({time.perf_counter() - t0:.1f} s): " + json.dumps(lat))
+        torch.cuda.synchronize()
+    finally:
+        httpd.batcher.stop()
+        httpd.shutdown()
+        httpd.batcher.join(timeout=60)
+    launched = counts()
+    per_group = (SERVE_STEPS - 1) * 4 * model.dit_cfg.depth
+    k1 = sorted({g[1] for g in groups})
+    print(f"serving: warm_synthesize_s {lat['warm_synthesize_s']:.4f}, stream_ttfa_s {lat['stream_ttfa_s']:.4f}, "
+          f"mixed_load_small_request_s {lat['mixed_load_small_request_s']:.4f} (idle baseline "
+          f"{lat['idle_baseline_s']:.4f}); group sizes of the 4 concurrent requests {sizes}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; on {card}")
+    print(f"serving: K1 launches per group {k1} over {len(groups)} groups (expected {per_group}: "
+          f"{SERVE_STEPS - 1} RK4 intervals x 4 evaluations x {model.dit_cfg.depth} layers); "
+          f"launches over the phase {launched}")
+    if k1 != [per_group] or any(g[2] for g in groups):
+        raise AssertionError(f"K1 launches per group {k1} (K1-f32 {[g[2] for g in groups]}), expected {per_group}")
+    _served_group_check(model, calls)
+    return launched
+
+
+def _served_group_check(model, calls) -> None:
+    """The largest group of the four concurrent requests, as the batcher
+    called sample(), against the same call with K1's plain version in place
+    of the kernel: the relative L2 of each row's generated mel frames and
+    wave samples. The same call with each row's key mask taken from the
+    next row must miss the tolerance, so a kernel that mixed up the rows'
+    masks could not pass."""
+    from unittest import mock
+
+    import torch
+
+    from f5_tts_tpu_torch.ops import flash_attention as fa
+
+    args, kw, (wave, traj) = max(calls, key=lambda c: len(c[1]["duration"]))
+    durations, lens, hop = kw["duration"], kw["lens"], model.audio_cfg.hop_length
+    if not set(durations.tolist()) <= set(SERVE_FRAMES):
+        raise AssertionError(f"the group's durations {durations} are not those of the serving kernel case")
+
+    def rel_errs(want_wave, want_traj) -> dict:
+        """The largest relative L2 over the rows, of the mel and of the wave."""
+        def rel(got, want):
+            return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+        rows = list(enumerate(zip(lens.tolist(), durations.tolist())))
+        return {"mel": max(rel(traj[0, i, ref:dur], want_traj[0, i, ref:dur]) for i, (ref, dur) in rows),
+                "wave": max(rel(wave[i, ref * hop:(dur - 1) * hop], want_wave[i, ref * hop:(dur - 1) * hop])
+                            for i, (ref, dur) in rows)}
+
+    def plain(roll):
+        def attention(q, k, v, scale, key_mask=None, rope=None):
+            mask = key_mask if key_mask is None or not roll else key_mask.roll(1, 0)
+            return fa.flash_attention_plain(q, k, v, scale, mask, rope)
+
+        with mock.patch.object(fa, "flash_attention", attention):
+            return model.sample(*args, **kw)
+
+    errs = rel_errs(*plain(roll=False))
+    wrong = rel_errs(*plain(roll=True))
+    torch.cuda.synchronize()
+    print(f"served group of {len(durations)} ({durations.tolist()} frames) against plain attention: largest relative "
+          f"L2 of a row's mel {errs['mel']:.3e}, wave {errs['wave']:.3e} (tol {SERVE_TOL}); with each row's key "
+          f"mask taken from the next row: mel {wrong['mel']:.3e}, wave {wrong['wave']:.3e}")
+    if not all(errs[x] <= SERVE_TOL[x] for x in SERVE_TOL):
+        raise AssertionError(f"the served group disagrees with the same call on plain attention: {errs}")
+    if not any(wrong[x] > SERVE_TOL[x] for x in SERVE_TOL):
+        raise AssertionError(f"the rows' key masks change the served group by less than the tolerance: {wrong}")
 
 
 def bwd_kernel_phase():
@@ -973,6 +1305,7 @@ def probe_kernel_phase():
         _library_line(label, "", None, bound_ms, bound_by)
         if not within:
             raise AssertionError(f"ln_modulate disagrees with its plain version at {label}: {err}")
+        _device_times(label, None, ln_modulate, (x, scale, shift))
         results[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                           "bound_ms": bound_ms, "bound_by": bound_by}
     core_hashes()
@@ -1006,10 +1339,11 @@ def core_hashes() -> dict:
 
 
 def _device_times(label, av, fn, args, prepass=None) -> None:
-    """A probe attention kernel's device time (`device_ms`), for a RoPE
+    """A probe kernel's device time (`device_ms`), for a RoPE attention
     kernel its pre-pass's alone (`prepass`: the unrotated [b, h, n, d] views
-    of q and k and the rope inputs; where the checkout has a pre-pass), and
-    the host's time per wrapper call."""
+    of q and k and the rope inputs; `av` is the attention variants' module,
+    where the checkout has a pre-pass), and the host's time per wrapper
+    call."""
     import statistics
 
     dev = device_ms(lambda: fn(*args))
@@ -1308,6 +1642,7 @@ def main() -> int:
         snapshot_phase(snap)
         float_times, float_launches = float_path_phase(card, snap)
         q_times, q_launches = quantized_path_phase(card, snap)
+        serve_launches = serving_phase(card, snap)
         bwd = bwd_kernel_phase()
         with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
             _, cfm_ms, cfm_launches = cfm_training_phase(card, tmp)
@@ -1320,7 +1655,7 @@ def main() -> int:
           f"CFM step median {sorted(cfm_ms)[len(cfm_ms) // 2]:.1f} ms; "
           f"duration step median {sorted(dur_ms)[len(dur_ms) // 2]:.1f} ms; on {card}")
     # launches summed over the main paths' counted runs; the probe kernels' over the probe tools' run
-    paths = (float_launches, q_launches, cfm_launches, dur_launches)
+    paths = (float_launches, q_launches, serve_launches, cfm_launches, dur_launches)
     launches = {k: sum(p[k] for p in paths) for k in float_launches}
     for name, n in launches.items():
         if n <= 0:

@@ -1,7 +1,8 @@
 """Conditional flow matching: the training loss, sampling and the F5TTS API
 (the port of the JAX package's `models/cfm.py`: the masked-infill training
-loss, the fused zero-shot synthesis path, the weight-only int4/int8
-quantized DiT and the duration predictor).
+loss, the fused zero-shot synthesis path and its guidance-interval
+segments, the weight-only int4/int8 quantized DiT and the duration
+predictor).
 
 Classifier-free guidance runs cond and uncond as one 2B-batch forward with
 per-sample drop flags. Durations are padded to a bucket (multiples of
@@ -152,6 +153,46 @@ def cfm_sample_mel(
     return odeint(fn, y0.float(), ts, method, return_trajectory=return_trajectory, schedule_fn=schedule_fn)
 
 
+def cfm_sample_segmented(
+    dit: DiT,
+    y0: torch.Tensor,
+    step_cond: torch.Tensor,
+    text: torch.Tensor,
+    mask: torch.Tensor | None,
+    ts: np.ndarray,
+    cfg_interval: tuple[float, float],
+    method: str = "rk4",
+    cfg_strength: float = 2.0,
+    return_trajectory: bool = True,
+) -> torch.Tensor:
+    """`cfm_sample_mel` with classifier-free guidance only for the steps
+    whose start time lies in [lo, hi] of `cfg_interval`: each run of
+    contiguous steps with guidance on or off is one `cfm_sample_mel` call,
+    the ones without at `cfg_strength=0.0` (the conditional stream alone,
+    batch b instead of 2b). Returns the trajectory [steps, b, n, d] (each
+    segment after the first without its duplicate boundary state), or the
+    final state [1, b, n, d] when return_trajectory=False."""
+    lo, hi = cfg_interval
+    active = (ts[:-1] >= lo) & (ts[:-1] <= hi)
+    pieces = []
+    y_cur = y0
+    i = 0
+    while i < len(ts) - 1:
+        j = i
+        while j < len(ts) - 1 and active[j] == active[i]:
+            j += 1
+        seg = cfm_sample_mel(dit, y_cur, step_cond, text, mask, ts[i:j + 1], method=method,
+                             cfg_strength=float(cfg_strength) if active[i] else 0.0,
+                             return_trajectory=return_trajectory)
+        pieces.append(seg if not pieces else seg[1:])
+        y_cur = seg[-1]
+        i = j
+    # the result is the last segment's end state in both modes: without the
+    # trajectory each segment yields only its end state, and the pieces
+    # (`seg[1:]`) would then be empty after the first
+    return torch.cat(pieces) if return_trajectory else y_cur[None]
+
+
 def cfm_sample_e2e(
     dit: DiT,
     cond: torch.Tensor,  # [b, padded_len, d] mel, padded to the bucket
@@ -168,9 +209,12 @@ def cfm_sample_e2e(
     cfg_strength: float,
     return_trajectory: bool,
     shared_noise: bool,
+    cfg_interval: tuple[float, float] | None = None,
 ):
-    """Masks and conditioning -> ODE -> composite with the reference ->
-    vocoder at the bucket length with `valid_frames=max_dur`.
+    """Masks and conditioning -> ODE (`cfm_sample_segmented` with a
+    `cfg_interval` on a grid of two points or more, else `cfm_sample_mel`)
+    -> composite with the reference -> vocoder at the bucket length with
+    `valid_frames=max_dur`.
 
     Returns (mel [b, padded_len, d] zeroed past max_dur, trajectory,
     wave [b, (padded_len - 1) * hop] or None)."""
@@ -193,10 +237,16 @@ def cfm_sample_e2e(
         y0 = torch.nn.functional.pad(y0.float(), (0, 0, 0, padded_len - y0.shape[1]))
     y0 = y0 * dur_mask[..., None]
 
-    trajectory = cfm_sample_mel(
-        dit, y0, step_cond, text, dur_mask, ts, method=method, cfg_strength=cfg_strength,
-        return_trajectory=return_trajectory,
-    )
+    if cfg_interval is None or len(ts) < 2:
+        trajectory = cfm_sample_mel(
+            dit, y0, step_cond, text, dur_mask, ts, method=method, cfg_strength=cfg_strength,
+            return_trajectory=return_trajectory,
+        )
+    else:
+        trajectory = cfm_sample_segmented(
+            dit, y0, step_cond, text, dur_mask, ts, cfg_interval, method=method, cfg_strength=cfg_strength,
+            return_trajectory=return_trajectory,
+        )
     frame_valid = (torch.arange(padded_len, device=device) < max_dur)[None, :, None]
     out = torch.where(cond_mask, cond, trajectory[-1])
     out = torch.where(frame_valid, out, torch.zeros_like(out))
@@ -337,6 +387,13 @@ class F5TTS:
 
     # -- helpers -----------------------------------------------------------
 
+    def _mel_spec(self, wave) -> torch.Tensor:
+        """Raw wave [b, t] (tensor or array) -> log-mel [b, t // hop, n_mels]
+        on the model's device, by its AudioConfig."""
+        a = self.audio_cfg
+        wave = torch.as_tensor(wave, device=self.device)
+        return log_mel_spectrogram(wave, a.sample_rate, a.n_mels, a.n_fft, a.hop_length)
+
     def _tokenize(self, text: list[str]) -> np.ndarray:
         if self.vocab_char_map is not None:
             return list_str_to_idx(text, self.vocab_char_map)
@@ -370,8 +427,7 @@ class F5TTS:
         device = self.device
         inp = torch.as_tensor(inp, device=device)
         if inp.ndim == 2:
-            a = self.audio_cfg
-            inp = log_mel_spectrogram(inp, a.sample_rate, a.n_mels, a.n_fft, a.hop_length)
+            inp = self._mel_spec(inp)
         if inp.shape[-1] != self.audio_cfg.n_mels:
             raise ValueError(f"input has {inp.shape[-1]} mel channels, expected {self.audio_cfg.n_mels}")
         batch, seq_len = inp.shape[0], inp.shape[1]
@@ -416,6 +472,7 @@ class F5TTS:
         seed: int | None = None,
         max_duration: int | None = None,
         y0=None,
+        cfg_interval: tuple[float, float] | None = None,
         return_trajectory: bool = True,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Zero-shot synthesis.
@@ -426,7 +483,9 @@ class F5TTS:
         `y0` overrides the initial noise; `seed` fixes it, shared by every
         batch row. With `duration=None` the duration predictor sets each
         item's total duration from the reference mel and the text, scaled by
-        1 / `speed`."""
+        1 / `speed`. `cfg_interval=(lo, hi)` runs classifier-free guidance
+        only for the steps starting at flow times in [lo, hi]; the others
+        run the conditional stream alone (`cfm_sample_segmented`)."""
         device = self.device
         max_duration = max_duration or self.cfm_cfg.max_duration
         cond = torch.as_tensor(cond, device=device)
@@ -437,10 +496,7 @@ class F5TTS:
                     f"raw-wave cond must have batch 1, got {cond.shape[0]}; "
                     "pass precomputed mel [b, n, d] for batched sampling"
                 )
-            cond = log_mel_spectrogram(
-                cond.reshape(-1), self.audio_cfg.sample_rate, self.audio_cfg.n_mels,
-                self.audio_cfg.n_fft, self.audio_cfg.hop_length,
-            )
+            cond = self._mel_spec(cond)
         if cond.shape[-1] != self.audio_cfg.n_mels:
             raise ValueError(f"cond has {cond.shape[-1]} mel channels, expected {self.audio_cfg.n_mels}")
         cond = cond.float()
@@ -507,6 +563,7 @@ class F5TTS:
             cfg_strength=float(cfg_strength),
             return_trajectory=return_trajectory,
             shared_noise=seed is not None,
+            cfg_interval=cfg_interval,
         )
         trajectory = trajectory[:, :, :max_dur]
         if wave is None:
