@@ -31,6 +31,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      forward in bf16 and in float32 on the card (the float32 one through the
      float32 dequantizing matmul and attention kernels, counted) against the
      float32 CPU path, and one int8 load and request;
+ 6a. W8A8 main path (int8_compute): the W8A8 kernels (quantize_rows and
+     rescale_bias in Triton around torch._int_mm) bit for bit against their
+     plain versions at the DiT's three linear shapes, a ragged m and m <= 16
+     (bf16; float32 at one shape), with device times and the whole linear
+     beside bf16 F.linear; int8_probe's lines; then one request through
+     generate(int8_compute=True, model=<the float model>) (the caller's
+     model left float), and from a snapshot whose config.json sets
+     int8_compute one warm-up and three requests in turns with the float
+     model's (walls, exact launches: K1 682, quantize_rows and rescale_bias
+     4092 each, K3 0; peak memory), the W8A8 mel against the float mel of
+     the same noise, a torch.profiler breakdown of one W8A8 request, the
+     W8A8 DiT forward on the card against the plain W8A8 forward on the CPU
+     (and the CPU's bf16 DiT missing that tolerance), and one /synthesize
+     on a W8A8 server;
   7. serving, on the float snapshot: the generate CLI in-process twice
      (two sentences through the batched branch, and one sentence with
      --duration 7 --cfg-interval 0.2,0.8; each WAV finite, not silent, of
@@ -102,6 +116,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ATTN_TOL = 2e-2  # absolute, on O(1) outputs: both sides round P and the rotated q, k to bf16
 QMM_TOL = 2e-2  # absolute, on O(1) outputs: both sides round W to bf16; sums and output rounding differ
+# relative L2 of the W8A8 DiT forward on the card against the plain W8A8 forward on the CPU, (bf16, float32), 22
+# layers: bf16 rounds at other places on the two sides; in both, a code next to a rounding boundary moves by one
+W8A8_DIT_TOL = (1.5e-2, 3e-3)  # measured 7.1e-3 and 1.4e-3 on the H100
+# the same block by block in float32, each block fed the card's input to it, over the size of the block's update:
+# measured 1.7e-5 to 1.8e-3 on the H100; the CPU's float block (no W8A8) reads 1.5e-2 to 1.6e-2
+W8A8_BLOCK_TOL = 4e-3
 F32_TOL = 1e-4  # absolute, float32 kernels on O(1) outputs: the same math summed in another order
 DIT_TOL = 3e-2  # relative L2 of a bf16 DiT forward against float32, 22 layers
 DIT_F32_TOL = 1e-4  # relative L2 of a float32 DiT forward on the card against the CPU's: sums in another order
@@ -113,7 +133,7 @@ TRAIN_BATCH, TRAIN_FRAMES = 4, 1024
 # float32 accuracy runs fastest on the tensor cores as 3xTF32 (three TF32 products of split operands,
 # what the float32 attention kernels do), at a third of the 495 TFLOP/s TF32 rate, above the FMA
 # units' 67: that is the float32 bound, so that no tensor-core kernel reads under it.
-PEAK_FLOPS = {"bf16": 989e12, "f32": 495e12 / 3}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 495e12 / 3, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 PROBE_REPS = {"attn_variants": 10, "fusion_probe": 4}
 HOLD_CYCLES = 50_000_000  # the spin kernel before a timed run: about 25 ms at the H100's 1.98 GHz
@@ -165,14 +185,17 @@ def build_phase():
 
 
 def reset_counts():
+    from f5_tts_tpu_torch.ops import w8a8
     from f5_tts_tpu_torch.ops.flash_attention import flash_attention
     from f5_tts_tpu_torch.ops.qmatmul import qmatmul
 
     flash_attention.launches = flash_attention.launches_f32 = qmatmul.launches = qmatmul.launches_f32 = 0
     flash_attention.launches_bwd = flash_attention.launches_bwd_f32 = 0
+    w8a8.quantize_rows.launches = w8a8.rescale_bias.launches = 0
 
 
 def counts() -> dict:
+    from f5_tts_tpu_torch.ops import w8a8
     from f5_tts_tpu_torch.ops.flash_attention import flash_attention
     from f5_tts_tpu_torch.ops.qmatmul import qmatmul
 
@@ -181,7 +204,9 @@ def counts() -> dict:
             "qmatmul": qmatmul.launches,
             "qmatmul_f32": qmatmul.launches_f32,
             "flash_attention_bwd": flash_attention.launches_bwd,
-            "flash_attention_bwd_f32": flash_attention.launches_bwd_f32}
+            "flash_attention_bwd_f32": flash_attention.launches_bwd_f32,
+            "w8a8_quantize": w8a8.quantize_rows.launches,
+            "w8a8_rescale": w8a8.rescale_bias.launches}
 
 
 def _time_ms(fn, iters=20):
@@ -489,7 +514,7 @@ def snapshot_phase(snap: str):
 
 
 ZERO = {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0, "qmatmul": 0, "qmatmul_f32": 0,
-        "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0}
+        "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0, "w8a8_quantize": 0, "w8a8_rescale": 0}
 
 
 def _request(model, ref, duration, card: str, label: str, expect: dict, expect_len: int) -> float:
@@ -519,10 +544,9 @@ def _request(model, ref, duration, card: str, label: str, expect: dict, expect_l
     return wall
 
 
-def _dit_out(dit, dev: str):
-    """One DiT forward on `dev` on a short input made from a fixed seed (2 x
-    128 frames, the second row 100 valid, its audio condition dropped), as
-    float32 on the CPU."""
+def _dit_inputs():
+    """`_dit_out`'s input on the CPU: 2 x 128 frames, the second row 100
+    valid and its audio condition dropped, 40 text ids, flow time 0.4."""
     import torch
 
     g = torch.Generator().manual_seed(1)
@@ -530,10 +554,17 @@ def _dit_out(dit, dev: str):
     x, cond = torch.randn(b, n, 100, generator=g), torch.randn(b, n, 100, generator=g)
     text = torch.randint(0, 95, (b, 40), generator=g)
     mask = torch.arange(n)[None, :] < torch.tensor([[n], [100]])
-    drop = torch.tensor([False, True])
+    return x, cond, text, mask, torch.tensor([False, True]), torch.tensor([0.4])
+
+
+def _dit_out(dit, dev: str):
+    """One DiT forward on `dev` on `_dit_inputs`, as float32 on the CPU."""
+    import torch
+
+    x, cond, text, mask, drop, t = _dit_inputs()
     with torch.no_grad():
-        te = dit.embed_text(text.to(dev), n)
-        mods = {k: v[0] for k, v in dit.time_mods(torch.tensor([0.4], device=dev)).items()}
+        te = dit.embed_text(text.to(dev), x.shape[1])
+        mods = {k: v[0] for k, v in dit.time_mods(t.to(dev)).items()}
         return dit(x.to(dev), cond.to(dev), te, mods, drop_audio_cond=drop.to(dev), mask=mask.to(dev)).float().cpu()
 
 
@@ -689,6 +720,282 @@ def quantized_path_phase(card: str, snap: str):
     _request(model8, ref, duration, card, "int8 request", per_request, expect_len)
     launched = {k: v + launched[k] for k, v in counts().items()}
     return times, launched
+
+
+# (label, m, k, n) of the W8A8 linears: the DiT blocks' three shapes over 2 x 1024 frames (CFG), then a ragged m
+# and m <= 16 (padded to 32 rows for torch._int_mm)
+W8A8_SHAPES = [("to_q/k/v/out", 2048, 1024, 1024), ("ff w1", 2048, 1024, 2048), ("ff w2", 2048, 2048, 1024),
+               ("ragged m", 1000, 1024, 1024), ("m <= 16", 5, 1024, 1024)]
+W8A8_LINEARS = 6  # a block's attention q, k, v, out and feed-forward w1, w2
+
+
+def w8a8_kernel_phase() -> dict:
+    """quantize_rows, torch._int_mm, rescale_bias and the whole W8A8 linear
+    bit for bit against the plain versions, with their times, device times
+    and bounds, and the linear beside bf16 F.linear; then int8_probe."""
+    import torch
+    import torch.nn.functional as F
+
+    from f5_tts_tpu_torch.ops import w8a8 as W
+    from f5_tts_tpu_torch.tools import int8_probe
+
+    phase("W8A8 kernels vs plain, bit for bit: quantize_rows and rescale_bias (Triton), torch._int_mm")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    results = {}
+    for label, m, k, n in W8A8_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32) if label == "to_q/k/v/out" else (torch.bfloat16,):
+            name = f"{label} [m={m}, k={k}, n={n}] {str(dtype).removeprefix('torch.')}"
+            x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+            w8, scale = W.quantize_rows_plain(torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5)
+            bias = (0.1 * torch.randn(n, generator=gen, device="cuda")).to(dtype)
+            rows = m if m >= W.MIN_INT_MM_ROWS else W.PAD_ROWS
+            codes, sx = W.quantize_rows(x, rows)
+            ref_codes, ref_sx = W.quantize_rows_plain(x)
+            acc = torch._int_mm(codes, w8.t())
+            ref_acc = W.int8_product_plain(ref_codes, w8)
+            y = W.rescale_bias(ref_acc, ref_sx, scale, bias, dtype)
+            ref_y = W.rescale_bias_plain(ref_acc, ref_sx, scale, bias, dtype)
+            out = W.w8a8_linear(x, w8, scale, bias)
+            ref_out = W.w8a8_linear_plain(x, w8, scale, bias)
+            torch.cuda.synchronize()
+            errs = {"quantize": (codes[:m].int() - ref_codes.int()).abs().max().item()
+                    + (sx[:m] - ref_sx).abs().max().item() + codes[m:].abs().sum().item(),
+                    "int_mm": (acc[:m] - ref_acc).abs().max().item(),
+                    "rescale": (y.float() - ref_y.float()).abs().max().item(),
+                    "linear": (out.float() - ref_out.float()).abs().max().item()}
+            exact = (torch.equal(codes[:m], ref_codes) and torch.equal(sx[:m], ref_sx) and not codes[m:].any()
+                     and torch.equal(acc[:m], ref_acc) and torch.equal(y, ref_y) and torch.equal(out, ref_out))
+            print(f"{name}: max |kernel - plain| {errs} (bit for bit: {'yes' if exact else 'NO'})")
+            if not exact:
+                raise AssertionError(f"a W8A8 kernel disagrees with its plain version at {name}: {errs}")
+            acc_m = ref_acc.contiguous()
+            runs = {
+                "quantize": (lambda: W.quantize_rows(x, rows), lambda: W.quantize_rows_plain(x),
+                             bound(4 * m * k, nbytes(x, ref_codes, ref_sx), "f32")),
+                "rescale": (lambda: W.rescale_bias(acc_m, ref_sx, scale, bias, dtype),
+                            lambda: W.rescale_bias_plain(acc_m, ref_sx, scale, bias, dtype),
+                            bound(3 * m * n, nbytes(acc_m, ref_sx, scale, bias, y), "f32")),
+            }
+            for part, (fn, plain, (bound_ms, bound_by)) in runs.items():
+                ms, plain_ms, dev = _time_ms(fn), _time_ms(plain), device_ms(fn)
+                print(f"{name} {part}: kernel {ms:.4f} ms, device {dev:.4f} ms, plain {plain_ms:.4f} ms")
+                _library_line(f"{name} {part}", "", None, bound_ms, bound_by)
+                results[(part, label, dtype)] = {"err": errs[part], "ms": ms, "plain_ms": plain_ms,
+                                                 "device_ms": dev, "library_ms": None, "bound_ms": bound_ms,
+                                                 "bound_by": bound_by}
+            int_mm_dev = device_ms(lambda: torch._int_mm(codes, w8.t()))
+            int_mm_bound = bound(2 * rows * k * n, nbytes(codes, w8, acc), "int8")
+            w_float = (w8.float() * scale[:, None]).to(dtype)
+            lin_ms, lin_dev = _time_ms(lambda: W.w8a8_linear(x, w8, scale, bias)), \
+                device_ms(lambda: W.w8a8_linear(x, w8, scale, bias))
+            f_ms, f_dev = _time_ms(lambda: F.linear(x, w_float, bias)), device_ms(lambda: F.linear(x, w_float, bias))
+            lin_bound = bound(2 * m * k * n, nbytes(x, w8, scale, bias, out), "int8")
+            print(f"{name}: torch._int_mm device {int_mm_dev:.4f} ms (bound {int_mm_bound[0] * 1e3:.2f} us, "
+                  f"{int_mm_bound[1]}); W8A8 linear {lin_ms:.4f} ms, device {lin_dev:.4f} ms (bound "
+                  f"{lin_bound[0] * 1e3:.2f} us, {lin_bound[1]}) against F.linear {f_ms:.4f} ms, device {f_dev:.4f} ms: "
+                  f"device {lin_dev / f_dev:.2f}x")
+    int8_probe.main(reps=10)
+    return results
+
+
+def _flagged_snapshot(snap: str, dst: Path) -> Path:
+    """`snap`'s files linked into `dst`, with a config.json that sets
+    int8_compute."""
+    for p in Path(snap).rglob("*"):
+        if p.is_file() and p.name != "config.json":
+            (dst / p.relative_to(snap)).parent.mkdir(parents=True, exist_ok=True)
+            os.symlink(p, dst / p.relative_to(snap))
+    blob = json.loads((Path(snap) / "config.json").read_text())
+    blob["dit"]["int8_compute"] = True
+    (dst / "config.json").write_text(json.dumps(blob))
+    return dst
+
+
+def _w8a8_block_errors(card, cpu_dits: dict) -> dict:
+    """Each block of the float32 DiT `card` (on the card) against the same
+    block of each CPU DiT of `cpu_dits`, fed the card's input to that block:
+    per block, the L2 distance of the outputs over the L2 size of the
+    block's update (output less input). Fed the same input, a block is
+    held without the earlier blocks' differences growing through it."""
+    import torch
+
+    from f5_tts_tpu_torch.models.rope import rotary_freqs
+
+    x, cond, text, mask, drop, t = _dit_inputs()
+    rel = {label: [] for label in cpu_dits}
+    with torch.no_grad():
+        dev = {k: v.cuda() for k, v in (("x", x), ("cond", cond), ("text", text), ("mask", mask), ("drop", drop))}
+        te = card.embed_text(dev["text"], x.shape[1])
+        mods = {k: v[0] for k, v in card.time_mods(t.cuda()).items()}
+        h = card.input_embed(dev["x"], dev["cond"], te, drop_audio_cond=dev["drop"])
+        raw = rotary_freqs(x.shape[1], card.cfg.dim_head, device="cuda")
+        rope = (torch.cos(raw), torch.sin(raw))
+        for i, (block, mod) in enumerate(zip(card.transformer_blocks, mods["blocks"])):
+            out = block(h, mod, mask=dev["mask"], rope=rope)
+            h_cpu, out_cpu = h.cpu(), out.cpu()
+            for label, dit in cpu_dits.items():
+                want = dit.transformer_blocks[i](h_cpu, mod.cpu(), mask=mask, rope=tuple(r.cpu() for r in rope))
+                rel[label].append(((out_cpu - want).norm() / (want - h_cpu).norm()).item())
+            h = out
+    return rel
+
+
+def _w8a8_dit_check(model_w8) -> dict:
+    """The W8A8 DiT on the card against the plain W8A8 DiT on the CPU, on
+    `_dit_out`'s input. The whole forward, in bf16 (the float32 master
+    cast, then its blocks re-quantized, as the sampler does) and in
+    float32: a code that sits next to a rounding boundary moves by one
+    where the two sides' activations differ by an ulp, and later layers
+    carry that on, so the whole forward's distance is of the size of W8A8's
+    own error (the CPU's DiT without W8A8 is printed beside it). Then block
+    by block in float32, each block fed the card's input to it: there the
+    CPU's W8A8 block must come within W8A8_BLOCK_TOL of the card's, and the
+    CPU's float block must miss it, so the check tells W8A8 from float."""
+    import torch
+
+    from f5_tts_tpu_torch import F5TTS
+    from f5_tts_tpu_torch.models.dit import DiT
+
+    phase("DiT forward (W8A8): the card against the plain W8A8 forward on the CPU, whole and block by block")
+    state = model_w8.dit.state_dict()
+
+    def sampler_dit(dev: str, dtype: str, int8: bool):
+        cfg = model_w8.dit_cfg.replace(compute_dtype=dtype, int8_compute=int8)
+        with torch.device(dev):
+            dit = DiT(cfg)
+        dit.load_state_dict(state)
+        return F5TTS(dit, cfg)._inference_dit()
+
+    card = {"bfloat16": _dit_out(model_w8._inference_dit(), "cuda")}
+    card_f32 = sampler_dit("cuda", "float32", True)
+    card["float32"] = _dit_out(card_f32, "cuda")
+    rel, cpu_f32 = {}, {}
+    for dtype, int8 in (("bfloat16", True), ("bfloat16", False), ("float32", True), ("float32", False)):
+        dit = sampler_dit("cpu", dtype, int8)
+        if dtype == "float32":
+            cpu_f32["W8A8" if int8 else "float"] = dit
+        ref = _dit_out(dit, "cpu")
+        rel[(dtype, int8)] = ((card[dtype] - ref).norm() / ref.norm()).item()
+    blocks = _w8a8_block_errors(card_f32, cpu_f32)
+    print(f"relative L2 of the W8A8 card forward against the CPU's: bf16 W8A8 {rel[('bfloat16', True)]:.3e} "
+          f"(tol {W8A8_DIT_TOL[0]}; the CPU's bf16 without W8A8 {rel[('bfloat16', False)]:.3e}), float32 W8A8 "
+          f"{rel[('float32', True)]:.3e} (tol {W8A8_DIT_TOL[1]}; the CPU's float32 without W8A8 "
+          f"{rel[('float32', False)]:.3e})")
+    print("block by block, float32, each fed the card's input: |card - CPU| / |CPU update|, W8A8 "
+          f"{min(blocks['W8A8']):.3e} to {max(blocks['W8A8']):.3e} (tol {W8A8_BLOCK_TOL}), float "
+          f"{min(blocks['float']):.3e} to {max(blocks['float']):.3e} (must miss); by block W8A8 "
+          + ", ".join(f"{e:.2e}" for e in blocks["W8A8"]))
+    if not (rel[("bfloat16", True)] <= W8A8_DIT_TOL[0] and rel[("float32", True)] <= W8A8_DIT_TOL[1]
+            and max(blocks["W8A8"]) <= W8A8_BLOCK_TOL < min(blocks["float"])):
+        raise AssertionError(f"the W8A8 DiT forward on the card: {rel}, blocks {blocks}, tolerances "
+                             f"{W8A8_DIT_TOL}, {W8A8_BLOCK_TOL}")
+    return rel
+
+
+def w8a8_path_phase(card: str, snap: str, tmp_base: str | None) -> tuple[list, dict]:
+    """W8A8 synthesis through the entry points: generate(int8_compute=True)
+    on the caller's float model, then a snapshot whose config sets
+    int8_compute, in turns with the float model; the mel against the float
+    mel, a profile, the DiT forward against the CPU and one served request.
+    Returns the W8A8 request walls and the launches over the phase."""
+    import numpy as np
+    import torch
+
+    from f5_tts_tpu_torch import F5TTS
+    from f5_tts_tpu_torch import generate as gen
+    from f5_tts_tpu_torch.audio.io import write_wav
+    from f5_tts_tpu_torch.models.quant import W8A8Linear
+    from f5_tts_tpu_torch.serve import serve
+
+    phase("W8A8 path: generate(int8_compute=True), then from_pretrained of a snapshot with int8_compute -> "
+          "1 + 3 requests in turns with the float model, mel vs float, profile, DiT forward, one served request")
+    model = F5TTS.from_pretrained(snap, device="cuda")
+    ref, duration, expect_len = _setup(model)
+    cfg, sr = model.dit_cfg, model.audio_cfg.sample_rate
+    linears = W8A8_LINEARS * cfg.depth * EVALS_PER_REQUEST
+    per_request = {**ZERO, "flash_attention_fwd": cfg.depth * EVALS_PER_REQUEST, "w8a8_quantize": linears,
+                   "w8a8_rescale": linears}
+    float_request = {**ZERO, "flash_attention_fwd": cfg.depth * EVALS_PER_REQUEST}
+    print(f"expected per W8A8 request: {per_request}")
+    reset_counts()
+    with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
+        write_wav(f"{tmp}/ref.wav", ref.cpu().numpy(), sr)
+        before = counts()
+        t0 = time.perf_counter()
+        wave = gen.generate(TEXT[0], duration=10.0, model=model, ref_audio_path=f"{tmp}/ref.wav",
+                            ref_audio_text="A tone.", steps=STEPS, method="euler", cfg_strength=2.0,
+                            sway_sampling_coef=-1.0, seed=0, int8_compute=True, play=False)
+        wall = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in counts().items()}
+        print(f"generate(int8_compute=True, model=float model): {wall * 1e3:.1f} ms with the W8A8 copy's build, "
+              f"{wave.shape[0]} samples; launches {launched}; caller's model int8_compute "
+              f"{model.dit_cfg.int8_compute}")
+        if launched != per_request or model.dit_cfg.int8_compute or wave.shape != (expect_len - ref.shape[0],) \
+                or not np.isfinite(wave).all():
+            raise AssertionError(f"generate(int8_compute=True): launches {launched}, wave {wave.shape}, caller's "
+                                 f"flag {model.dit_cfg.int8_compute}")
+
+        model_w8 = F5TTS.from_pretrained(_flagged_snapshot(snap, Path(tmp) / "w8a8"), device="cuda")
+    if not model_w8.dit_cfg.int8_compute:
+        raise AssertionError("the snapshot's int8_compute did not reach the loaded model")
+    _request(model, ref, duration, card, "float warm-up", float_request, expect_len)
+    _request(model_w8, ref, duration, card, "W8A8 warm-up", per_request, expect_len)
+    if not all(isinstance(blk.attn.to_q, W8A8Linear) for blk in model_w8._inference_dit().transformer_blocks):
+        raise AssertionError("the W8A8 model's sampler copy has float attention projections")
+    walls, peaks = {"W8A8": [], "float": []}, {"W8A8": [], "float": []}
+    for i in range(3):
+        for label, m, expect in (("W8A8", model_w8, per_request), ("float", model, float_request)):
+            walls[label].append(_request(m, ref, duration, card, f"{label} request {i + 1}", expect, expect_len))
+            peaks[label].append(torch.cuda.max_memory_allocated())
+    print(f"W8A8 requests {', '.join(f'{t * 1e3:.1f}' for t in walls['W8A8'])} ms against float "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in walls['float'])} ms in turns; peak memory W8A8 "
+          f"{max(peaks['W8A8']) / 2**30:.3f} GiB, float {max(peaks['float']) / 2**30:.3f} GiB; on {card}")
+    if max(peaks["W8A8"]) > max(peaks["float"]) + 2**26:
+        raise AssertionError("a W8A8 request's peak memory exceeds the float request's by more than 64 MiB")
+
+    mels = {}
+    for label, m in (("W8A8", model_w8), ("float", model)):
+        _, traj = m.sample(ref[None], TEXT, duration=duration, steps=STEPS, method="euler", cfg_strength=2.0,
+                           sway_sampling_coef=-1.0, seed=0, return_trajectory=False)
+        ref_frames = ref.shape[0] // model.audio_cfg.hop_length
+        mels[label] = traj[-1][0, ref_frames:duration].float()
+    mel_rel = ((mels["W8A8"] - mels["float"]).norm() / mels["float"].norm()).item()
+    print(f"W8A8 mel against the float mel of the same noise: relative L2 {mel_rel:.4e} over the generated frames")
+    if not 0 < mel_rel < 5e-2:
+        raise AssertionError(f"the W8A8 mel is {mel_rel} from the float mel")
+
+    def request():
+        model_w8.sample(ref[None], TEXT, duration=duration, steps=STEPS, method="euler", cfg_strength=2.0,
+                        sway_sampling_coef=-1.0, seed=0, return_trajectory=False)
+
+    _profiled("W8A8 request", request)
+    del model
+    _w8a8_dit_check(model_w8)
+
+    ref_audio, _ = gen._load_ref_audio(None, None)
+    ref_frames = ref_audio.shape[0] // model_w8.audio_cfg.hop_length
+    httpd = serve(model_w8, "127.0.0.1", 0, max_batch=1, max_wait_ms=10)
+    try:
+        before = counts()
+        t0 = time.perf_counter()
+        body = _ok(httpd.server_address[1], {"text": "A request served with int8 compute.", "duration": 7.0,
+                                            "steps": SERVE_STEPS, "method": "rk4", "seed": 0}, "W8A8 served request")
+        served = {k: v - before[k] for k, v in counts().items()}
+    finally:
+        httpd.batcher.stop()
+        httpd.shutdown()
+        httpd.batcher.join(timeout=60)
+    a = model_w8.audio_cfg
+    want = 44 + 2 * ((int(7.0 * a.frames_per_second) - 1 - ref_frames) * a.hop_length)
+    evals = (SERVE_STEPS - 1) * 4
+    expect = {**ZERO, "flash_attention_fwd": evals * cfg.depth, "w8a8_quantize": evals * W8A8_LINEARS * cfg.depth,
+              "w8a8_rescale": evals * W8A8_LINEARS * cfg.depth}
+    print(f"W8A8 served request (7 s, RK4 at {SERVE_STEPS} steps): {time.perf_counter() - t0:.3f} s, "
+          f"{len(body)} bytes (expected {want}); launches {served}")
+    if len(body) != want or served != expect:
+        raise AssertionError(f"the W8A8 served request: {len(body)} bytes, launches {served}; expected {want}, "
+                             f"{expect}")
+    return walls["W8A8"], counts()
 
 
 SERVE_STEPS = 8  # RK4 over an 8-point grid: 7 intervals x 4 flow evaluations
@@ -1398,6 +1705,9 @@ PROFILE_GROUPS = (
     ("K1 pre-pass (bf16)", ("flash_fwd_prepass",)),
     ("K1 attention forward", ("flash_fwd", "attn_core")),
     ("K3 dequantizing matmul", ("qmm_",)),
+    ("W8A8 quantize_rows (Triton)", ("quantize_rows",)),
+    ("W8A8 rescale_bias (Triton)", ("rescale_bias",)),
+    ("W8A8 int8 GEMM (torch._int_mm)", ("gemm_s8", "imma")),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "splitkreduce")),
     ("conv (cuDNN)", ("conv", "cudnn", "winograd", "implicit")),
@@ -1637,11 +1947,13 @@ def main() -> int:
     kernel = kernel_phase()
     f32_attn = f32_attention_phase()
     qmm = qmatmul_phase()
+    w8a8 = w8a8_kernel_phase()
     tmp_base = "/dev/shm" if os.path.isdir("/dev/shm") and shutil.disk_usage("/dev/shm").free > 8 * 2**30 else None
     with tempfile.TemporaryDirectory(dir=tmp_base) as snap:
         snapshot_phase(snap)
         float_times, float_launches = float_path_phase(card, snap)
         q_times, q_launches = quantized_path_phase(card, snap)
+        w8a8_times, w8a8_launches = w8a8_path_phase(card, snap, tmp_base)
         serve_launches = serving_phase(card, snap)
         bwd = bwd_kernel_phase()
         with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
@@ -1652,10 +1964,11 @@ def main() -> int:
         ranking_phase(card, snap)
     print(f"float requests: {', '.join(f'{t * 1e3:.1f} ms' for t in float_times)}; "
           f"int4 requests: {', '.join(f'{t * 1e3:.1f} ms' for t in q_times)}; "
+          f"W8A8 requests: {', '.join(f'{t * 1e3:.1f} ms' for t in w8a8_times)}; "
           f"CFM step median {sorted(cfm_ms)[len(cfm_ms) // 2]:.1f} ms; "
           f"duration step median {sorted(dur_ms)[len(dur_ms) // 2]:.1f} ms; on {card}")
     # launches summed over the main paths' counted runs; the probe kernels' over the probe tools' run
-    paths = (float_launches, q_launches, serve_launches, cfm_launches, dur_launches)
+    paths = (float_launches, q_launches, w8a8_launches, serve_launches, cfm_launches, dur_launches)
     launches = {k: sum(p[k] for p in paths) for k in float_launches}
     for name, n in launches.items():
         if n <= 0:
@@ -1682,6 +1995,10 @@ def main() -> int:
          probe["flash_bhnd_rope"]),
         ("ln_modulate", "triton", "f5_tts_tpu_torch/ops/ln_modulate.py", "tools/fusion_probe.py:318",
          probe["ln_modulate"]),
+        ("w8a8_quantize", "triton", "f5_tts_tpu_torch/ops/w8a8.py", "f5_tts_tpu/utils/modules.py:56",
+         w8a8[("quantize", "to_q/k/v/out", torch.bfloat16)]),
+        ("w8a8_rescale", "triton", "f5_tts_tpu_torch/ops/w8a8.py", "f5_tts_tpu/utils/modules.py:56",
+         w8a8[("rescale", "to_q/k/v/out", torch.bfloat16)]),
     ]
     print(json.dumps({"kernels": [{
         "name": name,

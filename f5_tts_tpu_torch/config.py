@@ -7,10 +7,10 @@ written by either package's `save_pretrained` loads in the other.
 `use_flash_attention` selects a JAX-only code path: it is kept so such
 snapshots load and is not read by the port, whose attention goes to the
 CUDA kernels for a CUDA tensor and to the plain PyTorch versions for a CPU
-tensor. `int8_compute` asks for W8A8 int8 compute, which the port does not
-have yet: `load_f5tts_pretrained` and sampling raise for it
-(`models/cfm.py` `refuse_int8_compute`) rather than sample in the compute
-dtype. `remat` turns on activation checkpointing in the DiT's training
+tensor. `int8_compute` samples with W8A8 int8 compute in both packages:
+the DiT blocks' attention and feed-forward linears run int8 weights and
+per-token int8 activations (`models/quant.py` `w8a8_blocks_`); training
+ignores it. `remat` turns on activation checkpointing in the DiT's training
 forward in both packages.
 """
 
@@ -60,7 +60,7 @@ class DiTConfig:
     compute_dtype: str = "float32"
     # read by the JAX package only (see the module docstring)
     use_flash_attention: bool = True
-    # W8A8 in the JAX package; the port refuses it (see the module docstring)
+    # W8A8 int8 compute when sampling (see the module docstring)
     int8_compute: bool = False
     # activation checkpointing of each block in training
     remat: bool = False

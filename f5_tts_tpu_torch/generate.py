@@ -9,19 +9,22 @@ reference trimming and the three synthesis branches are the JAX function's:
 one sentence (or an explicit duration) in one call; sentence by sentence
 into a live player; or every sentence at once, sub-batched by duration
 bucket. `--model` takes a local snapshot directory (`save_pretrained`'s
-layout): downloading from the hub is not ported. `--w8a8` (W8A8 int8
-compute) and `--mesh-data`/`--mesh-model` above 1 (multi-card sampling)
-raise NotImplementedError until those are ported.
+layout): downloading from the hub is not ported. `--w8a8` samples with
+W8A8 int8 compute (`DiTConfig.int8_compute`: int8 weights and per-token
+int8 activations in the DiT blocks' attention and feed-forward linears);
+`--q` with `--w8a8` raises ValueError, as in the JAX package.
+`--mesh-data`/`--mesh-model` above 1 (multi-card sampling) raise
+NotImplementedError until that is ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import datetime
 import re
 import sys
 from importlib import resources
-from pathlib import Path
 from threading import Event, Lock
 from typing import Literal, Optional
 
@@ -29,8 +32,7 @@ import numpy as np
 
 from f5_tts_tpu_torch.audio.io import read_wav, write_wav
 from f5_tts_tpu_torch.audio.resample import resample
-from f5_tts_tpu_torch.config import DiTConfig
-from f5_tts_tpu_torch.models.cfm import F5TTS, clamp_duration, refuse_int8_compute
+from f5_tts_tpu_torch.models.cfm import F5TTS, clamp_duration
 from f5_tts_tpu_torch.utils.tokenizer import convert_char_to_pinyin
 
 # Defaults for the model-free helpers only (`estimated_duration`); with a
@@ -224,29 +226,26 @@ def _load_ref_audio(
     return audio.astype(np.float32), ref_audio_text
 
 
-def load_model(model_name: str, quantization_bits: int | None = None, device: str = "cuda"):
-    """`F5TTS.from_pretrained` on a local snapshot directory; anything else
-    raises ValueError, since downloading from the hub is not ported."""
-    if not Path(model_name).is_dir():
-        raise ValueError(
-            f"--model {model_name!r} is not a local directory; the PyTorch package loads snapshot "
-            "directories only (downloads from the hub are not ported)"
-        )
-    return F5TTS.from_pretrained(model_name, device=device, quantization_bits=quantization_bits)
+def load_model(model_name: str, quantization_bits: int | None = None, device: str = "cuda",
+               int8_compute: bool = False):
+    """`F5TTS.from_pretrained` on a local snapshot directory (anything else
+    raises ValueError, since downloading from the hub is not ported), with
+    `int8_compute` (W8A8) turned on when asked."""
+    model = F5TTS.from_pretrained(model_name, device=device, quantization_bits=quantization_bits)
+    if int8_compute:
+        model.dit_cfg = model.dit_cfg.replace(int8_compute=True)
+    return model
 
 
 def refuse_unported(int8_compute: bool, quantization_bits: int | None, mesh: bool = False) -> None:
-    """The flags the PyTorch package cannot run yet, refused before anything
-    loads: --q with --w8a8 (ValueError, as in the JAX package), --w8a8
-    (NotImplementedError: W8A8 is not ported) and a mesh of more than one
-    card (NotImplementedError)."""
+    """The flags refused before anything loads: --q with --w8a8 (ValueError,
+    as in the JAX package) and a mesh of more than one card
+    (NotImplementedError: not ported yet)."""
     if int8_compute and quantization_bits:
         raise ValueError(
             "--q (weight-only group-64 snapshots) and --w8a8 (int8 compute "
             "from float kernels) are separate paths and cannot be combined"
         )
-    if int8_compute:
-        refuse_int8_compute(DiTConfig(int8_compute=True), weight_only_quantized=False)
     if mesh:
         raise NotImplementedError(MESH_NOT_PORTED)
 
@@ -276,12 +275,16 @@ def generate(
 ) -> np.ndarray:
     """End-to-end synthesis; returns the generated waveform (the reference
     trimmed off) as float32 numpy. Pass `model` to reuse a loaded F5TTS
-    across calls (it is not changed); else `model_name`, a snapshot
-    directory, is loaded onto `device`. `mesh` (multi-card sampling) and
-    `int8_compute` (W8A8) raise NotImplementedError."""
+    across calls (it is not changed: with `int8_compute`, a shallow copy
+    samples W8A8); else `model_name`, a snapshot directory, is loaded onto
+    `device`. `mesh` (multi-card sampling) raises NotImplementedError."""
     refuse_unported(int8_compute, quantization_bits, mesh is not None)
     if model is None:
-        model = load_model(model_name, quantization_bits, device)
+        model = load_model(model_name, quantization_bits, device, int8_compute)
+    elif int8_compute:
+        # never change a caller's model: a later model.sample() must not run W8A8 because of one call here
+        model = copy.copy(model)
+        model.dit_cfg = model.dit_cfg.replace(int8_compute=True)
     sr = model.audio_cfg.sample_rate
     hop = model.audio_cfg.hop_length
     fps = model.audio_cfg.frames_per_second
@@ -424,7 +427,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cfg-interval", type=str, default=None,
                         help="Apply CFG only for flow times in LO,HI (e.g. '0,0.7')")
     parser.add_argument("--w8a8", action="store_true", default=False,
-                        help="int8-compute inference (not ported yet: raises)")
+                        help="int8-compute (W8A8) inference: int8 weights and activations in the DiT blocks")
     parser.add_argument("--mesh-data", type=int, default=1,
                         help="Shard batched sampling over N cards (not ported yet: above 1 raises)")
     parser.add_argument("--mesh-model", type=int, default=1,
@@ -462,6 +465,7 @@ def main(argv: list[str] | None = None):
         seed=args.seed,
         quantization_bits=args.q,
         output_path=args.output,
+        int8_compute=args.w8a8,
         cfg_interval=tuple(float(x) for x in args.cfg_interval.split(",")) if args.cfg_interval else None,
         resample_ref=args.resample_ref,
         device=args.device,

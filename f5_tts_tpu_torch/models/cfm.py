@@ -2,7 +2,7 @@
 (the port of the JAX package's `models/cfm.py`: the masked-infill training
 loss, the fused zero-shot synthesis path and its guidance-interval
 segments, the weight-only int4/int8 quantized DiT and the duration
-predictor).
+predictor, and W8A8 int8 compute).
 
 Classifier-free guidance runs cond and uncond as one 2B-batch forward with
 per-sample drop flags. Durations are padded to a bucket (multiples of
@@ -29,7 +29,7 @@ from f5_tts_tpu_torch.config import AudioConfig, CFMConfig, DiTConfig
 from f5_tts_tpu_torch.models.dit import DiT
 from f5_tts_tpu_torch.models.duration import DurationPredictor
 from f5_tts_tpu_torch.models.ode import odeint
-from f5_tts_tpu_torch.models.quant import QuantizedLinear
+from f5_tts_tpu_torch.models.quant import w8a8_blocks_
 from f5_tts_tpu_torch.models.vocos import Vocos
 from f5_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
 from f5_tts_tpu_torch.utils.modules import init_parameters_
@@ -264,24 +264,6 @@ def clamp_duration(
     return np.clip(duration, 0, max_duration)
 
 
-def refuse_int8_compute(cfg: DiTConfig, weight_only_quantized: bool) -> None:
-    """Raise for a config with `int8_compute` (W8A8: int8 weights and
-    activations), which this package does not have yet, rather than sample
-    with the float or weight-only quantized weights the config did not ask
-    for. A weight-only quantized model is refused as the JAX package refuses
-    it (`w8a8_blocks`)."""
-    if not cfg.int8_compute:
-        return
-    msg = ("DiTConfig.int8_compute=True asks for W8A8 int8 compute, which is not ported to the PyTorch "
-           "package yet; load the snapshot with int8_compute false in its config.json to sample in the "
-           "compute dtype")
-    if weight_only_quantized:
-        msg += (". Besides, int8_compute (W8A8) requires float kernels, but this DiT is weight-only quantized "
-                "({q, scales, biases}): the --q snapshots and --w8a8 are separate paths, load the float "
-                "snapshot for int8 compute")
-    raise NotImplementedError(msg)
-
-
 def sway_time_grid(steps: int, sway_sampling_coef: float | None, t_start: float = 0.0) -> np.ndarray:
     """linspace warped by sway sampling t += s*(cos(pi/2 t) - 1 + t)."""
     t = np.linspace(t_start, 1.0, steps, dtype=np.float32)
@@ -335,13 +317,16 @@ class F5TTS:
 
     @classmethod
     def from_pretrained(
-        cls, local_dir: str | Path, device: torch.device | str = "cuda", quantization_bits: int | None = None
+        cls, local_dir: str | Path, device: torch.device | str = "cuda", quantization_bits: int | None = None,
+        expected_sha256: dict[str, str] | None = None,
     ) -> "F5TTS":
         """Load a snapshot directory (see models/convert.py); with
-        `quantization_bits` (4 or 8), its weight-only quantized DiT."""
+        `quantization_bits` (4 or 8), its weight-only quantized DiT; with
+        `expected_sha256` (relative path -> digest), its files verified
+        first."""
         from f5_tts_tpu_torch.models.convert import load_f5tts_pretrained
 
-        return load_f5tts_pretrained(local_dir, device, quantization_bits)
+        return load_f5tts_pretrained(local_dir, device, quantization_bits, expected_sha256)
 
     def save_pretrained(self, path: str | Path, quantization_bits: int | None = None) -> None:
         """Write a snapshot directory in the published layouts: the float DiT
@@ -400,19 +385,27 @@ class F5TTS:
         return list_str_to_tensor(text)
 
     def _inference_dit(self) -> DiT:
-        """The DiT in its compute dtype. For bf16 a cast copy is kept (every
-        float tensor cast, a quantized linear's scales and biases included;
-        int8 codes stay), rebuilt when any parameter or buffer is replaced or
-        modified in place. LayerNorm and GRN statistics, the timestep
-        sinusoid, the DiT output and the ODE state stay float32 all the
-        same. Raises for `int8_compute` (`refuse_int8_compute`)."""
-        refuse_int8_compute(self.dit_cfg, any(isinstance(m, QuantizedLinear) for m in self.dit.modules()))
+        """The DiT the sampler runs. In float32 without `int8_compute`, the
+        master DiT. Otherwise a copy is kept: cast to the compute dtype
+        (every float tensor, a quantized linear's scales and biases included;
+        int8 codes stay), then, with `dit_cfg.int8_compute`, its blocks'
+        attention and feed-forward linears re-quantized to W8A8
+        (`w8a8_blocks_`, which raises ValueError for a weight-only quantized
+        DiT), in that order, as the JAX package casts before it quantizes.
+        The copy is rebuilt when the flag changes or any parameter or buffer
+        is replaced or modified in place. LayerNorm and GRN statistics, the
+        timestep sinusoid, the DiT output and the ODE state stay float32 all
+        the same."""
         dtype = self.dit.compute_dtype
-        if dtype == torch.float32:
+        int8 = self.dit_cfg.int8_compute
+        if dtype == torch.float32 and not int8:
             return self.dit
-        key = tuple((t.data_ptr(), t._version) for t in itertools.chain(self.dit.parameters(), self.dit.buffers()))
+        key = (int8, tuple((t.data_ptr(), t._version)
+                           for t in itertools.chain(self.dit.parameters(), self.dit.buffers())))
         if self._cast_cache is None or self._cast_cache[0] != key:
-            self._cast_cache = (key, copy.deepcopy(self.dit).to(dtype))
+            self._cast_cache = None  # drop the old copy before the new one is made
+            dit = copy.deepcopy(self.dit).to(dtype)
+            self._cast_cache = (key, w8a8_blocks_(dit) if int8 else dit)
         return self._cast_cache[1]
 
     # -- training loss -----------------------------------------------------

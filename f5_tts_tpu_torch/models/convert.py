@@ -322,22 +322,26 @@ def params_from_jax(np_tree: dict, cfg: DiTConfig | VocosConfig | DurationConfig
 
 
 def load_f5tts_pretrained(
-    local_dir: str | Path, device: torch.device | str = "cuda", quantization_bits: int | None = None
+    local_dir: str | Path, device: torch.device | str = "cuda", quantization_bits: int | None = None,
+    expected_sha256: dict[str, str] | None = None,
 ):
     """Build a ready-to-sample F5TTS from a snapshot directory written by
     either package's `save_pretrained` (or the published artifacts with a
-    `vocos/` subdirectory): vocab, `config.json` when present, the DiT
-    weights (model_v1.safetensors, or model_v1_{b}b.safetensors with
-    `quantization_bits=b`), the duration predictor when the snapshot has
-    duration_v2.safetensors, and the vocoder. Raises NotImplementedError
-    for a config with `int8_compute` (W8A8), which is not ported yet."""
-    from f5_tts_tpu_torch.models.cfm import F5TTS, refuse_int8_compute
+    `vocos/` subdirectory): its files first verified against
+    `expected_sha256` (utils/hub.py `fetch_from_hub`), then vocab,
+    `config.json` when present, the DiT weights (model_v1.safetensors, or
+    model_v1_{b}b.safetensors with `quantization_bits=b`), the duration
+    predictor when the snapshot has duration_v2.safetensors, and the vocoder
+    (`load_vocos_pretrained` on `vocos/`). A config with `int8_compute`
+    samples W8A8; with `quantization_bits` too, sampling raises ValueError,
+    as the JAX package does."""
+    from f5_tts_tpu_torch.models.cfm import F5TTS
     from f5_tts_tpu_torch.models.dit import DiT
     from f5_tts_tpu_torch.models.duration import DurationPredictor
     from f5_tts_tpu_torch.models.quant import quantize_module_
-    from f5_tts_tpu_torch.models.vocos import Vocos
+    from f5_tts_tpu_torch.utils.hub import fetch_from_hub
 
-    path = Path(local_dir)
+    path = fetch_from_hub(local_dir, quantization_bits, expected_sha256)
     vocab_path = path / "vocab.txt"
     vocab = load_vocab(vocab_path) if vocab_path.exists() else None
 
@@ -351,7 +355,6 @@ def load_f5tts_pretrained(
         dit_cfg = F5TTS_V1_BASE.replace(text_num_embeds=len(vocab) - 1)
     else:
         dit_cfg = F5TTS_V1_BASE
-    refuse_int8_compute(dit_cfg, weight_only_quantized=quantization_bits is not None)
     with torch.device(device):
         dit = DiT(dit_cfg)
     model_file = "model_v1.safetensors" if quantization_bits is None else f"model_v1_{quantization_bits}b.safetensors"
@@ -375,10 +378,8 @@ def load_f5tts_pretrained(
     vocos_dir = path / "vocos"
     if not vocos_dir.exists():
         raise FileNotFoundError(f"{path} has no vocos/ subdirectory with the vocoder weights")
-    vocos_cfg = VocosConfig(**cfg_blob["vocos"]) if "vocos" in cfg_blob else VocosConfig()
-    with torch.device(device):
-        vocos = Vocos(vocos_cfg)
-    vocos.load_state_dict(convert_vocos_state(load_file(vocos_dir / "model.safetensors"), vocos_cfg))
+    vocos_cfg = VocosConfig(**cfg_blob["vocos"]) if "vocos" in cfg_blob else None
+    vocos = load_vocos_pretrained(vocos_dir, vocos_cfg, device)
 
     cfm_blob = dict(cfg_blob.get("cfm", {}))
     if "frac_lengths_mask" in cfm_blob:  # JSON stores the tuple as a list
@@ -388,3 +389,31 @@ def load_f5tts_pretrained(
         vocab_char_map=vocab, vocoder=vocos, duration_predictor=duration_predictor,
     )
 
+
+# the vocoder's checkpoint names, in the order the JAX loader tries them
+VOCOS_FILES = ("model.safetensors", "pytorch_model.bin", "weights.safetensors")
+
+
+def load_vocos_pretrained(local_dir: str | Path, cfg: VocosConfig | None = None,
+                          device: torch.device | str = "cuda"):
+    """The Vocos vocoder from a local directory: the first of `VOCOS_FILES`
+    it holds (safetensors by the port's reader, `pytorch_model.bin` by
+    `torch.load(weights_only=True)`), in torch or MLX naming and layout.
+    Raises FileNotFoundError when it holds none."""
+    from f5_tts_tpu_torch.models.vocos import Vocos
+
+    local = Path(local_dir)
+    cfg = cfg or VocosConfig()
+    for name in VOCOS_FILES:
+        ckpt = local / name
+        if not ckpt.exists():
+            continue
+        if ckpt.suffix == ".safetensors":
+            flat = load_file(ckpt)
+        else:
+            flat = {k: v.numpy() for k, v in torch.load(ckpt, map_location="cpu", weights_only=True).items()}
+        with torch.device(device):
+            vocos = Vocos(cfg)
+        vocos.load_state_dict(convert_vocos_state(flat, cfg))
+        return vocos
+    raise FileNotFoundError(f"no vocos checkpoint ({', '.join(VOCOS_FILES)}) found under {local}")

@@ -1,5 +1,6 @@
-"""Weight-only int4/int8 quantization, MLX-compatible with group size 64
-(the port of the JAX package's `models/quant.py`).
+"""Weight-only int4/int8 quantization, MLX-compatible with group size 64,
+and the W8A8 int8-compute linears (the port of the JAX package's
+`models/quant.py`).
 
 The published 4- and 8-bit snapshots (`model_v1_{4,8}b.safetensors`) hold,
 for every linear whose input width is a multiple of 64, the codes packed
@@ -16,6 +17,14 @@ A `QuantizedLinear` keeps PyTorch's [out, in] layout: codes q int8
 [out, in], centred by -2^(bits-1) with the offset folded into `biases`
 (= group min + 2^(bits-1) * scales), and scales and biases [out, in / 64].
 Int4 codes take one byte each, as in the JAX package.
+
+W8A8 (`DiTConfig.int8_compute`) is the other, orthogonal path: the DiT
+blocks' attention projections and feed-forward linears (`W8A8_TARGETS`)
+hold int8 weights with one float32 scale per output feature
+(`w8a8_from_weight`) and quantize their activations per token at run time
+(`W8A8Linear`, whose forward is ops/w8a8.py `w8a8_linear`).
+`w8a8_blocks_` swaps them in place on the sampler's copy of the DiT and
+refuses a weight-only quantized one.
 """
 
 from __future__ import annotations
@@ -25,10 +34,12 @@ import torch
 from torch import nn
 
 from f5_tts_tpu_torch.ops.qmatmul import GROUP_SIZE, dequantize_kernel, qmatmul
+from f5_tts_tpu_torch.ops.w8a8 import quantize_rows_plain, w8a8_linear
 
 __all__ = [
-    "GROUP_SIZE", "QuantizedLinear", "dequantize_kernel", "pack_mlx_uint32", "quantizable",
-    "quantize_flat_mlx", "quantize_kernel", "quantize_module_", "unpack_mlx_uint32",
+    "GROUP_SIZE", "QuantizedLinear", "W8A8Linear", "W8A8_TARGETS", "dequantize_kernel", "pack_mlx_uint32",
+    "quantizable", "quantize_flat_mlx", "quantize_kernel", "quantize_module_", "unpack_mlx_uint32",
+    "w8a8_blocks_", "w8a8_from_weight",
 ]
 
 
@@ -149,3 +160,69 @@ def quantize_module_(module: nn.Module, bits: int | None) -> nn.Module:
                     new = QuantizedLinear.from_linear(child, bits)
                 setattr(parent, name, new)
     return module
+
+
+# ------------------------------------------------- int8-compute (W8A8) path
+
+
+def w8a8_from_weight(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[out, in] float weight -> (w8 int8 [out, in], w8_scale float32 [out]):
+    a symmetric absmax per output feature, the JAX package's
+    `w8a8_from_kernel` in PyTorch's layout. It is the activations'
+    per-row quantization applied to the weight's rows, on the weight's
+    device."""
+    return quantize_rows_plain(weight.detach())
+
+
+class W8A8Linear(nn.Module):
+    """A linear with int8 weights and int8 activations: buffers `w8` int8
+    [out, in] (the layout torch._int_mm takes, as its transpose, without a
+    copy), `w8_scale` float32 [out] and the float `bias` [out] when the
+    linear has one. The forward is `w8a8_linear`."""
+
+    def __init__(self, w8: torch.Tensor, w8_scale: torch.Tensor, bias: torch.Tensor | None = None):
+        super().__init__()
+        self.out_features, self.in_features = w8.shape
+        self.register_buffer("w8", w8)
+        self.register_buffer("w8_scale", w8_scale)
+        self.register_buffer("bias", bias)
+
+    @classmethod
+    def from_linear(cls, lin: nn.Linear) -> "W8A8Linear":
+        """Quantize a float linear's weight (in whatever dtype it holds) as
+        `w8a8_from_weight` does; the bias keeps its dtype."""
+        return cls(*w8a8_from_weight(lin.weight), None if lin.bias is None else lin.bias.detach().clone())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return w8a8_linear(x, self.w8, self.w8_scale, self.bias)
+
+    def extra_repr(self) -> str:
+        return f"in_features={self.in_features}, out_features={self.out_features}, bias={self.bias is not None}"
+
+
+# the JAX package's _W8A8_TARGETS (attention to_q, to_k, to_v, to_out; FF w1, w2) by the port's module names
+W8A8_TARGETS = ("attn.to_q", "attn.to_k", "attn.to_v", "attn.to_out.0", "ff.ff.0.0", "ff.ff.2")
+
+
+def w8a8_blocks_(dit: nn.Module) -> nn.Module:
+    """Swap the hot linears of every DiT block (`W8A8_TARGETS`) for
+    `W8A8Linear`s, in place, and return `dit`. Everything outside the
+    blocks' attention and feed-forward (AdaLN modulations, embeddings,
+    proj_out) stays float, as in the JAX package. A weight-only quantized
+    target raises ValueError: re-quantizing group-quantized weights per
+    channel would compound two quantization errors."""
+    for i, block in enumerate(dit.transformer_blocks):
+        for target in W8A8_TARGETS:
+            owner_name, _, name = target.rpartition(".")
+            owner = block.get_submodule(owner_name)
+            child = getattr(owner, name)
+            if isinstance(child, QuantizedLinear):
+                raise ValueError(
+                    "int8_compute (W8A8) requires float kernels, but "
+                    f"transformer_blocks.{i}.{target} is weight-only quantized "
+                    "({q, scales, biases}). The --q snapshots and --w8a8 are "
+                    "separate paths: load the float snapshot for int8 compute."
+                )
+            if isinstance(child, nn.Linear):
+                setattr(owner, name, W8A8Linear.from_linear(child))
+    return dit

@@ -6,6 +6,8 @@ published checkpoint.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
 from torch import nn
 
@@ -70,6 +72,16 @@ class Vocos(nn.Module):
             vocos = cls(cfg)
         init_parameters_(vocos, generator)
         return vocos
+
+    @classmethod
+    def from_pretrained(cls, local_dir: str | Path, cfg: VocosConfig | None = None,
+                        device: torch.device | str = "cuda") -> "Vocos":
+        """Load a local vocoder directory (models/convert.py
+        `load_vocos_pretrained`: model.safetensors, pytorch_model.bin or
+        weights.safetensors, tried in that order)."""
+        from f5_tts_tpu_torch.models.convert import load_vocos_pretrained
+
+        return load_vocos_pretrained(local_dir, cfg, device)
 
     def decode(self, mel: torch.Tensor, valid_frames: int | None = None) -> torch.Tensor:
         """mel [b, n, n_mels] -> waveform [b, (n - 1) * hop_length].

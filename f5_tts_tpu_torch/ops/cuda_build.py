@@ -31,6 +31,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH to build the CUDA kernels")
 
 
+def import_triton():
+    """Import Triton with its kernel cache under BUILD_DIR/triton (beside the
+    package, git-ignored) unless TRITON_CACHE_DIR is set. Call it only where
+    a kernel launches: Triton exists on the card's machine only."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+    import triton
+
+    return triton
+
+
 def library_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):

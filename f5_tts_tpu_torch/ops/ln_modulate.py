@@ -22,11 +22,10 @@ run `ln_modulate_plain`; CUDA tensors launch the kernel, counted by
 from __future__ import annotations
 
 import functools
-import os
 
 import torch
 
-from f5_tts_tpu_torch.ops.cuda_build import BUILD_DIR
+from f5_tts_tpu_torch.ops.cuda_build import import_triton
 
 EPS = 1e-6
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -45,8 +44,7 @@ def ln_modulate_plain(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
+    triton = import_triton()
     import triton.language as tl
 
     @triton.jit

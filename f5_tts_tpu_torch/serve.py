@@ -27,8 +27,10 @@ API:
         (so compatible ones still batch), and each sentence's PCM streams
         out the moment it is ready.
 
-Not ported: the JAX server's XLA:CPU memory-map guard (no counterpart in
-PyTorch) and its compilation cache; `--w8a8` and `--mesh-*` above 1 raise
+`--w8a8` serves with W8A8 int8 compute (int8 weights and per-token int8
+activations in the DiT blocks); `--q` with `--w8a8` is refused. Not
+ported: the JAX server's XLA:CPU memory-map guard (no counterpart in
+PyTorch) and its compilation cache; `--mesh-*` above 1 raise
 NotImplementedError.
 """
 
@@ -928,7 +930,7 @@ def main(argv=None):
     ap.add_argument("--request-timeout", type=float, default=300.0,
                     help="seconds before a queued request expires (504)")
     ap.add_argument("--w8a8", action="store_true", default=False,
-                    help="int8-compute inference (not ported yet: raises)")
+                    help="int8-compute (W8A8) inference: int8 weights and activations in the DiT blocks")
     ap.add_argument("--mesh-data", type=int, default=1,
                     help="shard micro-batch groups over N cards (not ported yet: above 1 raises)")
     ap.add_argument("--mesh-model", type=int, default=1,
@@ -948,7 +950,7 @@ def main(argv=None):
                  "activations against FLOAT kernels (load the float snapshot)")
     refuse_unported(args.w8a8, args.q, max(args.mesh_data, args.mesh_model) > 1)
 
-    model = load_model(args.model, args.q, args.device)
+    model = load_model(args.model, args.q, args.device, args.w8a8)
     httpd = serve(model, args.host, args.port, args.max_batch, args.max_wait_ms,
                   max_queue=args.max_queue, request_timeout_s=args.request_timeout,
                   allow_resample=args.resample_ref)

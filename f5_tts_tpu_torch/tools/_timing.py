@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+HOLD_CYCLES = 50_000_000  # the spin kernel before a device-timed run: about 25 ms at the H100's 1.98 GHz
+
 
 def cuda_device(device: torch.device | str) -> torch.device:
     """The probes time on a CUDA device only; anything else raises."""
@@ -29,3 +31,19 @@ def best_ms(run, reps: int) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def device_ms(run, iters: int = 50) -> float:
+    """The mean device time of one `run()` over `iters` back-to-back calls
+    enqueued behind a spin kernel (so the host's enqueue is left out),
+    after a warm-up call."""
+    run()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters

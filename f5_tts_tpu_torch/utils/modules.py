@@ -37,9 +37,10 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
 
 
 def apply_linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Apply a float `nn.Linear` (weight cast to x's dtype) or a weight-only
+    """Apply a float `nn.Linear` (weight cast to x's dtype), a weight-only
     quantized linear (models/quant.py `QuantizedLinear`, whose forward runs
-    the dequantizing matmul)."""
+    the dequantizing matmul) or a W8A8 one (`W8A8Linear`, whose forward
+    quantizes x per token and runs the int8 product)."""
     if isinstance(layer, nn.Linear):
         return linear(x, layer.weight, layer.bias)
     return layer(x)

@@ -6,7 +6,8 @@ the same), the
 dequantizing matmul (its float32 kernel in 3xTF32 too), and the probe
 tools' kernels (the attention variants P1-P4, with the RoPE pre-pass of P3
 and P4 held exactly or within an ulp, and the Triton LayerNorm + modulate
-P5).
+P5), and the W8A8 linear's Triton kernels (`quantize_rows`,
+`rescale_bias`) bit for bit against their plain versions.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -40,6 +41,7 @@ from f5_tts_tpu_torch.ops.flash_attention import (
 from f5_tts_tpu_torch.ops import attn_variants as av
 from f5_tts_tpu_torch.ops.ln_modulate import ln_modulate, ln_modulate_plain
 from f5_tts_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+from f5_tts_tpu_torch.ops import w8a8 as w8
 
 TOL = 2e-2
 TOL_F32 = 1e-4
@@ -831,15 +833,34 @@ def test_qmatmul_unaligned_x_is_copied(gen):
 # ------------------------------------------------------------ K1 bf16 on the TMA + wgmma core
 
 
-def _cuda_kernel_names(fn):
-    """The names of the CUDA kernels `fn` launches, by torch.profiler."""
+def _cuda_kernel_names(fn, windows: int = 5):
+    """The CUDA kernels `fn` launches, name -> launches, by torch.profiler.
+    The profiler drops the event of the first kernel of a window (on the
+    H100 the first of `fn`'s three W8A8 kernels was missing from 5 of 5
+    windows and the last two never were), so each window first launches
+    and waits for a marker (torch's spin kernel, left out of the result);
+    and `fn` runs once in each of `windows` windows, each name keeping the
+    most launches one window saw: a window cannot invent a launch, and a
+    drop in one does not hide one."""
+    from collections import Counter
+
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    seen = Counter()
+    for _ in range(windows):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        seen |= Counter(e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name)
+    return seen
+
+
+def _launched(names, part: str) -> int:
+    return sum(n for name, n in names.items() if part in name)
 
 
 def _projection_views(gen, b, h, n, d, count=3):
@@ -887,10 +908,12 @@ def test_k1_launches_the_core_and_not_the_old_kernel(gen, case):
     q, k, v = _qkv(gen, b, h, n, d)
     mask = _valid_mask(b, n, 250) if "mask" in case else None
     rope = _rope(n, d) if "rope" in case else None
+    before = flash_attention.launches
     names = _cuda_kernel_names(lambda: flash_attention(q, k, v, d ** -0.5, key_mask=mask, rope=rope))
-    core = sum("attn_core_fwd_kernel" in x for x in names)
-    prepass = sum("flash_fwd_prepass_kernel" in x for x in names)
-    old = sum("flash_fwd_kernel" in x for x in names)
+    assert flash_attention.launches == before + 5  # one count a call, in each of the five windows
+    core = _launched(names, "attn_core_fwd_kernel")
+    prepass = _launched(names, "flash_fwd_prepass_kernel")
+    old = _launched(names, "flash_fwd_kernel")
     if d == 256:
         assert (core, prepass, old) == (0, 0, 1), names
     else:
@@ -1048,3 +1071,110 @@ def test_core_variants_keep_their_bits(gen, key):
     rope = () if name == "attn_pack2" else (*rope_tables(n, d, "cuda"), torch.tensor(perm_matrix(d), device="cuda"))
     out = getattr(av, name)(q, k, v, *rope, d ** -0.5)
     assert hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest() == CORE_HASHES[key]
+
+
+# ------------------------------------------------------------ W8A8: quantize_rows, torch._int_mm, rescale_bias
+
+# (m, k, n): the DiT's three shapes at the main path's 2 x 1024 frames, a ragged m, m <= 16 (padded to 32 rows
+# for torch._int_mm), m = 17 (the least it takes unpadded) and one row
+W8A8_SHAPES = [(2048, 1024, 1024), (2048, 1024, 2048), (2048, 2048, 1024), (1000, 1024, 1024), (5, 1024, 1024),
+               (16, 64, 24), (17, 64, 24), (1, 256, 2048)]
+
+
+def _w8a8_operands(gen, m, k, n, dtype):
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    # a row whose absmax is 127 puts codes exactly on .5: half to even, as the plain version rounds
+    x[0, :6] = torch.tensor([127.0, 0.5, 1.5, -2.5, 63.5, -127.0], device="cuda").to(dtype)
+    w8_, scale = w8.quantize_rows_plain(torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5)
+    bias = (0.1 * torch.randn(n, generator=gen, device="cuda")).to(dtype)
+    return x, w8_, scale, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", W8A8_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_w8a8_kernels_match_plain_bit_for_bit(gen, shape, dtype):
+    """quantize_rows (codes, sx, zero padding rows), rescale_bias (with and
+    without a bias) and the whole W8A8 linear equal their plain versions to
+    the bit; one count a kernel launch."""
+    m, k, n = shape
+    x, w8_, scale, bias = _w8a8_operands(gen, m, k, n, dtype)
+    rows = max(m, 32)
+    before = (w8.quantize_rows.launches, w8.rescale_bias.launches, w8.w8a8_linear.launches)
+    codes, sx = w8.quantize_rows(x, rows)
+    ref_codes, ref_sx = w8.quantize_rows_plain(x)
+    assert torch.equal(codes[:m], ref_codes) and torch.equal(sx[:m], ref_sx) and not codes[m:].any()
+    acc = w8.int8_product_plain(ref_codes, w8_)
+    for b in (bias, None):
+        assert torch.equal(w8.rescale_bias(acc, ref_sx, scale, b, dtype), w8.rescale_bias_plain(acc, ref_sx, scale, b, dtype))
+        out = w8.w8a8_linear(x, w8_, scale, b)
+        assert out.dtype == dtype and torch.equal(out, w8.w8a8_linear_plain(x, w8_, scale, b))
+    assert (w8.quantize_rows.launches, w8.rescale_bias.launches, w8.w8a8_linear.launches) == \
+        (before[0] + 3, before[1] + 4, before[2] + 2)
+
+
+@pytest.mark.cuda
+def test_w8a8_linear_launches_three_kernels_and_copies_nothing(gen):
+    """One W8A8 linear at the DiT's shape is quantize_rows, one int8 GEMM on
+    w8 as stored (no copy or transpose kernel) and rescale_bias; a
+    [b, n, k] input keeps its leading shape."""
+    x, w8_, scale, bias = _w8a8_operands(gen, 2048, 1024, 1024, torch.bfloat16)
+    names = _cuda_kernel_names(lambda: w8.w8a8_linear(x.view(2, 1024, 1024), w8_, scale, bias))
+    assert sum(names.values()) == 3, names
+    assert _launched(names, "quantize_rows_kernel") == 1 and _launched(names, "rescale_bias_kernel") == 1, names
+    assert w8.w8a8_linear(x.view(2, 1024, 1024), w8_, scale, bias).shape == (2, 1024, 1024)
+
+
+@pytest.mark.cuda
+def test_w8a8_refuses_what_it_does_not_take(gen):
+    x, w8_, scale, bias = _w8a8_operands(gen, 64, 64, 24, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        w8.w8a8_linear(x[:, :60], w8_[:, :60].contiguous(), scale, bias)
+    with pytest.raises(ValueError, match="bfloat16"):
+        w8.w8a8_linear(x.half(), w8_, scale, bias)
+    with pytest.raises(ValueError, match="is on cpu"):
+        w8.w8a8_linear(x, w8_.cpu(), scale, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_w8a8_linear_module_on_the_card(gen, dtype):
+    """`W8A8Linear.from_linear` of a linear held in the compute dtype, on
+    the card, equals its CPU twin (the plain version) to the bit."""
+    from torch import nn
+
+    from f5_tts_tpu_torch.models.quant import W8A8Linear
+
+    lin = nn.Linear(1024, 2048, device="cuda").to(dtype)
+    x = torch.randn(2, 300, 1024, generator=gen, device="cuda").to(dtype)
+    mod = W8A8Linear.from_linear(lin)
+    cpu = W8A8Linear.from_linear(lin.cpu())
+    for name in ("w8", "w8_scale", "bias"):
+        assert torch.equal(getattr(mod, name).cpu(), getattr(cpu, name))
+    assert torch.equal(mod(x).cpu(), cpu(x.cpu()))
+
+
+@pytest.mark.cuda
+def test_w8a8_dit_forward_launch_counts(gen):
+    """One flow evaluation of a W8A8 DiT 22 blocks deep (the base depth, at
+    width 256): 132 launches of each W8A8 kernel (6 linears a block), 22 of
+    K1 and none of K3."""
+    from f5_tts_tpu_torch.config import F5TTS_V1_BASE
+    from f5_tts_tpu_torch.models.cfm import F5TTS
+
+    cfg = F5TTS_V1_BASE.replace(dim=256, heads=4, text_dim=128, text_num_embeds=95, compute_dtype="bfloat16",
+                                int8_compute=True)
+    model = F5TTS.init(gen, cfg, device="cuda")
+    dit = model._inference_dit()
+    b, n = 2, 300
+    x, cond = (torch.randn(b, n, 100, generator=gen, device="cuda") for _ in range(2))
+    text = torch.randint(0, 95, (b, 40), generator=gen, device="cuda")
+    with torch.no_grad():
+        te = dit.embed_text(text, n)
+        mods = {k: v[0] for k, v in dit.time_mods(torch.tensor([0.4], device="cuda")).items()}
+        counters = (w8.quantize_rows, w8.rescale_bias, w8.w8a8_linear, flash_attention, qmatmul)
+        before = [f.launches for f in counters]
+        out = dit(x, cond, te, mods, mask=torch.ones(b, n, dtype=torch.bool, device="cuda"))
+        torch.cuda.synchronize()
+    assert [f.launches - n0 for f, n0 in zip(counters, before)] == [132, 132, 132, 22, 0]
+    assert out.shape == (b, n, 100) and torch.isfinite(out).all()

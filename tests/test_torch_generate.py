@@ -28,6 +28,7 @@ from f5_tts_tpu_torch import generate as tgen
 from f5_tts_tpu_torch.audio.io import read_wav, write_wav
 from f5_tts_tpu_torch.audio.resample import _resample_fft, resample
 from f5_tts_tpu_torch.models.cfm import F5TTS
+from f5_tts_tpu_torch.models.quant import W8A8Linear
 
 DIT = dict(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=100,
            text_num_embeds=256, text_dim=32, conv_layers=1)
@@ -153,11 +154,23 @@ def test_generate_single_sentence(model, ref_path, tmp_path):
     assert sr == 24_000 and got.shape == wave.shape
 
 
-def test_refusals(model):
+def test_refusals(model, ref_path, monkeypatch):
     with pytest.raises(ValueError, match="cannot be combined"):
         tgen.generate("hi", duration=1.0, quantization_bits=8, int8_compute=True)
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        tgen.generate("hi", duration=1.0, int8_compute=True, model=model, play=False)
+    # int8_compute samples W8A8: the model that samples has the flag and its DiT runs W8A8 linears
+    seen = []
+    real = F5TTS.sample
+
+    def sample(self, *args, **kw):
+        seen.append((self.dit_cfg.int8_compute, type(self._inference_dit().transformer_blocks[0].attn.to_q)))
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(F5TTS, "sample", sample)
+    wave = tgen.generate("hi", duration=1.0, int8_compute=True, model=model, play=False, ref_audio_path=ref_path,
+                         ref_audio_text="a tone", steps=2, method="euler", seed=0)
+    assert np.isfinite(wave).all() and wave.shape == ((93 - 1) * 256 - 12_000,)
+    assert seen == [(True, W8A8Linear)]
+    assert not model.dit_cfg.int8_compute
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         tgen.generate("hi", duration=1.0, mesh=object(), model=model, play=False)
     with pytest.raises(ValueError, match="not ported"):
@@ -165,12 +178,32 @@ def test_refusals(model):
 
 
 @pytest.mark.parametrize("argv, error", [
-    (["--w8a8"], NotImplementedError), (["--mesh-data", "2"], NotImplementedError),
+    (["--mesh-data", "2"], NotImplementedError),
     (["--mesh-model", "2"], NotImplementedError), (["--q", "8", "--w8a8"], ValueError),
-    (["--model", "no/such/dir"], ValueError)])
+    (["--model", "no/such/dir"], ValueError), (["--model", "no/such/dir", "--w8a8"], ValueError)])
 def test_cli_refusals(argv, error):
     with pytest.raises(error):
         tgen.main(argv + ["--text", "hi", "--device", "cpu"])
+
+
+def test_cli_w8a8_samples_int8_compute(snapshot, ref_path, tmp_path, monkeypatch):
+    """--w8a8 loads the float snapshot and samples with int8_compute: its
+    DiT blocks run W8A8 linears."""
+    flags = []
+    real = F5TTS.sample
+
+    def sample(self, *args, **kw):
+        flags.append(self.dit_cfg.int8_compute and all(
+            isinstance(blk.ff.ff[2], W8A8Linear) for blk in self._inference_dit().transformer_blocks))
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(F5TTS, "sample", sample)
+    out = tmp_path / "w8a8.wav"
+    tgen.main(["--model", snapshot, "--text", "Hello there.", "--ref-audio", ref_path, "--ref-text", "a tone",
+               "--output", str(out), "--steps", "2", "--method", "euler", "--seed", "0", "--device", "cpu",
+               "--duration", "1.5", "--w8a8"])
+    got, sr = read_wav(out)
+    assert flags == [True] and sr == 24_000 and got.ndim == 1 and got.shape[0] > 0 and np.isfinite(got).all()
 
 
 def test_cli_writes_the_batched_wave(snapshot, ref_path, tmp_path):
@@ -184,9 +217,8 @@ def test_cli_writes_the_batched_wave(snapshot, ref_path, tmp_path):
 def test_generate_does_not_mutate_caller_model(model, ref_path):
     before = {k: v.clone() for k, v in model.dit.state_dict().items()}
     attrs = (model.dit_cfg, model.cfm_cfg, model.audio_cfg, model.vocoder, model.duration_predictor, model.device)
-    with pytest.raises(NotImplementedError):
-        tgen.generate("Hello world", duration=1.5, ref_audio_path=ref_path, ref_audio_text="a tone", model=model,
-                      play=False, int8_compute=True)
+    tgen.generate("Hello world", duration=1.5, ref_audio_path=ref_path, ref_audio_text="a tone", model=model,
+                  play=False, int8_compute=True, steps=2, method="euler", seed=0)
     tgen.generate("Hello world. Again!", ref_audio_path=ref_path, ref_audio_text="a tone", steps=2,
                   method="euler", seed=0, model=model, play=False, estimate_duration=True)
     assert (model.dit_cfg, model.cfm_cfg, model.audio_cfg, model.vocoder, model.duration_predictor,

@@ -1,18 +1,19 @@
 """`DiTConfig.int8_compute` in the PyTorch port, on the CPU.
 
-The JAX package samples W8A8 (int8 weights and activations) on a config with
-`int8_compute=True`, and refuses a weight-only quantized tree for it. The
-port has no W8A8 yet, so it refuses such a config when it loads a snapshot
-and when it samples, instead of sampling in the compute dtype with weights
-the config did not ask for. A snapshot without the flag loads and samples
-as before. The model is tiny (dim 64, text_dim 64, so its linears are
-quantizable); the snapshots are written by the JAX package's
-`save_pretrained`.
+Both packages sample W8A8 (int8 weights and activations) on a config with
+`int8_compute=True`, and refuse a weight-only quantized DiT for it with
+ValueError when they sample. A JAX snapshot whose config carries the flag
+loads in the port and samples the JAX package's W8A8 wave (same `y0`,
+within 1e-3 as the float pipeline's parity test); a snapshot without the
+flag loads and samples as before. The model is tiny (dim 64, text_dim 64,
+so its linears are quantizable); the snapshots are written by the JAX
+package's `save_pretrained`.
 """
 
 import json
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,7 +25,7 @@ from f5_tts_tpu.models.cfm import F5TTS as JaxF5TTS
 from f5_tts_tpu.models.vocos import Vocos as JaxVocos
 from f5_tts_tpu_torch.config import CFMConfig, DiTConfig, VocosConfig
 from f5_tts_tpu_torch.models.cfm import F5TTS
-from f5_tts_tpu_torch.models.quant import quantize_module_
+from f5_tts_tpu_torch.models.quant import W8A8Linear, quantize_module_
 from f5_tts_tpu_torch.models.vocos import Vocos
 
 TINY = dict(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=100,
@@ -47,31 +48,52 @@ def _jax_snapshot(root, int8_compute: bool, bits):
     return root
 
 
+def _jax_w8a8_wave(snap, y0):
+    model = JaxF5TTS.from_pretrained(str(snap))
+    assert model.dit_cfg.int8_compute
+    wave, _ = model.sample(jnp.asarray(WAVE)[None], ["hello"], duration=64, steps=2, method="euler",
+                           y0=jnp.asarray(y0))
+    return np.asarray(wave)
+
+
 @pytest.mark.parametrize("bits", [None, 4], ids=["float", "int4"])
-def test_snapshot_with_int8_compute_is_refused(tmp_path, bits):
-    """A JAX-written snapshot whose config asks for W8A8: the port's loader
-    raises and names W8A8; for a weight-only quantized load it also says
-    why the two do not mix, as the JAX package does."""
+def test_snapshot_with_int8_compute_samples_w8a8(tmp_path, bits):
+    """A JAX-written snapshot whose config asks for W8A8 loads in the port.
+    The float one samples through W8A8 linears, as the JAX package does;
+    the weight-only quantized one raises ValueError when it samples, as
+    the JAX package's `w8a8_blocks` does."""
     snap = _jax_snapshot(tmp_path, True, bits)
-    with pytest.raises(NotImplementedError, match="W8A8") as err:
-        F5TTS.from_pretrained(snap, device="cpu", quantization_bits=bits)
-    assert "not ported" in str(err.value)
-    assert ("weight-only quantized" in str(err.value)) is (bits is not None)
+    model = F5TTS.from_pretrained(snap, device="cpu", quantization_bits=bits)
+    assert model.dit_cfg.int8_compute
+    y0 = np.random.default_rng(3).standard_normal((1, 64, 100)).astype(np.float32)
+    if bits is not None:
+        with pytest.raises(ValueError, match="weight-only quantized"):
+            model.sample(WAVE[None], ["hello"], duration=64, steps=2, method="euler", y0=y0)
+        return
+    wave, _ = model.sample(WAVE[None], ["hello"], duration=64, steps=2, method="euler", y0=y0)
+    assert all(isinstance(blk.attn.to_v, W8A8Linear) for blk in model._inference_dit().transformer_blocks)
+    np.testing.assert_allclose(wave.numpy(), _jax_w8a8_wave(snap, y0), atol=1e-3, rtol=0)
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["float", "int4"])
-def test_sample_refuses_int8_compute(quantized):
-    """A model built in memory with int8_compute=True raises in sample
-    rather than sampling without W8A8."""
+def test_sample_with_int8_compute(quantized):
+    """A model built in memory with int8_compute=True samples W8A8 (its
+    output differs from the same model's without the flag); on a
+    weight-only quantized DiT it raises ValueError."""
     g = torch.Generator().manual_seed(0)
     model = F5TTS.init(g, DiTConfig(**TINY, int8_compute=True), device="cpu",
                        cfm_cfg=CFMConfig(duration_bucket=64), vocab_char_map=VOCAB,
                        vocoder=Vocos.init(g, VocosConfig(**VOCOS), device="cpu"))
     if quantized:
         quantize_module_(model.dit, 4)
-    with pytest.raises(NotImplementedError, match="W8A8") as err:
-        model.sample(WAVE[None], ["hello"], duration=64, steps=2, method="euler", seed=0)
-    assert ("weight-only quantized" in str(err.value)) is quantized
+        with pytest.raises(ValueError, match="weight-only quantized"):
+            model.sample(WAVE[None], ["hello"], duration=64, steps=2, method="euler", seed=0)
+        return
+    w8a8, _ = model.sample(WAVE[None], ["hello"], duration=64, steps=2, method="euler", seed=0)
+    model.dit_cfg = model.dit_cfg.replace(int8_compute=False)
+    plain, _ = model.sample(WAVE[None], ["hello"], duration=64, steps=2, method="euler", seed=0)
+    assert torch.isfinite(w8a8).all() and w8a8.shape == plain.shape
+    assert not torch.equal(w8a8, plain)
 
 
 @pytest.mark.parametrize("bits", [None, 4], ids=["float", "int4"])

@@ -209,7 +209,8 @@ def test_sample_errors_and_seeded_noise(models):
 
 
 @pytest.mark.parametrize("entry", ["F5TTS.init", "F5TTS.from_pretrained", "load_f5tts_pretrained",
-                                   "DurationPredictor.init", "Vocos.init"])
+                                   "DurationPredictor.init", "Vocos.init", "Vocos.from_pretrained",
+                                   "load_vocos_pretrained"])
 def test_entry_points_default_to_the_card(entry):
     """The port's entry points run on the card unless the caller asks for the
     CPU, as these tests do."""

@@ -262,10 +262,12 @@ def test_probe_layer_matches_jax(tools, layer, variant):
     _close(got, ref, "f32")
 
 
-@pytest.mark.parametrize("entry", ["attn_variants", "fusion_probe"])
+@pytest.mark.parametrize("entry", ["attn_variants", "fusion_probe", "int8_probe"])
 def test_tools_time_on_the_card_only(entry):
     """The tools' entry points refuse a CPU device rather than timing it."""
-    main = port_attn_tool.main if entry == "attn_variants" else FP.main
+    from f5_tts_tpu_torch.tools import int8_probe
+
+    main = {"attn_variants": port_attn_tool.main, "fusion_probe": FP.main, "int8_probe": int8_probe.main}[entry]
     with pytest.raises(RuntimeError, match="CUDA device"):
         main(device="cpu")
 

@@ -275,3 +275,18 @@ def test_published_quantized_manifest_loads(bits):
     for k, v in state.items():
         assert v.shape == ref[k].shape and v.dtype == ref[k].dtype, k
     assert state["transformer_blocks.0.attn.to_q.q"].shape == (1024, 1024)
+
+
+def test_quant_quality_records_the_distortion(capsys):
+    """The port's distortion record on the CPU: one finite JSON line per
+    weight-only mode, int8's distortion below int4's."""
+    import json
+
+    from f5_tts_tpu_torch.tools import quant_quality
+
+    lines = quant_quality.main(["--device", "cpu"])
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert printed == lines and [line["q"] for line in lines] == [8, 4]
+    for line in lines:
+        assert all(np.isfinite(line[k]) and line[k] > 0 for k in ("mel_rel_mae", "mel_rel_rmse"))
+    assert lines[0]["mel_rel_mae"] < lines[1]["mel_rel_mae"] and lines[0]["mel_rel_rmse"] < lines[1]["mel_rel_rmse"]

@@ -598,7 +598,7 @@ def test_serve_latency_refusals(argv, error):
         serve_latency.main(argv)
 
 
-@pytest.mark.parametrize("argv, error", [(["--w8a8"], NotImplementedError), (["--mesh-data", "2"], NotImplementedError),
+@pytest.mark.parametrize("argv, error", [(["--mesh-data", "2"], NotImplementedError),
                                          (["--mesh-model", "4"], NotImplementedError),
                                          (["--q", "4", "--w8a8"], SystemExit),
                                          (["--model", "no/such/dir"], ValueError)])
@@ -606,3 +606,35 @@ def test_server_main_refusals(argv, error):
     """What the server cannot run is refused before a model loads."""
     with pytest.raises(error):
         tserve.main(argv + ["--device", "cpu"])
+
+
+def test_server_main_w8a8_serves_int8_compute(tmp_path, monkeypatch):
+    """--w8a8 loads the snapshot, sets int8_compute on the served model and
+    serves: one /synthesize answers with a WAV of the asked length, sampled
+    through W8A8 linears."""
+    from f5_tts_tpu_torch.models.quant import W8A8Linear
+
+    _tiny_model().save_pretrained(tmp_path)
+    started = []
+    real_serve = tserve.serve
+
+    class Started(Exception):
+        """Leaves main before it waits forever; the test stops the server."""
+
+    def serve_and_stop(model, *args, **kw):
+        started.append((model, real_serve(model, "127.0.0.1", 0, *args[2:], **kw)))
+        raise Started
+
+    monkeypatch.setattr(tserve, "serve", serve_and_stop)
+    with pytest.raises(Started):
+        tserve.main(["--model", str(tmp_path), "--w8a8", "--device", "cpu", "--max-batch", "1"])
+    model, httpd = started[0]
+    try:
+        assert model.dit_cfg.int8_compute
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        with _post(url, {"text": "hello world", "duration": 6.5, "steps": 2, "method": "euler", "seed": 0}) as r:
+            body = r.read()
+        assert r.status == 200 and len(body) == 44 + 2 * _pcm_samples(6.5)
+        assert all(isinstance(blk.attn.to_q, W8A8Linear) for blk in model._inference_dit().transformer_blocks)
+    finally:
+        _stop(httpd)
