@@ -328,7 +328,7 @@ def load_f5tts_pretrained(
     """Build a ready-to-sample F5TTS from a snapshot directory written by
     either package's `save_pretrained` (or the published artifacts with a
     `vocos/` subdirectory): its files first verified against
-    `expected_sha256` (utils/hub.py `fetch_from_hub`), then vocab,
+    `expected_sha256` (utils/hub.py `verify_artifacts`), then vocab,
     `config.json` when present, the DiT weights (model_v1.safetensors, or
     model_v1_{b}b.safetensors with `quantization_bits=b`), the duration
     predictor when the snapshot has duration_v2.safetensors, and the vocoder
@@ -339,9 +339,14 @@ def load_f5tts_pretrained(
     from f5_tts_tpu_torch.models.dit import DiT
     from f5_tts_tpu_torch.models.duration import DurationPredictor
     from f5_tts_tpu_torch.models.quant import quantize_module_
-    from f5_tts_tpu_torch.utils.hub import fetch_from_hub
+    from f5_tts_tpu_torch.utils.hub import verify_artifacts
 
-    path = fetch_from_hub(local_dir, quantization_bits, expected_sha256)
+    path = Path(local_dir)
+    if not path.is_dir():
+        raise ValueError(f"the PyTorch package loads local snapshot directories only (downloading from the hub is "
+                         f"not ported): {str(local_dir)!r} is not a directory")
+    if expected_sha256:
+        verify_artifacts(path, expected_sha256)
     vocab_path = path / "vocab.txt"
     vocab = load_vocab(vocab_path) if vocab_path.exists() else None
 

@@ -33,11 +33,12 @@ def best_ms(run, reps: int) -> float:
     return best
 
 
-def device_ms(run, iters: int = 50) -> float:
+def device_ms(run, iters: int = 50, warmup: int = 1) -> float:
     """The mean device time of one `run()` over `iters` back-to-back calls
     enqueued behind a spin kernel (so the host's enqueue is left out),
-    after a warm-up call."""
-    run()
+    after `warmup` calls."""
+    for _ in range(warmup):
+        run()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     torch.cuda._sleep(HOLD_CYCLES)

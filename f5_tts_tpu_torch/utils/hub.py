@@ -1,9 +1,10 @@
 """Snapshot pinning: the offline half of the JAX package's `utils/hub.py`.
 
 A snapshot's files can be verified against expected sha256 digests before
-they load, so a snapshot whose contents changed fails loudly instead of
-silently changing what `from_pretrained` loads. The port takes a local
-snapshot directory only: downloading from the hub is not ported.
+they load (`from_pretrained(..., expected_sha256=)`), so a snapshot whose
+contents changed fails loudly instead of silently changing what loads. The
+port takes a local snapshot directory only: downloading from the hub is not
+ported.
 
     python -m f5_tts_tpu_torch.utils.hub <snapshot dir>   # prints its digests
 """
@@ -14,14 +15,6 @@ import argparse
 import hashlib
 import json
 from pathlib import Path
-
-# Known-good digests per snapshot, filled in by deployments once computed
-# from a trusted copy (`main` prints them); none ship by default. Pass
-# expected_sha256= to pin ad hoc.
-PINNED_ARTIFACTS: dict[str, dict[str, str]] = {}
-
-NOT_A_DIRECTORY = ("the PyTorch package loads local snapshot directories only (downloading from the hub is not "
-                   "ported): {} is not a directory")
 
 
 def sha256_file(path: Path, chunk: int = 1 << 20) -> str:
@@ -47,25 +40,8 @@ def verify_artifacts(root: Path, expected_sha256: dict[str, str]) -> None:
             )
 
 
-def fetch_from_hub(local_dir: str | Path, quantization_bits: int | None = None,
-                   expected_sha256: dict[str, str] | None = None) -> Path:
-    """The snapshot directory `local_dir`, its files verified against
-    `expected_sha256` (relative path -> digest; defaults to
-    PINNED_ARTIFACTS[local_dir] when registered). Anything that is not a
-    directory raises ValueError. `quantization_bits` is accepted for the
-    JAX signature's sake; a local snapshot holds every file already."""
-    if expected_sha256 is None:
-        expected_sha256 = PINNED_ARTIFACTS.get(str(local_dir))
-    local = Path(local_dir)
-    if not local.is_dir():
-        raise ValueError(NOT_A_DIRECTORY.format(repr(str(local_dir))))
-    if expected_sha256:
-        verify_artifacts(local, expected_sha256)
-    return local
-
-
 def main(argv: list[str] | None = None) -> None:
-    """Print sha256 digests of a local snapshot dir in PINNED_ARTIFACTS form."""
+    """Print the sha256 digests of a local snapshot dir, in the form `expected_sha256=` takes."""
     ap = argparse.ArgumentParser(description="print snapshot artifact digests")
     ap.add_argument("snapshot", help="local snapshot directory")
     args = ap.parse_args(argv)

@@ -142,7 +142,7 @@ def test_expected_sha256_pins_the_snapshot(jax_snapshot, tmp_path):
         with pytest.raises(ValueError, match=match):
             JaxF5TTS.from_pretrained(str(jax_snapshot), expected_sha256=expected)
     with pytest.raises(ValueError, match="not a directory"):
-        hub.fetch_from_hub(tmp_path / "no-such-dir")
+        F5TTS.from_pretrained(tmp_path / "no-such-dir", device="cpu")
 
 
 def test_digest_printer_matches_jax(jax_snapshot, capsys):
