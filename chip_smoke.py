@@ -69,6 +69,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      and the gradient on the card against the float32 CPU path;
  10. duration training: DURATION_V2 in float32 on the same batch shape, a
      few steps with exact float32 attention launches and a falling loss;
+ 10a. training from a WAV directory: a LibriTTS-layout tree written from
+     numpy seed 0 (32 16-bit clips of 2.0 to 9.99 s, a 24-bit and a float32
+     clip, and a 16 kHz clip, a file that is not a WAV and an 11 s clip that
+     must be dropped) through load_dir -> make_training_pipeline (the
+     native decoder, built with g++) into F5TTSTrainer.train (the base DiT,
+     bf16 compute, EMA; 6 steps of grad_accum=2 on the on-device mel with the
+     step-6 checkpoint, then 2 such steps on the host mel) and
+     DurationTrainer.train (DURATION_V2 in float32, host mel, 2 steps):
+     exact K1/K2 (K1-f32/K2-f32) launches, finite losses, at least two
+     frame buckets, every clip on the native decoder; each run's data wait
+     and step wall per step, and one loader_bench line (host CPU rates);
  11. probe kernels vs plain, timed with CUDA events: the attention variants
      (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope; each
      also at a ragged n, and with their device time as in phase 13, the
@@ -1300,10 +1311,60 @@ def _served_group_check(model, calls) -> None:
         raise AssertionError(f"the rows' key masks change the served group by less than the tolerance: {wrong}")
 
 
+def _attention_grad_case(gen, name: str, dtype, b: int, h: int, n: int, d: int, lens) -> dict:
+    """K1 with its log-sum-exp and K2 on one case against their plain
+    versions, on q, k, v and g drawn as [b, n, h*d] projection views with
+    RoPE, as the trainers' attention takes them. `lens` is None (no key
+    mask, as in the training forward) or the valid keys, one count for
+    every row or one per row. Prints the errors, raises on a disagreement
+    and returns the case's tensors and errors."""
+    import torch
+
+    from f5_tts_tpu_torch.models.rope import rotary_freqs
+    from f5_tts_tpu_torch.ops import flash_attention as fa
+
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    q, k, v, g = (torch.randn(b, n, h * d, generator=gen, device="cuda").to(dtype).view(b, n, h, d).transpose(1, 2)
+                  for _ in range(4))
+    mask = None
+    if lens is not None:
+        mask = (torch.arange(n, device="cuda")[None, :]
+                < torch.tensor(lens, device="cuda").reshape(-1, 1)).expand(b, n).contiguous()
+    raw = rotary_freqs(n, d, device="cuda")
+    rope = (torch.cos(raw), torch.sin(raw))
+    scale = d ** -0.5
+    key_mask, cos, sin = fa._checked(q, k, v, mask, rope)
+    out, lse = fa._forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse=True)
+    out_err = (out.float() - fa.flash_attention_plain(q, k, v, scale, mask, rope).float()).abs().max().item()
+    out_tol = ATTN_TOL if tag == "bf16" else F32_TOL
+    lse_err = (lse - fa.attention_lse_plain(q, k, scale, mask, rope)).abs().max().item()
+    lse_tol = 2e-2 if tag == "bf16" else F32_TOL
+    got = fa._backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin)
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, g, scale, mask, rope)
+    torch.cuda.synchronize()
+    if any(a.dtype != dtype for a in got):
+        raise AssertionError(f"the backward kernel wrote {[a.dtype for a in got]}, expected {dtype}")
+    abs_errs = [(a.float() - r).abs().max().item() for a, r in zip(got, ref)]
+    errs = [e / r.abs().max().item() for e, r in zip(abs_errs, ref)]
+    shown = lens if lens is None or isinstance(lens, int) else list(lens)
+    print(f"{name}: {tag} [b={b}, h={h}, n={n}, d={d}] mask={shown} rope=True strided=True: "
+          f"max|kernel - plain| / max|plain| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+          f"(tol {GRAD_TOL[tag]}); forward max error {out_err:.3e} (tol {out_tol}); "
+          f"lse max error {lse_err:.3e} (tol {lse_tol})")
+    if not max(errs) <= GRAD_TOL[tag]:
+        raise AssertionError(f"attention backward kernel disagrees with its plain version at {name}: {errs}")
+    if not out_err <= out_tol:
+        raise AssertionError(f"the forward kernel disagrees with its plain version at {name}: {out_err}")
+    if not lse_err <= lse_tol:
+        raise AssertionError(f"the forward's log-sum-exp disagrees with the plain one at {name}: {lse_err}")
+    return {"q": q, "k": k, "v": v, "g": g, "out": out, "lse": lse, "got": got, "mask": mask, "rope": rope,
+            "scale": scale, "key_mask": key_mask, "cos": cos, "sin": sin, "abs_errs": abs_errs}
+
+
 def bwd_kernel_phase():
     import torch
 
-    from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb, rotary_freqs
+    from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb
     from f5_tts_tpu_torch.ops import flash_attention as fa
 
     phase("attention backward vs plain (bf16 and float32), and the forward's log-sum-exp")
@@ -1317,37 +1378,14 @@ def bwd_kernel_phase():
     results = {}
     for name, dtype, b, h, n, d, valid in cases:
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        q, k, v, g = (torch.randn(b, n, h * d, generator=gen, device="cuda").to(dtype).view(b, n, h, d).transpose(1, 2)
-                      for _ in range(4))
-        mask = None
-        if valid is not None:
-            mask = (torch.arange(n, device="cuda") < valid)[None, :].expand(b, n).contiguous()
-        raw = rotary_freqs(n, d, device="cuda")
-        rope = (torch.cos(raw), torch.sin(raw))
-        scale = d ** -0.5
-        key_mask, cos, sin = fa._checked(q, k, v, mask, rope)
-        out, lse = fa._forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse=True)
-        lse_err = (lse - fa.attention_lse_plain(q, k, scale, mask, rope)).abs().max().item()
-        lse_tol = 2e-2 if tag == "bf16" else F32_TOL
-        got = fa._backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin)
-        ref = fa.flash_attention_bwd_plain(q, k, v, out, g, scale, mask, rope)
-        torch.cuda.synchronize()
-        if any(a.dtype != dtype for a in got):
-            raise AssertionError(f"the backward kernel wrote {[a.dtype for a in got]}, expected {dtype}")
-        abs_errs = [(a.float() - r).abs().max().item() for a, r in zip(got, ref)]
-        errs = [e / r.abs().max().item() for e, r in zip(abs_errs, ref)]
+        c = _attention_grad_case(gen, name, dtype, b, h, n, d, valid)
+        q, k, v, g, out, lse, got = c["q"], c["k"], c["v"], c["g"], c["out"], c["lse"], c["got"]
+        mask, rope, scale, key_mask, cos, sin = c["mask"], c["rope"], c["scale"], c["key_mask"], c["cos"], c["sin"]
         ms = _time_ms(lambda: fa._backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin))
         plain_ms = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, g, scale, mask, rope), iters=5)
         flop = 10 * b * h * n * n * d
-        print(f"{name}: {tag} [b={b}, h={h}, n={n}, d={d}] mask={valid} rope=True strided=True: "
-              f"max|kernel - plain| / max|plain| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
-              f"(tol {GRAD_TOL[tag]}); lse max error {lse_err:.3e} (tol {lse_tol}); kernel {ms:.4f} ms "
-              f"({flop / ms / 1e9:.1f} TFLOP/s at 10 b h n^2 d, {1.4 * flop / ms / 1e9:.1f} at the 14 b h n^2 d "
-              f"executed), plain {plain_ms:.4f} ms")
-        if not max(errs) <= GRAD_TOL[tag]:
-            raise AssertionError(f"attention backward kernel disagrees with its plain version at {name}: {errs}")
-        if not lse_err <= lse_tol:
-            raise AssertionError(f"the forward's log-sum-exp disagrees with the plain one at {name}: {lse_err}")
+        print(f"{name}: kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s at 10 b h n^2 d, "
+              f"{1.4 * flop / ms / 1e9:.1f} at the 14 b h n^2 d executed), plain {plain_ms:.4f} ms")
         # yardstick: the backward of SDPA on q and k already rotated, with the same mask; bound:
         # 10 b h n n_keys d operations, q, k, v, out, g and lse read and dq, dk, dv written once
         leaves = [t.detach().requires_grad_() for t in
@@ -1357,7 +1395,7 @@ def bwd_kernel_phase():
         bound_ms, bound_by = bound(10 * b * h * n * (valid or n) * d,
                                    nbytes(q, k, v, out, g, lse, mask, *rope, *got), tag)
         _library_line(name, "SDPA backward, RoPE outside", library_ms, bound_ms, bound_by)
-        results[name] = {"err": max(abs_errs), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        results[name] = {"err": max(c["abs_errs"]), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by}
     return results
 
@@ -1520,6 +1558,222 @@ def duration_training_phase(card: str):
     step = make_duration_train_step(opt, model.audio_cfg.frames_per_second, ema_decay=0.999)
     losses, ms = _train_steps("duration step", step, state, (mel, text, lens), rand_frac, per_step, 4, card)
     return losses, ms, counts()
+
+
+WAV_CLIPS = 32  # 16-bit mono 24 kHz, 2.0 to 9.99 s: 187 to 936 frames, the buckets 256 to 1024
+WAV_MAX_DURATION = 10
+WAV_WORDS = ("some", "call", "me", "nature", "others", "mother", "the", "quick", "brown", "fox", "jumped",
+             "over", "lazy", "dog", "and", "then", "it", "ends", "here", "again")
+
+
+def write_wav_tree(root: Path) -> dict:
+    """A LibriTTS-layout tree (<speaker>/<chapter>/<id>.wav beside
+    <id>.normalized.txt) from numpy seed 0: WAV_CLIPS 16-bit clips, one
+    24-bit and one float32 clip, and three files that must not reach a
+    batch: a 16 kHz clip (dropped by decode), a file that is not a WAV
+    (dropped by decode) and a clip longer than WAV_MAX_DURATION (dropped by
+    the scan). Returns {stem: seconds} of the clips a batch may hold."""
+    import numpy as np
+
+    from f5_tts_tpu_torch.audio.io import write_wav_format
+
+    rng = np.random.default_rng(0)
+    kept = {}
+
+    def clip(name, seconds, fmt="pcm16", rate=24_000, keep=True):
+        d = root / str(100 + len(kept) % 4) / str(2000 + len(kept) % 3)
+        d.mkdir(parents=True, exist_ok=True)
+        n = int(seconds * rate)
+        t = np.arange(n) / rate
+        wave = 0.2 * np.sin(2 * np.pi * rng.uniform(100, 300) * t) + 0.05 * rng.standard_normal(n)
+        write_wav_format(d / f"{name}.wav", wave.astype(np.float32), rate, fmt)
+        words = rng.choice(WAV_WORDS, size=max(2, int(2.5 * seconds)))
+        (d / f"{name}.normalized.txt").write_text(" ".join(words).capitalize() + ".")
+        if keep:
+            kept[name] = seconds
+        return d
+
+    for i, seconds in enumerate(np.linspace(2.0, 9.99, WAV_CLIPS)):  # 10.0 s reads 10.0009 with its header
+        clip(f"clip_{i:02d}", float(seconds))
+    clip("deep_24bit", 3.0, "pcm24")  # the scan reads 4.5 s from its size
+    clip("ieee_float", 4.0, "float32")  # 8.0 s from its size
+    clip("rate_16k", 3.0, rate=16_000, keep=False)
+    d = clip("too_long", 11.0, keep=False)
+    (d / "not_a_wav.wav").write_bytes(b"this file is not a RIFF/WAVE file " * 400)
+    (d / "not_a_wav.normalized.txt").write_text("Not a wave.")
+    return kept
+
+
+class TimedPipeline:
+    """Iterates a pipeline for a trainer, timing every next() (the step's
+    data wait) and the time the trainer holds each batch (its step wall,
+    from one yield to the next next(); the last ends when the trainer closes
+    the pipeline), and recording each batch's frame count and lengths."""
+
+    def __init__(self, stream, hop: int = 256):
+        self.stream, self.hop = stream, hop
+        self.waits, self.walls, self.frames, self.lens = [], [], [], []
+
+    def __iter__(self):
+        it = iter(self.stream)
+        held = None
+        try:
+            while True:
+                t0 = time.perf_counter()
+                if held is not None:
+                    self.walls.append(t0 - held)
+                    held = None
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                held = time.perf_counter()
+                self.waits.append(held - t0)
+                self.frames.append(batch["audio"].shape[1] // self.hop if "audio" in batch
+                                   else batch["mel_spec"].shape[1])
+                self.lens.append([int(x) for x in batch["mel_len"]])
+                yield batch
+        finally:
+            if held is not None:
+                self.walls.append(time.perf_counter() - held)
+            it.close()
+
+    def summary(self, label: str, card: str, routes: dict) -> dict:
+        """Prints and returns the data wait's median and largest over every
+        step, and the step wall's median after the first step (the warm-up);
+        a wall is marked * where its bucket is seen for the first time."""
+        med = lambda xs: sorted(xs)[len(xs) // 2]
+        walls = self.walls[1:] or self.walls
+        out = {"data_wait_ms_median": med(self.waits) * 1e3, "data_wait_ms_max": max(self.waits) * 1e3,
+               "step_wall_ms_median": med(walls) * 1e3, "buckets": sorted(set(self.frames)), "decoded": routes,
+               "first_lens": {n: self.lens[self.frames.index(n)] for n in sorted(set(self.frames))},
+               "walls_by_bucket": {n: [w * 1e3 for w, m in zip(self.walls[1:], self.frames[1:]) if m == n]
+                                   for n in sorted(set(self.frames[1:]))}}
+        first = [n not in self.frames[:i] for i, n in enumerate(self.frames)]
+        print(f"{label}: data wait per step median {out['data_wait_ms_median']:.2f} ms, largest "
+              f"{out['data_wait_ms_max']:.2f} ms (each: {', '.join(f'{w * 1e3:.2f}' for w in self.waits)}); "
+              f"step wall median after the first step {out['step_wall_ms_median']:.1f} ms (each, frames: "
+              + ", ".join(f"{w * 1e3:.1f} at {n}{'*' if f else ''}" for w, n, f in zip(self.walls, self.frames, first))
+              + f"; * a bucket's first step); buckets {out['buckets']}; clips decoded native {routes['native']}, "
+              f"python {routes['python']}; on {card}")
+        return out
+
+
+def _trained(label: str, trainer, pipeline, card: str, expect: dict, steps: int, **train_kw) -> dict:
+    """Runs `trainer.train` over a timed `pipeline` for `steps` steps (a
+    loss logged every step, the trainer's stdout kept and printed) and
+    checks the kernels' launches against `expect`, a finite loss every step,
+    the update count and that every clip went through the native decoder."""
+    import contextlib
+    import io
+
+    from f5_tts_tpu_torch.data import libritts
+
+    timed = TimedPipeline(pipeline)
+    libritts.reset_decode_routes()
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        trainer.train(timed, total_steps=steps, log_every=1, **train_kw)
+    launched, routes = counts(), libritts.decode_routes()
+    print(out.getvalue().rstrip())
+    losses = [float(line.split("loss ")[1].split()[0]) for line in out.getvalue().splitlines()
+              if line.startswith("step ")]
+    summary = timed.summary(label, card, routes)
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses {losses}, expected {steps} finite ones")
+    if trainer.state.step != steps or trainer.state.opt_state["count"] != steps:
+        raise AssertionError(f"{label}: update count {trainer.state.step}, expected {steps}")
+    if launched != expect:
+        raise AssertionError(f"{label}: kernel launches {launched}, expected {expect}")
+    if routes["python"] or not routes["native"]:
+        raise AssertionError(f"{label}: clips decoded by route {routes}; every clip must take the native decoder")
+    return {"launches": launched, "losses": losses, **summary}
+
+
+def wav_training_phase(card: str, tmp_base: str | None) -> dict:
+    """Training from a directory of WAV files: load_dir ->
+    make_training_pipeline -> F5TTSTrainer.train (the base DiT, bf16
+    compute, on-device mel, 6 steps of grad_accum=2, then 2 such steps on
+    the host-mel pipeline) and DurationTrainer.train (DURATION_V2 in float32,
+    host mel, 2 steps), each run's data wait and step wall timed; then K1
+    and K2 against their plain versions at each bucket the runs saw, and one
+    loader_bench line. Returns the kernels' launches summed over the runs."""
+    import torch
+
+    from f5_tts_tpu_torch import F5TTS, CFMConfig
+    from f5_tts_tpu_torch.config import DURATION_V2, F5TTS_V1_BASE
+    from f5_tts_tpu_torch.data import load_dir, make_training_pipeline
+    from f5_tts_tpu_torch.models.duration import DurationPredictor
+    from f5_tts_tpu_torch.ops import native
+    from f5_tts_tpu_torch.tools import loader_bench
+    from f5_tts_tpu_torch.training import DurationTrainer, F5TTSTrainer
+
+    phase("training from a WAV directory: load_dir -> make_training_pipeline -> F5TTSTrainer / DurationTrainer")
+    t0 = time.perf_counter()
+    native.library()  # the g++ build, here rather than inside the first decode
+    print(f"native WAV decoder {native.library_path().relative_to(ROOT)} ready in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
+        root, results = Path(tmp) / "wavs", Path(tmp) / "results"
+        kept = write_wav_tree(root)
+        print(f"WAV tree: {len(kept)} clips of {min(kept.values()):.2f} to {max(kept.values()):.2f} s "
+              f"({sum(kept.values()):.1f} s of audio) and three to be dropped")
+        cfg = F5TTS_V1_BASE.replace(compute_dtype="bfloat16")
+        model = F5TTS.init(torch.Generator(device="cuda").manual_seed(7), cfg, device="cuda", cfm_cfg=CFMConfig())
+        trainer = F5TTSTrainer(model, num_warmup_steps=2, results_dir=str(results), ema_decay=0.999)
+
+        def pipeline(on_device_mel):
+            return make_training_pipeline(load_dir(root, max_duration=WAV_MAX_DURATION), batch_size=4, epochs=2,
+                                          shuffle_buffer=32, num_threads=6, seed=0, on_device_mel=on_device_mel)
+
+        per_micro = {**ZERO, "flash_attention_fwd": cfg.depth, "flash_attention_bwd": cfg.depth}
+        cfm = _trained("CFM from WAVs, on-device mel", trainer, pipeline(True), card,
+                       {k: 12 * v for k, v in per_micro.items()}, 6, save_every=6, sample_every=10**9,
+                       on_device_mel=True, grad_accum=2)
+        for name in ("f5tts_6.safetensors", "f5tts_6.ema.safetensors", "f5tts_6.trainstate.safetensors"):
+            if not (results / name).is_file():
+                raise AssertionError(f"the step-6 checkpoint file {name} was not written")
+        if len(cfm["buckets"]) < 2:
+            raise AssertionError(f"the CFM run saw the buckets {cfm['buckets']}; at least two are needed")
+        print("step-6 checkpoint: " + ", ".join(f"{f.name} {f.stat().st_size / 2**20:.0f} MiB"
+                                                for f in sorted(results.glob("*"))))
+        shutil.rmtree(results)
+        host = _trained("CFM from WAVs, host mel", F5TTSTrainer(model, num_warmup_steps=2, results_dir=str(results)),
+                        pipeline(False), card, {k: 4 * v for k, v in per_micro.items()}, 2,
+                        save_every=10**9, sample_every=10**9, grad_accum=2)
+        print("CFM step wall by bucket, each trainer's first step left out (ms): on-device mel "
+              f"{json.dumps(cfm['walls_by_bucket'])}, host mel {json.dumps(host['walls_by_bucket'])}; on {card}")
+        del model, trainer
+        torch.cuda.empty_cache()
+
+        dur_model = DurationPredictor.init(torch.Generator(device="cuda").manual_seed(8), DURATION_V2, device="cuda")
+        per_step = {**ZERO, "flash_attention_fwd_f32": DURATION_V2.depth,
+                    "flash_attention_bwd_f32": DURATION_V2.depth}
+        dur = _trained("duration from WAVs, host mel", DurationTrainer(dur_model, num_warmup_steps=2,
+                                                                       results_dir=str(results)),
+                       pipeline(False), card, {k: 2 * v for k, v in per_step.items()}, 2, save_every=10**9)
+        del dur_model
+
+    # K1 with its log-sum-exp and K2 against their plain versions at the shapes these runs gave them:
+    # for each run and bucket, the first batch's first microbatch, with no key mask (as the training
+    # forward calls them) and with the microbatch's lengths as per-row key masks; a microbatch is
+    # batch_size // grad_accum rows: 2 in the CFM runs (grad_accum=2), 4 in the duration run
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, run, dtype, heads, head_dim, micro in (
+            ("CFM on-device mel", cfm, torch.bfloat16, cfg.heads, cfg.dim_head, 2),
+            ("CFM host mel", host, torch.bfloat16, cfg.heads, cfg.dim_head, 2),
+            ("duration", dur, torch.float32, DURATION_V2.heads, DURATION_V2.dim_head, 4)):
+        for n, lens in run["first_lens"].items():
+            rows = lens[:micro]
+            for mask in (None, rows):
+                _attention_grad_case(gen, f"{label} at the bucket n={n}", dtype, len(rows), heads, n, head_dim,
+                                     mask)
+
+    bench = loader_bench.measure(clips=64, seconds=6, threads=8)
+    print(f"loader_bench.measure(clips=64, seconds=6, threads=8), this machine's host CPU ({os.cpu_count()} cores), "
+          f"beside {card}: {json.dumps(bench)}")
+    runs = (cfm, host, dur)
+    return {k: sum(r["launches"][k] for r in runs) for k in ZERO}
 
 
 PROBE_ATTN = ("attn_pack2", "attn_flat", "flash_nhd", "flash_bhnd_rope")
@@ -1959,6 +2213,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
             _, cfm_ms, cfm_launches = cfm_training_phase(card, tmp)
         _, dur_ms, dur_launches = duration_training_phase(card)
+        wav_launches = wav_training_phase(card, tmp_base)
         probe = probe_kernel_phase()
         probe_launches = probe_tools_phase(card)
         ranking_phase(card, snap)
@@ -1968,7 +2223,7 @@ def main() -> int:
           f"CFM step median {sorted(cfm_ms)[len(cfm_ms) // 2]:.1f} ms; "
           f"duration step median {sorted(dur_ms)[len(dur_ms) // 2]:.1f} ms; on {card}")
     # launches summed over the main paths' counted runs; the probe kernels' over the probe tools' run
-    paths = (float_launches, q_launches, w8a8_launches, serve_launches, cfm_launches, dur_launches)
+    paths = (float_launches, q_launches, w8a8_launches, serve_launches, cfm_launches, dur_launches, wav_launches)
     launches = {k: sum(p[k] for p in paths) for k in float_launches}
     for name, n in launches.items():
         if n <= 0:

@@ -2,7 +2,8 @@
 port cannot import that package without JAX).
 
 PCM WAV I/O on the stdlib `wave` module, with soundfile used when it is
-installed. Covers PCM 8/16/24/32-bit and IEEE float32.
+installed. Covers PCM 8/16/24/32-bit and IEEE float32. `write_wav_format`,
+which the JAX module lacks, writes each of those formats without soundfile.
 """
 
 from __future__ import annotations
@@ -97,3 +98,32 @@ def write_wav(path: str | Path, samples: np.ndarray, sample_rate: int) -> None:
         w.setsampwidth(2)
         w.setframerate(sample_rate)
         w.writeframes(pcm.tobytes())
+
+
+WAV_FORMATS = ("pcm8", "pcm16", "pcm24", "pcm32", "float32")
+
+
+def write_wav_format(path, samples: np.ndarray, sample_rate: int, fmt: str = "pcm16") -> None:
+    """Write float samples in [-1, 1] ([n] mono or [n, c]) as a RIFF/WAVE
+    file of `fmt`, one of WAV_FORMATS."""
+    x = np.clip(np.asarray(samples, np.float32), -1.0, 1.0)
+    channels = 1 if x.ndim == 1 else x.shape[1]
+    if fmt == "float32":
+        code, bits, data = 3, 32, x.astype("<f4").tobytes()
+    elif fmt == "pcm8":
+        code, bits, data = 1, 8, np.round(x * 127.0 + 128.0).astype(np.uint8).tobytes()
+    elif fmt == "pcm16":
+        code, bits, data = 1, 16, (x * 32767.0).astype("<i2").tobytes()
+    elif fmt == "pcm24":
+        ints = (x.astype(np.float64) * (2**23 - 1)).astype("<i4").reshape(-1, 1).view(np.uint8)
+        code, bits, data = 1, 24, ints[:, :3].tobytes()
+    elif fmt == "pcm32":
+        code, bits, data = 1, 32, (x.astype(np.float64) * (2**31 - 1)).astype("<i4").tobytes()
+    else:
+        raise ValueError(f"unknown WAV format {fmt!r}; expected one of {WAV_FORMATS}")
+    block = channels * bits // 8
+    fmt_chunk = struct.pack("<HHIIHH", code, channels, sample_rate, sample_rate * block, block, bits)
+    body = b"WAVE" + b"fmt " + struct.pack("<I", 16) + fmt_chunk + b"data" + struct.pack("<I", len(data)) + data
+    if len(data) & 1:
+        body += b"\0"
+    Path(path).write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)

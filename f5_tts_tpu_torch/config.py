@@ -122,3 +122,14 @@ F5TTS_V1_BASE = DiTConfig()
 
 # Pretrained duration model configuration.
 DURATION_V2 = DurationConfig()
+
+# The small training example's configuration (768 x 16 layers x 8 heads of 64).
+F5TTS_SMALL = DiTConfig(
+    dim=768,
+    depth=16,
+    heads=8,
+    ff_mult=2,
+    text_dim=384,
+    conv_layers=4,
+    text_num_embeds=256,
+)

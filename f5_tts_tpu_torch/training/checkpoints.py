@@ -21,7 +21,8 @@ from f5_tts_tpu_torch.utils.safetensors import load_file, save_file
 
 ORBAX_UNSUPPORTED = (
     "use_orbax: orbax is a JAX library; the port keeps the full train state in "
-    ".trainstate.safetensors files (ROADMAP.md queue 1, item 8: orbax checkpoints)"
+    ".trainstate.safetensors files (ROADMAP.md queue 1, item 4: orbax or "
+    "torch.distributed.checkpoint)"
 )
 
 
