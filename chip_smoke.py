@@ -57,6 +57,25 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      3-sentence /synthesize_stream (the first PCM before the end, the
      lengths of its sentences), a malformed request (400), and the
      serve_latency tool's three latencies; K1 launches per group (616);
+ 7a. export and artifact serving, on the float snapshot: torch.export
+     programs (export.py, external weights, the 768-frame bucket) of the
+     batch-1 and batch-4 samplers (RK4, 8 steps, CFG 2), the float32
+     duration predictor (1024-frame window) and a batch-1 W8A8 sampler
+     (Euler, 4 steps), each with its export, save and load seconds, graph
+     size and file size; each artifact call held to F5TTS.sample at the
+     same seed, steps, method, CFG, sway and bucket (the served group's
+     tolerances) with its exact launches (K1 616 a float call with K1's
+     plain version made to raise, quantize_rows and rescale_bias 132 a W8A8
+     evaluation and K3 0, K1-f32 8 for the duration artifact, which is held
+     to the live forward within 1e-4); a fresh process that loads and calls
+     the batch-1 artifact with no model module imported and no snapshot file
+     opened, its wave equal to this process's to the bit; then
+     serve_artifacts over the three float artifacts: /healthz, four
+     concurrent /synthesize as one batch-4 call equal to the direct call, a
+     request whose duration the duration artifact sets in the batcher thread
+     (K1-f32 launched), a 3-sentence stream, a 400, and serve_latency's
+     artifact bench (sequential against concurrent utterances/s) beside the
+     live server's warm_synthesize_s;
   8. attention backward vs plain, timed with CUDA events: the backward
      kernel in bf16 at the CFM training shape and with a key mask at a
      ragged n, in float32 at the duration training shape, and the forward's
@@ -158,8 +177,11 @@ TEXT = ["Some call me nature, others call me mother nature. "
 VOCAB_CHARS = [""] + [chr(c) for c in range(ord(" "), ord(" ") + 95)]
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def device_phase():
@@ -1118,13 +1140,13 @@ def _stream(port: int, payload: dict) -> tuple[list, float, float]:
     return chunks, t_first, t_end
 
 
-def serving_phase(card: str, snap: str) -> dict:
+def serving_phase(card: str, snap: str) -> tuple[dict, dict]:
     """The user-facing entry points on the float snapshot: the generate CLI
     twice (the batched branch, and one sentence with a guidance interval),
     then `serve` with warm-ups, four concurrent requests of one bucket, a
     request whose duration the predictor sets, a stream, a malformed
     request, and the serve_latency measurement. Returns the kernels'
-    launches over the phase."""
+    launches over the phase and the latencies."""
     import threading
 
     import torch
@@ -1260,7 +1282,7 @@ def serving_phase(card: str, snap: str) -> dict:
     if k1 != [per_group] or any(g[2] for g in groups):
         raise AssertionError(f"K1 launches per group {k1} (K1-f32 {[g[2] for g in groups]}), expected {per_group}")
     _served_group_check(model, calls)
-    return launched
+    return launched, lat
 
 
 def _served_group_check(model, calls) -> None:
@@ -1309,6 +1331,365 @@ def _served_group_check(model, calls) -> None:
         raise AssertionError(f"the served group disagrees with the same call on plain attention: {errs}")
     if not any(wrong[x] > SERVE_TOL[x] for x in SERVE_TOL):
         raise AssertionError(f"the rows' key masks change the served group by less than the tolerance: {wrong}")
+
+
+# ------------------------------------------------------------ 7a. export and artifact serving
+
+ARTIFACT_BUCKET = 768  # one 256-frame bucket: the serving phase's 6 to 7.5 s requests with the 5.33 s reference
+ARTIFACT_W8A8_STEPS = 4  # Euler: 3 flow evaluations bound the W8A8 export's time
+DURATION_WINDOW = 1024
+ARTIFACT_TEXT = "A request of {} seconds in all."
+NO_MODEL_CODE = ("f5_tts_tpu_torch.models.cfm", "f5_tts_tpu_torch.models.dit", "f5_tts_tpu_torch.models.duration")
+# a fresh process loads the batch-1 artifact and calls it once with the arguments the parent saved; it must
+# import none of NO_MODEL_CODE and open no snapshot file
+SUBPROCESS_CALL = """
+import sys, time, numpy as np, torch
+opened = []
+sys.addaudithook(lambda ev, a: opened.append(str(a[0])) if ev == "open" else None)
+from f5_tts_tpu_torch import export as E
+t0 = time.perf_counter()
+s, spec = E.load_sampler(sys.argv[1])
+t1 = time.perf_counter()
+args = [np.load(f"{sys.argv[2]}/arg{i}.npy") for i in range(7)]
+wave = s.call(*args)[1]
+torch.cuda.synchronize()
+np.save(f"{sys.argv[2]}/wave.npy", wave.cpu().numpy())
+print("LOAD", round(t1 - t0, 1), "CALL", round(time.perf_counter() - t1, 2))
+print("MODULES", [m for m in sys.argv[3].split(",") if m in sys.modules])
+print("SNAPSHOT", [p for p in opened if p.endswith((".safetensors", "config.json", "vocab.txt"))])
+"""
+
+
+# a second process exports and saves the batch-4 and the W8A8 samplers from the snapshot while this one does the
+# batch-1 sampler and the duration predictor: each export and save is one CPU core's Python for a minute or more
+EXPORT_CHILD = "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; chip_smoke.export_child(*sys.argv[2:])"
+
+
+def _exported(label: str, export, save, path: str, card: str) -> None:
+    t0 = time.perf_counter()
+    exp = export()
+    t1 = time.perf_counter()
+    save(exp, path)
+    t2 = time.perf_counter()
+    print(f"{label}: export {t1 - t0:.1f} s ({len(exp.program.graph.nodes)} graph nodes), save {t2 - t1:.1f} s, "
+          f"{os.path.getsize(path) / 2**20:.1f} MiB; on {card}", flush=True)
+
+
+def _artifact_request(model):
+    """The phase's request inputs on the card: the bundled reference
+    (normalized as the server normalizes it), its mel, and the token ids of
+    a 'A request of {s} seconds in all.' text for each s."""
+    from f5_tts_tpu_torch import generate as gen
+    from f5_tts_tpu_torch.serve import resolve_ref_payload
+    from f5_tts_tpu_torch.utils.tokenizer import convert_char_to_pinyin
+
+    ref_audio, ref_text = gen._load_ref_audio(None, None)
+    ref_n, _ = resolve_ref_payload({}, (ref_audio, ref_text), model.audio_cfg.sample_rate)
+
+    def ids_for(secs):
+        return model._tokenize(convert_char_to_pinyin([ref_text + " " + ARTIFACT_TEXT.format(s) for s in secs]))
+
+    return ref_audio, ref_text, model._mel_spec(ref_n[None]), ids_for
+
+
+def export_child(snap: str, tmp: str, card: str) -> None:
+    """Phase 7a's second process: export and save the batch-4 sampler
+    (then `b4.done` marks it saved), then the W8A8 sampler, load that and
+    hold one call to the live W8A8 path with exact launches."""
+    from f5_tts_tpu_torch import export as E
+    from f5_tts_tpu_torch.models.cfm import F5TTS
+
+    model = F5TTS.from_pretrained(snap, device="cuda")
+    _exported(f"sampler batch 4 (RK4 x {SERVE_STEPS}, bucket {ARTIFACT_BUCKET}, external weights; the second "
+              "process)",
+              lambda: E.export_sampler(model, batch=4, padded_len=ARTIFACT_BUCKET, steps=SERVE_STEPS, method="rk4",
+                                       embed_weights=False),
+              lambda exp, p: E.save_sampler(exp, p, model=model, extra_meta={"method": "rk4", "cfg_strength": 2.0}),
+              f"{tmp}/b4.bin", card)
+    Path(f"{tmp}/b4.done").touch()
+    model.dit_cfg = model.dit_cfg.replace(int8_compute=True)
+    path = f"{tmp}/w8a8.bin"
+    _exported(f"W8A8 sampler batch 1 (Euler x {ARTIFACT_W8A8_STEPS}, external weights; the second process)",
+              lambda: E.export_sampler(model, batch=1, padded_len=ARTIFACT_BUCKET, steps=ARTIFACT_W8A8_STEPS,
+                                       method="euler", embed_weights=False),
+              lambda exp, p: E.save_sampler(exp, p, model=model, extra_meta={"method": "euler"}), path, card)
+    t0 = time.perf_counter()
+    w8, spec = E.load_sampler(path)
+    print(f"W8A8 sampler: load {time.perf_counter() - t0:.1f} s; on {card}", flush=True)
+    _, _, cond1, ids_for = _artifact_request(model)
+    evals, depth = ARTIFACT_W8A8_STEPS - 1, model.dit_cfg.depth
+    _artifact_vs_live("W8A8 sampler", w8, spec, model, cond1, ids_for([7.0]), [656], card, ARTIFACT_W8A8_STEPS,
+                      "euler", {**ZERO, "flash_attention_fwd": depth * evals, "w8a8_quantize": 6 * depth * evals,
+                                "w8a8_rescale": 6 * depth * evals})
+
+
+def _started(args: list, log: str) -> subprocess.Popen:
+    """A process of this phase, its output and errors in the files
+    `log`.out and `log`.err (a pipe that nobody reads can block it)."""
+    with open(f"{log}.out", "w") as out, open(f"{log}.err", "w") as err:
+        return subprocess.Popen([sys.executable, "-c", *args], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+                                stdout=out, stderr=err, text=True)
+
+
+def _finished(proc: subprocess.Popen, log: str, label: str, timeout: float = 900) -> str:
+    """The output of a process `_started`, printed; its failure raises."""
+    proc.wait(timeout=timeout)
+    out = Path(f"{log}.out").read_text()
+    print(out.rstrip(), flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label} failed: {Path(f'{log}.err').read_text()[-3000:]}")
+    return out
+
+
+def _rows_rel(mel, wave, traj, live_wave, lens, durations, hop) -> dict:
+    """The largest relative L2 over the rows of the generated mel frames
+    (the artifact's composite against the live ODE state) and wave samples,
+    and the largest absolute differences."""
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    rows = list(zip(lens.tolist(), durations.tolist()))
+    live_wave = live_wave.reshape(len(rows), -1)
+    return {"mel": max(rel(mel[i, r:d], traj[0, i, r:d]) for i, (r, d) in enumerate(rows)),
+            "wave": max(rel(wave[i, r * hop:(d - 1) * hop], live_wave[i, r * hop:(d - 1) * hop])
+                        for i, (r, d) in enumerate(rows)),
+            "mel_abs": max((mel[i, r:d] - traj[0, i, r:d]).abs().max().item() for i, (r, d) in enumerate(rows)),
+            "wave_abs": max((wave[i, r * hop:(d - 1) * hop] - live_wave[i, r * hop:(d - 1) * hop]).abs().max().item()
+                            for i, (r, d) in enumerate(rows))}
+
+
+def _artifact_vs_live(label, sampler, spec, model, cond, ids, durations, card, steps, method, expect) -> tuple:
+    """One artifact call at seed 0 against `F5TTS.sample` at the same seed,
+    steps, method, CFG, sway and bucket: the rows' differences (SERVE_TOL)
+    and the call's exact launches (`expect`), with K1's plain version made
+    to raise (no fallback). Returns (prep args, wave)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from f5_tts_tpu_torch import export as E
+    from f5_tts_tpu_torch.ops import flash_attention as fa
+
+    args = E.prep_inputs(spec, cond, ids, np.asarray(durations), seed=0)
+    before = counts()
+    with mock.patch.object(fa, "flash_attention_plain", side_effect=AssertionError("K1 fell back to plain")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel, wave = sampler.call(*args)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in counts().items()}
+    live_wave, traj = model.sample(cond, ids, duration=np.asarray(durations), steps=steps, method=method,
+                                   cfg_strength=2.0, sway_sampling_coef=-1.0, seed=0, return_trajectory=False)
+    errs = _rows_rel(mel, wave, traj, live_wave, args[1], args[2], model.audio_cfg.hop_length)
+    print(f"{label}: artifact call {call_s:.3f} s; against F5TTS.sample (seed 0, {steps} {method} steps, CFG 2, "
+          f"sway -1, bucket {spec.padded_len}): largest relative L2 of a row's mel {errs['mel']:.3e}, wave "
+          f"{errs['wave']:.3e} (tol {SERVE_TOL}), largest absolute mel {errs['mel_abs']:.3e}, wave "
+          f"{errs['wave_abs']:.3e}; launches {launched}; on {card}", flush=True)
+    if not all(errs[x] <= SERVE_TOL[x] for x in SERVE_TOL):
+        raise AssertionError(f"{label}: the artifact disagrees with the live sampler: {errs}")
+    if launched != expect:
+        raise AssertionError(f"{label}: launches in one artifact call {launched}, expected {expect}")
+    return args, wave
+
+
+def artifact_phase(card: str, snap: str, tmp_base: str | None, live_lat: dict) -> dict:
+    """Export and artifact serving on the float snapshot: batch-1 and
+    batch-4 samplers (RK4, 8 steps, CFG 2, external weights, the 768-frame
+    bucket), the float32 duration predictor (1024-frame window) and a
+    batch-1 W8A8 sampler (Euler, 4 steps; the batch-4 and W8A8 exports in a
+    second process, alongside), each held to the live path with exact
+    launches; a fresh process that loads and calls the batch-1 artifact
+    without the model code; then `serve_artifacts` over the three
+    float artifacts (four concurrent requests as one batch-4 call, a
+    request the duration artifact sets, a stream, a 400) and
+    serve_latency's artifact bench. Returns the kernels' launches over the
+    phase."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from f5_tts_tpu_torch import export as E
+    from f5_tts_tpu_torch.artifact_serve import serve_artifacts
+    from f5_tts_tpu_torch.models.cfm import F5TTS
+    from f5_tts_tpu_torch.serve import _pcm16
+    from f5_tts_tpu_torch.tools import serve_latency
+
+    phase("export and artifact serving: export b1/b4 (RK4 x 8), duration, W8A8 b1 (Euler x 4) -> artifact vs "
+          "live, a fresh process without model code, serve_artifacts, artifact bench")
+    reset_counts()
+    t_phase = time.perf_counter()
+    model = F5TTS.from_pretrained(snap, device="cuda")
+    depth = model.dit_cfg.depth
+    ref_audio, ref_text, cond1, ids_for = _artifact_request(model)
+    ref_frames = cond1.shape[1]
+
+    tmp = tempfile.mkdtemp(dir=tmp_base)
+    paths = {k: f"{tmp}/{k}.bin" for k in ("b1", "b4", "duration")}
+    procs = []
+    try:
+        exporter = _started([EXPORT_CHILD, str(ROOT), snap, tmp, card], f"{tmp}/exporter")
+        procs.append(exporter)
+        _exported(f"sampler batch 1 (RK4 x {SERVE_STEPS}, bucket {ARTIFACT_BUCKET}, external weights)",
+                  lambda: E.export_sampler(model, batch=1, padded_len=ARTIFACT_BUCKET, steps=SERVE_STEPS,
+                                           method="rk4", embed_weights=False),
+                  lambda exp, p: E.save_sampler(exp, p, model=model,
+                                                extra_meta={"method": "rk4", "cfg_strength": 2.0}), paths["b1"], card)
+        # the fresh process loads and calls the batch-1 artifact while this one goes on
+        spec1 = E.SamplerSpec(batch=1, padded_len=ARTIFACT_BUCKET, steps=SERVE_STEPS, mel_dim=100,
+                              text_num_embeds=model.dit_cfg.text_num_embeds)
+        args1 = E.prep_inputs(spec1, cond1.cpu().numpy(), ids_for([7.0]), 656, seed=0)
+        for i, x in enumerate(args1):
+            np.save(f"{tmp}/arg{i}.npy", x)
+        child = _started([SUBPROCESS_CALL, paths["b1"], tmp, ",".join(NO_MODEL_CODE)], f"{tmp}/fresh")
+        procs.append(child)
+        predictor = model.duration_predictor
+        _exported(f"duration predictor (window {DURATION_WINDOW}, float32, external weights)",
+                  lambda: E.export_duration(predictor, padded_len=DURATION_WINDOW, embed_weights=False),
+                  lambda exp, p: E.save_duration(exp, p, predictor=predictor), paths["duration"], card)
+        while not os.path.exists(f"{tmp}/b4.done"):  # the second process goes on to the W8A8 sampler
+            if exporter.poll() is not None:
+                _finished(exporter, f"{tmp}/exporter", "the exporting process")
+                raise AssertionError("the exporting process ended without the batch-4 sampler")
+            time.sleep(0.5)
+
+        httpd = serve_artifacts([paths["b1"], paths["b4"]], duration_artifact=paths["duration"],
+                                default_ref=(ref_audio, ref_text), host="127.0.0.1", port=0, max_wait_ms=200)
+        port = httpd.server_address[1]
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            s = httpd.sampler
+            b1, b4 = s.pick_artifact(ARTIFACT_BUCKET, 1), s.pick_artifact(ARTIFACT_BUCKET, 4)
+            float_expect = {**ZERO, "flash_attention_fwd": (SERVE_STEPS - 1) * 4 * depth}
+            _, wave1 = _artifact_vs_live("sampler batch 1", b1.sampler, b1.spec, model, cond1, ids_for([7.0]),
+                                         [656], card, SERVE_STEPS, "rk4", float_expect)
+            cond4 = cond1.expand(4, -1, -1)
+            _artifact_vs_live("sampler batch 4", b4.sampler, b4.spec, model, cond4, ids_for(SERVE_DURATIONS),
+                              list(SERVE_FRAMES), card, SERVE_STEPS, "rk4", float_expect)
+
+            # the duration artifact against the live predictor's forward over the same window
+            d = s.duration
+            dargs = E.prep_duration_inputs(d.spec, cond1, ids_for([7.0]), lens=np.array([ref_frames], np.int32))
+            before = counts()
+            seconds = float(d.sampler.call(*dargs)[0])
+            launched = {k: v - before[k] for k, v in counts().items()}
+            with torch.inference_mode():
+                live_s = float(predictor.seconds(*(torch.as_tensor(x, device="cuda") for x in dargs))[0])
+            print(f"duration artifact: {seconds:.6f} s against the live forward's {live_s:.6f} s (relative "
+                  f"{abs(seconds - live_s) / live_s:.3e}, tol 1e-4); launches {launched}; on {card}")
+            if abs(seconds - live_s) > 1e-4 * live_s or launched != {**ZERO, "flash_attention_fwd_f32": 8}:
+                raise AssertionError("the duration artifact disagrees with the live predictor or its launches")
+
+            _finished(exporter, f"{tmp}/exporter", "the exporting process")
+            out = _finished(child, f"{tmp}/fresh", "the fresh process")
+            same = np.array_equal(np.load(f"{tmp}/wave.npy"), wave1.cpu().numpy())
+            print(f"fresh process: models loaded {NO_MODEL_CODE} none; wave equal to this process's to the bit: "
+                  f"{same}")
+            if "MODULES []" not in out or "SNAPSHOT []" not in out or not same:
+                raise AssertionError("the fresh process imported model code, opened a snapshot file or gave "
+                                     "another wave")
+
+            t0 = time.perf_counter()
+            s.warmup()
+            print(f"artifact server warm-up: {time.perf_counter() - t0:.1f} s")
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            print(f"healthz: {json.dumps(health)}")
+            if [(x["padded_len"], x["batch"]) for x in health["buckets"]] != [(ARTIFACT_BUCKET, 1),
+                                                                               (ARTIFACT_BUCKET, 4)]:
+                raise AssertionError(f"healthz: {health}")
+
+            chunks = []  # (batch, items, direct result) of each synthesize_chunk call
+            run_chunk = s.synthesize_chunk
+
+            def recording(art, ids, refs, durs, **kw):
+                out = run_chunk(art, ids, refs, durs, **kw)
+                chunks.append((art, ids, refs, durs, kw, out))
+                return out
+
+            s.synthesize_chunk = recording
+            bodies, errors = {}, []
+
+            def hit(sec):
+                try:
+                    bodies[sec] = _ok(port, {"text": ARTIFACT_TEXT.format(sec), "duration": sec, "seed": 0},
+                                      f"{sec} s artifact request")
+                except Exception as e:  # re-raised below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=hit, args=(sec,)) for sec in SERVE_DURATIONS]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            conc_s = time.perf_counter() - t0
+            if errors or len(bodies) != 4:
+                raise AssertionError(f"concurrent artifact requests failed: {errors}")
+            sizes = [(c[0].spec.batch, len(c[1])) for c in chunks]
+            art, ids, refs, durs, kw, served = chunks[0]
+            direct = run_chunk(art, ids, refs, durs, **kw)
+            by_len = {len(w): w for w in direct}
+            equal = all(_pcm16(by_len[(len(bodies[sec]) - 44) // 2]) == bodies[sec][44:] for sec in SERVE_DURATIONS)
+            print(f"4 concurrent /synthesize ({', '.join(map(str, SERVE_DURATIONS))} s): {conc_s:.3f} s; artifact "
+                  f"calls (batch, items) {sizes}; each answer equal to the direct batch-4 call's item: {equal}")
+            if sizes != [(4, 4)] or not equal:
+                raise AssertionError(f"the four requests ran as {sizes}, or an answer differs from the direct call")
+            s.synthesize_chunk = run_chunk
+
+            threads_seen = []
+            dcall = d.sampler.call
+
+            def recording_call(*args):
+                threads_seen.append(threading.current_thread())
+                return dcall(*args)
+
+            d.sampler.call = recording_call
+            f32_before = counts()["flash_attention_fwd_f32"]
+            body = _ok(port, {"text": "The duration artifact sets this request's duration.", "seed": 0},
+                       "duration-less artifact request")
+            f32 = counts()["flash_attention_fwd_f32"] - f32_before
+            d.sampler.call = dcall
+            print(f"duration-less request: {len(body)} bytes; K1-f32 launches {f32}, predictor run in the batcher "
+                  f"thread: {threads_seen == [httpd.batcher]}")
+            if f32 != 8 or threads_seen != [httpd.batcher]:
+                raise AssertionError("the duration-less request did not run the duration artifact once in the "
+                                     "batcher thread")
+
+            chunks_, t_first, t_end = _stream(port, {"text": STREAM_TEXT, "estimate_duration": True, "seed": 0})
+            print(f"artifact stream of 3 sentences: first PCM at {t_first:.3f} s, end at {t_end:.3f} s, "
+                  f"{len(chunks_) - 1} PCM chunks")
+            if chunks_[0][:4] != b"RIFF" or t_first is None or not t_first < t_end or len(chunks_) != 4:
+                raise AssertionError("the artifact stream's header, first PCM chunk or chunk count is wrong")
+            status, body = _post(port, {"text": "hi", "speed": "fast"})
+            print(f"malformed artifact request: HTTP {status} {body[:80]!r}")
+            if status != 400:
+                raise AssertionError(f"a malformed artifact request got HTTP {status}, not 400")
+
+            t0 = time.perf_counter()
+            bench = serve_latency.artifact_measure(port, n_requests=8)
+            print(f"artifact bench ({time.perf_counter() - t0:.1f} s, 8 requests of 7 s, RK4 x {SERVE_STEPS}): "
+                  f"artifact_throughput_sequential_utt_s {bench['sequential_utt_s']:.4f}, "
+                  f"artifact_throughput_concurrent_b1b4_utt_s {bench['concurrent_utt_s']:.4f}; the live server's "
+                  f"warm_synthesize_s {live_lat['warm_synthesize_s']:.4f}; on {card}")
+            torch.cuda.synchronize()
+        finally:
+            httpd.batcher.stop()
+            httpd.shutdown()
+            httpd.batcher.join(timeout=60)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = counts()
+    print(f"export and artifact serving: phase {time.perf_counter() - t_phase:.1f} s; launches over the phase "
+          f"{launched}; on {card}")
+    return launched
 
 
 def _attention_grad_case(gen, name: str, dtype, b: int, h: int, n: int, d: int, lens) -> dict:
@@ -2208,7 +2589,8 @@ def main() -> int:
         float_times, float_launches = float_path_phase(card, snap)
         q_times, q_launches = quantized_path_phase(card, snap)
         w8a8_times, w8a8_launches = w8a8_path_phase(card, snap, tmp_base)
-        serve_launches = serving_phase(card, snap)
+        serve_launches, live_lat = serving_phase(card, snap)
+        artifact_launches = artifact_phase(card, snap, tmp_base, live_lat)
         bwd = bwd_kernel_phase()
         with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
             _, cfm_ms, cfm_launches = cfm_training_phase(card, tmp)
@@ -2221,9 +2603,11 @@ def main() -> int:
           f"int4 requests: {', '.join(f'{t * 1e3:.1f} ms' for t in q_times)}; "
           f"W8A8 requests: {', '.join(f'{t * 1e3:.1f} ms' for t in w8a8_times)}; "
           f"CFM step median {sorted(cfm_ms)[len(cfm_ms) // 2]:.1f} ms; "
-          f"duration step median {sorted(dur_ms)[len(dur_ms) // 2]:.1f} ms; on {card}")
+          f"duration step median {sorted(dur_ms)[len(dur_ms) // 2]:.1f} ms; the whole run so far "
+          f"{time.perf_counter() - T_START:.1f} s; on {card}")
     # launches summed over the main paths' counted runs; the probe kernels' over the probe tools' run
-    paths = (float_launches, q_launches, w8a8_launches, serve_launches, cfm_launches, dur_launches, wav_launches)
+    paths = (float_launches, q_launches, w8a8_launches, serve_launches, artifact_launches, cfm_launches, dur_launches,
+             wav_launches)
     launches = {k: sum(p[k] for p in paths) for k in float_launches}
     for name, n in launches.items():
         if n <= 0:

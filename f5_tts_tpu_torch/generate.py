@@ -32,7 +32,7 @@ import numpy as np
 
 from f5_tts_tpu_torch.audio.io import read_wav, write_wav
 from f5_tts_tpu_torch.audio.resample import resample
-from f5_tts_tpu_torch.models.cfm import F5TTS, clamp_duration
+from f5_tts_tpu_torch.utils.sampling import clamp_duration
 from f5_tts_tpu_torch.utils.tokenizer import convert_char_to_pinyin
 
 # Defaults for the model-free helpers only (`estimated_duration`); with a
@@ -231,6 +231,8 @@ def load_model(model_name: str, quantization_bits: int | None = None, device: st
     """`F5TTS.from_pretrained` on a local snapshot directory (anything else
     raises ValueError, since downloading from the hub is not ported), with
     `int8_compute` (W8A8) turned on when asked."""
+    from f5_tts_tpu_torch.models.cfm import F5TTS  # here: the artifact server imports this module without it
+
     model = F5TTS.from_pretrained(model_name, device=device, quantization_bits=quantization_bits)
     if int8_compute:
         model.dit_cfg = model.dit_cfg.replace(int8_compute=True)

@@ -33,6 +33,7 @@ from f5_tts_tpu_torch.models.quant import w8a8_blocks_
 from f5_tts_tpu_torch.models.vocos import Vocos
 from f5_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
 from f5_tts_tpu_torch.utils.modules import init_parameters_
+from f5_tts_tpu_torch.utils.sampling import clamp_duration, draw_noise, sway_time_grid
 from f5_tts_tpu_torch.utils.tokenizer import list_str_to_idx, list_str_to_tensor
 
 
@@ -118,7 +119,7 @@ def cfm_sample_mel(
     step_cond: torch.Tensor,  # [b, n, d] fixed conditioning
     text: torch.Tensor,  # [b, n] int ids padded with -1
     mask: torch.Tensor | None,  # [b, n] bool duration mask
-    ts: np.ndarray,  # [steps] float32 time grid
+    ts: np.ndarray | torch.Tensor,  # [steps] float32 time grid (a tensor in a traced program)
     method: str = "rk4",
     cfg_strength: float = 2.0,
     return_trajectory: bool = True,
@@ -129,8 +130,8 @@ def cfm_sample_mel(
     modulations are computed once, before integrating."""
     b, n = y0.shape[0], y0.shape[1]
 
-    def schedule_fn(times: np.ndarray) -> dict:
-        return dit.time_mods(torch.from_numpy(times).to(y0.device))
+    def schedule_fn(times) -> dict:
+        return dit.time_mods(torch.as_tensor(times, device=y0.device))
 
     if cfg_strength < 1e-5:
         text_embed = dit.embed_text(text, n, drop_text=False)
@@ -198,9 +199,9 @@ def cfm_sample_e2e(
     cond: torch.Tensor,  # [b, padded_len, d] mel, padded to the bucket
     lens: torch.Tensor,  # [b] reference lengths in frames
     duration: torch.Tensor,  # [b] total durations in frames
-    max_dur: int,  # duration.max()
+    max_dur: int | torch.Tensor,  # duration.max(), an int or a 0-d int tensor
     text: torch.Tensor,  # [b, padded_len] int ids padded with -1
-    ts: np.ndarray,  # [steps] time grid
+    ts: np.ndarray | torch.Tensor,  # [steps] time grid
     y0: torch.Tensor | None,  # [b, n, d] noise, or None to draw from seed
     seed: int,  # ignored when y0 is given
     vocoder: Vocos | None,
@@ -214,7 +215,9 @@ def cfm_sample_e2e(
     """Masks and conditioning -> ODE (`cfm_sample_segmented` with a
     `cfg_interval` on a grid of two points or more, else `cfm_sample_mel`)
     -> composite with the reference -> vocoder at the bucket length with
-    `valid_frames=max_dur`.
+    `valid_frames=max_dur`. With `ts` a tensor, `max_dur` a 0-d tensor and
+    `y0` given, nothing here reads a value on the host, so torch.export
+    traces it (export.py); `cfg_interval` needs a numpy grid.
 
     Returns (mel [b, padded_len, d] zeroed past max_dur, trajectory,
     wave [b, (padded_len - 1) * hop] or None)."""
@@ -226,13 +229,7 @@ def cfm_sample_e2e(
     dur_mask = lens_to_mask(duration, padded_len)
 
     if y0 is None:
-        gen = torch.Generator(device=device).manual_seed(seed)
-        if shared_noise:
-            # a fixed seed gives the SAME noise to every batch row, as the
-            # reference does
-            y0 = torch.randn(padded_len, d, generator=gen, device=device).expand(b, padded_len, d)
-        else:
-            y0 = torch.randn(b, padded_len, d, generator=gen, device=device)
+        y0 = draw_noise(seed, shared_noise, b, padded_len, d, device)
     else:
         y0 = torch.nn.functional.pad(y0.float(), (0, 0, 0, padded_len - y0.shape[1]))
     y0 = y0 * dur_mask[..., None]
@@ -252,24 +249,6 @@ def cfm_sample_e2e(
     out = torch.where(frame_valid, out, torch.zeros_like(out))
     wave = vocoder.decode(out, valid_frames=max_dur) if vocoder is not None else None
     return out, trajectory, wave
-
-
-def clamp_duration(
-    duration: np.ndarray, lens: np.ndarray, text_lens: np.ndarray, max_duration: int
-) -> np.ndarray:
-    """Durations are at least max(text_lens, ref_lens) + 1 frames and at most
-    max_duration."""
-    eff_lens = np.maximum(np.asarray(text_lens, np.int32), np.asarray(lens, np.int32))
-    duration = np.maximum(eff_lens + 1, np.asarray(duration, np.int32))
-    return np.clip(duration, 0, max_duration)
-
-
-def sway_time_grid(steps: int, sway_sampling_coef: float | None, t_start: float = 0.0) -> np.ndarray:
-    """linspace warped by sway sampling t += s*(cos(pi/2 t) - 1 + t)."""
-    t = np.linspace(t_start, 1.0, steps, dtype=np.float32)
-    if sway_sampling_coef is not None:
-        t = t + sway_sampling_coef * (np.cos(np.pi / 2 * t) - 1 + t)
-    return t
 
 
 class F5TTS:

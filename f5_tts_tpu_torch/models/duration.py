@@ -150,7 +150,14 @@ class DurationPredictor(nn.Module):
             seq_len = text.shape[1]
             inp = F.pad(inp, (0, 0, 0, seq_len - inp.shape[1]))
         lens = torch.full((batch,), seq_len, device=device) if lens is None else torch.as_tensor(lens, device=device)
-        mask = lens_to_mask(lens, seq_len)
+        return self.seconds(inp, text, lens)
+
+    def seconds(self, inp: torch.Tensor, text: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """The forward on tensors (the JAX package's `duration_forward`):
+        mel [b, n, mel_dim], text ids [b, nt <= n], lens [b] -> seconds [b].
+        Frames past `lens` are zeroed and left out of the mean. It reads no
+        value on the host, so torch.export traces it (export.py)."""
+        mask = lens_to_mask(lens, inp.shape[1])
         inp = torch.where(mask[..., None], inp, torch.zeros_like(inp))
         return self.head(self.transformer(inp, text), mask)
 

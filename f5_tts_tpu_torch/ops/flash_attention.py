@@ -29,8 +29,12 @@ and 256 on the FMA units. The source notes give the designs.
 key_mask) v. When q, k or v requires grad it goes through `FlashAttentionFn`,
 whose backward launches K2 for CUDA tensors and runs
 `flash_attention_bwd_plain` for CPU tensors; otherwise (every sampling path,
-under torch.no_grad) it launches K1 alone, or runs `flash_attention_plain`
-for CPU tensors. Counts: `flash_attention.launches` and `.launches_f32` (K1
+under torch.no_grad) it calls K1 alone as the registered operator
+`torch.ops.f5_tts_tpu_torch.flash_attention_fwd` (`flash_attention_fwd`),
+which launches the kernel for CUDA tensors and runs `flash_attention_plain`
+for CPU tensors; `FlashAttentionFn` calls it too, for the kernel and its
+log-sum-exp. A program traced with torch.export records the operator, so it
+launches the kernel wherever its inputs lie on the card. Counts: `flash_attention.launches` and `.launches_f32` (K1
 bf16 and float32; one a call, pre-pass included), `.launches_bwd` and
 `.launches_bwd_f32` (K2), `flash_prepass.launches` (K1's pre-pass alone).
 """
@@ -461,6 +465,45 @@ def _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin):
     return dq, dk, dv, qr, kr
 
 
+# ------------------------------------------------------------ the registered operator
+
+# K1 as a torch operator, so that a traced program (torch.export) records one call where the wrapper runs:
+# the fake version gives the output's shape, dtype and strides without data, CPU tensors run the plain version
+# and CUDA tensors launch the kernel (its launch counts stay in `_forward_kernel`)
+FWD_OP_SCHEMA = ("(Tensor q, Tensor k, Tensor v, float scale, Tensor? key_mask, Tensor? cos, Tensor? sin, "
+                 "bool with_lse) -> (Tensor, Tensor)")
+
+
+def _no_lse(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+@torch.library.custom_op("f5_tts_tpu_torch::flash_attention_fwd", mutates_args=(), device_types="cpu",
+                         schema=FWD_OP_SCHEMA)
+def flash_attention_fwd(q, k, v, scale, key_mask, cos, sin, with_lse):
+    """K1 as an operator: (out with q's strides where q is dense, the
+    per-row log-sum-exp [b, h, n] float32 with `with_lse`, else an empty
+    [0]). This body is the CPU one, the plain versions."""
+    rope = None if cos is None else (cos, sin)
+    out = torch.empty_like(q)
+    out.copy_(flash_attention_plain(q, k, v, scale, key_mask, rope))
+    lse = attention_lse_plain(q, k, scale, key_mask, rope) if with_lse else _no_lse(q)
+    return out, lse
+
+
+@flash_attention_fwd.register_kernel("cuda")
+def _flash_attention_fwd_cuda(q, k, v, scale, key_mask, cos, sin, with_lse):
+    key_mask, cos, sin = _checked(q, k, v, key_mask, None if cos is None else (cos, sin))
+    out, lse = _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse=with_lse)
+    return out, _no_lse(q) if lse is None else lse
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, scale, key_mask, cos, sin, with_lse):
+    b, h, n, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, n) if with_lse else (0,), dtype=torch.float32)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with K1 forward and K2 backward on CUDA tensors, the plain
     versions on CPU tensors. Gradients flow to q, k and v; the mask and the
@@ -474,7 +517,7 @@ class FlashAttentionFn(torch.autograd.Function):
             out = flash_attention_plain(q, k, v, scale, key_mask, rope)
         else:
             key_mask, cos, sin = _checked(q, k, v, key_mask, rope)
-            out, lse = _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse=True)
+            out, lse = flash_attention_fwd(q, k, v, scale, key_mask, cos, sin, True)
         ctx.scale = scale
         ctx.save_for_backward(q, k, v, out, lse, key_mask, cos, sin)
         return out
@@ -508,13 +551,10 @@ def flash_attention(
     back to [b, n, h*d] without a copy."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, not {q.device.type}")
+    cos, sin = (None, None) if rope is None else rope
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        cos, sin = (None, None) if rope is None else rope
         return FlashAttentionFn.apply(q, k, v, scale, key_mask, cos, sin)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale, key_mask, rope)
-    key_mask, cos, sin = _checked(q, k, v, key_mask, rope)
-    return _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse=False)[0]
+    return flash_attention_fwd(q, k, v, float(scale), key_mask, cos, sin, False)[0]
 
 
 flash_attention.launches = 0

@@ -15,8 +15,9 @@ Layout (PyTorch's [out, in]): codes q int8 [n, k], centred by -2^(bits-1);
 scales and biases [n, k / 64] in float32 or the model's compute dtype;
 dequant(W)[j, i] = q[j, i] * scales[j, i // 64] + biases[j, i // 64].
 
-`qmatmul` launches the kernel for CUDA tensors and runs `qmatmul_plain` for
-CPU tensors. Both compute x @ dequant(W)^T (+ bias) with W dequantized in
+`qmatmul` calls the registered operator `torch.ops.f5_tts_tpu_torch.qmatmul`
+(`qmatmul_op`), which launches the kernel for CUDA tensors and runs
+`qmatmul_plain` for CPU tensors. Both compute x @ dequant(W)^T (+ bias) with W dequantized in
 float32 and rounded to x's dtype. `qmatmul.launches` counts the kernel's
 launches with bf16 activations, `qmatmul.launches_f32` with float32 ones.
 """
@@ -129,13 +130,30 @@ def qmatmul(
     biases: torch.Tensor,  # [n, k / 64]
     bias: torch.Tensor | None = None,  # [n]
 ) -> torch.Tensor:
-    """x @ dequant(W)^T (+ bias) -> [..., n] in x's dtype. CPU tensors run the
-    plain version; CUDA tensors launch the kernel whatever m is, and anything
-    it does not take raises ValueError."""
-    if x.device.type == "cpu":
-        return qmatmul_plain(x, q, scales, biases, bias)
-    if x.device.type != "cuda":
+    """x @ dequant(W)^T (+ bias) -> [..., n] in x's dtype, through the
+    registered operator `torch.ops.f5_tts_tpu_torch.qmatmul`: CPU tensors run
+    the plain version; CUDA tensors launch the kernel whatever m is, and
+    anything it does not take raises ValueError. A program traced with
+    torch.export records the operator."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"qmatmul runs on CPU or CUDA tensors, not {x.device.type}")
+    return qmatmul_op(x, q, scales, biases, bias)
+
+
+@torch.library.custom_op("f5_tts_tpu_torch::qmatmul", mutates_args=(), device_types="cpu",
+                         schema="(Tensor x, Tensor q, Tensor scales, Tensor biases, Tensor? bias) -> Tensor")
+def qmatmul_op(x, q, scales, biases, bias):
+    """K3 as an operator; this body is the CPU one, the plain version."""
+    return qmatmul_plain(x, q, scales, biases, bias)
+
+
+@qmatmul_op.register_fake
+def _qmatmul_fake(x, q, scales, biases, bias):
+    return x.new_empty((*x.shape[:-1], q.shape[0]))
+
+
+@qmatmul_op.register_kernel("cuda")
+def _qmatmul_cuda(x, q, scales, biases, bias):
     n, k = q.shape
     if x.dtype not in _DTYPES:
         raise ValueError(f"qmatmul takes bfloat16 or float32 activations, not {x.dtype}")

@@ -22,9 +22,13 @@ FMA). Both kernels are memory-bound elementwise and row-reduction passes.
 `torch._int_mm` on the card wants more than 16 rows, so fewer are padded
 to 32 with zero codes and the padding is never read back.
 
-CPU tensors run the plain versions; CUDA tensors launch the kernels or
-raise. Counts: `w8a8_linear.launches` (linears), `quantize_rows.launches`
-and `rescale_bias.launches` (each kernel).
+`quantize_rows` and `rescale_bias` are registered torch operators
+(`torch.ops.f5_tts_tpu_torch.quantize_rows` and `.rescale_bias`), so a
+program traced with torch.export records them; CPU tensors run the plain
+versions inside them (the product stays `torch._int_mm`, exact on either
+device), and CUDA tensors launch the kernels or raise. Counts:
+`w8a8_linear.launches` (linears on the card), `quantize_rows.launches` and
+`rescale_bias.launches` (each kernel).
 """
 
 from __future__ import annotations
@@ -117,25 +121,40 @@ def _kernels():
     return triton, quantize_rows_kernel, rescale_bias_kernel
 
 
-def _on_card(fn: str, x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
+def _check_device(fn: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn} runs on CPU or CUDA tensors, not {x.device.type}")
-    return True
 
 
 def quantize_rows(x: torch.Tensor, rows: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """x [m, k] (bf16 or float32, unit stride along k) -> (codes int8
     [rows, k], sx float32 [rows]); rows past m (up to `rows`, default m)
-    hold zero codes. CPU tensors run the plain version (no padding)."""
-    if not _on_card("quantize_rows", x):
-        return quantize_rows_plain(x)
+    hold zero codes. Through the registered operator: CPU tensors run the
+    plain version on x padded with zero rows."""
+    _check_device("quantize_rows", x)
+    return quantize_rows_op(x, x.shape[0] if rows is None else rows)
+
+
+@torch.library.custom_op("f5_tts_tpu_torch::quantize_rows", mutates_args=(), device_types="cpu",
+                         schema="(Tensor x, int rows) -> (Tensor, Tensor)")
+def quantize_rows_op(x, rows):
+    """`quantize_rows` as an operator; this body is the CPU one: the plain
+    version over x and rows - m zero rows, whose codes are zero, as the
+    kernel writes them."""
+    return quantize_rows_plain(torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[0])))
+
+
+@quantize_rows_op.register_fake
+def _quantize_rows_fake(x, rows):
+    return x.new_empty((rows, x.shape[1]), dtype=torch.int8), x.new_empty((rows,), dtype=torch.float32)
+
+
+@quantize_rows_op.register_kernel("cuda")
+def _quantize_rows_cuda(x, rows):
     if x.ndim != 2 or x.dtype not in _DTYPES or x.stride(-1) != 1:
         raise ValueError(f"quantize_rows takes x [m, k] in {_DTYPES} with unit stride along k; "
                          f"got {x.dtype} {tuple(x.shape)} strides {x.stride()}")
     m, k = x.shape
-    rows = m if rows is None else rows
     if not 1 <= k <= MAX_K or rows < m:
         raise ValueError(f"quantize_rows takes 1 <= k <= {MAX_K} and rows >= m; got k {k}, m {m}, rows {rows}")
     codes = torch.empty(rows, k, dtype=torch.int8, device=x.device)
@@ -153,9 +172,27 @@ def rescale_bias(acc: torch.Tensor, sx: torch.Tensor, scale: torch.Tensor, bias:
                  dtype: torch.dtype) -> torch.Tensor:
     """acc int32 [m, n] (contiguous), sx float32 [m], scale float32 [n],
     bias [n] in `dtype` or None -> [m, n] in `dtype`, as
-    `rescale_bias_plain`. CPU tensors run the plain version."""
-    if not _on_card("rescale_bias", acc):
-        return rescale_bias_plain(acc, sx, scale, bias, dtype)
+    `rescale_bias_plain`, through the registered operator: CPU tensors run
+    the plain version."""
+    _check_device("rescale_bias", acc)
+    return rescale_bias_op(acc, sx, scale, bias, dtype)
+
+
+@torch.library.custom_op("f5_tts_tpu_torch::rescale_bias", mutates_args=(), device_types="cpu",
+                         schema="(Tensor acc, Tensor sx, Tensor scale, Tensor? bias, ScalarType dtype) -> Tensor")
+def rescale_bias_op(acc, sx, scale, bias, dtype):
+    """`rescale_bias` as an operator; this body is the CPU one, the plain
+    version."""
+    return rescale_bias_plain(acc, sx, scale, bias, dtype)
+
+
+@rescale_bias_op.register_fake
+def _rescale_bias_fake(acc, sx, scale, bias, dtype):
+    return acc.new_empty(acc.shape, dtype=dtype)
+
+
+@rescale_bias_op.register_kernel("cuda")
+def _rescale_bias_cuda(acc, sx, scale, bias, dtype):
     m, n = acc.shape
     if acc.dtype != torch.int32 or not acc.is_contiguous() or dtype not in _DTYPES:
         raise ValueError(f"rescale_bias takes contiguous int32 acc and an output dtype in {_DTYPES}")
@@ -180,11 +217,12 @@ def rescale_bias(acc: torch.Tensor, sx: torch.Tensor, scale: torch.Tensor, bias:
 def w8a8_linear(x: torch.Tensor, w8: torch.Tensor, w8_scale: torch.Tensor,
                 bias: torch.Tensor | None = None) -> torch.Tensor:
     """x [..., k] @ the W8A8 weight (w8 int8 [n, k], w8_scale float32 [n])
-    (+ bias) -> [..., n] in x's dtype. CPU tensors run the plain version;
-    CUDA tensors launch quantize_rows, torch._int_mm and rescale_bias, and
-    anything they do not take raises ValueError."""
-    if not _on_card("w8a8_linear", x):
-        return w8a8_linear_plain(x, w8, w8_scale, bias)
+    (+ bias) -> [..., n] in x's dtype: `quantize_rows`, torch._int_mm and
+    `rescale_bias`, which launch the kernels for CUDA tensors and run the
+    plain versions for CPU ones (the product is exact in int32 on either);
+    anything they do not take raises ValueError. A program traced with
+    torch.export records the two operators and the product."""
+    _check_device("w8a8_linear", x)
     n, k = w8.shape
     if x.dtype not in _DTYPES or x.shape[-1] != k:
         raise ValueError(f"w8a8_linear takes x [..., {k}] in {_DTYPES}; got {x.dtype} {tuple(x.shape)}")
@@ -207,7 +245,8 @@ def w8a8_linear(x: torch.Tensor, w8: torch.Tensor, w8_scale: torch.Tensor,
     codes, sx = quantize_rows(x2, rows)
     acc = torch._int_mm(codes, w8.t())
     y = rescale_bias(acc[:m], sx[:m], w8_scale, bias, x.dtype)
-    w8a8_linear.launches += 1
+    if x.device.type == "cuda" and not torch.compiler.is_exporting():  # a trace launches nothing
+        w8a8_linear.launches += 1
     return y.view(*x.shape[:-1], n)
 
 

@@ -70,7 +70,7 @@ from f5_tts_tpu_torch.generate import (
     refuse_unported,
     split_sentences,
 )
-from f5_tts_tpu_torch.models.cfm import clamp_duration
+from f5_tts_tpu_torch.utils.sampling import clamp_duration
 from f5_tts_tpu_torch.utils.tokenizer import convert_char_to_pinyin
 
 # Largest accepted request body (JSON incl. base64 reference audio). Bounds
@@ -216,6 +216,9 @@ class _Request:
     # token-id cache filled by MicroBatcher._tokenize (a request can pass
     # through duration prediction AND synthesis; tokenize once)
     text_ids: np.ndarray | None = None
+    # the artifact server's planned bucket length (artifact_serve.py); the
+    # live server buckets by duration_frames
+    bucket_len: int | None = None
     future: Future = field(default_factory=Future)
     # enqueue time, for the scheduler's anti-starvation aging (monotonic)
     t_submit: float = field(default_factory=time.monotonic)

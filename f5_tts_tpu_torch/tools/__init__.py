@@ -2,5 +2,7 @@
 `fusion_probe` (fused RoPE attention, the attention layer, grouped conv
 formulations, LayerNorm + modulate) and `int8_probe` (W8A8 against bf16),
 run on the card; `quant_quality` (the weight-only snapshots' distortion),
-`serve_latency` (the server's latencies) and `loader_bench` (the training
-data pipeline's host rates)."""
+`serve_latency` (the server's latencies, and with `--artifact-bench` the
+artifact server's throughput), `export_verify` (exported artifacts against
+the live path, on the card) and `loader_bench` (the training data
+pipeline's host rates)."""

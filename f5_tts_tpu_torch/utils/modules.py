@@ -32,8 +32,14 @@ def init_parameters_(module: nn.Module, generator: torch.Generator) -> None:
             m.weight.normal_(generator=generator)
 
 
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in `dtype`: t itself when it is already, so that a program traced
+    with torch.export records no cast for it."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
-    return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+    return F.linear(x, cast(weight, x.dtype), None if bias is None else cast(bias, x.dtype))
 
 
 def apply_linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -62,20 +68,20 @@ def layer_norm(
 ) -> torch.Tensor:
     """LayerNorm over the last axis with float32 statistics; affine iff
     weight is given (then bias must be too)."""
-    xf = x.float()
+    xf = cast(x, torch.float32)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    y = cast((xf - mean) * torch.rsqrt(var + eps), x.dtype)
     if weight is not None:
-        y = y * weight.to(x.dtype) + bias.to(x.dtype)
+        y = y * cast(weight, x.dtype) + cast(bias, x.dtype)
     return y
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last axis with float32 statistics, then the scale."""
-    xf = x.float()
+    xf = cast(x, torch.float32)
     y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
-    return y.to(x.dtype) * weight.to(x.dtype)
+    return cast(y, x.dtype) * cast(weight, x.dtype)
 
 
 def conv1d(
@@ -91,8 +97,8 @@ def conv1d(
         padding = (weight.shape[-1] - 1) // 2
     y = F.conv1d(
         x.transpose(1, 2),
-        weight.to(x.dtype),
-        None if bias is None else bias.to(x.dtype),
+        cast(weight, x.dtype),
+        None if bias is None else cast(bias, x.dtype),
         padding=padding,
         groups=groups,
     )

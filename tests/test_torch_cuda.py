@@ -7,7 +7,10 @@ dequantizing matmul (its float32 kernel in 3xTF32 too), and the probe
 tools' kernels (the attention variants P1-P4, with the RoPE pre-pass of P3
 and P4 held exactly or within an ulp, and the Triton LayerNorm + modulate
 P5), and the W8A8 linear's Triton kernels (`quantize_rows`,
-`rescale_bias`) bit for bit against their plain versions.
+`rescale_bias`) bit for bit against their plain versions; the registered
+operators that carry K1, K3 and the W8A8 kernels into exported programs
+launch them, and a program exported on the CPU launches K1 once moved to
+the card.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -1178,3 +1181,110 @@ def test_w8a8_dit_forward_launch_counts(gen):
         torch.cuda.synchronize()
     assert [f.launches - n0 for f, n0 in zip(counters, before)] == [132, 132, 132, 22, 0]
     assert out.shape == (b, n, 100) and torch.isfinite(out).all()
+
+
+# ------------------------------------------------------------ the registered operators (torch.export)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_attention_operator_launches_k1(gen, dtype):
+    """K1's registered operator on CUDA tensors launches the kernel of its
+    dtype (one count a call, the core's or the float32 kernel's name), its
+    output in q's strides and its lse within tolerance of the plain
+    versions; opcheck holds its fake version to it."""
+    b, h, n, d = 2, 2, 300, 64
+    q, k, v = (x.to(dtype) for x in _projection_views(gen, b, h, n, d))
+    mask, (cos, sin) = _valid_mask(b, n, 250), _rope(n, d)
+    op = torch.ops.f5_tts_tpu_torch.flash_attention_fwd
+    counter = "launches" if dtype == torch.bfloat16 else "launches_f32"
+    before = getattr(flash_attention, counter)
+    names = _cuda_kernel_names(lambda: op(q, k, v, d ** -0.5, mask, cos, sin, True))
+    assert getattr(flash_attention, counter) == before + 5
+    kernel = "attn_core_fwd_kernel" if dtype == torch.bfloat16 else "flash_fwd_f32_tc_kernel"
+    assert _launched(names, kernel) == 1, names
+    out, lse = op(q, k, v, d ** -0.5, mask, cos, sin, True)
+    assert out.stride() == q.stride() and lse.shape == (b, h, n)
+    tol = TOL if dtype == torch.bfloat16 else TOL_F32
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v, d ** -0.5, mask, (cos, sin)).float(),
+                               atol=tol, rtol=0)
+    torch.testing.assert_close(lse, attention_lse_plain(q, k, d ** -0.5, mask, (cos, sin)), atol=tol, rtol=0)
+    assert op(q, k, v, d ** -0.5, mask, cos, sin, False)[1].shape == (0,)
+    torch.library.opcheck(fa.flash_attention_fwd, (q, k, v, d ** -0.5, mask, cos, sin, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_qmatmul_and_w8a8_operators_launch_their_kernels(gen, dtype):
+    """K3's operator and the W8A8 linear's two on CUDA tensors launch their
+    kernels (counts and profiler names) and match their plain versions
+    (K3 within tolerance, quantize_rows and rescale_bias to the bit,
+    quantize_rows' padding rows zero); opcheck holds their fake versions."""
+    from f5_tts_tpu_torch.ops import qmatmul as qm
+
+    m, n, k = 31, 1024, 1024
+    q, scales, biases = (t.to(dtype) if t.is_floating_point() else t for t in _quantized(gen, n, k, 4))
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    counter = "launches" if dtype == torch.bfloat16 else "launches_f32"
+    before = getattr(qmatmul, counter)
+    names = _cuda_kernel_names(lambda: qm.qmatmul_op(x, q, scales, biases, None))
+    assert getattr(qmatmul, counter) == before + 5
+    assert _launched(names, "qmm_wgmma_kernel" if dtype == torch.bfloat16 else "qmm_tf32_kernel") == 1, names
+    torch.testing.assert_close(qm.qmatmul_op(x, q, scales, biases, None).float(),
+                               qmatmul_plain(x, q, scales, biases).float(),
+                               atol=TOL if dtype == torch.bfloat16 else TOL_F32, rtol=0)
+    torch.library.opcheck(qm.qmatmul_op, (x, q, scales, biases, None))
+
+    x8 = x[:5]
+    before = (w8.quantize_rows.launches, w8.rescale_bias.launches)
+    names = _cuda_kernel_names(lambda: w8.quantize_rows_op(x8, 32))
+    assert _launched(names, "quantize_rows_kernel") == 1, names
+    codes, sx = w8.quantize_rows_op(x8, 32)
+    ref_codes, ref_sx = w8.quantize_rows_plain(x8)
+    assert torch.equal(codes[:5], ref_codes) and torch.equal(sx[:5], ref_sx) and not codes[5:].any()
+    acc = w8.int8_product_plain(ref_codes, q)
+    scale, bias = torch.rand(n, generator=gen, device="cuda"), torch.randn(n, generator=gen, device="cuda").to(dtype)
+    names = _cuda_kernel_names(lambda: w8.rescale_bias_op(acc, ref_sx, scale, bias, dtype))
+    assert _launched(names, "rescale_bias_kernel") == 1, names
+    assert torch.equal(w8.rescale_bias_op(acc, ref_sx, scale, bias, dtype),
+                       w8.rescale_bias_plain(acc, ref_sx, scale, bias, dtype))
+    assert (w8.quantize_rows.launches - before[0], w8.rescale_bias.launches - before[1]) == (6, 6)
+    torch.library.opcheck(w8.quantize_rows_op, (x8, 32))
+    torch.library.opcheck(w8.rescale_bias_op, (acc, ref_sx, scale, bias, dtype))
+
+
+@pytest.mark.cuda
+def test_program_exported_on_the_cpu_runs_the_kernels_when_moved_to_the_card(gen, tmp_path):
+    """A sampler exported and saved on the CPU, loaded with device="cuda"
+    (moved by move_to_device_pass): its registered operators dispatch on
+    their inputs' device, so the call launches K1 (depth x 2 evaluations of
+    a 2-step Euler grid with CFG, one launch each) and agrees with the
+    live sampler on the card within the served group's wave tolerance
+    (relative L2 1.5e-2; chip_smoke.py SERVE_TOL)."""
+    from f5_tts_tpu_torch import export as E
+    from f5_tts_tpu_torch.config import CFMConfig, DiTConfig, VocosConfig
+    from f5_tts_tpu_torch.models.cfm import F5TTS
+    from f5_tts_tpu_torch.models.vocos import Vocos
+
+    g = torch.Generator().manual_seed(0)
+    cfg = DiTConfig(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, mel_dim=100, text_num_embeds=256,
+                    text_dim=64, conv_layers=1, compute_dtype="bfloat16")
+    model = F5TTS.init(g, cfg, device="cpu", cfm_cfg=CFMConfig(duration_bucket=64),
+                       vocoder=Vocos.init(g, VocosConfig(dim=32, intermediate_dim=64, num_layers=2), device="cpu"))
+    path = tmp_path / "cpu.bin"
+    E.save_sampler(E.export_sampler(model, batch=1, steps=3, method="euler", embed_weights=False, device="cpu"),
+                   path, model=model)
+    with pytest.raises(ValueError, match="exported for cpu"):
+        E.load_sampler(path)
+    sampler, spec = E.load_sampler(path, device="cuda")
+    assert sampler.device.type == "cuda"
+    cond = torch.randn(1, 20, 100, generator=g) * 0.1
+    text = torch.randint(0, 255, (1, 12), generator=g).numpy()
+    args = E.prep_inputs(spec, cond.numpy(), text, 48, seed=5)
+    before = flash_attention.launches
+    _, wave = sampler.call(*args)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == cfg.depth * 2
+    card = F5TTS(model.dit.cuda(), cfg, cfm_cfg=model.cfm_cfg, vocoder=model.vocoder.cuda())
+    ref, _ = card.sample(cond.cuda(), text, duration=48, steps=3, method="euler", seed=5, return_trajectory=False)
+    assert ((wave[0, :47 * 256] - ref).norm() / ref.norm()).item() < 1.5e-2
