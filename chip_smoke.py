@@ -45,6 +45,31 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      W8A8 DiT forward on the card against the plain W8A8 forward on the CPU
      (and the CPU's bf16 DiT missing that tolerance), and one /synthesize
      on a W8A8 server;
+ 6b. mesh inference (parallel/mesh.py), on the float and int4 snapshots: a
+     2 x 2 grid (data x model) over distinct cards where there are four,
+     else the one card repeated (the slots share its SMs: host cost and
+     correctness, not scaling). A batch-3 request (padded to 4; 10, 9.6 and
+     9.2 s, the main path's settings) through use_mesh against the same
+     request unsharded: walls, peak memory, exact K1 launches (2728) and
+     reductions (2728), each row's mel and wave within the served group's
+     tolerances, the cfg_interval branch too; the same on the int4 snapshot
+     (exact K3 launches), K3 and K3-f32 held to plain at the four shard
+     shapes, and one duration=None request (K1-f32 on the grid's first
+     device); K1 against plain at a slot's shape [4, 8, 1024, 64] on
+     strided views of [4, 1024, 512] projections with each data row's own
+     masks, and rescale_bias bit for bit at the column-sharded slot shape
+     [2048, 512]; one W8A8 DiT forward under 2 x 2, each data row equal to
+     the bit to the unsharded forward of its rows, with the row-parallel
+     kernels (row_absmax, quantize_scaled; Triton) bit for bit against
+     their plain versions and timed; data 2 alone equal to the bit to the
+     unsharded model sampling each data row's rows as a batch of its own,
+     and the same distance of a batch of 2 from a batch of 4 taken in
+     float32 as a witness; a server over data 2 against an unsharded one
+     (one request within 2 LSB; four concurrent requests as one group
+     split 2 + 2, each request equal to the bit to the unsharded model
+     answering its data row's pair as a group of its own, and its distance
+     from the unsharded group of four printed); and the CLI's --mesh-data
+     2 over the default devices (on one card, create_mesh's ValueError);
   7. serving, on the float snapshot: the generate CLI in-process twice
      (two sentences through the batched branch, and one sentence with
      --duration 7 --cfg-interval 0.2,0.8; each WAV finite, not silent, of
@@ -133,6 +158,7 @@ JSON object describing each kernel; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -228,6 +254,7 @@ def reset_counts():
     flash_attention.launches = flash_attention.launches_f32 = qmatmul.launches = qmatmul.launches_f32 = 0
     flash_attention.launches_bwd = flash_attention.launches_bwd_f32 = 0
     w8a8.quantize_rows.launches = w8a8.rescale_bias.launches = 0
+    w8a8.row_absmax.launches = w8a8.quantize_scaled.launches = 0
 
 
 def counts() -> dict:
@@ -242,7 +269,9 @@ def counts() -> dict:
             "flash_attention_bwd": flash_attention.launches_bwd,
             "flash_attention_bwd_f32": flash_attention.launches_bwd_f32,
             "w8a8_quantize": w8a8.quantize_rows.launches,
-            "w8a8_rescale": w8a8.rescale_bias.launches}
+            "w8a8_rescale": w8a8.rescale_bias.launches,
+            "w8a8_row_absmax": w8a8.row_absmax.launches,
+            "w8a8_quantize_scaled": w8a8.quantize_scaled.launches}
 
 
 def _time_ms(fn, iters=20):
@@ -543,7 +572,8 @@ def snapshot_phase(snap: str):
 
 
 ZERO = {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0, "qmatmul": 0, "qmatmul_f32": 0,
-        "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0, "w8a8_quantize": 0, "w8a8_rescale": 0}
+        "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0, "w8a8_quantize": 0, "w8a8_rescale": 0,
+        "w8a8_row_absmax": 0, "w8a8_quantize_scaled": 0}
 
 
 def _request(model, ref, duration, card: str, label: str, expect: dict, expect_len: int) -> float:
@@ -749,6 +779,572 @@ def quantized_path_phase(card: str, snap: str):
     _request(model8, ref, duration, card, "int8 request", per_request, expect_len)
     launched = {k: v + launched[k] for k, v in counts().items()}
     return times, launched
+
+
+# ------------------------------------------------------------ 6b. mesh inference
+
+MESH = {"data": 2, "model": 2}
+MESH_TEXTS = [TEXT[0], "A second request, shorter than the first one.", "And a third."]
+MESH_FRAMES = (937, 900, 860)  # per-item durations in one 1024-frame bucket: 10 s, 9.6 s, 9.2 s
+SHARD_M = 2 * 2 * 1024  # K3's and the W8A8 row kernels' rows on a slot: CFG x 2 rows a data row x 1024 frames
+# (label, k, n) of the DiT's quantized linears on a slot of a model axis of 2
+SHARD_SHAPES = (("to_q/k/v", 1024, 512), ("to_out", 512, 1024), ("ff w1", 1024, 1024), ("ff w2", 1024, 1024))
+DP_FRAMES = (650, 703, 562, 703)  # two data rows whose longest is the group's: each pads and trims as the group
+# one served request, sharded against unsharded: the JAX suite's tolerance (tests/test_mesh_serving.py)
+MESH_PCM_LSB = 2
+# the served group of four: 562, 703, 703 and 703 frames in one 768-frame bucket, so that however the batcher orders
+# the group, each data row's pair holds the group's longest request and pads and trims as the group
+MESH_SERVE_DURATIONS = (6.0, 7.5, 7.5, 7.5)
+
+
+def mesh_devices() -> list:
+    """The grid's devices: distinct cards where the machine has data x model
+    of them, else the one card repeated (a virtual grid, as the JAX suite
+    meshes virtual CPU devices)."""
+    import torch
+
+    n = MESH["data"] * MESH["model"]
+    return None if torch.cuda.device_count() >= n else ["cuda:0"] * n
+
+
+def mesh_qmm_launches(cfg, data: int, model: int) -> int:
+    """K3 launches in one request over a data x model grid: each data row
+    computes the time conditioning and the two text embeddings once, on its
+    first slot, and each slot its blocks' six linears and proj_out per flow
+    evaluation."""
+    return data * ((2 + cfg.depth + 1) + 2 * 2 * cfg.conv_layers + model * EVALS_PER_REQUEST * (6 * cfg.depth + 1))
+
+
+def _rows_rel_l2(got: tuple, want: tuple, lens, durations, hop) -> dict:
+    """The largest relative L2 over the rows of the generated mel frames
+    (the final ODE state) and wave samples of two sample() outputs."""
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    (wave, traj), (want_wave, want_traj) = got, want
+    rows = list(enumerate(zip(lens, durations)))
+    return {"mel": max(rel(traj[0, i, r:d], want_traj[0, i, r:d]) for i, (r, d) in rows),
+            "wave": max(rel(wave[i, r * hop:(d - 1) * hop], want_wave[i, r * hop:(d - 1) * hop]) for i, (r, d) in rows)}
+
+
+def _mesh_request(model, label: str, card: str, expect: dict, reductions: dict | None, **kw) -> tuple:
+    """One batch-3 request (the main path's settings, per-item durations)
+    with its launches and reductions checked; returns (wave, traj, wall)."""
+    import numpy as np
+    import torch
+
+    from f5_tts_tpu_torch.parallel.mesh import all_reduce
+
+    ref, _, _ = _setup(model)
+    a = model.audio_cfg
+    cond = log_mel(model, ref).expand(len(MESH_TEXTS), -1, -1)
+    before, red_before = counts(), dict(all_reduce.counts)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wave, traj = model.sample(cond, MESH_TEXTS, duration=np.array(MESH_FRAMES), steps=STEPS, method="euler",
+                              cfg_strength=2.0, sway_sampling_coef=-1.0, seed=0, return_trajectory=False, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in counts().items()}
+    reduced = {k: v - red_before[k] for k, v in all_reduce.counts.items()}
+    print(f"{label}: {wall * 1e3:.1f} ms wall for 3 x {max(MESH_FRAMES) / a.frames_per_second:.3f} s; launches "
+          f"{launched}; reductions {reduced}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"on {card}", flush=True)
+    if tuple(wave.shape) != (3, (max(MESH_FRAMES) - 1) * a.hop_length) or not torch.isfinite(wave).all():
+        raise AssertionError(f"{label}: wave {tuple(wave.shape)}, or not finite")
+    if launched != expect or (reductions is not None and reduced != reductions):
+        raise AssertionError(f"{label}: launches {launched}, reductions {reduced}; expected {expect}, {reductions}")
+    return wave, traj, wall
+
+
+def log_mel(model, wave):
+    from f5_tts_tpu_torch.audio.mel import log_mel_spectrogram
+
+    a = model.audio_cfg
+    return log_mel_spectrogram(wave[None], a.sample_rate, a.n_mels, a.n_fft, a.hop_length)
+
+
+def _held(label: str, got: tuple, want: tuple, model) -> None:
+    ref, _, _ = _setup(model)
+    lens = [log_mel(model, ref).shape[1]] * len(MESH_FRAMES)
+    errs = _rows_rel_l2(got, want, lens, MESH_FRAMES, model.audio_cfg.hop_length)
+    print(f"{label} against unsharded: largest relative L2 of a row's generated mel {errs['mel']:.3e}, wave "
+          f"{errs['wave']:.3e} (tol {SERVE_TOL})")
+    if not all(errs[x] <= SERVE_TOL[x] for x in SERVE_TOL):
+        raise AssertionError(f"{label}: the sharded sample disagrees with the unsharded one: {errs}")
+
+
+def _pcm(body: bytes):
+    import numpy as np
+
+    return np.frombuffer(body[44:], dtype="<i2").astype(np.int32)
+
+
+def _served_pcm(model, label: str, card: str) -> dict:
+    """After a warm-up at batch 1 and 4: one /synthesize request (the JAX
+    suite's check: batch 1, so each data row of a mesh samples one row as
+    the unsharded server does) and four concurrent requests of one bucket
+    (MESH_SERVE_DURATIONS, RK4 at SERVE_STEPS). Returns {"single": PCM,
+    "group": PCM by request text, "sizes": group sizes of the concurrent
+    four, "groups": those groups' requests in the batcher's order}."""
+    import threading
+
+    from f5_tts_tpu_torch.serve import serve, warmup
+
+    def payload(sec, i=None):
+        number = "" if i is None else f", number {i}"
+        return {"text": f"A request of {sec} seconds in all{number}.", "duration": sec, "steps": SERVE_STEPS,
+                "method": "rk4", "seed": 0}
+
+    httpd = serve(model, "127.0.0.1", 0, max_batch=4, max_wait_ms=500)
+    port, groups, bodies, errors, out = httpd.server_address[1], [], {}, [], {}
+    try:
+        warmup(model, [7.0], steps=SERVE_STEPS, method="rk4", batch_sizes=(1, 4), batcher=httpd.batcher)
+        out["single"] = _pcm(_ok(port, payload(7.0), f"{label} single request"))
+        run_group = httpd.batcher._run_group
+
+        def recording(group):
+            groups.append(list(group))
+            run_group(group)
+
+        httpd.batcher._run_group = recording
+
+        def hit(i, sec):
+            try:
+                body = payload(sec, i)
+                bodies[body["text"]] = _ok(port, body, f"{label} {sec} s")
+            except Exception as e:  # re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=hit, args=item) for item in enumerate(MESH_SERVE_DURATIONS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if errors or len(bodies) != len(MESH_SERVE_DURATIONS):
+            raise AssertionError(f"{label}: concurrent requests failed: {errors}")
+        out["groups"], out["sizes"] = groups, [len(g) for g in groups]
+    finally:
+        httpd.batcher.stop()
+        httpd.shutdown()
+        httpd.batcher.join(timeout=60)
+    print(f"{label}: 4 concurrent requests {wall:.3f} s, group sizes {out['sizes']}; on {card}", flush=True)
+    out["group"] = {text: _pcm(body) for text, body in bodies.items()}
+    return out
+
+
+class _Pairwise:
+    """An unsharded model that samples each data row's half of a batch as a
+    batch of its own and joins the halves, as a mesh over data rows
+    samples them; anything else is the model's."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def sample(self, cond, text, duration, lens, **kw):
+        import torch
+
+        half = len(duration) // MESH["data"]
+        rows = [slice(r * half, (r + 1) * half) for r in range(MESH["data"])]
+        parts = [self.model.sample(cond[r], text[r], duration=duration[r], lens=lens[r], **kw) for r in rows]
+        return torch.cat([p[0] for p in parts]), None
+
+
+def _pairs_pcm(model, group: list) -> dict:
+    """What the unsharded `model` answers for a served group (its requests
+    in the batcher's order) through the batcher's group path (one reference
+    mel for the group, tokens, durations, trimming), each data row's half
+    sampled as a batch of its own: PCM by request text."""
+    from concurrent.futures import Future
+
+    import numpy as np
+    import torch
+
+    from f5_tts_tpu_torch.serve import MicroBatcher, _pcm16
+
+    reqs = [dataclasses.replace(q, future=Future(), counted=False) for q in group]
+    with torch.inference_mode():
+        MicroBatcher(_Pairwise(model))._run_group(reqs)
+    return {q.text: np.frombuffer(_pcm16(q.future.result()), dtype="<i2").astype(np.int32) for q in reqs}
+
+
+def _pcm_apart(a: dict, b: dict) -> tuple[int, float]:
+    """(the largest |difference| in LSB, the largest relative L2 of a
+    request) between two sets of PCM answers by duration."""
+    import numpy as np
+
+    lsb = max(int(np.abs(a[s] - b[s]).max()) for s in a)
+    rel = max(float(np.linalg.norm(a[s] - b[s]) / np.linalg.norm(b[s])) for s in a)
+    return lsb, rel
+
+
+def _slot_kernel_checks() -> None:
+    """K1 bf16 at a slot's shape on the 2 x 2 mesh path against its plain
+    version: [2 rows x CFG, 16 / model heads, 1024, 64] on strided views
+    of the slot's [4, 1024, 512] projections, with each data row's own key
+    masks (its rows' durations in both CFG halves; the padded batch's last
+    row is a copy of row 0). Then N2's rescale_bias bit for bit at the
+    column-sharded linears' slot shape of the W8A8 2 x 2 forward,
+    [2 x 1024, 1024 / model]."""
+    import torch
+
+    from f5_tts_tpu_torch.models.rope import rotary_freqs
+    from f5_tts_tpu_torch.ops import w8a8 as W
+    from f5_tts_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    h, n, d = 16 // MESH["model"], 1024, 64
+    padded = MESH_FRAMES + MESH_FRAMES[:1] * (-len(MESH_FRAMES) % MESH["data"])
+    per_row = len(padded) // MESH["data"]
+    raw = rotary_freqs(n, d, device="cuda")
+    rope, scale = (torch.cos(raw), torch.sin(raw)), d ** -0.5
+    for r in range(MESH["data"]):
+        valid = padded[r * per_row:(r + 1) * per_row] * 2  # the conditioned and the unconditioned half
+        b = len(valid)
+        q, k, v = (torch.randn(b, n, h * d, generator=gen, device="cuda", dtype=torch.bfloat16)
+                   .view(b, n, h, d).transpose(1, 2) for _ in range(3))
+        mask = torch.arange(n, device="cuda")[None, :] < torch.tensor(valid, device="cuda")[:, None]
+        out = flash_attention(q, k, v, scale, key_mask=mask, rope=rope)
+        err = (out.float() - flash_attention_plain(q, k, v, scale, mask, rope).float()).abs().max().item()
+        ms = _time_ms(lambda: flash_attention(q, k, v, scale, key_mask=mask, rope=rope))
+        plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v, scale, mask, rope))
+        print(f"K1 bf16 at data row {r}'s slot shape [b={b}, h={h}, n={n}, d={d}] on strided views of "
+              f"[{b}, {n}, {h * d}] projections (strides {q.stride()}), masks {valid}: max |kernel - plain| "
+              f"{err:.3e} (tol {ATTN_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"K1 at data row {r}'s slot shape disagrees with its plain version: {err}")
+
+    m, k_in, n_out = 2 * 1024, 1024, 1024 // MESH["model"]
+    codes, sx = W.quantize_rows_plain(torch.randn(m, k_in, generator=gen, device="cuda").to(torch.bfloat16))
+    w8, w_scale = W.quantize_rows_plain(torch.randn(n_out, k_in, generator=gen, device="cuda") / k_in ** 0.5)
+    acc = W.int8_product_plain(codes, w8)
+    bias = (0.1 * torch.randn(n_out, generator=gen, device="cuda")).to(torch.bfloat16)
+    y = W.rescale_bias(acc, sx, w_scale, bias, torch.bfloat16)
+    want = W.rescale_bias_plain(acc, sx, w_scale, bias, torch.bfloat16)
+    err = (y.float() - want.float()).abs().max().item()
+    ms = _time_ms(lambda: W.rescale_bias(acc, sx, w_scale, bias, torch.bfloat16))
+    plain_ms = _time_ms(lambda: W.rescale_bias_plain(acc, sx, w_scale, bias, torch.bfloat16))
+    print(f"rescale_bias at the column-sharded slot shape [m={m}, n={n_out}] bfloat16: max |kernel - plain| "
+          f"{err:.3e}, bit for bit: {'yes' if torch.equal(y, want) else 'NO'}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    if not torch.equal(y, want):
+        raise AssertionError(f"rescale_bias at the column-sharded slot shape disagrees with its plain version: {err}")
+
+
+def mesh_phase(card: str, snap: str) -> tuple[dict, dict]:
+    """Mesh inference on a 2 x 2 grid (data x model): the float base DiT
+    and the int4 snapshot through use_mesh against the same requests
+    unsharded, the cfg_interval branch, a duration=None request, K3 at the
+    shard shapes, a W8A8 DiT forward to the bit with its row kernels, a
+    served group split over data 2 against an unsharded server, and the
+    CLI's --mesh-data 2 over the default devices. Returns the launches of
+    the phase's sharded requests and forwards, and the W8A8 row kernels'
+    results for the kernels line."""
+    import numpy as np
+    import torch
+
+    from f5_tts_tpu_torch import F5TTS
+    from f5_tts_tpu_torch import generate as gen
+    from f5_tts_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+    from f5_tts_tpu_torch.parallel.mesh import all_reduce, create_mesh
+    from f5_tts_tpu_torch.utils.sampling import clamp_duration
+
+    t_phase = time.perf_counter()
+    mesh = create_mesh(devices=mesh_devices(), **MESH)
+    data, ways = MESH["data"], MESH["model"]
+    phase(f"mesh inference: use_mesh on a {mesh}: float and int4 requests against unsharded, cfg_interval, "
+          "duration=None, K3 at the shard shapes, a W8A8 forward to the bit, a served group, the CLI")
+    print(f"the grid has {len({str(d) for d in mesh.devices.flat})} distinct device(s) for {mesh.size} slots: "
+          "on one card the slots share its SMs, so walls measure host cost and correctness, not scaling")
+    main_path = dict(ZERO)
+
+    def add(launched):
+        for k in main_path:
+            main_path[k] += launched[k]
+
+    # -- float: the base DiT in bf16, batch 3 (padded to 4), in both sampler branches
+    model = F5TTS.from_pretrained(snap, device="cuda")
+    sharded = F5TTS.from_pretrained(snap, device="cuda").use_mesh(mesh)
+    cfg = model.dit_cfg
+    k1 = cfg.depth * EVALS_PER_REQUEST
+    unsharded_expect = {**ZERO, "flash_attention_fwd": k1}
+    expect = {**ZERO, "flash_attention_fwd": k1 * data * ways}
+    reductions = {"sum": 2 * cfg.depth * EVALS_PER_REQUEST * data, "max": 0}
+    _mesh_request(model, "float unsharded warm-up", card, unsharded_expect, None)
+    _mesh_request(sharded, "float 2 x 2 warm-up", card, expect, reductions)
+    want = _mesh_request(model, "float unsharded request", card, unsharded_expect, None)
+    before = counts()
+    got = _mesh_request(sharded, "float 2 x 2 request", card, expect, reductions)
+    add({k: v - before[k] for k, v in counts().items()})
+    print(f"float request wall: 2 x 2 {got[2] * 1e3:.1f} ms against unsharded {want[2] * 1e3:.1f} ms "
+          f"({got[2] / want[2]:.2f}x: {data * ways}x the launches on {card})")
+    _held("float 2 x 2", got[:2], want[:2], model)
+    interval = dict(cfg_interval=(0.2, 0.8))
+    got = _mesh_request(sharded, "float 2 x 2 cfg_interval request", card, expect, None, **interval)
+    want = _mesh_request(model, "float unsharded cfg_interval request", card, unsharded_expect, None, **interval)
+    _held("float 2 x 2, cfg_interval (0.2, 0.8)", got[:2], want[:2], model)
+    del sharded
+    _slot_kernel_checks()
+
+    # -- int4: the quantized snapshot under 2 x 2, K3 at the shard shapes, duration=None
+    q_model = F5TTS.from_pretrained(snap, device="cuda", quantization_bits=4)
+    q_sharded = F5TTS.from_pretrained(snap, device="cuda", quantization_bits=4).use_mesh(mesh)
+    q_unsharded_expect = {**unsharded_expect, "qmatmul": qmm_launches_per_request(cfg)}
+    q_expect = {**expect, "qmatmul": mesh_qmm_launches(cfg, data, ways)}
+    _mesh_request(q_sharded, "int4 2 x 2 warm-up", card, q_expect, reductions)
+    want = _mesh_request(q_model, "int4 unsharded request", card, q_unsharded_expect, None)
+    before = counts()
+    got = _mesh_request(q_sharded, "int4 2 x 2 request", card, q_expect, reductions)
+    add({k: v - before[k] for k, v in counts().items()})
+    _held("int4 2 x 2", got[:2], want[:2], q_model)
+
+    shard = q_sharded._inference_dit()[0][0].shards[-1].transformer_blocks[0]
+    linears = dict(zip((s[0] for s in SHARD_SHAPES), (shard.attn.to_q, shard.attn.to_out[0], shard.ff.ff[0][0],
+                                                      shard.ff.ff[2])))
+    gen_x = torch.Generator(device="cuda").manual_seed(21)
+    for label, k, n in SHARD_SHAPES:
+        lin = linears[label]
+        if tuple(lin.q.shape) != (n, k):
+            raise AssertionError(f"the shard's {label} codes are {tuple(lin.q.shape)}, not ({n}, {k})")
+        for dtype, tol in ((torch.bfloat16, QMM_TOL), (torch.float32, F32_TOL)):
+            x = torch.randn(SHARD_M, k, generator=gen_x, device="cuda").to(dtype)
+            bias = lin.bias if label in ("to_q/k/v", "ff w1") else None  # a row-parallel slot leaves its bias out
+            args = (x, lin.q, lin.scales.to(dtype), lin.biases.to(dtype), bias)
+            out, plain = qmatmul(*args), qmatmul_plain(*args)
+            err = (out.float() - plain.float()).abs().max().item()
+            ms = _time_ms(lambda: qmatmul(*args))
+            print(f"K3 at the shard shape {label} [m={SHARD_M}, k={k}, n={n}] {str(dtype)[6:]}: max |kernel - "
+                  f"plain| {err:.3e} (tol {tol}); {ms:.4f} ms")
+            if not err <= tol:
+                raise AssertionError(f"K3 at the shard shape {label} {dtype} disagrees with its plain version: {err}")
+
+    ref, _, _ = _setup(q_model)
+    mel = log_mel(q_model, ref)
+    ids = q_model._tokenize(TEXT)
+    predicted = q_model.predict_duration(mel, ids)
+    clamped = int(clamp_duration(predicted, np.array([mel.shape[1]]), np.array([ids.shape[1]]),
+                                 q_model.cfm_cfg.max_duration)[0])
+    predicted = int(predicted[0])
+    before, red_before = counts(), dict(all_reduce.counts)
+    wave, _ = q_sharded.sample(ref[None], TEXT, steps=STEPS, method="euler", cfg_strength=2.0,
+                               sway_sampling_coef=-1.0, seed=0, return_trajectory=False)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in counts().items()}
+    reduced = {k: v - red_before[k] for k, v in all_reduce.counts.items()}
+    add(launched)
+    predictor_device = next(q_sharded.duration_predictor.parameters()).device
+    print(f"int4 2 x 2 request with duration=None: predicted {predicted} frames, clamped {clamped}; the predictor "
+          f"on {predictor_device} (the grid's first device {mesh.devices.flat[0]}); wave {tuple(wave.shape)}; "
+          f"launches {launched}; reductions {reduced}")
+    want_f32 = {**q_expect, "flash_attention_fwd_f32": q_model.duration_predictor.cfg.depth}
+    want_shape = ((clamped - 1) * q_model.audio_cfg.hop_length,)
+    if launched != want_f32 or reduced != reductions or tuple(wave.shape) != want_shape \
+            or predictor_device != mesh.devices.flat[0]:
+        raise AssertionError(f"the duration=None request under the mesh: launches {launched}, reductions {reduced}, "
+                             f"wave {tuple(wave.shape)}; expected {want_f32}, {reductions}, clamped {clamped}")
+    del q_model, q_sharded
+
+    # -- W8A8: one DiT forward under 2 x 2 against the unsharded W8A8 forward, and the row kernels
+    row_kernels = _w8a8_mesh_check(snap, mesh, card, add)
+
+    # -- data parallelism alone (data 2): a data row samples its rows as the unsharded model samples them as a
+    # batch of their own. Each half's longest duration is the group's, so the halves pad and trim as the group.
+    devices = mesh_devices()
+    served = F5TTS.from_pretrained(snap, device="cuda").use_mesh(
+        create_mesh(data=2, devices=None if devices is None else devices[:2]))
+    ref, _, _ = _setup(model)
+    cond = log_mel(model, ref).expand(4, -1, -1)
+    texts, frames = MESH_TEXTS + [TEXT[0][:60]], np.array(DP_FRAMES)
+    kw = dict(steps=SERVE_STEPS, method="rk4", cfg_strength=2.0, sway_sampling_coef=-1.0, seed=0,
+              return_trajectory=False)
+    got = served.sample(cond, texts, duration=frames, **kw)
+    halves = [model.sample(cond[r], texts[r], duration=frames[r], **kw) for r in (slice(0, 2), slice(2, 4))]
+    whole = model.sample(cond, texts, duration=frames, **kw)
+    joined = (torch.cat([h[0] for h in halves]), torch.cat([h[1] for h in halves], dim=1))
+    exact = torch.equal(got[0], joined[0]) and torch.equal(got[1], joined[1])
+    lens, hop = [cond.shape[1]] * 4, model.audio_cfg.hop_length
+    batch = _rows_rel_l2(joined, whole, lens, DP_FRAMES, hop)
+    dp = _rows_rel_l2(got, whole, lens, DP_FRAMES, hop)
+    print(f"data 2 (rows {DP_FRAMES} frames, RK4 x {SERVE_STEPS}): equal to the bit to the unsharded model sampling "
+          f"each data row's rows as a batch of 2: {exact}; against the unsharded batch of 4: largest relative L2 of "
+          f"a row's mel {dp['mel']:.3e}, wave {dp['wave']:.3e}, as far as the unsharded model's own batches of 2 are "
+          f"from its batch of 4 (mel {batch['mel']:.3e}, wave {batch['wave']:.3e}): cuBLAS picks the float layers' "
+          "kernels by rows")
+    if not exact:
+        raise AssertionError("a data row of the mesh does not sample what the unsharded model samples for its rows")
+    # a witness for the cause of that distance: the same batches of 2 and 4 with the DiT and the vocoder in float32
+    model32 = F5TTS.from_pretrained(snap, device="cuda")
+    model32.dit_cfg = model32.dit.cfg = model32.dit_cfg.replace(compute_dtype="float32")
+    model32.vocoder.float()
+    model32.vocoder.cfg = dataclasses.replace(model32.vocoder.cfg, compute_dtype="float32")
+    halves32 = [model32.sample(cond[r], texts[r], duration=frames[r], **kw) for r in (slice(0, 2), slice(2, 4))]
+    whole32 = model32.sample(cond, texts, duration=frames, **kw)
+    joined32 = (torch.cat([h[0] for h in halves32]), torch.cat([h[1] for h in halves32], dim=1))
+    batch32 = _rows_rel_l2(joined32, whole32, lens, DP_FRAMES, hop)
+    # the vocoder alone on the batch of 4's mel, decoded as 2 + 2 against as 4
+    mel = whole32[1][0].clone()
+    mel[:, :lens[0]] = cond[:, :lens[0]]
+    with torch.no_grad():
+        voc4 = model32.vocoder.decode(mel, valid_frames=max(DP_FRAMES))
+        voc2 = torch.cat([model32.vocoder.decode(mel[r], valid_frames=max(DP_FRAMES))
+                          for r in (slice(0, 2), slice(2, 4))])
+    voc = _rows_rel_l2((voc2, whole32[1]), (voc4, whole32[1]), lens, DP_FRAMES, hop)["wave"]
+    print(f"float32 witness: the unsharded model with its DiT and vocoder in float32, batches of 2 against its "
+          f"batch of 4: largest relative L2 of a row's mel {batch32['mel']:.3e}, wave {batch32['wave']:.3e}; the "
+          f"vocoder alone on one mel, 2 + 2 against 4: wave {voc:.3e}; on {card}")
+    del model32, halves32, whole32, joined32
+
+    # -- serving over data 2 against an unsharded server: one request (each data row then samples one row, as
+    # the unsharded server does) within MESH_PCM_LSB; a group of four, split 2 + 2, equal to the bit to the
+    # unsharded model answering each data row's pair as a group of its own, as data 2 above; its distance from
+    # the unsharded group of four (a batch of 2 against a batch of 4, above) is printed
+    plain = _served_pcm(model, "unsharded server", card)
+    over = _served_pcm(served, "server over data 2", card)
+    single = _pcm_apart({7.0: over["single"]}, {7.0: plain["single"]})
+    group = _pcm_apart(over["group"], plain["group"])
+    order = [(q.text, q.duration_frames) for q in over["groups"][0]] if over["sizes"] == [4] else None
+    pairs = _pairs_pcm(model, over["groups"][0]) if order else {}
+    pairs_apart = _pcm_apart(over["group"], pairs) if pairs.keys() == over["group"].keys() else None
+    print(f"served over data 2 against unsharded: one request {single[0]} LSB apart (tol {MESH_PCM_LSB}); the group "
+          f"of four (split 2 + 2 over the data rows; groups {over['sizes']} and {plain['sizes']}; the batcher's "
+          f"order {order}) against the unsharded model answering each data row's pair as a group: "
+          f"{pairs_apart} (LSB, relative L2; tol 0: to the bit); against the unsharded group of four {group[0]} LSB, "
+          f"relative L2 of a request {group[1]:.3e}")
+    if over["sizes"] != [4] or plain["sizes"] != [4] or single[0] > MESH_PCM_LSB or pairs_apart != (0, 0.0) \
+            or any(over["group"][t].shape != plain["group"][t].shape for t in over["group"]):
+        raise AssertionError(f"the server over data 2: groups {over['sizes']} and {plain['sizes']}, one request "
+                             f"{single}, the group against its pairs {pairs_apart}")
+    del served
+
+    # -- the CLI's --mesh-data 2 over its default devices (every card)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--model", snap, "--text", "A request over the mesh.", "--duration", "4", "--seed", "0",
+                "--mesh-data", "2", "--output", f"{tmp}/mesh.wav"]
+        if torch.cuda.device_count() >= 2:
+            gen.main(argv)
+            print(f"CLI --mesh-data 2 over {torch.cuda.device_count()} cards: wrote {tmp}/mesh.wav")
+        else:
+            try:
+                gen.main(argv)
+            except ValueError as e:
+                message = str(e)
+            else:
+                raise AssertionError("the CLI's --mesh-data 2 on one card did not refuse")
+            print(f"CLI --mesh-data 2 on one card: ValueError {message!r}")
+            if message != "mesh 2x1x1 needs 2 devices, have 1":
+                raise AssertionError(f"the CLI's --mesh-data 2 on one card raised {message!r}")
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s; launches of its sharded requests and forwards "
+          f"{main_path}; on {card}")
+    return main_path, row_kernels
+
+
+def _w8a8_mesh_check(snap: str, mesh, card: str, add) -> dict:
+    """One W8A8 DiT forward under 2 x 2 (4 rows of 1024 frames with their
+    own key masks; each data row's group on its 2 rows) against the
+    unsharded W8A8 forward: each data row to the bit against the unsharded
+    forward of its rows, and the gathered batch against the unsharded
+    forward of all 4. The row-parallel kernels bit for bit against their
+    plain versions at the slot shapes, timed. Returns their rows for the
+    kernels line."""
+    import torch
+
+    from f5_tts_tpu_torch import F5TTS
+    from f5_tts_tpu_torch.ops import w8a8 as W
+    from f5_tts_tpu_torch.parallel.mesh import all_reduce
+
+    model = F5TTS.from_pretrained(snap, device="cuda")
+    model.dit_cfg = model.dit_cfg.replace(int8_compute=True)
+    dit = model._inference_dit()  # the unsharded W8A8 copy, kept here: use_mesh drops the model's reference
+    groups = model.use_mesh(mesh)._inference_dit()
+    cfg = model.dit_cfg
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, n = 4, 1024
+    x, cond = (torch.randn(b, n, 100, generator=g, device="cuda") for _ in range(2))
+    text = torch.randint(0, 95, (b, 120), generator=g, device="cuda")
+    mask = torch.arange(n, device="cuda")[None] < torch.tensor([[n], [900], [n], [700]], device="cuda")[:, :1]
+    with torch.no_grad():
+        te = dit.embed_text(text, n)
+        mods = {k: v[0] for k, v in dit.time_mods(torch.tensor([0.4], device="cuda")).items()}
+        want = dit(x, cond, te, mods, mask=mask)
+        rows = [slice(0, 2), slice(2, 4)]
+        want_rows = [dit(x[r], cond[r], te[r], mods, mask=mask[r]) for r in rows]
+        before, red_before = counts(), dict(all_reduce.counts)
+        row_before = (W.row_absmax.launches, W.quantize_scaled.launches)
+        got = [grp(x[r], cond[r], te[r], mods, mask=mask[r]) for (grp, _), r in zip(groups, rows)]
+        torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in counts().items()}
+    add(launched)
+    reduced = {k: v - red_before[k] for k, v in all_reduce.counts.items()}
+    row_launched = (W.row_absmax.launches - row_before[0], W.quantize_scaled.launches - row_before[1])
+    per_row = [torch.equal(a, w) for a, w in zip(got, want_rows)]
+    whole = torch.cat(got)
+    whole_exact = torch.equal(whole, want)
+    rel = ((whole - want).norm() / want.norm()).item()
+    batch_rel = ((torch.cat(want_rows) - want).norm() / want.norm()).item()
+    slots = MESH["data"] * MESH["model"]
+    expect = {**ZERO, "flash_attention_fwd": slots * cfg.depth, "w8a8_quantize": slots * 4 * cfg.depth,
+              "w8a8_rescale": slots * 6 * cfg.depth, "w8a8_row_absmax": slots * 2 * cfg.depth,
+              "w8a8_quantize_scaled": slots * 2 * cfg.depth}
+    red_expect = {"sum": MESH["data"] * 2 * cfg.depth, "max": MESH["data"] * 2 * cfg.depth}
+    print(f"W8A8 DiT forward under 2 x 2 ({b} x {n} frames): each data row against the unsharded forward of its rows "
+          f"equal to the bit: {per_row}; the gathered batch against the unsharded forward of all {b}: equal to the "
+          f"bit {whole_exact}, relative L2 {rel:.3e} (the unsharded forward of 2 rows against the same rows in its "
+          f"forward of {b}: {batch_rel:.3e}); launches {launched}; reductions {reduced}; row kernels "
+          f"{row_launched}; on {card}")
+    # the tensor-parallel split is exact (the int32 sums and the max over the slots); the data split changes the
+    # batch of the float layers outside the W8A8 linears (input projection, proj_out: cuBLAS picks its kernel by
+    # m), so the whole batch is held to W8A8_DIT_TOL where it is not equal to the bit
+    if not all(per_row) or not (whole_exact or rel <= W8A8_DIT_TOL["bfloat16"]):
+        raise AssertionError(f"the W8A8 forward under 2 x 2 disagrees with the unsharded one: rows {per_row}, "
+                             f"whole {rel}")
+    if launched != expect or reduced != red_expect:
+        raise AssertionError(f"W8A8 forward under 2 x 2: launches {launched}, reductions {reduced}; expected "
+                             f"{expect}, {red_expect}")
+    del model, groups, dit
+
+    phase("W8A8 row-parallel kernels vs plain, bit for bit: row_absmax and quantize_scaled (Triton)")
+    results = {}
+    for label, k in (("to_out", 512), ("ff w2", 1024)):
+        whole_x = torch.randn(SHARD_M, 2 * k, generator=g, device="cuda").to(torch.bfloat16)
+        halves = [h.contiguous() for h in whole_x.chunk(2, dim=-1)]
+        x = halves[0]
+        amaxes = [W.row_absmax(h) for h in halves]
+        amax = torch.maximum(*amaxes)
+        codes, sx = W.quantize_scaled(x, amax)
+        ref_amax, (ref_codes, ref_sx) = W.row_absmax_plain(x), W.quantize_scaled_plain(x, amax)
+        whole_codes, whole_sx = W.quantize_rows(whole_x)
+        errs = {"row_absmax": (amaxes[0] - ref_amax).abs().max().item(),
+                "quantize_scaled": (codes.int() - ref_codes.int()).abs().max().item()
+                + (sx - ref_sx).abs().max().item()}
+        exact = (torch.equal(amaxes[0], ref_amax) and torch.equal(codes, ref_codes) and torch.equal(sx, ref_sx)
+                 and torch.equal(codes, whole_codes[:, :k]) and torch.equal(sx, whole_sx))
+        name = f"{label} slot input [m={SHARD_M}, k={k}] bfloat16"
+        print(f"{name}: max |kernel - plain| {errs}; equal to the whole row's quantize_rows: "
+              f"{'yes' if exact else 'NO'}")
+        if not exact:
+            raise AssertionError(f"a W8A8 row kernel disagrees with its plain version at {name}: {errs}")
+        runs = {
+            "row_absmax": (lambda: W.row_absmax(x), lambda: W.row_absmax_plain(x),
+                           lambda: torch.linalg.vector_norm(x, float("inf"), dim=-1, dtype=torch.float32),
+                           bound(2 * x.numel(), nbytes(x, ref_amax), "f32")),
+            "quantize_scaled": (lambda: W.quantize_scaled(x, amax), lambda: W.quantize_scaled_plain(x, amax), None,
+                                bound(4 * x.numel(), nbytes(x, amax, ref_codes, ref_sx), "f32")),
+        }
+        for part, (fn, plain, library, (bound_ms, bound_by)) in runs.items():
+            ms, plain_ms, dev = _time_ms(fn), _time_ms(plain), device_ms(fn)
+            lib_ms = None if library is None else _time_ms(library)
+            print(f"{name} {part}: kernel {ms:.4f} ms, device {dev:.4f} ms, plain {plain_ms:.4f} ms")
+            _library_line(f"{name} {part}", "torch.linalg.vector_norm(ord=inf, dtype=float32)", lib_ms, bound_ms,
+                          bound_by)
+            results[(part, label)] = {"err": errs[part], "ms": ms, "plain_ms": plain_ms, "device_ms": dev,
+                                      "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return results
 
 
 # (label, m, k, n) of the W8A8 linears: the DiT blocks' three shapes over 2 x 1024 frames (CFG), then a ragged m
@@ -1304,14 +1900,7 @@ def _served_group_check(model, calls) -> None:
         raise AssertionError(f"the group's durations {durations} are not those of the serving kernel case")
 
     def rel_errs(want_wave, want_traj) -> dict:
-        """The largest relative L2 over the rows, of the mel and of the wave."""
-        def rel(got, want):
-            return ((got.float() - want.float()).norm() / want.float().norm()).item()
-
-        rows = list(enumerate(zip(lens.tolist(), durations.tolist())))
-        return {"mel": max(rel(traj[0, i, ref:dur], want_traj[0, i, ref:dur]) for i, (ref, dur) in rows),
-                "wave": max(rel(wave[i, ref * hop:(dur - 1) * hop], want_wave[i, ref * hop:(dur - 1) * hop])
-                            for i, (ref, dur) in rows)}
+        return _rows_rel_l2((wave, traj), (want_wave, want_traj), lens.tolist(), durations.tolist(), hop)
 
     def plain(roll):
         def attention(q, k, v, scale, key_mask=None, rope=None):
@@ -2588,6 +3177,7 @@ def main() -> int:
         snapshot_phase(snap)
         float_times, float_launches = float_path_phase(card, snap)
         q_times, q_launches = quantized_path_phase(card, snap)
+        mesh_launches, mesh_rows = mesh_phase(card, snap)
         w8a8_times, w8a8_launches = w8a8_path_phase(card, snap, tmp_base)
         serve_launches, live_lat = serving_phase(card, snap)
         artifact_launches = artifact_phase(card, snap, tmp_base, live_lat)
@@ -2606,8 +3196,8 @@ def main() -> int:
           f"duration step median {sorted(dur_ms)[len(dur_ms) // 2]:.1f} ms; the whole run so far "
           f"{time.perf_counter() - T_START:.1f} s; on {card}")
     # launches summed over the main paths' counted runs; the probe kernels' over the probe tools' run
-    paths = (float_launches, q_launches, w8a8_launches, serve_launches, artifact_launches, cfm_launches, dur_launches,
-             wav_launches)
+    paths = (float_launches, q_launches, mesh_launches, w8a8_launches, serve_launches, artifact_launches, cfm_launches,
+             dur_launches, wav_launches)
     launches = {k: sum(p[k] for p in paths) for k in float_launches}
     for name, n in launches.items():
         if n <= 0:
@@ -2638,6 +3228,10 @@ def main() -> int:
          w8a8[("quantize", "to_q/k/v/out", torch.bfloat16)]),
         ("w8a8_rescale", "triton", "f5_tts_tpu_torch/ops/w8a8.py", "f5_tts_tpu/utils/modules.py:56",
          w8a8[("rescale", "to_q/k/v/out", torch.bfloat16)]),
+        ("w8a8_row_absmax", "triton", "f5_tts_tpu_torch/ops/w8a8.py", "f5_tts_tpu/utils/modules.py:56",
+         mesh_rows[("row_absmax", "to_out")]),
+        ("w8a8_quantize_scaled", "triton", "f5_tts_tpu_torch/ops/w8a8.py", "f5_tts_tpu/utils/modules.py:56",
+         mesh_rows[("quantize_scaled", "to_out")]),
     ]
     print(json.dumps({"kernels": [{
         "name": name,

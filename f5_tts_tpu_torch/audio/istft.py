@@ -5,6 +5,11 @@ torch.istft semantics with center=True (per-frame irfft, synthesis window,
 overlap-add, division by the summed squared-window envelope, n_fft//2
 trimmed from both ends), plus `valid_frames`, which torch.istft has no
 counterpart for: frames past it leave both the overlap-add and the envelope.
+
+The imaginary parts of the DC and Nyquist bins are dropped before the
+inverse FFT, as numpy's and the CPU's irfft drop them. cuFFT's C2R leaves
+them undefined: with them in, a frame's samples on the card change with the
+plan, and so with the batch size.
 """
 
 from __future__ import annotations
@@ -34,6 +39,9 @@ def istft(
         valid = torch.arange(frames, device=spec.device) < valid_frames
         spec = spec * valid[None, :, None].to(spec.dtype)
 
+    bins = spec.shape[-1]
+    inner = (torch.arange(bins, device=spec.device) % (bins - 1) != 0).to(spec.real.dtype)  # 0 at DC, Nyquist
+    spec = torch.complex(spec.real, spec.imag * inner)
     ywin = torch.fft.irfft(spec, n=n_fft, dim=-1) * window  # [b, frames, n_fft]
 
     # overlap-add: frame i covers blocks [i, i + ratio); block m sums chunk j

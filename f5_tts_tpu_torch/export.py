@@ -188,6 +188,8 @@ def _device_of(module: nn.Module, device) -> torch.device:
 
 
 def _sampler_program(model, with_vocoder: bool, method: str, cfg_strength: float) -> _SamplerProgram:
+    if model._mesh is not None:
+        raise ValueError("a sampler over a mesh (use_mesh) does not export: export the model without its mesh")
     return _SamplerProgram(model._inference_dit(), model.vocoder if with_vocoder else None, method,
                            float(cfg_strength))
 

@@ -13,8 +13,9 @@ layout): downloading from the hub is not ported. `--w8a8` samples with
 W8A8 int8 compute (`DiTConfig.int8_compute`: int8 weights and per-token
 int8 activations in the DiT blocks' attention and feed-forward linears);
 `--q` with `--w8a8` raises ValueError, as in the JAX package.
-`--mesh-data`/`--mesh-model` above 1 (multi-card sampling) raise
-NotImplementedError until that is ported.
+`--mesh-data`/`--mesh-model` above 1 sample over a grid of the devices of
+`--device`'s type (parallel/mesh.py): every CUDA card, or the one CPU
+device, so too few of them raise the JAX package's ValueError.
 """
 
 from __future__ import annotations
@@ -43,10 +44,6 @@ FRAMES_PER_SEC = SAMPLE_RATE / HOP_LENGTH
 TARGET_RMS = 0.1
 
 DEFAULT_REF_TEXT = "Some call me nature, others call me mother nature."
-
-MESH_NOT_PORTED = ("multi-card sampling (--mesh-data, --mesh-model above 1) is not ported to the PyTorch "
-                   "package yet (ROADMAP.md, queue 1 item 6)")
-
 
 # ------------------------------------------------------------------ utilities
 
@@ -239,17 +236,26 @@ def load_model(model_name: str, quantization_bits: int | None = None, device: st
     return model
 
 
-def refuse_unported(int8_compute: bool, quantization_bits: int | None, mesh: bool = False) -> None:
+def refuse_unported(int8_compute: bool, quantization_bits: int | None) -> None:
     """The flags refused before anything loads: --q with --w8a8 (ValueError,
-    as in the JAX package) and a mesh of more than one card
-    (NotImplementedError: not ported yet)."""
+    as in the JAX package)."""
     if int8_compute and quantization_bits:
         raise ValueError(
             "--q (weight-only group-64 snapshots) and --w8a8 (int8 compute "
             "from float kernels) are separate paths and cannot be combined"
         )
-    if mesh:
-        raise NotImplementedError(MESH_NOT_PORTED)
+
+
+def cli_mesh(mesh_data: int, mesh_model: int, device: str):
+    """The mesh of --mesh-data/--mesh-model over the devices of `device`'s
+    type (every CUDA card, or the one CPU device), or None when both are 1.
+    Built before the model loads, so that too few devices (ValueError)
+    refuse the run first."""
+    if mesh_data <= 1 and mesh_model <= 1:
+        return None
+    from f5_tts_tpu_torch.parallel.mesh import create_mesh, device_list
+
+    return create_mesh(data=mesh_data, model=mesh_model, devices=device_list(device))
 
 
 def generate(
@@ -277,16 +283,21 @@ def generate(
 ) -> np.ndarray:
     """End-to-end synthesis; returns the generated waveform (the reference
     trimmed off) as float32 numpy. Pass `model` to reuse a loaded F5TTS
-    across calls (it is not changed: with `int8_compute`, a shallow copy
-    samples W8A8); else `model_name`, a snapshot directory, is loaded onto
-    `device`. `mesh` (multi-card sampling) raises NotImplementedError."""
-    refuse_unported(int8_compute, quantization_bits, mesh is not None)
+    across calls (it is not changed: with `int8_compute` or `mesh`, a
+    shallow copy samples W8A8 or over the mesh); else `model_name`, a
+    snapshot directory, is loaded onto `device`. `mesh` (parallel/mesh.py
+    `create_mesh`) samples over that device grid (`F5TTS.use_mesh`)."""
+    refuse_unported(int8_compute, quantization_bits)
     if model is None:
         model = load_model(model_name, quantization_bits, device, int8_compute)
-    elif int8_compute:
-        # never change a caller's model: a later model.sample() must not run W8A8 because of one call here
+    elif int8_compute or mesh is not None:
+        # never change a caller's model: a later model.sample() must not run W8A8 or sharded because of one
+        # call here; the attributes set below rebind on the copy
         model = copy.copy(model)
-        model.dit_cfg = model.dit_cfg.replace(int8_compute=True)
+        if int8_compute:
+            model.dit_cfg = model.dit_cfg.replace(int8_compute=True)
+    if mesh is not None:
+        model.use_mesh(mesh)
     sr = model.audio_cfg.sample_rate
     hop = model.audio_cfg.hop_length
     fps = model.audio_cfg.frames_per_second
@@ -431,9 +442,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--w8a8", action="store_true", default=False,
                         help="int8-compute (W8A8) inference: int8 weights and activations in the DiT blocks")
     parser.add_argument("--mesh-data", type=int, default=1,
-                        help="Shard batched sampling over N cards (not ported yet: above 1 raises)")
+                        help="Shard batched sampling over N devices of --device's type (data parallel)")
     parser.add_argument("--mesh-model", type=int, default=1,
-                        help="Tensor-parallel ways (not ported yet: above 1 raises)")
+                        help="Tensor-parallel ways over attention heads / FF hidden")
     parser.add_argument("--resample-ref", action="store_true", default=False,
                         help="Resample reference audio to the model's rate instead of rejecting it")
     parser.add_argument("--device", type=str, default="cuda",
@@ -443,7 +454,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args.w8a8, args.q, max(args.mesh_data, args.mesh_model) > 1)
+    refuse_unported(args.w8a8, args.q)
+    mesh = cli_mesh(args.mesh_data, args.mesh_model, args.device)
 
     if args.text is None:
         if not sys.stdin.isatty():
@@ -469,6 +481,7 @@ def main(argv: list[str] | None = None):
         output_path=args.output,
         int8_compute=args.w8a8,
         cfg_interval=tuple(float(x) for x in args.cfg_interval.split(",")) if args.cfg_interval else None,
+        mesh=mesh,
         resample_ref=args.resample_ref,
         device=args.device,
     )

@@ -11,6 +11,14 @@ a float `nn.Linear` and a weight-only quantized `QuantizedLinear`
 Dropout runs only in training, where a block is given a dropout seed (one
 draw of the training generator) and the rate is above 0; the sampling paths
 pass none.
+
+Tensor parallelism (parallel/mesh.py): the attention, the feed-forward and
+the DiT block each have `steps`, their forward written as a generator,
+which `forward` runs to its end (`run_local`). In a shard of a
+tensor-parallel group (`tp` above 1) it stops at each row-parallel linear
+(`row_parallel`) to yield its partial output and is sent the group's sum;
+the slots of a group run in step under `mesh.lockstep`. With tp 1 nothing
+yields, and the launches and bits are those of the plain module.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from torch import nn
 
 from f5_tts_tpu_torch.models.rope import get_pos_embed_indices, precompute_freqs_cis
 from f5_tts_tpu_torch.ops.attention import scaled_dot_product_attention
-from f5_tts_tpu_torch.utils.modules import apply_linear, conv1d, embedding, gelu, layer_norm, mish
+from f5_tts_tpu_torch.utils.modules import apply_linear, cast, conv1d, embedding, gelu, layer_norm, linear, mish
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
@@ -57,6 +65,30 @@ def as_batch_flag(flag, batch: int, device: torch.device) -> torch.Tensor:
     Per-sample flags let cond and uncond CFG streams share one forward."""
     flag = torch.as_tensor(flag, dtype=torch.bool, device=device)
     return flag.expand(batch) if flag.ndim == 0 else flag
+
+
+def run_local(steps):
+    """The value of a forward written as a generator (a module's `steps`)
+    that runs on its own. A module that is not a shard of a tensor-parallel
+    group never yields; a shard runs under parallel/mesh.py `lockstep`."""
+    try:
+        next(steps)
+    except StopIteration as done:
+        return done.value
+    raise RuntimeError("a tensor-parallel shard runs under parallel.mesh.lockstep, not on its own")
+
+
+def row_parallel(layer: nn.Module, x: torch.Tensor):
+    """A generator: this slot's share of a row-parallel linear, whose input
+    x holds the slot's slice of the features. It yields ("sum", the partial
+    product without the bias), is sent the partials' sum over the
+    tensor-parallel group, and returns it plus the bias, added once, in the
+    activations' dtype, as the JAX linear adds it after the product. A
+    quantized or W8A8 linear runs its own `row_parallel`."""
+    if not isinstance(layer, nn.Linear):
+        return (yield from layer.row_parallel(x))
+    total = yield "sum", linear(x, layer.weight)
+    return total if layer.bias is None else total + cast(layer.bias, total.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -231,12 +263,19 @@ class InputEmbedding(nn.Module):
 
 
 class Attention(nn.Module):
-    """Non-causal multi-head attention with RoPE and a key-padding mask."""
+    """Non-causal multi-head attention with RoPE and a key-padding mask.
+
+    `heads` is the local head count: a shard of a tensor-parallel group
+    (parallel/mesh.py) holds heads / tp of them, and its `to_out` is
+    row-parallel: `steps` yields its partial output for the group's sum
+    and adds the bias once, after it (`row_parallel`). With tp 1 it runs
+    as a plain module."""
 
     def __init__(self, dim: int, heads: int, dim_head: int):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
+        self.tp = 1
         self.to_q = nn.Linear(dim, inner)
         self.to_k = nn.Linear(dim, inner)
         self.to_v = nn.Linear(dim, inner)
@@ -255,6 +294,10 @@ class Attention(nn.Module):
         re-zeroed by the mask. q, k and v reach attention as strided
         [b, h, n, d] views of the projections, and its output reshapes back
         without a copy."""
+        return run_local(self.steps(x, mask, rope, dropout_rate, generator))
+
+    def steps(self, x, mask=None, rope=None, dropout_rate: float = 0.0, generator=None):
+        """`forward` as a generator, which yields only with tp above 1."""
         b, n, _ = x.shape
 
         def heads(lin: nn.Module) -> torch.Tensor:
@@ -265,7 +308,10 @@ class Attention(nn.Module):
             q, k, v, 1.0 / math.sqrt(q.shape[-1]), key_mask=mask, rope=rope
         )
         out = out.transpose(1, 2).reshape(b, n, -1)
-        out = apply_linear(self.to_out[0], out)
+        if self.tp > 1:
+            out = yield from row_parallel(self.to_out[0], out)
+        else:
+            out = apply_linear(self.to_out[0], out)
         if generator is not None and dropout_rate > 0.0:
             out = dropout(out, dropout_rate, generator)
         if mask is not None:
@@ -277,11 +323,14 @@ class Attention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Linear -> GELU(tanh) -> dropout (in training) -> Linear."""
+    """Linear -> GELU(tanh) -> dropout (in training) -> Linear. A shard of a
+    tensor-parallel group holds hidden / tp units and its second linear is
+    row-parallel, as the attention's `to_out`."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = int(dim * mult)
+        self.tp = 1
         # index 1 holds the reference's dropout slot, so checkpoint names line up
         self.ff = nn.Sequential(
             nn.Sequential(nn.Linear(dim, inner), nn.GELU(approximate="tanh")),
@@ -290,9 +339,15 @@ class FeedForward(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, dropout_rate: float = 0.0, generator: torch.Generator | None = None) -> torch.Tensor:
+        return run_local(self.steps(x, dropout_rate, generator))
+
+    def steps(self, x, dropout_rate: float = 0.0, generator=None):
+        """`forward` as a generator, which yields only with tp above 1."""
         h = gelu(apply_linear(self.ff[0][0], x), approximate=True)
         if generator is not None and dropout_rate > 0.0:
             h = dropout(h, dropout_rate, generator)
+        if self.tp > 1:
+            return (yield from row_parallel(self.ff[2], h))
         return apply_linear(self.ff[2], h)
 
 
@@ -341,8 +396,15 @@ class DiTBlock(nn.Module):
     def forward(self, x, mod, mask=None, rope=None, dropout_rate: float = 0.0, dropout_seed: int | None = None):
         """`mod` is [b or 1, 6 * dim]; `dropout_seed` (training) splits into
         the attention's and the feed-forward's dropout streams."""
+        return run_local(self.steps(x, mod, mask, rope, dropout_rate, dropout_seed))
+
+    def steps(self, x, mod, mask=None, rope=None, dropout_rate: float = 0.0, dropout_seed: int | None = None):
+        """`forward` as a generator: it yields where its attention and
+        feed-forward do (a shard of a tensor-parallel group)."""
         g_attn, g_ff = dropout_generators(dropout_seed, 2, x.device)
         norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.attn_norm(x, mod)
-        x = x + gate_msa[:, None] * self.attn(norm, mask=mask, rope=rope, dropout_rate=dropout_rate, generator=g_attn)
+        attn = yield from self.attn.steps(norm, mask=mask, rope=rope, dropout_rate=dropout_rate, generator=g_attn)
+        x = x + gate_msa[:, None] * attn
         norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-        return x + gate_mlp[:, None] * self.ff(norm, dropout_rate=dropout_rate, generator=g_ff)
+        ff = yield from self.ff.steps(norm, dropout_rate=dropout_rate, generator=g_ff)
+        return x + gate_mlp[:, None] * ff

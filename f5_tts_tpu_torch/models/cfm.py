@@ -31,6 +31,8 @@ from f5_tts_tpu_torch.models.duration import DurationPredictor
 from f5_tts_tpu_torch.models.ode import odeint
 from f5_tts_tpu_torch.models.quant import w8a8_blocks_
 from f5_tts_tpu_torch.models.vocos import Vocos
+from f5_tts_tpu_torch.models.shard import shard_model_for_inference
+from f5_tts_tpu_torch.parallel.mesh import gather_batch, pad_batch, split_batch
 from f5_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
 from f5_tts_tpu_torch.utils.modules import init_parameters_
 from f5_tts_tpu_torch.utils.sampling import clamp_duration, draw_noise, sway_time_grid
@@ -273,6 +275,7 @@ class F5TTS:
         self.vocoder = vocoder
         self.duration_predictor = duration_predictor
         self._cast_cache: tuple | None = None
+        self._mesh = None
 
     @property
     def device(self) -> torch.device:
@@ -363,7 +366,19 @@ class F5TTS:
             return list_str_to_idx(text, self.vocab_char_map)
         return list_str_to_tensor(text)
 
-    def _inference_dit(self) -> DiT:
+    def _cast_key(self) -> tuple:
+        return (self.dit_cfg.int8_compute, self._mesh,
+                tuple((t.data_ptr(), t._version) for t in itertools.chain(self.dit.parameters(), self.dit.buffers())))
+
+    def _cast_dit(self) -> DiT:
+        """The master DiT in float32 without `int8_compute`; else a copy cast
+        to the compute dtype, then W8A8 with `int8_compute`."""
+        if self.dit.compute_dtype == torch.float32 and not self.dit_cfg.int8_compute:
+            return self.dit
+        dit = copy.deepcopy(self.dit).to(self.dit.compute_dtype)
+        return w8a8_blocks_(dit) if self.dit_cfg.int8_compute else dit
+
+    def _inference_dit(self):
         """The DiT the sampler runs. In float32 without `int8_compute`, the
         master DiT. Otherwise a copy is kept: cast to the compute dtype
         (every float tensor, a quantized linear's scales and biases included;
@@ -371,21 +386,48 @@ class F5TTS:
         attention and feed-forward linears re-quantized to W8A8
         (`w8a8_blocks_`, which raises ValueError for a weight-only quantized
         DiT), in that order, as the JAX package casts before it quantizes.
-        The copy is rebuilt when the flag changes or any parameter or buffer
+        Under a mesh (`use_mesh`), that DiT split over the grid instead: one
+        (`DiTGroup`, vocoder) per data row (`shard_model_for_inference`, and
+        a vocoder replica on each row's first device). What is kept is
+        rebuilt when the flag or the mesh changes or any parameter or buffer
         is replaced or modified in place. LayerNorm and GRN statistics, the
         timestep sinusoid, the DiT output and the ODE state stay float32 all
         the same."""
-        dtype = self.dit.compute_dtype
-        int8 = self.dit_cfg.int8_compute
-        if dtype == torch.float32 and not int8:
+        if self._mesh is None and self.dit.compute_dtype == torch.float32 and not self.dit_cfg.int8_compute:
             return self.dit
-        key = (int8, tuple((t.data_ptr(), t._version)
-                           for t in itertools.chain(self.dit.parameters(), self.dit.buffers())))
+        key = self._cast_key()
         if self._cast_cache is None or self._cast_cache[0] != key:
             self._cast_cache = None  # drop the old copy before the new one is made
-            dit = copy.deepcopy(self.dit).to(dtype)
-            self._cast_cache = (key, w8a8_blocks_(dit) if int8 else dit)
+            if self._mesh is None:
+                kept = self._cast_dit()
+            else:
+                groups = shard_model_for_inference(self._cast_dit(), self._mesh)
+                kept = [(g, self._vocoder_on(g.device)) for g in groups]
+            self._cast_cache = (key, kept)
         return self._cast_cache[1]
+
+    def _vocoder_on(self, device: torch.device) -> Vocos | None:
+        """The vocoder, or a copy of it on `device` where it lives elsewhere."""
+        if self.vocoder is None or next(self.vocoder.parameters()).device == device:
+            return self.vocoder
+        return copy.deepcopy(self.vocoder).to(device)
+
+    def use_mesh(self, mesh) -> "F5TTS":
+        """Sample over a device grid (parallel/mesh.py `create_mesh`): every
+        `sample()` call, in both its branches, pads the batch to a multiple
+        of the "data" axis with copies of row 0, draws the noise for the
+        padded batch on the model's device, splits the rows over the data
+        rows, runs each row's DiT split over its "model" axis (attention
+        heads and feed-forward hidden units; `shard_model_for_inference`)
+        and a vocoder replica on that row's devices, and returns the
+        trimmed result on the model's device. The duration predictor is not
+        sharded: it runs on the model's device. The master DiT stays as it
+        is; the shards are built here, from the sampler's cast copy.
+        Returns self."""
+        self._mesh = mesh
+        self._cast_cache = None
+        self._inference_dit()
+        return self
 
     # -- training loss -----------------------------------------------------
 
@@ -520,23 +562,28 @@ class F5TTS:
         else:
             cond = cond[:, :padded_len]
         seed_val = int(seed) if seed is not None else int(np.random.randint(0, 2**31 - 1))
-        out, trajectory, wave = cfm_sample_e2e(
-            self._inference_dit(),
-            cond,
-            torch.as_tensor(lens_np, device=device),
-            torch.as_tensor(duration, device=device),
-            max_dur,
-            torch.as_tensor(text_ids, device=device),
-            sway_time_grid(steps, sway_sampling_coef),
-            None if y0 is None else torch.as_tensor(y0, device=device),
-            seed_val,
-            self.vocoder,
-            method=method,
-            cfg_strength=float(cfg_strength),
-            return_trajectory=return_trajectory,
-            shared_noise=seed is not None,
-            cfg_interval=cfg_interval,
-        )
+        batched = (cond, torch.as_tensor(lens_np, device=device), torch.as_tensor(duration, device=device),
+                   torch.as_tensor(text_ids, device=device))
+        y0 = None if y0 is None else torch.as_tensor(y0, device=device)
+        options = dict(method=method, cfg_strength=float(cfg_strength), return_trajectory=return_trajectory,
+                       shared_noise=seed is not None, cfg_interval=cfg_interval)
+        ts = sway_time_grid(steps, sway_sampling_coef)
+        if self._mesh is None:
+            cond, lens_t, dur_t, text_t = batched
+            out, trajectory, wave = cfm_sample_e2e(
+                self._inference_dit(), cond, lens_t, dur_t, max_dur, text_t, ts, y0, seed_val, self.vocoder, **options)
+        else:
+            if y0 is None:  # one draw for the padded batch, so that each row gets what it would unsharded
+                y0 = draw_noise(seed_val, seed is not None, batch + -batch % self._mesh.shape["data"], padded_len,
+                                cond.shape[-1], device)
+            rows = self._inference_dit()
+            devices = [g.device for g, _ in rows]
+            parts = [split_batch(pad_batch(t, len(rows)), devices) for t in (*batched, y0)]
+            results = [cfm_sample_e2e(g, c, lens_r, dur_r, max_dur, text_r, ts, y0_r, seed_val, voc, **options)
+                       for (g, voc), c, lens_r, dur_r, text_r, y0_r in zip(rows, *parts)]
+            out = gather_batch([r[0] for r in results], device, batch)
+            trajectory = gather_batch([r[1] for r in results], device, batch, dim=1)
+            wave = None if results[0][2] is None else gather_batch([r[2] for r in results], device, batch)
         trajectory = trajectory[:, :, :max_dur]
         if wave is None:
             return out[:, :max_dur], trajectory

@@ -239,13 +239,17 @@ def params_from_jax(np_tree: dict, cfg: DiTConfig | VocosConfig | DurationConfig
     blocks stacked [depth, ...]), -> the port's `DiT`, `Vocos` or
     `DurationPredictor` state dict. JAX keeps a linear kernel as [in, out],
     a quantized linear as {q [in, out], scales and biases [in / 64, out]},
-    and a conv kernel as [k, in/g, out]."""
+    a W8A8 one as {w8 [in, out], w8_scale [out]}, and a conv kernel as
+    [k, in/g, out]."""
     out: dict[str, np.ndarray] = {}
 
     def lin(key, p):
         if "q" in p:
             for name in ("q", "scales", "biases"):
                 out[f"{key}.{name}"] = np.asarray(p[name]).T
+        elif "w8" in p:
+            out[f"{key}.w8"] = np.asarray(p["w8"]).T
+            out[f"{key}.w8_scale"] = np.asarray(p["w8_scale"])
         else:
             out[f"{key}.weight"] = np.asarray(p["kernel"]).T
         if "bias" in p:

@@ -8,6 +8,9 @@ The JAX functions map to methods of `DiT`:
   - `dit_forward`             -> `DiT.forward_train` (training: text ids and
     per-sample times in, optional dropout and activation checkpointing)
 The depth dimension is a ModuleList walked in Python; the output is float32.
+Under a mesh (parallel/mesh.py) the sampler runs a `DiTGroup`: one DiT
+shard a slot of a data row's tensor-parallel group, run block by block in
+step.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from f5_tts_tpu_torch.config import DiTConfig
 from f5_tts_tpu_torch.models import blocks as B
 from f5_tts_tpu_torch.models.rope import rotary_freqs
+from f5_tts_tpu_torch.parallel.mesh import lockstep
 from f5_tts_tpu_torch.utils.modules import apply_linear
 
 
@@ -66,12 +70,17 @@ class DiT(nn.Module):
         mask: torch.Tensor | None = None,  # [b, n] bool padding mask
     ) -> torch.Tensor:
         """Backbone forward -> [b, n, mel] float32 flow prediction."""
+        return B.run_local(self.steps(x, cond, text_embed, time_mods, drop_audio_cond, mask))
+
+    def steps(self, x, cond, text_embed, time_mods: dict, drop_audio_cond=False, mask=None):
+        """`forward` as a generator: it yields where its blocks do (a shard
+        of a tensor-parallel group, `DiTGroup`)."""
         dtype = self.compute_dtype
         x = self.input_embed(x.to(dtype), cond.to(dtype), text_embed, drop_audio_cond=drop_audio_cond)
         raw = rotary_freqs(x.shape[1], self.cfg.dim_head, device=x.device)
         rope = (torch.cos(raw), torch.sin(raw))  # once per forward, not per layer
         for block, mod in zip(self.transformer_blocks, time_mods["blocks"]):
-            x = block(x, mod, mask=mask, rope=rope)
+            x = yield from block.steps(x, mod, mask=mask, rope=rope)
         x = self.norm_out(x, time_mods["final"])
         return apply_linear(self.proj_out, x).float()
 
@@ -116,3 +125,52 @@ class DiT(nn.Module):
                 x = run_block(block, x, seed)
         x = self.norm_out(x, self.norm_out.mods(t_emb))
         return apply_linear(self.proj_out, x).float()
+
+
+def _on(value, device: torch.device):
+    """A forward argument on `device`: tensors copied (the same tensor where
+    it is there already), dicts of them entry by entry, anything else as is."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device, non_blocking=True)
+    if isinstance(value, dict):
+        return {k: _on(v, device) for k, v in value.items()}
+    return value
+
+
+class DiTGroup:
+    """One data row's DiT, split over its tensor-parallel group
+    (models/shard.py `shard_model_for_inference`): one shard a slot, each
+    on its slot's device, with heads / model heads and hidden / model
+    feed-forward units. The sampler calls it as it calls a DiT. The text
+    embedding and the time modulations are replicated work, computed once on
+    the first slot; a forward copies its inputs to every slot and runs each
+    block across the group in step (`mesh.lockstep`): each slot's partial,
+    then the reduction, then the next block. Every slot computes the
+    replicated layers itself, as GSPMD does, and the first slot's output is
+    returned. A group of one shard is that shard's plain forward."""
+
+    def __init__(self, shards: list[DiT]):
+        self.shards = list(shards)
+        self.cfg = self.shards[0].cfg
+        self.devices = [next(s.parameters()).device for s in self.shards]
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.shards[0].compute_dtype
+
+    def embed_text(self, text: torch.Tensor, seq_len: int, drop_text=False) -> torch.Tensor:
+        return self.shards[0].embed_text(text, seq_len, drop_text)
+
+    def time_mods(self, times: torch.Tensor) -> dict:
+        return self.shards[0].time_mods(times)
+
+    def __call__(self, x, cond, text_embed, time_mods: dict, drop_audio_cond=False, mask=None) -> torch.Tensor:
+        args = (x, cond, text_embed, time_mods, drop_audio_cond, mask)
+        if len(self.shards) == 1:
+            return self.shards[0](*args)
+        steps = [shard.steps(*(_on(a, dev) for a in args)) for shard, dev in zip(self.shards, self.devices)]
+        return lockstep(steps)[0]

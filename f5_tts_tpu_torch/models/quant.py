@@ -25,6 +25,12 @@ hold int8 weights with one float32 scale per output feature
 (`W8A8Linear`, whose forward is ops/w8a8.py `w8a8_linear`).
 `w8a8_blocks_` swaps them in place on the sampler's copy of the DiT and
 refuses a weight-only quantized one.
+
+A shard of a tensor-parallel group (parallel/mesh.py) holds slices of
+both kinds by `mesh.param_specs`: codes, group scales and biases, w8 and
+w8_scale along the output of a column-parallel linear; along the input,
+groups alongside, for a row-parallel one, whose `row_parallel` leaves its
+bias to the reduced sum.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import torch
 from torch import nn
 
 from f5_tts_tpu_torch.ops.qmatmul import GROUP_SIZE, dequantize_kernel, qmatmul
-from f5_tts_tpu_torch.ops.w8a8 import quantize_rows_plain, w8a8_linear
+from f5_tts_tpu_torch.ops.w8a8 import quantize_rows_plain, w8a8_linear, w8a8_row_parallel
 
 __all__ = [
     "GROUP_SIZE", "QuantizedLinear", "W8A8Linear", "W8A8_TARGETS", "dequantize_kernel", "pack_mlx_uint32",
@@ -141,6 +147,14 @@ class QuantizedLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return qmatmul(x, self.q, self.scales, self.biases, self.bias)
 
+    def row_parallel(self, x: torch.Tensor):
+        """A generator: this slot's share as a row-parallel linear of a
+        tensor-parallel group (models/blocks.py `row_parallel`): K3 without
+        the bias, yielded for the group's sum; the bias is added once, to
+        the sum."""
+        total = yield "sum", qmatmul(x, self.q, self.scales, self.biases)
+        return total if self.bias is None else total + self.bias.to(total.dtype)
+
     def extra_repr(self) -> str:
         return f"in_features={self.in_features}, out_features={self.out_features}, bias={self.bias is not None}"
 
@@ -195,6 +209,11 @@ class W8A8Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return w8a8_linear(x, self.w8, self.w8_scale, self.bias)
+
+    def row_parallel(self, x: torch.Tensor):
+        """A generator: this slot's share as a row-parallel linear of a
+        tensor-parallel group (ops/w8a8.py `w8a8_row_parallel`)."""
+        return (yield from w8a8_row_parallel(x, self.w8, self.w8_scale, self.bias))
 
     def extra_repr(self) -> str:
         return f"in_features={self.in_features}, out_features={self.out_features}, bias={self.bias is not None}"

@@ -29,6 +29,17 @@ versions inside them (the product stays `torch._int_mm`, exact on either
 device), and CUDA tensors launch the kernels or raise. Counts:
 `w8a8_linear.launches` (linears on the card), `quantize_rows.launches` and
 `rescale_bias.launches` (each kernel).
+
+Under tensor parallelism (parallel/mesh.py) the row-parallel linears
+(attention to_out, feed-forward w2) see a slice of the features, but each
+row must be quantized against its absmax over all of them. There
+`quantize_rows` is cut in two: `row_absmax` (a Triton kernel, one program a
+row, the slice's max |x|) and `quantize_scaled` (`quantize_rows`'s kernel
+reading that absmax where it would take its own), with the group's max
+taken between them; the slots' int32 products are summed,
+which is exact, before `rescale_bias` (`w8a8_row_parallel`). Both are
+memory-bound row passes, with plain versions beside them and counts
+`row_absmax.launches` and `quantize_scaled.launches`.
 """
 
 from __future__ import annotations
@@ -49,12 +60,23 @@ PAD_ROWS = 32
 RESCALE_BLOCK = (32, 128)  # (rows, columns) a program
 
 
+def row_absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """x [m, k] -> max |x| of each row, float32 [m]."""
+    return x.float().abs().amax(dim=-1)
+
+
+def quantize_scaled_plain(x: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [m, k] quantized against the row absmax `amax` [m] -> (codes int8
+    [m, k], sx float32 [m]): sx = max(amax, 1e-12) * (1/127), codes =
+    clip(round_half_even(x / sx), -127, 127), float32 throughout."""
+    sx = amax.float().clamp_min(SX_FLOOR) * INV_QMAX
+    return torch.round(x.float() / sx[:, None]).clamp_(-QMAX, QMAX).to(torch.int8), sx
+
+
 def quantize_rows_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x [m, k] -> (codes int8 [m, k], sx float32 [m]): the JAX expression's
-    order, float32 throughout, `torch.round` rounding half to even."""
-    xf = x.float()
-    sx = xf.abs().amax(dim=-1).clamp_min(SX_FLOOR) * INV_QMAX
-    return torch.round(xf / sx[:, None]).clamp_(-QMAX, QMAX).to(torch.int8), sx
+    order, each row against its own absmax."""
+    return quantize_scaled_plain(x, row_absmax_plain(x))
 
 
 def rescale_bias_plain(acc: torch.Tensor, sx: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None,
@@ -89,12 +111,18 @@ def _kernels():
     from triton.language.extra import libdevice
 
     @triton.jit
-    def quantize_rows_kernel(x_ptr, q_ptr, sx_ptr, m, k, x_row, floor, inv_qmax, BLOCK_K: tl.constexpr):
+    def quantize_rows_kernel(x_ptr, amax_ptr, q_ptr, sx_ptr, m, k, x_row, floor, inv_qmax, HAS_AMAX: tl.constexpr,
+                             BLOCK_K: tl.constexpr):
+        # HAS_AMAX: the row's absmax is read from amax_ptr (a tensor-parallel group's), not taken over x
         row = tl.program_id(0).to(tl.int64)
         cols = tl.arange(0, BLOCK_K)
         in_row = cols < k
         x = tl.load(x_ptr + row * x_row + cols, mask=in_row & (row < m), other=0.0).to(tl.float32)
-        sx = tl.maximum(tl.max(tl.abs(x), axis=0), floor) * inv_qmax
+        if HAS_AMAX:
+            amax = tl.load(amax_ptr + row, mask=row < m, other=0.0)
+        else:
+            amax = tl.max(tl.abs(x), axis=0)
+        sx = tl.maximum(amax, floor) * inv_qmax
         q = libdevice.rint(tl.math.div_rn(x, tl.zeros_like(x) + sx))
         q = tl.minimum(tl.maximum(q, -127.0), 127.0)
         tl.store(q_ptr + row * k + cols, q.to(tl.int8), mask=in_row)
@@ -119,6 +147,24 @@ def _kernels():
         tl.store(out_ptr + offs, y, mask=keep)
 
     return triton, quantize_rows_kernel, rescale_bias_kernel
+
+
+@functools.lru_cache(maxsize=None)
+def _row_absmax_kernel():
+    """The first half of `quantize_rows` cut where a tensor-parallel group
+    takes the max of its slots' row absmax; the second half is
+    `quantize_rows_kernel` with HAS_AMAX."""
+    triton = import_triton()
+    import triton.language as tl
+
+    @triton.jit
+    def row_absmax_kernel(x_ptr, amax_ptr, k, x_row, BLOCK_K: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        cols = tl.arange(0, BLOCK_K)
+        x = tl.load(x_ptr + row * x_row + cols, mask=cols < k, other=0.0).to(tl.float32)
+        tl.store(amax_ptr + row, tl.max(tl.abs(x), axis=0))
+
+    return triton, row_absmax_kernel
 
 
 def _check_device(fn: str, x: torch.Tensor) -> None:
@@ -151,21 +197,71 @@ def _quantize_rows_fake(x, rows):
 
 @quantize_rows_op.register_kernel("cuda")
 def _quantize_rows_cuda(x, rows):
-    if x.ndim != 2 or x.dtype not in _DTYPES or x.stride(-1) != 1:
-        raise ValueError(f"quantize_rows takes x [m, k] in {_DTYPES} with unit stride along k; "
+    return _quantize_cuda("quantize_rows", x, None, rows)
+
+
+def _check_rows(fn: str, x: torch.Tensor) -> None:
+    if x.ndim != 2 or x.dtype not in _DTYPES or x.stride(-1) != 1 or not 1 <= x.shape[1] <= MAX_K:
+        raise ValueError(f"{fn} takes x [m, k] in {_DTYPES} with unit stride along k and 1 <= k <= {MAX_K}; "
                          f"got {x.dtype} {tuple(x.shape)} strides {x.stride()}")
+
+
+def _quantize_cuda(fn: str, x: torch.Tensor, amax: torch.Tensor | None, rows: int):
+    """`quantize_rows_kernel` over CUDA x [m, k] into `rows` rows, each row
+    against its own absmax, or against `amax` float32 [m] where given;
+    counted in `quantize_rows.launches` or `quantize_scaled.launches`."""
+    _check_rows(fn, x)
     m, k = x.shape
-    if not 1 <= k <= MAX_K or rows < m:
-        raise ValueError(f"quantize_rows takes 1 <= k <= {MAX_K} and rows >= m; got k {k}, m {m}, rows {rows}")
+    if rows < m:
+        raise ValueError(f"{fn} takes rows >= m; got m {m}, rows {rows}")
+    if amax is not None and (amax.shape != (m,) or amax.dtype != torch.float32 or not amax.is_contiguous()
+                             or amax.device != x.device):
+        raise ValueError(f"{fn} takes a contiguous float32 amax [{m}] on {x.device}; "
+                         f"got {amax.dtype} {tuple(amax.shape)} on {amax.device}")
     codes = torch.empty(rows, k, dtype=torch.int8, device=x.device)
     sx = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows:
         triton, kernel, _ = _kernels()
         with torch.cuda.device(x.device):
-            kernel[(rows,)](x, codes, sx, m, k, x.stride(0), SX_FLOOR, INV_QMAX,
-                            BLOCK_K=triton.next_power_of_2(k), num_warps=4)
-        quantize_rows.launches += 1
+            kernel[(rows,)](x, x if amax is None else amax, codes, sx, m, k, x.stride(0), SX_FLOOR, INV_QMAX,
+                            HAS_AMAX=amax is not None, BLOCK_K=triton.next_power_of_2(k), num_warps=4)
+        (quantize_rows if amax is None else quantize_scaled).launches += 1
     return codes, sx
+
+
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """x [m, k] (bf16 or float32, unit stride along k) -> max |x| of each
+    row, float32 [m]: a Triton kernel for a CUDA tensor, one program a row;
+    the plain version for a CPU one. Counted in `row_absmax.launches`."""
+    _check_device("row_absmax", x)
+    if x.device.type == "cpu":
+        return row_absmax_plain(x)
+    _check_rows("row_absmax", x)
+    m, k = x.shape
+    amax = torch.empty(m, dtype=torch.float32, device=x.device)
+    if m:
+        triton, kernel = _row_absmax_kernel()
+        with torch.cuda.device(x.device):
+            kernel[(m,)](x, amax, k, x.stride(0), BLOCK_K=triton.next_power_of_2(k), num_warps=4)
+        row_absmax.launches += 1
+    return amax
+
+
+def quantize_scaled(x: torch.Tensor, amax: torch.Tensor, rows: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [m, k] quantized against the row absmax `amax` float32 [m] (taken
+    over more columns than x holds: a tensor-parallel group's max) ->
+    (codes int8 [rows, k], sx float32 [rows]), as `quantize_scaled_plain`;
+    rows past m (up to `rows`, default m) hold zero codes. For CUDA tensors
+    `quantize_rows`'s kernel with the absmax read, not taken; the plain
+    version on x padded with zero rows for CPU ones. Counted in
+    `quantize_scaled.launches`."""
+    _check_device("quantize_scaled", x)
+    rows = x.shape[0] if rows is None else rows
+    if x.device.type == "cpu":
+        pad = rows - x.shape[0]
+        return quantize_scaled_plain(torch.nn.functional.pad(x, (0, 0, 0, pad)),
+                                     torch.nn.functional.pad(amax, (0, pad)))
+    return _quantize_cuda("quantize_scaled", x, amax, rows)
 
 
 def rescale_bias(acc: torch.Tensor, sx: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None,
@@ -214,14 +310,9 @@ def _rescale_bias_cuda(acc, sx, scale, bias, dtype):
     return out
 
 
-def w8a8_linear(x: torch.Tensor, w8: torch.Tensor, w8_scale: torch.Tensor,
-                bias: torch.Tensor | None = None) -> torch.Tensor:
-    """x [..., k] @ the W8A8 weight (w8 int8 [n, k], w8_scale float32 [n])
-    (+ bias) -> [..., n] in x's dtype: `quantize_rows`, torch._int_mm and
-    `rescale_bias`, which launch the kernels for CUDA tensors and run the
-    plain versions for CPU ones (the product is exact in int32 on either);
-    anything they do not take raises ValueError. A program traced with
-    torch.export records the two operators and the product."""
+def _linear_operands(x: torch.Tensor, w8: torch.Tensor, w8_scale: torch.Tensor, bias: torch.Tensor | None):
+    """Check a W8A8 linear's operands; returns (x as [m, k] with unit stride
+    along k, the bias in x's dtype, the rows quantized: m, or 32 below 17)."""
     _check_device("w8a8_linear", x)
     n, k = w8.shape
     if x.dtype not in _DTYPES or x.shape[-1] != k:
@@ -233,15 +324,25 @@ def w8a8_linear(x: torch.Tensor, w8: torch.Tensor, w8_scale: torch.Tensor,
     for name, t in (("w8", w8), ("w8_scale", w8_scale), ("bias", bias)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if bias is not None:
-        bias = bias.to(x.dtype)
     x2 = x.reshape(-1, k)
     if x2.stride(-1) != 1:
         x2 = x2.contiguous()
     m = x2.shape[0]
+    return x2, None if bias is None else bias.to(x.dtype), m if m >= MIN_INT_MM_ROWS else PAD_ROWS
+
+
+def w8a8_linear(x: torch.Tensor, w8: torch.Tensor, w8_scale: torch.Tensor,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+    """x [..., k] @ the W8A8 weight (w8 int8 [n, k], w8_scale float32 [n])
+    (+ bias) -> [..., n] in x's dtype: `quantize_rows`, torch._int_mm and
+    `rescale_bias`, which launch the kernels for CUDA tensors and run the
+    plain versions for CPU ones (the product is exact in int32 on either);
+    anything they do not take raises ValueError. A program traced with
+    torch.export records the two operators and the product."""
+    x2, bias, rows = _linear_operands(x, w8, w8_scale, bias)
+    m, n = x2.shape[0], w8.shape[0]
     if not m:
         return x.new_empty(*x.shape[:-1], n)
-    rows = m if m >= MIN_INT_MM_ROWS else PAD_ROWS
     codes, sx = quantize_rows(x2, rows)
     acc = torch._int_mm(codes, w8.t())
     y = rescale_bias(acc[:m], sx[:m], w8_scale, bias, x.dtype)
@@ -250,6 +351,30 @@ def w8a8_linear(x: torch.Tensor, w8: torch.Tensor, w8_scale: torch.Tensor,
     return y.view(*x.shape[:-1], n)
 
 
+def w8a8_row_parallel(x: torch.Tensor, w8: torch.Tensor, w8_scale: torch.Tensor, bias: torch.Tensor | None = None):
+    """A generator: one slot's share of a row-parallel W8A8 linear of a
+    tensor-parallel group (parallel/mesh.py), whose x [..., k] and w8
+    [n, k] hold the slot's slice of the input features. JAX's
+    `_w8a8_matmul` takes each row's absmax over the whole feature axis (a
+    max across the group under GSPMD), so: `row_absmax` of the slice,
+    yield ("max", it) and be sent the group's; `quantize_scaled` against
+    it and torch._int_mm, yield ("sum", the int32 products), which sum
+    exactly; then `rescale_bias` with the bias, added once. The unsharded
+    W8A8 linear's bits, to the last one. Counted in `w8a8_linear.launches`
+    on the card."""
+    x2, bias, rows = _linear_operands(x, w8, w8_scale, bias)
+    m, n = x2.shape[0], w8.shape[0]
+    amax = yield "max", row_absmax(x2)
+    codes, sx = quantize_scaled(x2, amax, rows)
+    acc = yield "sum", torch._int_mm(codes, w8.t())
+    y = rescale_bias(acc[:m], sx[:m], w8_scale, bias, x.dtype)
+    if x.device.type == "cuda":
+        w8a8_linear.launches += 1
+    return y.view(*x.shape[:-1], n)
+
+
 quantize_rows.launches = 0
 rescale_bias.launches = 0
+row_absmax.launches = 0
+quantize_scaled.launches = 0
 w8a8_linear.launches = 0

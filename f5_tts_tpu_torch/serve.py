@@ -30,8 +30,9 @@ API:
 `--w8a8` serves with W8A8 int8 compute (int8 weights and per-token int8
 activations in the DiT blocks); `--q` with `--w8a8` is refused. Not
 ported: the JAX server's XLA:CPU memory-map guard (no counterpart in
-PyTorch) and its compilation cache; `--mesh-*` above 1 raise
-NotImplementedError.
+PyTorch) and its compilation cache. `--mesh-data`/`--mesh-model` serve over
+a grid of the devices of `--device`'s type (`F5TTS.use_mesh`): each
+micro-batch group is split over the data rows.
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ from f5_tts_tpu_torch.generate import (
     DEFAULT_REF_TEXT,
     TARGET_RMS,
     _load_ref_audio,
+    cli_mesh,
     estimated_duration,
     load_model,
     refuse_unported,
@@ -935,9 +937,9 @@ def main(argv=None):
     ap.add_argument("--w8a8", action="store_true", default=False,
                     help="int8-compute (W8A8) inference: int8 weights and activations in the DiT blocks")
     ap.add_argument("--mesh-data", type=int, default=1,
-                    help="shard micro-batch groups over N cards (not ported yet: above 1 raises)")
+                    help="shard micro-batch groups over N devices of --device's type (data parallel)")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="tensor-parallel ways (not ported yet: above 1 raises)")
+                    help="tensor-parallel ways over attention heads / FF hidden")
     ap.add_argument("--warmup", type=str, default=None,
                     help="comma-separated durations (seconds) to pre-compile, e.g. '8,16,30'")
     ap.add_argument("--warmup-steps", type=int, default=8)
@@ -951,9 +953,13 @@ def main(argv=None):
     if args.w8a8 and args.q:
         ap.error("--q and --w8a8 cannot be combined: int8 compute quantizes "
                  "activations against FLOAT kernels (load the float snapshot)")
-    refuse_unported(args.w8a8, args.q, max(args.mesh_data, args.mesh_model) > 1)
+    refuse_unported(args.w8a8, args.q)
+    mesh = cli_mesh(args.mesh_data, args.mesh_model, args.device)
 
     model = load_model(args.model, args.q, args.device, args.w8a8)
+    if mesh is not None:
+        model.use_mesh(mesh)
+        print(f"serving over a {args.mesh_data}x{args.mesh_model} device mesh: {mesh}")
     httpd = serve(model, args.host, args.port, args.max_batch, args.max_wait_ms,
                   max_queue=args.max_queue, request_timeout_s=args.request_timeout,
                   allow_resample=args.resample_ref)

@@ -1,0 +1,87 @@
+"""Mesh-parallel sampling on grids of 1, 2, 4 and 8 slots: the sampling
+half of the JAX package's `tools/scaling.py`.
+
+    PYTHONPATH=. python -m f5_tts_tpu_torch.tools.scaling               # slots on the cards
+    PYTHONPATH=. python -m f5_tts_tpu_torch.tools.scaling --device cpu  # slots on the CPU
+
+For each grid of N slots (data x model: 1 x 1, then N / 2 x 2 as the JAX
+tool meshes DP x TP), one batched `F5TTS.sample` of a small random DiT
+(the JAX tool's, dim 128, depth 2, 4 heads, float32, with heads of 64: the
+card's attention kernel takes heads of 64, 128 or 256) through
+`use_mesh`, with the same noise and durations: its max |delta| against
+the 1-slot run, the reductions it made (`mesh.all_reduce.counts`: the
+port's counterpart of the collectives the JAX tool counts in the compiled
+HLO) and its wall. The slots cycle over the devices of `--device`'s type,
+so on one card or on the CPU every slot shares the one device: the walls
+then measure host cost, not scaling. The training half (DP, FSDP, SP)
+comes with training over a mesh.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from f5_tts_tpu_torch.config import CFMConfig, DiTConfig
+from f5_tts_tpu_torch.models.cfm import F5TTS
+from f5_tts_tpu_torch.parallel.mesh import all_reduce, create_mesh, device_list
+
+CFG = DiTConfig(dim=128, depth=2, heads=4, dim_head=64, ff_mult=2, mel_dim=100, text_num_embeds=64, text_dim=64,
+                conv_layers=1, compute_dtype="float32")
+GLOBAL_BATCH = 8
+SEQ = 64
+STEPS = 5  # Euler: 4 flow evaluations with CFG
+
+
+def run_sampling(n: int, device: str) -> tuple[np.ndarray, dict, float]:
+    """(the sampled mel, the reductions, the wall in s) on a grid of n slots
+    over the devices of `device`'s type."""
+    model_par = 2 if n >= 2 else 1
+    devices = device_list(device)
+    mesh = create_mesh(data=n // model_par, model=model_par, devices=[devices[i % len(devices)] for i in range(n)])
+    dev = mesh.devices.flat[0]
+    model = F5TTS.init(torch.Generator(device=dev).manual_seed(0), CFG, device=dev,
+                       cfm_cfg=CFMConfig(duration_bucket=SEQ)).use_mesh(mesh)
+    rng = np.random.default_rng(1)
+    cond = rng.standard_normal((GLOBAL_BATCH, SEQ // 4, CFG.mel_dim)).astype(np.float32)
+    y0 = rng.standard_normal((GLOBAL_BATCH, SEQ, CFG.mel_dim)).astype(np.float32)
+    text = np.zeros((GLOBAL_BATCH, SEQ // 2), np.int32)
+    durations = rng.integers(SEQ // 2, SEQ + 1, GLOBAL_BATCH).astype(np.int32)
+
+    def sample():
+        out, _ = model.sample(cond, text, duration=durations, steps=STEPS, method="euler", y0=y0,
+                              return_trajectory=False)
+        return out.cpu().numpy()
+
+    sample()  # warm-up: the first call builds kernels and caches
+    all_reduce.counts.update(sum=0, max=0)
+    t0 = time.perf_counter()
+    out = sample()
+    return out, dict(all_reduce.counts), time.perf_counter() - t0
+
+
+def main(argv: list[str] | None = None) -> list[dict]:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", help="the slots' device type: the cards by default, 'cpu' on request")
+    ap.add_argument("--slots", default="1,2,4,8", help="comma-separated grid sizes")
+    args = ap.parse_args(argv)
+    where = torch.cuda.get_device_name(0) if torch.device(args.device).type == "cuda" else "the CPU"
+    print(f"mesh sampling on {where}: batch {GLOBAL_BATCH}, {SEQ} frames, {STEPS - 1} Euler evaluations with CFG, "
+          f"dim {CFG.dim} x depth {CFG.depth}, float32")
+    rows, base = [], None
+    for n in (int(s) for s in args.slots.split(",")):
+        out, reductions, wall = run_sampling(n, args.device)
+        base = out if base is None else base
+        row = {"slots": n, "mesh": f"{n // (2 if n >= 2 else 1)}x{2 if n >= 2 else 1}",
+               "max_abs_delta": float(np.abs(out - base).max()), "reductions": reductions, "wall_s": wall}
+        print(f"{row['slots']} slots ({row['mesh']}): max |delta| vs 1 slot {row['max_abs_delta']:.3e}; "
+              f"reductions {reductions}; wall {wall:.3f} s")
+        rows.append(row)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -10,7 +10,11 @@ P5), and the W8A8 linear's Triton kernels (`quantize_rows`,
 `rescale_bias`) bit for bit against their plain versions; the registered
 operators that carry K1, K3 and the W8A8 kernels into exported programs
 launch them, and a program exported on the CPU launches K1 once moved to
-the card.
+the card; for mesh inference, K1 on one slot's heads of strided local
+projections, K3 and K3-f32 at the shard shapes of a model axis of 2, the
+W8A8 row-parallel kernels (`row_absmax`, `quantize_scaled`) bit for bit,
+and a W8A8 DiT split over two slots equal to the unsharded one to the bit;
+the ISTFT on the card, whatever the batch, against the CPU's.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -1288,3 +1292,138 @@ def test_program_exported_on_the_cpu_runs_the_kernels_when_moved_to_the_card(gen
     card = F5TTS(model.dit.cuda(), cfg, cfm_cfg=model.cfm_cfg, vocoder=model.vocoder.cuda())
     ref, _ = card.sample(cond.cuda(), text, duration=48, steps=3, method="euler", seed=5, return_trajectory=False)
     assert ((wave[0, :47 * 256] - ref).norm() / ref.norm()).item() < 1.5e-2
+
+
+# ------------------------------------------------------------ mesh inference: the shard shapes
+
+# the base DiT's linears on a model axis of 2, (name, k, n), at m = 2 (CFG) x 2 rows a data row x 1024 frames
+SHARD_M = 4096
+SHARD_SHAPES = [("to_q/k/v", 1024, 512), ("to_out", 512, 1024), ("w1", 1024, 1024), ("w2", 1024, 1024)]
+
+
+@pytest.mark.cuda
+def test_k1_on_local_heads_of_strided_projections(gen):
+    """K1 at [b, 8, n, 64], a slot's heads on a model axis of 2: q, k and v
+    are strided [b, h, n, d] views of the local projections [b, n, 512], as
+    the attention passes them, with a key mask and RoPE. Held to the plain
+    version, and to the same heads of the whole 16-head attention to the
+    bit (heads are independent)."""
+    b, n, d = 4, 1000, 64
+    x = torch.randn(b, n, 1024, generator=gen, device="cuda", dtype=torch.bfloat16)
+    w = [torch.randn(1024, 1024, generator=gen, device="cuda", dtype=torch.bfloat16) / 32 for _ in range(3)]
+    mask = torch.arange(n, device="cuda")[None, :] < torch.tensor([[n], [700], [n], [350]], device="cuda")
+    rope = _rope(n, d)
+
+    def heads(proj, h):
+        return proj.view(b, n, h, d).transpose(1, 2)
+
+    local = [heads(x @ wi[:, :512], 8) for wi in w]
+    assert not local[0].is_contiguous()
+    before = flash_attention.launches
+    out = flash_attention(*local, d ** -0.5, key_mask=mask, rope=rope)
+    assert flash_attention.launches == before + 1 and out.shape == (b, 8, n, d)
+    torch.testing.assert_close(out.float(), flash_attention_plain(*local, d ** -0.5, mask, rope).float(),
+                               atol=TOL, rtol=0)
+    whole = flash_attention(*(heads(x @ wi, 16) for wi in w), d ** -0.5, key_mask=mask, rope=rope)
+    assert torch.equal(out, whole[:, :8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", SHARD_SHAPES, ids=[s[0] for s in SHARD_SHAPES])
+def test_qmatmul_at_the_shard_shapes(gen, shape, dtype):
+    """K3 (bf16) and K3-f32 at each linear's shard shape under a model axis
+    of 2, int4, with and without the bias (a row-parallel slot leaves it to
+    the reduced sum)."""
+    _, k, n = shape
+    q, scales, biases = _quantized(gen, n, k, 4)
+    scales, biases = scales.to(dtype), biases.to(dtype)
+    x = torch.randn(SHARD_M, k, generator=gen, device="cuda").to(dtype)
+    bias = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(dtype)
+    for b in (None, bias):
+        before = (qmatmul.launches, qmatmul.launches_f32)
+        out = qmatmul(x, q, scales, biases, b)
+        counted = (qmatmul.launches - before[0], qmatmul.launches_f32 - before[1])
+        assert counted == ((1, 0) if dtype == torch.bfloat16 else (0, 1))
+        torch.testing.assert_close(out.float(), qmatmul_plain(x, q, scales, biases, b).float(),
+                                   atol=TOL if dtype == torch.bfloat16 else TOL_F32, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(SHARD_M, 512), (SHARD_M, 1024), (1000, 1024), (5, 512), (17, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_w8a8_row_kernels_match_plain_bit_for_bit(gen, shape, dtype):
+    """row_absmax and quantize_scaled (Triton) at the row-parallel inputs'
+    slot shapes (attention to_out 512, feed-forward w2 1024), a ragged m
+    and m <= 16 padded to 32 rows: equal to their plain versions, and the
+    max over two slots' halves quantizes each half to the whole row's
+    quantize_rows codes."""
+    m, k = shape
+    x, *_ = _w8a8_operands(gen, m, 2 * k, 8, dtype)
+    rows = max(m, 32)
+    before = (w8.row_absmax.launches, w8.quantize_scaled.launches)
+    halves = [h.contiguous() for h in x.chunk(2, dim=-1)]
+    amaxes = [w8.row_absmax(h) for h in halves]
+    assert all(torch.equal(a, w8.row_absmax_plain(h)) for a, h in zip(amaxes, halves))
+    amax = torch.maximum(*amaxes)
+    whole_codes, whole_sx = w8.quantize_rows(x, rows)
+    for h, codes_half in zip(halves, whole_codes.chunk(2, dim=-1)):
+        codes, sx = w8.quantize_scaled(h, amax, rows)
+        ref_codes, ref_sx = w8.quantize_scaled_plain(h, amax)
+        assert torch.equal(codes[:m], ref_codes) and torch.equal(sx[:m], ref_sx) and not codes[m:].any()
+        assert torch.equal(codes, codes_half) and torch.equal(sx, whole_sx)
+    assert (w8.row_absmax.launches, w8.quantize_scaled.launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_w8a8_dit_group_equals_unsharded_to_the_bit(gen):
+    """One forward of a W8A8 DiT split over two slots of one card (a
+    DiTGroup) against the unsharded W8A8 forward: equal to the bit, with
+    the row-parallel kernels launched on each slot."""
+    from f5_tts_tpu_torch.config import F5TTS_V1_BASE
+    from f5_tts_tpu_torch.models.cfm import F5TTS
+    from f5_tts_tpu_torch.parallel.mesh import all_reduce, create_mesh
+
+    cfg = F5TTS_V1_BASE.replace(dim=256, depth=2, heads=4, text_dim=128, text_num_embeds=95,
+                                compute_dtype="bfloat16", int8_compute=True)
+    model = F5TTS.init(gen, cfg, device="cuda")
+    dit = model._inference_dit()  # kept: use_mesh drops the model's own reference to it
+    group, _ = model.use_mesh(create_mesh(model=2, devices=["cuda:0"] * 2))._inference_dit()[0]
+    b, n = 2, 300
+    x, cond = (torch.randn(b, n, 100, generator=gen, device="cuda") for _ in range(2))
+    text = torch.randint(0, 95, (b, 40), generator=gen, device="cuda")
+    with torch.no_grad():
+        te = dit.embed_text(text, n)
+        mods = {k: v[0] for k, v in dit.time_mods(torch.tensor([0.4], device="cuda")).items()}
+        mask = torch.arange(n, device="cuda")[None] < torch.tensor([[n], [220]], device="cuda")
+        ref = dit(x, cond, te, mods, mask=mask)
+        before = (w8.row_absmax.launches, w8.quantize_scaled.launches, all_reduce.counts["max"])
+        out = group(x, cond, te, mods, mask=mask)
+        torch.cuda.synchronize()
+    assert (w8.row_absmax.launches - before[0], w8.quantize_scaled.launches - before[1],
+            all_reduce.counts["max"] - before[2]) == (8, 8, 4)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_istft_on_the_card_is_batch_invariant_and_matches_the_cpu(gen):
+    """A vocoder's spectrum (any phase, the DC and Nyquist bins included)
+    through `istft` on the card as a batch of 4 and as two batches of 2,
+    against the CPU's: float32 sums in another order (1e-5 relative L2).
+    cuFFT's C2R treats the DC and Nyquist bins' imaginary parts as it
+    likes, and the CPU drops them."""
+    from f5_tts_tpu_torch.audio.istft import istft
+    from f5_tts_tpu_torch.audio.mel import hanning
+
+    mag = torch.rand(4, 300, 513, generator=gen, device="cuda") * 10
+    spec = torch.polar(mag, torch.randn(4, 300, 513, generator=gen, device="cuda") * 20)
+    window = torch.as_tensor(hanning(1024), device="cuda")
+    whole = istft(spec, window, 1024, 256, valid_frames=280)
+    halves = torch.cat([istft(spec[r], window, 1024, 256, valid_frames=280) for r in (slice(0, 2), slice(2, 4))])
+    cpu = istft(spec.cpu(), window.cpu(), 1024, 256, valid_frames=280)
+
+    def rel(a, b):
+        return ((a.cpu() - b.cpu()).norm() / b.cpu().norm()).item()
+
+    assert rel(halves, whole) < 1e-5 and rel(whole, cpu) < 1e-5

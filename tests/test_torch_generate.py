@@ -29,6 +29,7 @@ from f5_tts_tpu_torch.audio.io import read_wav, write_wav
 from f5_tts_tpu_torch.audio.resample import _resample_fft, resample
 from f5_tts_tpu_torch.models.cfm import F5TTS
 from f5_tts_tpu_torch.models.quant import W8A8Linear
+from f5_tts_tpu_torch.parallel.mesh import create_mesh
 
 DIT = dict(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=100,
            text_num_embeds=256, text_dim=32, conv_layers=1)
@@ -171,19 +172,27 @@ def test_refusals(model, ref_path, monkeypatch):
     assert np.isfinite(wave).all() and wave.shape == ((93 - 1) * 256 - 12_000,)
     assert seen == [(True, W8A8Linear)]
     assert not model.dit_cfg.int8_compute
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tgen.generate("hi", duration=1.0, mesh=object(), model=model, play=False)
+    # a mesh (two slots on the CPU) samples what the model samples alone, on a copy: the caller's model stays
+    # unsharded
+    monkeypatch.undo()
+    kw = dict(duration=1.0, model=model, play=False, ref_audio_path=ref_path, ref_audio_text="a tone", steps=2,
+              method="euler", seed=0)
+    sharded = tgen.generate("hi", mesh=create_mesh(data=2, devices=["cpu"] * 2), **kw)
+    np.testing.assert_allclose(sharded, tgen.generate("hi", **kw), atol=1e-5)
+    assert model._mesh is None
     with pytest.raises(ValueError, match="not ported"):
         tgen.generate("hi", duration=1.0, model_name="lucasnewman/f5-tts-mlx", play=False)
 
 
 @pytest.mark.parametrize("argv, error", [
-    (["--mesh-data", "2"], NotImplementedError),
-    (["--mesh-model", "2"], NotImplementedError), (["--q", "8", "--w8a8"], ValueError),
+    (["--mesh-data", "2"], ValueError),  # a mesh of the one CPU device: "mesh 2x1x1 needs 2 devices, have 1"
+    (["--mesh-model", "2"], ValueError), (["--q", "8", "--w8a8"], ValueError),
     (["--model", "no/such/dir"], ValueError), (["--model", "no/such/dir", "--w8a8"], ValueError)])
 def test_cli_refusals(argv, error):
-    with pytest.raises(error):
+    with pytest.raises(error) as caught:
         tgen.main(argv + ["--text", "hi", "--device", "cpu"])
+    if argv[0].startswith("--mesh"):  # refused by create_mesh, before the model loads
+        assert str(caught.value) == f"mesh {'2x1x1' if argv[0] == '--mesh-data' else '1x1x2'} needs 2 devices, have 1"
 
 
 def test_cli_w8a8_samples_int8_compute(snapshot, ref_path, tmp_path, monkeypatch):

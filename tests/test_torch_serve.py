@@ -598,14 +598,17 @@ def test_serve_latency_refusals(argv, error):
         serve_latency.main(argv)
 
 
-@pytest.mark.parametrize("argv, error", [(["--mesh-data", "2"], NotImplementedError),
-                                         (["--mesh-model", "4"], NotImplementedError),
+@pytest.mark.parametrize("argv, error", [(["--mesh-data", "2"], ValueError),  # a mesh of the one CPU device
+                                         (["--mesh-model", "4"], ValueError),
                                          (["--q", "4", "--w8a8"], SystemExit),
                                          (["--model", "no/such/dir"], ValueError)])
 def test_server_main_refusals(argv, error):
     """What the server cannot run is refused before a model loads."""
-    with pytest.raises(error):
+    with pytest.raises(error) as caught:
         tserve.main(argv + ["--device", "cpu"])
+    if argv[0].startswith("--mesh"):  # refused by create_mesh, before the model loads
+        assert str(caught.value) == f"mesh {'2x1x1' if argv[0] == '--mesh-data' else '1x1x4'} needs " \
+            f"{2 if argv[0] == '--mesh-data' else 4} devices, have 1"
 
 
 def test_server_main_w8a8_serves_int8_compute(tmp_path, monkeypatch):
