@@ -124,6 +124,26 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      exact K1/K2 (K1-f32/K2-f32) launches, finite losses, at least two
      frame buckets, every clip on the native decoder; each run's data wait
      and step wall per step, and one loader_bench line (host CPU rates);
+ 10b. training over a mesh (models/shard.py `shard_train_state`,
+     parallel/mesh.py `shard_train_step`) on a 2 x 2 grid (data x model) of distinct cards
+     where there are four, else of the one card repeated: K1 with its lse
+     and K2 (bf16 [2, 8, 1024, 64]) and K1-f32 and K2-f32 ([2, 4, 1024, 64])
+     against their plain versions on a slot's strided projections, with
+     and without the data rows' key masks, and their device times; the base
+     DiT (bf16 compute, float32 master, AdamW + EMA, 4 x 1024 frames, fixed
+     global draws) sharded against the unsharded trainer from the same
+     state: DP x TP 2 steps, FSDP 2 steps, grad_accum=2 1 step (the loss,
+     the gradient's relative L2, the share of updates that agree within
+     lr / 10, exact K1/K2 launches and collectives, the slots' stored bytes
+     and peak memory with and without FSDP, each step's wall beside the
+     unsharded step's); the float32 witness (depth 4,
+     dropout and remat on) at 2e-5; a sharded trainer's checkpoint loaded
+     by an unsharded trainer that continues; the checkpoint manager's
+     asynchronous sharded save, latest, and restores over FSDP and without
+     EMA; DURATION_V2 (float32) on 2 x 2 at 2e-5; and two ranks over gloo
+     on the card (a process each, `parallel.initialize`, the one-slot grid
+     of a trainer given no mesh) whose DP step must give one loss, equal to
+     the one-process data-2 step's;
  11. probe kernels vs plain, timed with CUDA events: the attention variants
      (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope; each
      also at a ragged n, and with their device time as in phase 13, the
@@ -189,6 +209,7 @@ GRAD_TOL = {"bf16": 2e-2, "f32": 1e-4}  # attention backward: max error over the
 TRAIN_GRAD_TOL = 5e-2  # relative L2 of the DiT's loss gradient, bf16 compute against float32, 22 layers
 LN_TOL = (1e-2, 8e-3)  # LayerNorm + modulate, bf16: |kernel - plain| <= a + b |plain| (one output rounding)
 TRAIN_BATCH, TRAIN_FRAMES = 4, 1024
+TRAIN_LENS = (TRAIN_FRAMES, TRAIN_FRAMES - 24, TRAIN_FRAMES - 100, TRAIN_FRAMES - 217)
 # the card's published peaks at 700 W (NVIDIA H100 SXM data sheet, dense). A float32 product to
 # float32 accuracy runs fastest on the tensor cores as 3xTF32 (three TF32 products of split operands,
 # what the float32 attention kernels do), at a third of the 495 TFLOP/s TF32 rate, above the FMA
@@ -2375,8 +2396,9 @@ def _train_batch(gen, mel_dim=100):
     pads them; text ids of the vocab's range padded with -1."""
     import torch
 
-    b, n = TRAIN_BATCH, TRAIN_FRAMES
-    lens = torch.tensor([n, n - 24, n - 100, n - 217], device="cuda")[:b]
+    b = TRAIN_BATCH
+    lens = torch.tensor(TRAIN_LENS, device="cuda")[:b]
+    n = TRAIN_FRAMES
     mel = torch.randn(b, n, mel_dim, generator=gen, device="cuda")
     mel = torch.where((torch.arange(n, device="cuda")[None, :] < lens[:, None])[..., None], mel, 0.0)
     text = torch.randint(0, len(VOCAB_CHARS), (b, 240), generator=gen, device="cuda", dtype=torch.int32)
@@ -2744,6 +2766,446 @@ def wav_training_phase(card: str, tmp_base: str | None) -> dict:
           f"beside {card}: {json.dumps(bench)}")
     runs = (cfm, host, dur)
     return {k: sum(r["launches"][k] for r in runs) for k in ZERO}
+
+
+MESH_TRAIN = {"data": 2, "model": 2}
+# phase 10b's limits. The base DiT in bf16, sharded against unsharded on the card: the loss's relative
+# difference, the gradient's relative L2, and the share of parameters whose update agrees within lr / 10 (Adam's
+# first update is about lr * sign(g): a gradient that bf16 noise moves across zero flips its update). The float32
+# witness and the duration predictor are held to the JAX suite's 2e-5 on the loss and the gradient.
+MESH_TRAIN_TOL = {"loss": 1e-2, "grad": 5e-2, "updates": 0.9}
+WITNESS_TOL = {"loss": 2e-5, "grad": 2e-5, "updates": 0.999}
+WITNESS_DEPTH = 4
+MESH_TRAIN_LR = 1e-4
+
+
+def _rel_l2(got: dict, want: dict) -> float:
+    import torch
+
+    num = sum(float(torch.sum((got[k].float() - w.float()) ** 2)) for k, w in want.items())
+    den = sum(float(torch.sum(w.float() ** 2)) for w in want.values())
+    return math.sqrt(num / den)
+
+
+def _updates_agree(p0: dict, got: dict, want: dict, lr: float) -> float:
+    """The share of parameters whose update (from `p0`) in `got` is within
+    lr / 10 of the one in `want`."""
+    import torch
+
+    close = total = 0
+    for k, w in want.items():
+        close += int(torch.count_nonzero(((got[k] - p0[k]) - (w - p0[k])).abs() <= lr / 10))
+        total += w.numel()
+    return close / total
+
+
+def _expected_collectives(state, micro: int) -> dict:
+    """The collectives of `micro` microbatches of a sharded step: the
+    row-parallel sums (2 a block a data row, forward and backward, and the
+    recompute under remat), one gradient reduction a tensor a group (a
+    model column for a model-sharded tensor, else the grid), gathers and
+    reduce-scatters for the FSDP tensors."""
+    data, model = state.mesh.shape["data"], state.mesh.shape["model"]
+    cfg = state.groups[0].cfg
+    passes = 3 if getattr(cfg, "remat", False) else 2
+    sums = data * cfg.depth * 2 * passes if model > 1 else 0
+    groups = {name: model if "model" in spec else 1 for name, spec in state.specs.items()}
+    fsdp = sum(g for name, g in groups.items() if "data" in state.specs[name])
+    return {"all_reduce_sum": micro * sums, "all_reduce_max": 0,
+            "grad_all_reduce": micro * (sum(groups.values()) - fsdp), "all_gather": micro * fsdp,
+            "reduce_scatter": micro * fsdp}
+
+
+def _sharded_runs(label, card, model, make_step, opt, mesh, batch, draws, steps, tol, per_micro, fsdp=False, k=1,
+                  generator=None, reference=None, keep=False):
+    """The unsharded step (or `reference`: its losses, step walls, gradient
+    and parameters, already run) and the sharded step over `mesh` from the same
+    state and draws: the gradient at the start (k == 1), then `steps`
+    steps. Checks each sharded step's kernel launches (`per_micro` a
+    microbatch) and collectives exactly, and the loss, gradient and updates
+    against `tol`. Returns (the reference, the sharded run's record, the
+    sharded state when `keep`)."""
+    import copy
+
+    import torch
+
+    from f5_tts_tpu_torch.models.shard import shard_train_state
+    from f5_tts_tpu_torch.parallel import mesh as M
+    from f5_tts_tpu_torch.training import trainer as T
+
+    t_run = time.perf_counter()
+
+    def gen(i):
+        return None if generator is None else torch.Generator(device="cuda").manual_seed(generator + i)
+
+    step = make_step(opt, k)
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    if reference is None:
+        reference = {}
+        if k == 1:
+            dit = copy.deepcopy(model)
+            loss = step.objective.loss(dit, *batch, gen(0), draws)
+            reference["grad"] = dict(zip(p0, (g.detach() for g in torch.autograd.grad(loss, list(dit.parameters())))))
+            del dit
+        dit = copy.deepcopy(model)
+        state = T.init_train_state(dit, opt, ema=True)
+        reference["losses"], reference["walls_ms"] = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reference["losses"].append(step(state, *batch, gen(i), draws).item())
+            reference["walls_ms"].append((time.perf_counter() - t0) * 1e3)
+        reference["params"] = {n: p.detach().clone() for n, p in dit.named_parameters()}
+        del dit, state
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    state = shard_train_state(T.init_train_state(model, opt, ema=True), mesh, fsdp=fsdp)
+    stored = state.nbytes()[0]
+    sharded = M.shard_train_step(step, mesh, state, grad_accum=k, fsdp=fsdp)
+    record = {"label": label, "stored_slot0": stored}
+    launched = dict(ZERO)
+    if "grad" in reference:
+        before = counts()
+        M.reset_collective_counts()
+        _, grads = sharded.gradients(state, *batch, gen(0), draws)
+        for key, v in counts().items():
+            launched[key] += v - before[key]
+        if M.collective_counts() != _expected_collectives(state, 1):
+            raise AssertionError(f"{label}: collectives {M.collective_counts()}, expected "
+                                 f"{_expected_collectives(state, 1)}")
+        record["grad_rel_l2"] = _rel_l2(grads, reference["grad"])
+        del grads
+    losses, walls = [], []
+    for i in range(steps):
+        before = counts()
+        M.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(sharded(state, *batch, gen(i), draws).item())
+        walls.append(time.perf_counter() - t0)
+        got = {key: v - before[key] for key, v in counts().items()}
+        want = {key: k * v for key, v in per_micro.items()}
+        if got != want:
+            raise AssertionError(f"{label} step {i}: kernel launches {got}, expected {want}")
+        if M.collective_counts() != _expected_collectives(state, k):
+            raise AssertionError(f"{label} step {i}: collectives {M.collective_counts()}, expected "
+                                 f"{_expected_collectives(state, k)}")
+        for key, v in got.items():
+            launched[key] += v
+    record.update(losses=losses, walls_ms=[w * 1e3 for w in walls], unsharded_walls_ms=reference["walls_ms"],
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  collectives_a_step=M.collective_counts(), launches=launched)
+    full = M.gather_state(state)["params"]
+    record["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(losses, reference["losses"]))
+    record["updates_agree"] = _updates_agree(p0, full, reference["params"], MESH_TRAIN_LR)
+    record["update_rel_l2"] = _rel_l2({n: full[n] - p0[n] for n in p0},
+                                      {n: reference["params"][n] - p0[n] for n in p0})
+    print(f"{label}: losses {', '.join(f'{x:.6f}' for x in losses)} against unsharded "
+          f"{', '.join(f'{x:.6f}' for x in reference['losses'])} (largest relative difference "
+          f"{record['loss_rel']:.3e}, tol {tol['loss']}); gradient relative L2 "
+          f"{record.get('grad_rel_l2', float('nan')):.3e} (tol {tol['grad']}); updates within lr/10 of "
+          f"unsharded {record['updates_agree']:.6f} (at least {tol['updates']}), the update's relative L2 "
+          f"{record['update_rel_l2']:.3e}; step walls {', '.join(f'{w:.1f}' for w in record['walls_ms'])} ms "
+          f"against the unsharded steps' {', '.join(f'{w:.1f}' for w in reference['walls_ms'])} ms; "
+          f"peak memory {record['peak_gib']:.2f} GiB; slot 0 stores {json.dumps(stored)} bytes; collectives a "
+          f"step {json.dumps(record['collectives_a_step'])}; kernel launches {json.dumps(launched)}; the run with its "
+          f"unsharded reference {time.perf_counter() - t_run:.1f} s; on {card}")
+    if not (record["loss_rel"] <= tol["loss"] and record.get("grad_rel_l2", 0.0) <= tol["grad"]
+            and record["updates_agree"] >= tol["updates"]):
+        raise AssertionError(f"{label}: the sharded step disagrees with the unsharded step: {record}")
+    del full
+    if not keep:
+        del state
+        torch.cuda.empty_cache()
+        state = None
+    return reference, record, state
+
+
+def dp_rank_child(rank: int, port: int, out: str) -> None:
+    """One rank of phase 10b's two-rank step: the base DiT of the phase
+    (the same seed), the grid of one slot on the card that a trainer without
+    a mesh takes when several processes run (training/trainer.py
+    `training_grid`), the process group over gloo at localhost:`port`; one DP step on this rank's half of the global
+    batch with the global draws. Writes the loss and a few parameters."""
+    import torch
+
+    from f5_tts_tpu_torch.models.shard import shard_train_state
+    from f5_tts_tpu_torch.parallel import distributed as D
+    from f5_tts_tpu_torch.parallel import initialize
+    from f5_tts_tpu_torch.parallel import mesh as M
+    from f5_tts_tpu_torch.training import trainer as T
+
+    device_phase_quiet()
+    initialize(coordinator_address=f"localhost:{port}", num_processes=2, process_id=rank, backend="gloo")
+    model, (mel, text, lens), draws = _mesh_train_inputs()
+    opt = T.make_optimizer(MESH_TRAIN_LR, 1e-2, 0, 1000)
+    mesh = T.training_grid(None, torch.device("cuda:0"))  # a trainer's grid without a mesh, with two processes
+    state = shard_train_state(T.init_train_state(model.dit, opt, ema=True), mesh)
+    step = M.shard_train_step(T.make_train_step(model.cfm_cfg, opt, ema_decay=0.999), mesh, state)
+    half = slice(rank * TRAIN_BATCH // 2, (rank + 1) * TRAIN_BATCH // 2)
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = step(state, mel[half], text[half], lens[half], draws=draws).item()
+    wall = time.perf_counter() - t0
+    full = M.gather_state(state)["params"]
+    torch.save({k: full[k].cpu() for k in TWO_RANK_WATCHED}, f"{out}/rank{rank}.pt")
+    print(json.dumps({"rank": D.process_index(), "world": D.process_count(), "loss": loss, "step_s": wall,
+                      "launches": counts()}), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+TWO_RANK_WATCHED = ("proj_out.weight", "transformer_blocks.0.attn.to_q.weight", "time_embed.time_mlp.0.weight")
+
+
+def device_phase_quiet() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _mesh_train_inputs(cfg=None, seed=11):
+    """Phase 10b's model (the base DiT in bf16 unless `cfg`), batch (4 x
+    1024 frames) and fixed global draws, from `seed` on the card."""
+    import torch
+
+    from f5_tts_tpu_torch import F5TTS, CFMConfig
+    from f5_tts_tpu_torch.config import F5TTS_V1_BASE
+    from f5_tts_tpu_torch.models.cfm import draw_cfm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = F5TTS.init(gen, cfg or F5TTS_V1_BASE.replace(compute_dtype="bfloat16"), device="cuda",
+                       cfm_cfg=CFMConfig())
+    batch = _train_batch(gen)
+    return model, batch, draw_cfm(gen, model.cfm_cfg, TRAIN_BATCH, TRAIN_FRAMES, 100, torch.device("cuda"))
+
+
+def mesh_training_phase(card: str, tmp_base: str | None) -> dict:
+    """Training over a 2 x 2 grid of the card (parallel/mesh.py): K1 with
+    its lse and K2 (bf16), K1-f32 and K2-f32 at the slot shapes against
+    their plain versions; the base DiT (bf16) sharded against unsharded
+    (DP x TP 2 steps, grad_accum=2 1 step, FSDP 2 steps: loss, gradient,
+    updates, exact launches and collectives, stored bytes and peak memory);
+    the float32 witness at reduced depth (dropout and remat on) at 2e-5; a
+    sharded trainer's checkpoint loaded by an unsharded trainer that
+    continues; the checkpoint manager's asynchronous sharded save, latest
+    and restores (another layout; EMA adapted); DURATION_V2 on 2 x 2 at
+    2e-5; two ranks over gloo on the card against the one-process data-2
+    step. Returns the kernels' launches of the sharded runs."""
+    import copy
+
+    import torch
+
+    from f5_tts_tpu_torch import F5TTS
+    from f5_tts_tpu_torch.config import DURATION_V2, F5TTS_V1_BASE
+    from f5_tts_tpu_torch.models.duration import DurationPredictor
+    from f5_tts_tpu_torch.models.shard import shard_train_state
+    from f5_tts_tpu_torch.ops import flash_attention as fa
+    from f5_tts_tpu_torch.parallel import mesh as M
+    from f5_tts_tpu_torch.training import checkpoints as C
+    from f5_tts_tpu_torch.training import trainer as T
+    from f5_tts_tpu_torch.training.duration_trainer import make_duration_train_step
+
+    t_phase = time.perf_counter()
+    phase(f"mesh training: a {MESH_TRAIN['data']} x {MESH_TRAIN['model']} grid (data x model) of the card: the "
+          "base DiT (bf16) DP x TP, grad_accum=2 and FSDP against unsharded; the float32 witness; checkpoints; "
+          "DURATION_V2; two ranks over gloo")
+    devices = ["cuda:0"] * (MESH_TRAIN["data"] * MESH_TRAIN["model"])
+    if torch.cuda.device_count() >= len(devices):
+        devices = [f"cuda:{i}" for i in range(len(devices))]
+    mesh = M.create_mesh(**MESH_TRAIN, devices=devices)
+    print(f"grid: {mesh}")
+    slots = MESH_TRAIN["data"] * MESH_TRAIN["model"]
+    total = dict(ZERO)
+
+    def add(launched):
+        for key, v in launched.items():
+            total[key] += v
+
+    # the slot shapes: a data row's 2 rows of 1024 frames; the slot's heads of 64 on its projections
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = [list(r) for r in (TRAIN_LENS[:2], TRAIN_LENS[2:])]
+    cfg = F5TTS_V1_BASE
+    slot_ms = {}
+    for name, dtype, h, masks in (("bf16", torch.bfloat16, cfg.heads // MESH_TRAIN["model"], [None] + rows),
+                                  ("f32", torch.float32, DURATION_V2.heads // MESH_TRAIN["model"], [None, rows[1]])):
+        for lens in masks:
+            c = _attention_grad_case(gen, f"mesh training slot ({name})", dtype, 2, h, TRAIN_FRAMES, 64, lens)
+        q, k, v, g, out, lse = c["q"], c["k"], c["v"], c["g"], c["out"], c["lse"]
+        key_mask, cos, sin, scale = c["key_mask"], c["cos"], c["sin"], c["scale"]
+        fwd = device_ms(lambda: fa._forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse=True))
+        bwd = device_ms(lambda: fa._backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin))
+        slot_ms[name] = (fwd, bwd)
+        print(f"slot shape {name} [2, {h}, {TRAIN_FRAMES}, 64]: K1 with lse {fwd:.4f} ms, K2 {bwd:.4f} ms of device "
+              f"time; on {card}")
+
+    # the base DiT in bf16
+    model, batch, draws = _mesh_train_inputs()
+    opt = T.make_optimizer(MESH_TRAIN_LR, 1e-2, 0, 1000)
+    bcfg, cfm_cfg = model.dit_cfg, model.cfm_cfg
+
+    def cfm_step(o, k):
+        return T.make_train_step(cfm_cfg, o, ema_decay=0.999, grad_accum=k)
+
+    per_micro = {**ZERO, "flash_attention_fwd": bcfg.depth * slots, "flash_attention_bwd": bcfg.depth * slots}
+    ref, dp, _ = _sharded_runs("base DiT, DP x TP", card, model.dit, cfm_step, opt, mesh, batch, draws, 2,
+                               MESH_TRAIN_TOL, per_micro)
+    add(dp["launches"])
+    _, fsdp, _ = _sharded_runs("base DiT, FSDP", card, model.dit, cfm_step, opt, mesh, batch, draws, 2,
+                               MESH_TRAIN_TOL, per_micro, fsdp=True, reference=ref)
+    add(fsdp["launches"])
+    del ref
+    micro = T.split_microbatches(2, *batch, data_size=MESH_TRAIN["data"])
+    half = TRAIN_BATCH // 2
+    draws2 = [draws.rows(slice(0, half)), draws.rows(slice(half, TRAIN_BATCH))]
+    _, accum, _ = _sharded_runs("base DiT, grad_accum=2", card, model.dit, cfm_step, opt, mesh, micro, draws2, 1,
+                                MESH_TRAIN_TOL, per_micro, k=2)
+    add(accum["launches"])
+    ratio = {part: fsdp["stored_slot0"][part] / dp["stored_slot0"][part] for part in dp["stored_slot0"]}
+    print(f"FSDP: slot 0 stores {json.dumps(fsdp['stored_slot0'])} bytes against {json.dumps(dp['stored_slot0'])} "
+          f"without ({', '.join(f'{k} {v:.3f}' for k, v in ratio.items())} of it); peak memory "
+          f"{fsdp['peak_gib']:.2f} against {dp['peak_gib']:.2f} GiB; on {card}")
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # the float32 witness: full width, reduced depth, dropout and remat on
+    wcfg = F5TTS_V1_BASE.replace(compute_dtype="float32", depth=WITNESS_DEPTH, dropout=0.1, remat=True)
+    wmodel, wbatch, wdraws = _mesh_train_inputs(wcfg, seed=13)
+    wper = {**ZERO, "flash_attention_fwd_f32": 2 * wcfg.depth * slots, "flash_attention_bwd_f32": wcfg.depth * slots}
+    wref, wdp, wstate = _sharded_runs("float32 witness, DP x TP", card, wmodel.dit, cfm_step, opt, mesh, wbatch,
+                                      wdraws, 2, WITNESS_TOL, wper, generator=100, keep=True)
+    add(wdp["launches"])
+    _, wfsdp, _ = _sharded_runs("float32 witness, FSDP", card, wmodel.dit, cfm_step, opt, mesh, wbatch, wdraws, 2,
+                                WITNESS_TOL, wper, fsdp=True, generator=100, reference=wref)
+    add(wfsdp["launches"])
+
+    with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
+        # a sharded trainer's files, loaded by an unsharded trainer that continues
+        t0 = time.perf_counter()
+        sharded = T.F5TTSTrainer(wmodel, results_dir=tmp, ema_decay=0.999, mesh=mesh)
+        sharded.state = wstate
+        sharded.save_checkpoint(2)
+        t1 = time.perf_counter()
+        fresh = T.F5TTSTrainer(F5TTS.init(torch.Generator(device="cuda").manual_seed(14), wcfg, device="cuda"),
+                               results_dir=tmp, ema_decay=0.999)
+        fresh.state = T.init_train_state(fresh.model.dit, opt, ema=True)
+        fresh.load_checkpoint(2)
+        t2 = time.perf_counter()
+        full = M.gather_state(wstate)
+        loaded = dict(fresh.model.dit.named_parameters())
+        for name in loaded:
+            if not (torch.equal(loaded[name], full["params"][name]) and torch.equal(fresh.state.ema[name],
+                                                                                   full["ema"][name])
+                    and torch.equal(fresh.state.opt_state["mu"][name], full["mu"][name])
+                    and torch.equal(fresh.state.opt_state["nu"][name], full["nu"][name])):
+                raise AssertionError(f"the sharded trainer's checkpoint did not load as it was: {name}")
+        if (fresh.state.step, fresh.state.opt_state["count"]) != (2, 2):
+            raise AssertionError(f"the loaded checkpoint's step: {fresh.state.step}")
+        p0 = {n: p.detach().clone() for n, p in loaded.items()}
+        step = cfm_step(opt, 1)
+        cont_u = step(fresh.state, *wbatch, torch.Generator(device="cuda").manual_seed(102), wdraws).item()
+        cont_s = M.shard_train_step(step, mesh, wstate)(wstate, *wbatch, torch.Generator(device="cuda").manual_seed(102),
+                                                         wdraws).item()
+        agree = _updates_agree(p0, M.gather_state(wstate)["params"],
+                               {n: p.detach() for n, p in fresh.model.dit.named_parameters()}, MESH_TRAIN_LR)
+        print(f"checkpoint round trip (float32 witness): the 2 x 2 trainer saved in {t1 - t0:.1f} s, an unsharded "
+              f"trainer loaded in {t2 - t1:.1f} s: weights, EMA, moments and step identical; the next step "
+              f"unsharded {cont_u:.6f} and sharded {cont_s:.6f} (relative {abs(cont_u - cont_s) / abs(cont_u):.3e}, "
+              f"tol {WITNESS_TOL['loss']}), updates agreeing {agree:.6f}; files "
+              + ", ".join(f"{f.name} {f.stat().st_size / 2**20:.0f} MiB" for f in sorted(Path(tmp).glob("*"))))
+        if not (abs(cont_u - cont_s) <= WITNESS_TOL["loss"] * abs(cont_u) and agree >= WITNESS_TOL["updates"]):
+            raise AssertionError("the unsharded trainer did not continue as the sharded one")
+        del fresh, loaded, p0
+
+        # the checkpoint manager: asynchronous sharded save, latest, restores over FSDP and unsharded without EMA
+        mgr = C.TrainCheckpointManager(Path(tmp) / "manager")
+        t0 = time.perf_counter()
+        mgr.save(3, wstate)
+        t1 = time.perf_counter()
+        mgr.wait()
+        t2 = time.perf_counter()
+        if mgr.latest_step() != 3 or mgr.all_steps() != [3]:
+            raise AssertionError(f"checkpoint manager: latest {mgr.latest_step()}, steps {mgr.all_steps()}")
+        saved = M.gather_state(wstate)
+        target = shard_train_state(T.init_train_state(copy.deepcopy(wmodel.dit), opt, ema=True), mesh, fsdp=True)
+        t3 = time.perf_counter()
+        mgr.restore(3, target)
+        t4 = time.perf_counter()
+        back = M.gather_state(target)
+        for kind in ("params", "mu", "nu", "ema"):
+            for name, t in saved[kind].items():
+                if not torch.equal(back[kind][name], t):
+                    raise AssertionError(f"checkpoint manager: {kind} {name} changed over FSDP")
+        del target, back
+        plain = T.init_train_state(copy.deepcopy(wmodel.dit), opt, ema=False)
+        C.restore_orbax_adapting_ema(mgr, 3, plain)
+        for name, p in plain.model.named_parameters():
+            if not torch.equal(p, saved["params"][name]):
+                raise AssertionError(f"checkpoint manager: {name} changed when restored without EMA")
+        mgr.close()
+        size = sum(f.stat().st_size for f in (Path(tmp) / "manager").rglob("*") if f.is_file())
+        print(f"checkpoint manager (float32 witness, 2 x 2 sharded, written without gathering): save returned in "
+              f"{t1 - t0:.2f} s, committed {t2 - t1:.2f} s later ({size / 2**20:.0f} MiB); latest {mgr.latest_step()}; "
+              f"restored over 2 x 2 FSDP in {t4 - t3:.2f} s, and unsharded without EMA (dropped), both identical")
+        del plain, saved
+    del wstate, wmodel, wref, sharded
+    torch.cuda.empty_cache()
+
+    # DURATION_V2 in float32
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    predictor = DurationPredictor.init(gen, DURATION_V2, device="cuda")
+    dbatch = _train_batch(gen)
+    rand_frac = torch.rand(TRAIN_BATCH, generator=gen, device="cuda")
+    fps = predictor.audio_cfg.frames_per_second
+    dper = {**ZERO, "flash_attention_fwd_f32": DURATION_V2.depth * slots,
+            "flash_attention_bwd_f32": DURATION_V2.depth * slots}
+    _, dur, _ = _sharded_runs("DURATION_V2, DP x TP", card, predictor,
+                              lambda o, k: make_duration_train_step(o, fps, ema_decay=0.999, grad_accum=k), opt, mesh,
+                              dbatch, rand_frac, 1, WITNESS_TOL, dper)
+    add(dur["launches"])
+    del predictor
+    torch.cuda.empty_cache()
+
+    # two ranks over gloo on the one card against the one-process data-2 step
+    with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [_started([f"import chip_smoke as s; s.dp_rank_child({rank}, {port}, {tmp!r})"], f"{tmp}/rank{rank}")
+                 for rank in range(2)]
+        model, batch, draws = _mesh_train_inputs()
+        step = T.make_train_step(model.cfm_cfg, opt, ema_decay=0.999)
+        one = M.create_mesh(data=2, devices=["cuda:0"] * 2)
+        state = shard_train_state(T.init_train_state(model.dit, opt, ema=True), one)
+        want_loss = M.shard_train_step(step, one, state)(state, *batch, draws=draws).item()
+        want = M.gather_state(state)["params"]
+        del model, state
+        ranks = [json.loads(_finished(p, f"{tmp}/rank{r}", f"rank {r}", timeout=300).strip().splitlines()[-1])
+                 for r, p in enumerate(procs)]
+        wall = time.perf_counter() - t0
+        diffs = []
+        for r in range(2):
+            got = torch.load(f"{tmp}/rank{r}.pt")
+            diffs.append(max((got[k] - want[k].cpu()).abs().max().item() for k in TWO_RANK_WATCHED))
+        print(f"two ranks over gloo on {card}: losses {ranks[0]['loss']:.8f}, {ranks[1]['loss']:.8f} (world "
+              f"{ranks[0]['world']}), the one-process data-2 step {want_loss:.8f}; watched parameters' largest "
+              f"difference {max(diffs):.3e}; each rank's step {ranks[0]['step_s']:.2f}, {ranks[1]['step_s']:.2f} s "
+              f"(its first, with gloo's copies through the host), both ranks {wall:.1f} s with start-up")
+        if not (ranks[0]["loss"] == ranks[1]["loss"] and abs(ranks[0]["loss"] - want_loss) <= 1e-6 * abs(want_loss)
+                and max(diffs) <= MESH_TRAIN_LR / 10):
+            raise AssertionError(f"the two ranks disagree with each other or the one-process step: {ranks}, "
+                                 f"{want_loss}, {diffs}")
+        del want
+    torch.cuda.empty_cache()
+    print(f"mesh training phase: {time.perf_counter() - t_phase:.1f} s; launches of its sharded runs "
+          f"{json.dumps(total)}; slot kernels' device ms {json.dumps(slot_ms)}; on {card}")
+    return total
 
 
 PROBE_ATTN = ("attn_pack2", "attn_flat", "flash_nhd", "flash_bhnd_rope")
@@ -3186,6 +3648,7 @@ def main() -> int:
             _, cfm_ms, cfm_launches = cfm_training_phase(card, tmp)
         _, dur_ms, dur_launches = duration_training_phase(card)
         wav_launches = wav_training_phase(card, tmp_base)
+        mesh_train_launches = mesh_training_phase(card, tmp_base)
         probe = probe_kernel_phase()
         probe_launches = probe_tools_phase(card)
         ranking_phase(card, snap)
@@ -3197,7 +3660,7 @@ def main() -> int:
           f"{time.perf_counter() - T_START:.1f} s; on {card}")
     # launches summed over the main paths' counted runs; the probe kernels' over the probe tools' run
     paths = (float_launches, q_launches, mesh_launches, w8a8_launches, serve_launches, artifact_launches, cfm_launches,
-             dur_launches, wav_launches)
+             dur_launches, wav_launches, mesh_train_launches)
     launches = {k: sum(p[k] for p in paths) for k in float_launches}
     for name, n in launches.items():
         if n <= 0:

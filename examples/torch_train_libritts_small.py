@@ -11,6 +11,17 @@ the mel computed on the card inside the step. Nothing is downloaded:
 audio (without it the samples keep only their mel).
 
     python examples/torch_train_libritts_small.py --data-dir LibriTTS_R/dev-clean
+
+Over several cards: `--mesh-data D --mesh-model M` trains on a D x M grid
+(data-parallel rows, tensor-parallel slots; one card a slot), `--fsdp` also
+shards the weight matrices and their optimizer state over the rows. Across
+processes, set WORLD_SIZE, RANK, MASTER_ADDR and MASTER_PORT (the script
+calls `parallel.distributed.initialize()`, and each process then loads its
+slice of every global batch); the data axis spans the processes, each
+process's grid takes the cards it sees (CUDA_VISIBLE_DEVICES; with the
+default 1 x 1, one slot a process), the gradients are summed across them,
+and process 0 writes the checkpoints and the probe samples. `--fsdp`
+shards over one process's rows only and raises with several processes.
 """
 
 from __future__ import annotations
@@ -32,6 +43,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--depth", type=int, default=None, help="override F5TTS_SMALL's 16 layers")
     ap.add_argument("--results-dir", default="results")
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="data-parallel rows over the devices of --device's type (one card a slot)")
+    ap.add_argument("--mesh-model", type=int, default=1, help="tensor-parallel slots a data row")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard the weight matrices, their AdamW moments and EMA over this process's data rows")
     ap.add_argument("--total-steps", type=int, default=1_000_000)
     return ap.parse_args(argv)
 
@@ -44,6 +60,10 @@ def main(argv=None) -> None:
     from f5_tts_tpu_torch import F5TTS, CFMConfig, Vocos
     from f5_tts_tpu_torch.config import F5TTS_SMALL
     from f5_tts_tpu_torch.data import load_dir, make_training_pipeline
+    from f5_tts_tpu_torch.generate import cli_mesh
+    from f5_tts_tpu_torch.parallel import distributed
+
+    distributed.initialize()  # a no-op unless WORLD_SIZE names several processes
     from f5_tts_tpu_torch.training import F5TTSTrainer
 
     vocab = {chr(i): i for i in range(256)}
@@ -67,9 +87,11 @@ def main(argv=None) -> None:
         seed=0,
         # raw-audio batches: the mel runs on the card inside the step
         on_device_mel=True,
+        shard_by_process=distributed.process_count() > 1,
     )
 
-    trainer = F5TTSTrainer(f5tts, num_warmup_steps=1000, max_grad_norm=1, results_dir=args.results_dir)
+    trainer = F5TTSTrainer(f5tts, num_warmup_steps=1000, max_grad_norm=1, results_dir=args.results_dir,
+                           mesh=cli_mesh(args.mesh_data, args.mesh_model, args.device), fsdp=args.fsdp)
     trainer.train(
         batched_dataset,
         learning_rate=1e-4,

@@ -18,7 +18,10 @@ which `forward` runs to its end (`run_local`). In a shard of a
 tensor-parallel group (`tp` above 1) it stops at each row-parallel linear
 (`row_parallel`) to yield its partial output and is sent the group's sum;
 the slots of a group run in step under `mesh.lockstep`. With tp 1 nothing
-yields, and the launches and bits are those of the plain module.
+yields, and the launches and bits are those of the plain module. In a
+sharded training step the row-parallel sum is an autograd function
+(parallel/mesh.py `RowSum`), and dropout applies each slot's slice of the
+unsharded mask (`dropout`'s `rows` and `cols`).
 """
 
 from __future__ import annotations
@@ -34,12 +37,29 @@ from f5_tts_tpu_torch.ops.attention import scaled_dot_product_attention
 from f5_tts_tpu_torch.utils.modules import apply_linear, cast, conv1d, embedding, gelu, layer_norm, linear, mish
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator, rows=None,
+            cols: tuple[int, int] | None = None) -> torch.Tensor:
     """Inverted dropout: each element kept with probability 1 - rate and
     scaled by 1 / (1 - rate), else zeroed; the keep mask is drawn from
-    `generator`, which must live on x's device."""
+    `generator`, which must live on x's device.
+
+    In a shard of a sharded training step, x is a slice of the unsharded
+    tensor and gets that slice of the unsharded mask: the mask is drawn at
+    the global batch's size and `rows` (parallel/mesh.py `Rows`: the global
+    batch and this data row's first row) kept, and `cols` = (ways, index)
+    keeps the index-th of `ways` column blocks of the last dim (a
+    tensor-parallel slot's hidden units)."""
     keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    if rows is not None:
+        shape[0] = rows.batch
+    if cols is not None:
+        shape[-1] *= cols[0]
+    kept = torch.rand(shape, generator=generator, device=x.device) < keep
+    if rows is not None:
+        kept = kept[rows.start:rows.start + x.shape[0]]
+    if cols is not None:
+        kept = kept.chunk(cols[0], dim=-1)[cols[1]]
     return torch.where(kept, x / keep, torch.zeros_like(x))
 
 
@@ -275,7 +295,7 @@ class Attention(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
-        self.tp = 1
+        self.tp, self.tp_index = 1, 0
         self.to_q = nn.Linear(dim, inner)
         self.to_k = nn.Linear(dim, inner)
         self.to_v = nn.Linear(dim, inner)
@@ -296,8 +316,10 @@ class Attention(nn.Module):
         without a copy."""
         return run_local(self.steps(x, mask, rope, dropout_rate, generator))
 
-    def steps(self, x, mask=None, rope=None, dropout_rate: float = 0.0, generator=None):
-        """`forward` as a generator, which yields only with tp above 1."""
+    def steps(self, x, mask=None, rope=None, dropout_rate: float = 0.0, generator=None, rows=None):
+        """`forward` as a generator, which yields only with tp above 1.
+        `rows`: a data row's place in a sharded step's batch (`dropout`);
+        the dropout after `to_out` is full width, the same on every slot."""
         b, n, _ = x.shape
 
         def heads(lin: nn.Module) -> torch.Tensor:
@@ -313,7 +335,7 @@ class Attention(nn.Module):
         else:
             out = apply_linear(self.to_out[0], out)
         if generator is not None and dropout_rate > 0.0:
-            out = dropout(out, dropout_rate, generator)
+            out = dropout(out, dropout_rate, generator, rows)
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)
         return out
@@ -330,7 +352,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = int(dim * mult)
-        self.tp = 1
+        self.tp, self.tp_index = 1, 0
         # index 1 holds the reference's dropout slot, so checkpoint names line up
         self.ff = nn.Sequential(
             nn.Sequential(nn.Linear(dim, inner), nn.GELU(approximate="tanh")),
@@ -341,11 +363,12 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor, dropout_rate: float = 0.0, generator: torch.Generator | None = None) -> torch.Tensor:
         return run_local(self.steps(x, dropout_rate, generator))
 
-    def steps(self, x, dropout_rate: float = 0.0, generator=None):
-        """`forward` as a generator, which yields only with tp above 1."""
+    def steps(self, x, dropout_rate: float = 0.0, generator=None, rows=None):
+        """`forward` as a generator, which yields only with tp above 1. A
+        slot's hidden dropout is its columns of the unsharded mask."""
         h = gelu(apply_linear(self.ff[0][0], x), approximate=True)
         if generator is not None and dropout_rate > 0.0:
-            h = dropout(h, dropout_rate, generator)
+            h = dropout(h, dropout_rate, generator, rows, (self.tp, self.tp_index) if self.tp > 1 else None)
         if self.tp > 1:
             return (yield from row_parallel(self.ff[2], h))
         return apply_linear(self.ff[2], h)
@@ -398,13 +421,15 @@ class DiTBlock(nn.Module):
         the attention's and the feed-forward's dropout streams."""
         return run_local(self.steps(x, mod, mask, rope, dropout_rate, dropout_seed))
 
-    def steps(self, x, mod, mask=None, rope=None, dropout_rate: float = 0.0, dropout_seed: int | None = None):
+    def steps(self, x, mod, mask=None, rope=None, dropout_rate: float = 0.0, dropout_seed: int | None = None,
+              rows=None):
         """`forward` as a generator: it yields where its attention and
         feed-forward do (a shard of a tensor-parallel group)."""
         g_attn, g_ff = dropout_generators(dropout_seed, 2, x.device)
         norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.attn_norm(x, mod)
-        attn = yield from self.attn.steps(norm, mask=mask, rope=rope, dropout_rate=dropout_rate, generator=g_attn)
+        attn = yield from self.attn.steps(norm, mask=mask, rope=rope, dropout_rate=dropout_rate, generator=g_attn,
+                                          rows=rows)
         x = x + gate_msa[:, None] * attn
         norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-        ff = yield from self.ff.steps(norm, dropout_rate=dropout_rate, generator=g_ff)
+        ff = yield from self.ff.steps(norm, dropout_rate=dropout_rate, generator=g_ff, rows=rows)
         return x + gate_mlp[:, None] * ff

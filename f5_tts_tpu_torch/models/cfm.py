@@ -52,6 +52,16 @@ class CFMDraws:
     audio_drop: torch.Tensor  # [1] U(0, 1), audio dropped below audio_drop_prob
     text_drop: torch.Tensor  # [1] U(0, 1), text dropped below cond_drop_prob
 
+    def rows(self, sl: slice, device: torch.device | None = None) -> "CFMDraws":
+        """The draws of the batch rows `sl` (the CFG drops are the whole
+        batch's), on `device` when given."""
+        def take(t, per_row=True):
+            t = t[sl] if per_row else t
+            return t if device is None else t.to(device, non_blocking=True)
+
+        return CFMDraws(take(self.frac_lengths), take(self.span_start), take(self.x0), take(self.time),
+                        take(self.audio_drop, False), take(self.text_drop, False))
+
 
 def draw_cfm(generator: torch.Generator, cfm_cfg: CFMConfig, batch: int, seq_len: int, mel_dim: int,
              device: torch.device) -> CFMDraws:
@@ -96,8 +106,24 @@ def cfm_loss(
     batch, seq_len, mel_dim = inp.shape
     if draws is None:
         draws = draw_cfm(generator, cfm_cfg, batch, seq_len, mel_dim, inp.device)
-    mask = lens_to_mask(lens, seq_len)
-    span = mask_from_frac_lengths(lens, draws.frac_lengths, draws.span_start, seq_len) & mask
+    squared, elements = cfm_terms(dit, cfm_cfg, inp, text, lens, draws, generator=generator)
+    return squared / elements.clamp(min=1e-6)
+
+
+def cfm_span(lens: torch.Tensor, draws: CFMDraws, seq_len: int) -> torch.Tensor:
+    """The hidden span [b, n] of each length (inside its valid frames)."""
+    return mask_from_frac_lengths(lens, draws.frac_lengths, draws.span_start, seq_len) & lens_to_mask(lens, seq_len)
+
+
+def cfm_terms(dit, cfm_cfg: CFMConfig, inp: torch.Tensor, text: torch.Tensor, lens: torch.Tensor, draws: CFMDraws,
+              **forward_kw) -> tuple[torch.Tensor, torch.Tensor]:
+    """The loss's numerator and denominator: (the squared error summed over
+    the span's elements, the span's element count in float32). A sharded
+    step sums each data row's numerator over the global batch's count;
+    `forward_kw` goes to `dit.forward_train` (a DiT, or a `DiTGroup` with
+    the seeds and rows)."""
+    seq_len, mel_dim = inp.shape[1], inp.shape[2]
+    span = cfm_span(lens, draws, seq_len)
 
     x1 = inp.float()
     x0 = draws.x0.float()
@@ -109,10 +135,10 @@ def cfm_loss(
     drop_text = draws.text_drop < cfm_cfg.cond_drop_prob
     drop_audio = (draws.audio_drop < cfm_cfg.audio_drop_prob) | drop_text
     pred = dit.forward_train(
-        phi, cond, text, draws.time, drop_audio_cond=drop_audio[0], drop_text=drop_text[0], generator=generator,
+        phi, cond, text, draws.time, drop_audio_cond=drop_audio[0], drop_text=drop_text[0], **forward_kw,
     )
     se = torch.where(span[..., None], (pred - flow).square(), torch.zeros_like(pred))
-    return se.sum() / (span.sum() * mel_dim).float().clamp(min=1e-6)
+    return se.sum(), (span.sum() * mel_dim).float()
 
 
 def cfm_sample_mel(

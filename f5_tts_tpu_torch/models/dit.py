@@ -8,9 +8,9 @@ The JAX functions map to methods of `DiT`:
   - `dit_forward`             -> `DiT.forward_train` (training: text ids and
     per-sample times in, optional dropout and activation checkpointing)
 The depth dimension is a ModuleList walked in Python; the output is float32.
-Under a mesh (parallel/mesh.py) the sampler runs a `DiTGroup`: one DiT
-shard a slot of a data row's tensor-parallel group, run block by block in
-step.
+Under a mesh (parallel/mesh.py) the sampler and the sharded train step run
+a `DiTGroup`: one DiT shard a slot of a data row's tensor-parallel group,
+run block by block in step.
 """
 
 from __future__ import annotations
@@ -101,16 +101,7 @@ class DiT(nn.Module):
         and cfg.dropout > 0, with one seed per layer. With cfg.remat each
         block is recomputed in the backward instead of keeping its
         activations (torch.utils.checkpoint)."""
-        dtype = self.compute_dtype
-        b, n = x.shape[0], x.shape[1]
-        time = torch.as_tensor(time, dtype=torch.float32, device=x.device)
-        if time.ndim == 0:
-            time = time.expand(b)
-        t_emb = self.time_embed(time, dtype)  # [b, dim]
-        text_embed = self.embed_text(text, n, drop_text=drop_text)
-        x = self.input_embed(x.to(dtype), cond.to(dtype), text_embed, drop_audio_cond=drop_audio_cond)
-        raw = rotary_freqs(n, self.cfg.dim_head, device=x.device)
-        rope = (torch.cos(raw), torch.sin(raw))
+        h, t_emb, rope = self.train_inputs(x, cond, text, time, drop_audio_cond, drop_text)
         rate = self.cfg.dropout
         use_dropout = generator is not None and rate > 0.0
         seeds = B.draw_seeds(generator, self.cfg.depth) if use_dropout else [None] * self.cfg.depth
@@ -120,11 +111,29 @@ class DiT(nn.Module):
 
         for block, seed in zip(self.transformer_blocks, seeds):
             if self.cfg.remat:
-                x = checkpoint(run_block, block, x, seed, use_reentrant=False)
+                h = checkpoint(run_block, block, h, seed, use_reentrant=False)
             else:
-                x = run_block(block, x, seed)
-        x = self.norm_out(x, self.norm_out.mods(t_emb))
-        return apply_linear(self.proj_out, x).float()
+                h = run_block(block, h, seed)
+        return self.train_head(h, t_emb)
+
+    def train_inputs(self, x, cond, text, time, drop_audio_cond=False, drop_text=False) -> tuple:
+        """The training forward up to the first block: (the blocks' input
+        [b, n, dim], the time embedding [b, dim], RoPE's (cos, sin))."""
+        dtype = self.compute_dtype
+        b, n = x.shape[0], x.shape[1]
+        time = torch.as_tensor(time, dtype=torch.float32, device=x.device)
+        if time.ndim == 0:
+            time = time.expand(b)
+        t_emb = self.time_embed(time, dtype)  # [b, dim]
+        text_embed = self.embed_text(text, n, drop_text=drop_text)
+        h = self.input_embed(x.to(dtype), cond.to(dtype), text_embed, drop_audio_cond=drop_audio_cond)
+        raw = rotary_freqs(n, self.cfg.dim_head, device=x.device)
+        return h, t_emb, (torch.cos(raw), torch.sin(raw))
+
+    def train_head(self, h: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
+        """The training forward after the last block -> [b, n, mel] float32."""
+        h = self.norm_out(h, self.norm_out.mods(t_emb))
+        return apply_linear(self.proj_out, h).float()
 
 
 def _on(value, device: torch.device):
@@ -139,7 +148,8 @@ def _on(value, device: torch.device):
 
 class DiTGroup:
     """One data row's DiT, split over its tensor-parallel group
-    (models/shard.py `shard_model_for_inference`): one shard a slot, each
+    (models/shard.py `shard_model_for_inference`, or trainable shards from
+    `shard_model_for_training` for `forward_train`): one shard a slot, each
     on its slot's device, with heads / model heads and hidden / model
     feed-forward units. The sampler calls it as it calls a DiT. The text
     embedding and the time modulations are replicated work, computed once on
@@ -174,3 +184,33 @@ class DiTGroup:
             return self.shards[0](*args)
         steps = [shard.steps(*(_on(a, dev) for a in args)) for shard, dev in zip(self.shards, self.devices)]
         return lockstep(steps)[0]
+
+    def forward_train(self, x, cond, text, time, drop_audio_cond=False, drop_text=False, mask=None, seeds=None,
+                      rows=None) -> torch.Tensor:
+        """`DiT.forward_train` over the group (trainable shards, models/shard.py
+        `shard_model_for_training`): every slot computes the replicated
+        layers from its own leaves, the blocks run in step with their
+        row-parallel sums recorded by autograd, and the first slot's output
+        is returned. `seeds` are the layers' dropout seeds, drawn once for
+        the global batch; `rows` place this data row in it. With cfg.remat
+        each block of the whole group is one checkpointed function: the
+        backward recomputes every slot's block, the forward's reductions
+        included (one more counted sum a row-parallel linear), then runs the
+        block's backward with its own reductions."""
+        cfg = self.cfg
+        args = (x, cond, text, time, drop_audio_cond, drop_text)
+        prepared = [shard.train_inputs(*(_on(a, dev) for a in args)) for shard, dev in zip(self.shards, self.devices)]
+        hs = tuple(h for h, _, _ in prepared)
+        masks = [None if mask is None else mask.to(dev) for dev in self.devices]
+        seeds = [None] * cfg.depth if seeds is None else seeds
+
+        for i, seed in enumerate(seeds):
+            def run_group_block(*hs, i=i, seed=seed):
+                steps = [shard.transformer_blocks[i].steps(
+                    h, shard.transformer_blocks[i].attn_norm.mods(t_emb), mask=m, rope=rope,
+                    dropout_rate=cfg.dropout, dropout_seed=seed, rows=rows)
+                    for shard, h, (_, t_emb, rope), m in zip(self.shards, hs, prepared, masks)]
+                return tuple(lockstep(steps))
+
+            hs = checkpoint(run_group_block, *hs, use_reentrant=False) if cfg.remat else run_group_block(*hs)
+        return self.shards[0].train_head(hs[0], prepared[0][1])

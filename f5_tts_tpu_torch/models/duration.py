@@ -24,6 +24,7 @@ from f5_tts_tpu_torch.audio.mel import log_mel_spectrogram
 from f5_tts_tpu_torch.config import AudioConfig, DurationConfig
 from f5_tts_tpu_torch.models import blocks as B
 from f5_tts_tpu_torch.models.rope import rotary_freqs
+from f5_tts_tpu_torch.parallel.mesh import lockstep
 from f5_tts_tpu_torch.utils.masks import lens_to_mask, maybe_masked_mean
 from f5_tts_tpu_torch.utils.modules import apply_linear, init_parameters_, layer_norm, linear, rms_norm
 
@@ -43,9 +44,17 @@ class DurationBlock(nn.Module):
                 dropout_seed: int | None = None) -> torch.Tensor:
         """`dropout_seed` (training) splits into the attention's and the
         feed-forward's dropout streams."""
+        return B.run_local(self.steps(x, rope, dropout_rate, dropout_seed))
+
+    def steps(self, x, rope, dropout_rate: float = 0.0, dropout_seed: int | None = None, rows=None):
+        """`forward` as a generator: it yields where its attention and
+        feed-forward do (a shard of a tensor-parallel group)."""
         g_attn, g_ff = B.dropout_generators(dropout_seed, 2, x.device)
-        x = x + self.attn(layer_norm(x), mask=None, rope=rope, dropout_rate=dropout_rate, generator=g_attn)
-        return x + self.ff(layer_norm(x), dropout_rate=dropout_rate, generator=g_ff)
+        attn = yield from self.attn.steps(layer_norm(x), mask=None, rope=rope, dropout_rate=dropout_rate,
+                                          generator=g_attn, rows=rows)
+        x = x + attn
+        ff = yield from self.ff.steps(layer_norm(x), dropout_rate=dropout_rate, generator=g_ff, rows=rows)
+        return x + ff
 
 
 class DurationInputEmbedding(nn.Module):
@@ -87,18 +96,23 @@ class DurationTransformer(nn.Module):
         """mel [b, n, mel_dim], text ids [b, nt] padded with -1 -> [b, n, dim]
         in the compute dtype. Dropout runs when a generator is given and
         cfg.dropout > 0, with one seed per layer."""
-        dtype = getattr(torch, self.cfg.compute_dtype)
-        seq_len = x.shape[1]
-        text_embed = self.text_embed(text, seq_len, False, dtype)
-        h = self.input_embed(x.to(dtype), text_embed)
-        raw = rotary_freqs(seq_len, self.cfg.dim_head, device=x.device)
-        rope = (torch.cos(raw), torch.sin(raw))
+        h, rope = self.train_inputs(x, text)
         rate = self.cfg.dropout
         use_dropout = generator is not None and rate > 0.0
         seeds = B.draw_seeds(generator, self.cfg.depth) if use_dropout else [None] * self.cfg.depth
         for block, seed in zip(self.transformer_blocks, seeds):
             h = block(h, rope, dropout_rate=rate, dropout_seed=seed)
         return self.norm_out(h)
+
+    def train_inputs(self, x: torch.Tensor, text: torch.Tensor) -> tuple:
+        """The forward up to the first block: (its input [b, n, dim], RoPE's
+        (cos, sin))."""
+        dtype = getattr(torch, self.cfg.compute_dtype)
+        seq_len = x.shape[1]
+        text_embed = self.text_embed(text, seq_len, False, dtype)
+        h = self.input_embed(x.to(dtype), text_embed)
+        raw = rotary_freqs(seq_len, self.cfg.dim_head, device=x.device)
+        return h, (torch.cos(raw), torch.sin(raw))
 
 
 class DurationPredictor(nn.Module):
@@ -167,6 +181,46 @@ class DurationPredictor(nn.Module):
         return F.softplus(linear(maybe_masked_mean(x, mask).float(), self.to_pred[0].weight))[..., 0]
 
 
+class DurationGroup:
+    """One data row's duration predictor split over its tensor-parallel
+    group (models/shard.py `shard_model_for_training`): one trainable shard
+    a slot, the blocks run in step (parallel/mesh.py `lockstep`), the
+    replicated layers computed by every slot from its own leaves, the first
+    slot's output used (as `DiTGroup.forward_train`)."""
+
+    def __init__(self, shards: list["DurationPredictor"]):
+        self.shards = list(shards)
+        self.cfg = self.shards[0].cfg
+        self.devices = [s.device for s in self.shards]
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    def transformer(self, x: torch.Tensor, text: torch.Tensor, seeds=None, rows=None) -> torch.Tensor:
+        """`DurationTransformer.forward` over the group with the layers'
+        dropout seeds drawn by the caller -> the first slot's [b, n, dim]."""
+        prepared = [s.transformer.train_inputs(x.to(d), text.to(d)) for s, d in zip(self.shards, self.devices)]
+        hs = [h for h, _ in prepared]
+        seeds = [None] * self.cfg.depth if seeds is None else seeds
+        for i, seed in enumerate(seeds):
+            hs = lockstep([s.transformer.transformer_blocks[i].steps(h, rope, self.cfg.dropout, seed, rows)
+                           for s, h, (_, rope) in zip(self.shards, hs, prepared)])
+        return self.shards[0].transformer.norm_out(hs[0])
+
+    def head(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        return self.shards[0].head(x, mask)
+
+
+def duration_prefix(inp: torch.Tensor, lens: torch.Tensor, rand_frac: torch.Tensor) -> tuple:
+    """The training cond: each mel kept only on a prefix floor(rand_frac *
+    len) of its length; returns (the masked mel, the prefix mask [b, n])."""
+    seq_len = inp.shape[1]
+    rand_index = (rand_frac * lens).to(torch.int32)
+    mask = lens_to_mask(lens, seq_len) & (torch.arange(seq_len, device=inp.device)[None, :] < rand_index[:, None])
+    return torch.where(mask[..., None], inp, torch.zeros_like(inp)), mask
+
+
 def duration_loss(
     predictor: DurationPredictor,
     inp: torch.Tensor,  # [b, n, mel_dim] mel
@@ -181,11 +235,8 @@ def duration_loss(
     model learns the full duration from a partial clip. `rand_frac` comes in
     as a tensor when given (tests feed the JAX package's draw), else from
     `generator`, which also drives the dropout (cfg.dropout > 0)."""
-    batch, seq_len = inp.shape[0], inp.shape[1]
     if rand_frac is None:
-        rand_frac = torch.rand(batch, generator=generator, device=generator.device).to(inp.device)
-    rand_index = (rand_frac * lens).to(torch.int32)
-    mask = lens_to_mask(lens, seq_len) & (torch.arange(seq_len, device=inp.device)[None, :] < rand_index[:, None])
-    inp = torch.where(mask[..., None], inp, torch.zeros_like(inp))
+        rand_frac = torch.rand(inp.shape[0], generator=generator, device=generator.device).to(inp.device)
+    inp, mask = duration_prefix(inp, lens, rand_frac)
     pred = predictor.head(predictor.transformer(inp, text, generator=generator), mask)
     return (pred - lens.float() / frames_per_second).abs().mean()

@@ -1,11 +1,15 @@
-"""Tensor-parallel shards of the DiT for mesh inference: the module half of
-the JAX package's `shard_params`, by the specs of parallel/mesh.py
+"""Tensor-parallel shards of the DiT and the duration predictor: the module
+half of the JAX package's `shard_params`, by the specs of parallel/mesh.py
 `param_specs`.
 
-Each slot of a data row's tensor-parallel group gets a copy of the DiT whose
-sharded tensors are its slot's slices, with each attention's local head
-count and each linear's local widths (`shard_module`); the rows' shards are
-wrapped in `models/dit.py` `DiTGroup`s (`shard_model_for_inference`).
+Each slot of a data row's tensor-parallel group gets a copy of the model
+whose sharded tensors are its slot's slices, with each attention's local
+head count and each linear's local widths (`shard_module`). For sampling
+the rows' shards are wrapped in `models/dit.py` `DiTGroup`s
+(`shard_model_for_inference`); for training every slot gets a trainable
+copy, its parameters leaves of their own (`shard_model_for_training`),
+`shard_train_state` cuts a train state over them, and `gather_shards` joins a sharded train state's stored pieces back into the
+full `state_dict`.
 """
 
 from __future__ import annotations
@@ -16,10 +20,20 @@ import torch
 from torch import nn
 
 from f5_tts_tpu_torch.models.blocks import Attention, FeedForward
-from f5_tts_tpu_torch.models.dit import DiTGroup
+from f5_tts_tpu_torch.models.dit import DiT, DiTGroup
+from f5_tts_tpu_torch.models.duration import DurationGroup, DurationPredictor
 from f5_tts_tpu_torch.models.quant import QuantizedLinear
 from f5_tts_tpu_torch.ops.qmatmul import GROUP_SIZE
-from f5_tts_tpu_torch.parallel.mesh import COL_SHARDED, ROW_SHARDED, Mesh, param_specs
+from f5_tts_tpu_torch.parallel.mesh import (
+    COL_SHARDED,
+    ROW_SHARDED,
+    Mesh,
+    ShardedTrainState,
+    check_trainable,
+    gather_state,
+    param_specs,
+    shard_state,
+)
 
 
 def _split(name: str) -> bool:
@@ -59,7 +73,7 @@ def _shard(dit: nn.Module, specs: dict, slot: int, ways: int) -> nn.Module:
     shard = copy.deepcopy(dit, memo)
     for name, m in shard.named_modules():
         if isinstance(m, (Attention, FeedForward)) and _split(name):
-            m.tp = ways
+            m.tp, m.tp_index = ways, slot
             if isinstance(m, Attention):
                 m.heads //= ways
         elif hasattr(m, "in_features") and hasattr(m, "out_features"):
@@ -92,3 +106,35 @@ def shard_model_for_inference(dit: nn.Module, mesh: Mesh) -> list[DiTGroup]:
     `DiTGroup` per data row, its shards on that row's devices. Raises
     ValueError as `shard_module` does."""
     return [DiTGroup(shards) for shards in shard_module(dit, mesh)]
+
+
+def shard_model_for_training(model: nn.Module, mesh: Mesh) -> list:
+    """Trainable shards of a DiT or a duration predictor, one a slot of the
+    grid by `param_specs`, every parameter a leaf of its own that requires
+    grad (a replicated tensor is copied into each slot: one parameter tied
+    across the grid). Returns one group a data row: `DiTGroup`s or
+    `DurationGroup`s. Raises ValueError as `shard_module` does, and
+    NotImplementedError for a seq axis above 1."""
+    check_trainable(mesh)
+    group = {DiT: DiTGroup, DurationPredictor: DurationGroup}[type(model)]
+    rows = shard_module(model, mesh)
+    for shards in rows:
+        for shard in shards:
+            shard.requires_grad_(True)
+    return [group(shards) for shards in rows]
+
+
+def shard_train_state(state, mesh: Mesh, fsdp: bool = False) -> ShardedTrainState:
+    """A train state (training/trainer.py `TrainState`) over the grid: its
+    model's trainable shards (`shard_model_for_training`) and its
+    parameters, moments and EMA cut by the specs (parallel/mesh.py
+    `shard_state`, which raises NotImplementedError for a seq axis above 1
+    and for FSDP across processes)."""
+    return shard_state(state, mesh, shard_model_for_training(state.model, mesh), fsdp)
+
+
+def gather_shards(state: ShardedTrainState) -> dict[str, torch.Tensor]:
+    """The full `state_dict` of a sharded train state's parameters: each
+    tensor joined from the slots that own its pieces (parallel/mesh.py
+    `gather_state`), on the first slot's device."""
+    return gather_state(state)["params"]

@@ -1,15 +1,17 @@
-"""Mesh-parallel inference in one process: data parallelism over a "data"
-axis and Megatron-style tensor parallelism over a "model" axis (the port of
-the JAX package's `parallel/mesh.py`, inference half).
+"""Mesh parallelism in one process: data parallelism over a "data" axis and
+Megatron-style tensor parallelism over a "model" axis, for sampling and for
+training (the port of the JAX package's `parallel/mesh.py`).
 
 The JAX package is single-controller: one process, a `Mesh` over
 `jax.devices()`, and GSPMD inserting the collectives. The port keeps that
 shape: one process drives a grid of devices, each slot of the grid holds
-its own DiT shard, and the one collective that sampling needs, the sum of
-a row-parallel linear's partial outputs over its tensor-parallel group, is
-plain tensor work (`all_reduce`). A grid may name one device several times,
-as the JAX suite meshes 8 virtual CPU devices: the slots then share that
-device, which shows correctness and host cost, not scaling.
+its own shard of the model, and the collectives are plain tensor work,
+each one counted (`all_reduce`, `all_gather`, `reduce_scatter`). A grid may
+name one device several times, as the JAX suite meshes 8 virtual CPU
+devices: the slots then share that device, which shows correctness and
+host cost, not scaling. Several processes (`distributed.initialize`) each
+drive a grid over their own devices, and the data axis spans them (for
+data parallelism; FSDP shards over one process's data rows only, below).
 
 TP layout (the classic two-collective pattern, `param_specs`):
   - attention to_q/to_k/to_v and feed-forward w1 (`ff.ff.0.0`): output dim
@@ -20,25 +22,66 @@ TP layout (the classic two-collective pattern, `param_specs`):
     added once, after the reduction;
   - everything else (embeddings, norms, AdaLN modulation, convs, the text
     embedding, proj_out) is replicated.
+FSDP (`param_specs(fsdp_data_size=)`, the JAX `_with_fsdp`) also shards
+the largest free dim of each 2-D weight matrix over "data" (ZeRO): a data
+row stores 1/data of the matrix, its AdamW moments and its EMA, where data
+is the process's own grid's. Unlike the JAX package, the port does not
+shard them across processes: `shard_state(fsdp=True)` raises
+NotImplementedError when several processes share the data axis (ROADMAP
+item 4b-iii).
+
 Sampling (`F5TTS.use_mesh`) pads the batch to a multiple of "data" with
 copies of row 0 (`pad_batch`), splits it over the data rows
 (`split_batch`), runs each row's DiT group (models/shard.py
 `shard_model_for_inference`, by these specs) and vocoder on that row's
-devices and gathers the rows back. This module knows tensors and names,
-not the model's modules.
+devices and gathers the rows back.
 
-Not ported here: training over a mesh (DP, FSDP and SP in the trainers,
-the FSDP upgrade of the specs, `grad_shardings`, `shard_train_step`), which
-PyTorch runs as several processes over `torch.distributed`.
+Training (`shard_state`, `shard_train_step`; the trainers' `mesh=` and
+`fsdp=`): every slot holds a trainable shard (models/shard.py
+`shard_model_for_training` builds them, `shard_train_state` the state over
+them), each data row's slice of the global batch runs
+on its tensor-parallel group in step, and autograd carries the backward
+across the slots (the row-parallel sum is an autograd function whose
+backward sums the output gradients over the group, counted as the
+forward's). The gradient reduction rule (`reduce_gradient`):
+  - a replicated tensor is one parameter tied across every slot of the
+    grid, each slot holding its own leaf: its gradient is the sum over all
+    the slots (the tensor-parallel group times the data rows);
+  - a model-sharded tensor's gradient is the sum over the data rows of its
+    column;
+  - under FSDP the sum is reduce-scattered: each data row keeps its
+    1/data piece (the accumulator of `grad_accum` too, as the JAX
+    `grad_shardings` pins it), and the full weight is gathered into the
+    slots' compute leaves at each microbatch (`all_gather`);
+  - with several processes the reduced gradient is then summed across
+    them (`distributed.sum_across_processes`);
+  - the global-norm clip is taken over the reduced gradient, each logical
+    tensor counted once (each piece on the slot that owns it, `owns`), and
+    AdamW and the EMA then update every slot's shard in place.
+The loss is each data row's numerator over the global batch's denominator
+(the CFM loss's span elements, the duration loss's batch size), and the
+draws and dropout seeds are drawn once for the global batch and split over
+the data rows, so the sharded step is the unsharded step in another order
+of sums. This module knows tensors, names and the slots' parameters, not
+the model's modules: the groups of shards come from models/shard.py, the
+trainer's objective runs them (`numerator`), and the trainer's
+`UpdateRule` accumulates and applies the update, as in the unsharded step.
+
+Not ported yet: sequence parallelism (the "seq" axis in training, ROADMAP
+item 4b-ii): a trainer given a mesh with seq above 1 raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import numpy as np
 import torch
 from torch import nn
+
+from f5_tts_tpu_torch.parallel import distributed as D
 
 # the JAX package's _COL_SHARDED / _ROW_SHARDED by the port's module names
 COL_SHARDED = ("attn.to_q", "attn.to_k", "attn.to_v", "ff.ff.0.0")  # output dim
@@ -133,47 +176,180 @@ def _spec_for(name: str, ndim: int) -> tuple:
     return (None,) * ndim
 
 
-def param_specs(module_or_state_dict: nn.Module | dict) -> dict[str, tuple]:
+# the JAX package's _FSDP_EXEMPT_RE: the whole text embedding stays off FSDP
+FSDP_EXEMPT = re.compile(r"(^|\.)text_embed\.")
+
+
+def _with_fsdp(spec: tuple, name: str, shape: tuple, data_size: int) -> tuple:
+    """The JAX package's `_with_fsdp` on a tensor of the port's layout: a
+    2-D weight matrix outside the text embedding gets "data" on its largest
+    dim that is not sharded already and that `data_size` divides; 1-D
+    leaves, conv kernels and GRN's [1, 1, dim] stay as they are. On a tie
+    the input dim wins (the port's [out, in] is the JAX [in, out]
+    transposed, and JAX's max takes the first)."""
+    if data_size <= 1 or FSDP_EXEMPT.search(name) or len(shape) != 2:
+        return spec
+    cands = [i for i in range(2) if spec[i] is None and shape[i] % data_size == 0 and shape[i] >= data_size]
+    if not cands:
+        return spec
+    best = max(cands, key=lambda i: (shape[i], i))
+    return spec[:best] + ("data",) + spec[best + 1:]
+
+
+def param_specs(module_or_state_dict: nn.Module | dict, fsdp_data_size: int | None = None) -> dict[str, tuple]:
     """Tensor name -> spec: a tuple with one entry a dim, "model" for the
-    dim sharded over the model axis and None elsewhere; all None for a
-    replicated tensor. The JAX package's rules (`_COL_SHARDED`,
-    `_ROW_SHARDED`, `_spec_for`) by the port's names, for float,
-    weight-only quantized and W8A8 trees alike. The FSDP upgrade (`_with_fsdp`)
-    belongs to training over a mesh and is not ported."""
+    dim sharded over the model axis, "data" for the one sharded over the
+    data axis (FSDP) and None elsewhere; all None for a replicated tensor.
+    The JAX package's rules (`_COL_SHARDED`, `_ROW_SHARDED`, `_spec_for`)
+    by the port's names, for float, weight-only quantized and W8A8 trees
+    alike; with `fsdp_data_size` (the data axis's size under FSDP) weight
+    matrices also shard over "data" (`_with_fsdp`)."""
     state = module_or_state_dict.state_dict() if isinstance(module_or_state_dict, nn.Module) \
         else module_or_state_dict
-    return {name: _spec_for(name, t.ndim) for name, t in state.items()}
+    specs = {name: _spec_for(name, t.ndim) for name, t in state.items()}
+    if fsdp_data_size is not None:
+        specs = {name: _with_fsdp(spec, name, tuple(state[name].shape), fsdp_data_size) for name, spec in specs.items()}
+    return specs
 
 
-# ------------------------------------------------------------- the collective
+def state_specs(state, fsdp_data_size: int | None = None) -> dict:
+    """Specs of a whole train state (training/trainer.py `TrainState`): the
+    parameters, and the AdamW moments and the EMA, which mirror their names
+    and shapes and so shard as they do (under FSDP the moments are the
+    ZeRO win: twice the parameters, never gathered)."""
+    params = param_specs(dict(state.model.named_parameters()), fsdp_data_size)
+    return {"params": params, "mu": params, "nu": params, "ema": None if state.ema is None else params}
 
 
-def all_reduce(tensors: list[torch.Tensor], op: str = "sum") -> list[torch.Tensor]:
-    """The one collective of mesh inference, in one process: each slot's
-    tensor is copied to the first slot's device and combined there in slot
-    order (a sum, or an elementwise max), and the result is copied back to
-    every slot's device (the same tensor where a device repeats). No NCCL:
-    the same code serves distinct cards and a card that repeats. Counted in
-    `all_reduce.counts[op]`, once a reduction of the group."""
-    combine = {"sum": torch.add, "max": torch.maximum}[op]
+# ------------------------------------------------------------- the collectives
+
+
+def _combined(tensors: list[torch.Tensor], combine) -> list[torch.Tensor]:
     dst = tensors[0].device
     out = tensors[0]
     for t in tensors[1:]:
         out = combine(out, t.to(dst, non_blocking=True))
-    all_reduce.counts[op] += 1
     return [out.to(t.device, non_blocking=True) for t in tensors]
+
+
+def all_reduce(tensors: list[torch.Tensor], op: str = "sum") -> list[torch.Tensor]:
+    """The collective of tensor parallelism, in one process: each slot's
+    tensor is copied to the first slot's device and combined there in slot
+    order (a sum, or an elementwise max), and the result is copied back to
+    every slot's device (the same tensor where a device repeats). No NCCL:
+    the same code serves distinct cards and a card that repeats. Counted in
+    `all_reduce.counts[op]`, once a reduction of the group: "sum" for the
+    row-parallel activations (in training their backward too), "max" for
+    W8A8's row absmax."""
+    out = _combined(tensors, {"sum": torch.add, "max": torch.maximum}[op])
+    all_reduce.counts[op] += 1
+    return out
 
 
 all_reduce.counts = {"sum": 0, "max": 0}
 
 
+def grad_all_reduce(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """A gradient's sum over the slots that hold the same piece (as
+    `all_reduce`'s sum), counted apart from the activations' in
+    `grad_all_reduce.count`."""
+    out = _combined(tensors, torch.add)
+    grad_all_reduce.count += 1
+    return out
+
+
+grad_all_reduce.count = 0
+
+
+def _distinct(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The list with a copy wherever a tensor repeats (slots sharing a
+    device get the same result tensor from `all_reduce`), so that autograd
+    sees one output a slot."""
+    seen, out = set(), []
+    for t in tensors:
+        out.append(t.clone() if id(t) in seen else t)
+        seen.add(id(t))
+    return out
+
+
+class RowSum(torch.autograd.Function):
+    """The row-parallel sum in training: the forward sums the group's
+    partial outputs (`all_reduce`), the backward hands each slot the sum of
+    the output gradients over the group (another counted `all_reduce`):
+    every slot's output is the same sum, so each partial's gradient is the
+    sum of the outputs' gradients."""
+
+    @staticmethod
+    def forward(ctx, *partials):
+        return tuple(_distinct(all_reduce(list(partials), "sum")))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return tuple(_distinct(all_reduce(list(grads), "sum")))
+
+
+def row_sum(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The group's sum of row-parallel partials: through `RowSum` where
+    autograd records it, else the plain `all_reduce`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return list(RowSum.apply(*tensors))
+    return all_reduce(tensors, "sum")
+
+
+def all_gather(pieces: list[torch.Tensor], dim: int, devices: list[torch.device]) -> list[torch.Tensor]:
+    """FSDP's gather in one process: the data rows' pieces (in row order)
+    joined along `dim` on the first device, then one tensor for each of
+    `devices` (the same tensor where a device repeats). Counted in
+    `all_gather.count`, once a gather."""
+    full = torch.cat([p.to(devices[0], non_blocking=True) for p in pieces], dim)
+    all_gather.count += 1
+    return [full.to(d, non_blocking=True) for d in devices]
+
+
+all_gather.count = 0
+
+
+def reduce_scatter(tensors: list[torch.Tensor], dim: int, parts: int,
+                   devices: list[torch.device], index: list[int]) -> list[torch.Tensor]:
+    """FSDP's gradient reduction in one process: the slots' tensors summed
+    in slot order on the first slot's device (then across processes, when
+    there are several), cut into `parts` along `dim`, and piece `index[i]`
+    sent to `devices[i]`. Counted in `reduce_scatter.count`, once a
+    reduction."""
+    dst = tensors[0].device
+    total = tensors[0]
+    for t in tensors[1:]:
+        total = total + t.to(dst, non_blocking=True)
+    total = D.sum_across_processes(total)
+    pieces = total.chunk(parts, dim)
+    reduce_scatter.count += 1
+    return [pieces[i].to(d, non_blocking=True) for i, d in zip(index, devices)]
+
+
+reduce_scatter.count = 0
+
+
+def collective_counts() -> dict:
+    """Every counted collective: the all-reduces by op, the gathers and the
+    reduce-scatters."""
+    return {**{f"all_reduce_{op}": n for op, n in all_reduce.counts.items()},
+            "grad_all_reduce": grad_all_reduce.count, "all_gather": all_gather.count,
+            "reduce_scatter": reduce_scatter.count}
+
+
+def reset_collective_counts() -> None:
+    all_reduce.counts.update({op: 0 for op in all_reduce.counts})
+    grad_all_reduce.count = all_gather.count = reduce_scatter.count = 0
+
+
 def lockstep(steps: list) -> list:
     """Run one forward a slot of a tensor-parallel group, each a generator
     (a module's `steps`), to the end in step: at each point where they
-    yield (op, tensor), `all_reduce` combines the group's tensors and each
-    generator is sent its own copy of the result. Every slot's work up to a
-    reduction is issued before the next slot's; nothing reads back to the
-    host. Returns each generator's value."""
+    yield (op, tensor), the group's tensors are combined (a "sum" through
+    `row_sum`, so that training records it; a "max" by `all_reduce`) and
+    each generator is sent its own copy of the result. Every slot's work up
+    to a reduction is issued before the next slot's; nothing reads back to
+    the host. Returns each generator's value."""
     sent = [None] * len(steps)
     while True:
         asked, done = [], []
@@ -189,7 +365,9 @@ def lockstep(steps: list) -> list:
         ops = {op for op, _ in asked}
         if len(ops) != 1:
             raise RuntimeError(f"the slots of a tensor-parallel group asked for different reductions: {ops}")
-        sent = all_reduce([t for _, t in asked], ops.pop())
+        op = ops.pop()
+        tensors = [t for _, t in asked]
+        sent = row_sum(tensors) if op == "sum" else all_reduce(tensors, op)
 
 
 # ------------------------------------------------------------- data parallel batches
@@ -211,3 +389,347 @@ def gather_batch(parts: list[torch.Tensor], device: torch.device, batch: int, di
     """The data rows' results joined along `dim` on `device`, the padding
     rows past `batch` trimmed."""
     return torch.cat([p.to(device) for p in parts], dim=dim).narrow(dim, 0, batch)
+
+
+# ------------------------------------------------------------- training over the grid
+
+SEQ_WAITS = ("sequence parallelism (a mesh with seq above 1) is not ported to training yet: a frame-sharded step "
+             "needs one query block against the gathered keys in K1 and K2 (ROADMAP.md queue 1, item 4b-ii)")
+
+
+def check_trainable(mesh: Mesh) -> None:
+    """Raise NotImplementedError for a mesh whose "seq" axis is above 1."""
+    if mesh.shape.get("seq", 1) > 1:
+        raise NotImplementedError(SEQ_WAITS)
+
+
+def slots(mesh: Mesh) -> list[tuple[int, int, torch.device]]:
+    """The grid's slots, row-major: (data row, model column, device)."""
+    check_trainable(mesh)
+    grid = mesh.devices.reshape(mesh.shape["data"], mesh.shape["model"])
+    return [(r, j, _as_device(grid[r, j])) for r in range(grid.shape[0]) for j in range(grid.shape[1])]
+
+
+def piece(t: torch.Tensor, spec: tuple, r: int, j: int, mesh_shape: dict) -> torch.Tensor:
+    """Slot (r, j)'s piece of a full tensor by its spec (a view)."""
+    for axis, index in (("model", j), ("data", r)):
+        if axis in spec:
+            t = t.chunk(mesh_shape[axis], spec.index(axis))[index]
+    return t
+
+
+def owns(spec: tuple, r: int, j: int) -> bool:
+    """Whether slot (r, j) holds a piece of the tensor that no other slot
+    holds: along each axis the spec shards, every slot owns its piece;
+    along the others, the first."""
+    return (r == 0 or "data" in spec) and (j == 0 or "model" in spec)
+
+
+def assemble(pieces: dict, spec: tuple, mesh_shape: dict, device=None) -> torch.Tensor:
+    """The full tensor from the owners' pieces {(r, j): tensor} (the
+    inverse of `piece`), on `device` (default: the first piece's)."""
+    data = mesh_shape["data"] if "data" in spec else 1
+    model = mesh_shape["model"] if "model" in spec else 1
+    device = device or pieces[(0, 0)].device
+    cols = []
+    for j in range(model):
+        rows = [pieces[(r, j)].to(device) for r in range(data)]
+        cols.append(torch.cat(rows, spec.index("data")) if data > 1 else rows[0])
+    return torch.cat(cols, spec.index("model")) if model > 1 else cols[0]
+
+
+@dataclasses.dataclass
+class ShardedTrainState:
+    """A train state over a grid: one group of trainable shards a data row
+    (`groups`, whose parameters are the compute leaves), each slot's stored
+    tensors by name (`params`: the compute leaf itself, or under FSDP the
+    slot's 1/data piece, which is gathered into the leaf at each
+    microbatch), the AdamW moments and the EMA in the stored layout, the
+    update count and the step. Slots are row-major over (data, model)."""
+
+    mesh: Mesh
+    fsdp: bool
+    groups: list
+    specs: dict
+    params: list[dict]
+    opt_state: dict
+    step: int = 0
+    ema: list[dict] | None = None
+
+    @property
+    def slots(self) -> list[tuple[int, int, torch.device]]:
+        return slots(self.mesh)
+
+    def leaves(self) -> list[dict]:
+        """Each slot's compute leaves by name."""
+        return [dict(shard.named_parameters()) for group in self.groups for shard in group.shards]
+
+    def gathered_names(self) -> list[str]:
+        return [name for name, spec in self.specs.items() if "data" in spec]
+
+    def nbytes(self) -> list[dict]:
+        """Each slot's stored bytes of the master weights, the moments and
+        the EMA."""
+        def size(d):
+            return sum(t.numel() * t.element_size() for t in d.values())
+
+        out = []
+        for s in range(len(self.params)):
+            out.append({"params": size(self.params[s]),
+                        "moments": size(self.opt_state["mu"][s]) + size(self.opt_state["nu"][s]),
+                        "ema": 0 if self.ema is None else size(self.ema[s])})
+        return out
+
+
+FSDP_WAITS = ("FSDP across processes is not ported yet: the port shards the weight matrices over this process's "
+              "data rows only, so with one process a data row it would store whole matrices on every rank "
+              "(ROADMAP.md queue 1, item 4b-iii); train with fsdp=False, or in one process over its grid")
+
+
+def shard_state(state, mesh: Mesh, groups: list, fsdp: bool = False) -> ShardedTrainState:
+    """A train state (training/trainer.py `TrainState`) over the grid, on
+    the trainable shards of its model that `groups` hold (one group a data
+    row, from models/shard.py `shard_model_for_training`; models/shard.py
+    `shard_train_state` builds both): the parameters, moments and EMA cut
+    by `param_specs` (with FSDP's "data" dims when `fsdp`). Raises
+    NotImplementedError for a seq axis above 1, and for `fsdp` when
+    several processes share the data axis (ROADMAP item 4b-iii)."""
+    check_trainable(mesh)
+    if fsdp and D.process_count() > 1:
+        raise NotImplementedError(FSDP_WAITS)
+    full = dict(state.model.named_parameters())
+    specs = param_specs(full, mesh.shape["data"] if fsdp else None)
+    sharded = ShardedTrainState(mesh, fsdp, groups, specs, [], {"mu": [], "nu": [], "count": state.opt_state["count"]},
+                                state.step, None if state.ema is None else [])
+    leaves = sharded.leaves()
+    with torch.no_grad():
+        for s, (r, j, dev) in enumerate(slots(mesh)):
+            def cut(t, spec):
+                return piece(t.detach(), spec, r, j, mesh.shape).to(dev, copy=True)
+
+            stored = {}
+            for name, spec in specs.items():
+                leaf = leaves[s][name]
+                if "data" in spec:
+                    stored[name] = cut(full[name], spec)
+                    leaf.data = leaf.data.new_empty(0)  # gathered at each microbatch
+                else:
+                    stored[name] = leaf
+            sharded.params.append(stored)
+            for k in ("mu", "nu"):
+                sharded.opt_state[k].append({n: cut(state.opt_state[k][n], spec) for n, spec in specs.items()})
+            if state.ema is not None:
+                sharded.ema.append({n: cut(state.ema[n], spec) for n, spec in specs.items()})
+    return sharded
+
+
+def gather_state(state: ShardedTrainState, device=None) -> dict:
+    """The full tensors of a sharded state: {"params", "mu", "nu", "ema"}
+    (name -> tensor, on `device`, default the first slot's; "ema" None
+    without one), with "count" and "step"."""
+    grid = {(r, j): s for s, (r, j, _) in enumerate(state.slots)}
+    device = device or state.slots[0][2]
+
+    def full(per_slot):
+        return {name: assemble({rj: per_slot[s][name] for rj, s in grid.items() if owns(spec, *rj)}, spec,
+                               state.mesh.shape, device).detach()
+                for name, spec in state.specs.items()}
+
+    return {"params": full(state.params), "mu": full(state.opt_state["mu"]), "nu": full(state.opt_state["nu"]),
+            "ema": None if state.ema is None else full(state.ema), "count": state.opt_state["count"],
+            "step": state.step}
+
+
+def _groups(spec: tuple, coords: list) -> list[list[int]]:
+    """The slots that hold the same compute piece of a tensor: one group a
+    model column for a model-sharded tensor, else the whole grid; each in
+    row order."""
+    if "model" not in spec:
+        return [list(range(len(coords)))]
+    cols = sorted({j for _, j, _ in coords})
+    return [[s for s, (_, jj, _) in enumerate(coords) if jj == j] for j in cols]
+
+
+def gather_leaves(state: ShardedTrainState) -> None:
+    """Fill the FSDP compute leaves from the data rows' stored pieces: a
+    counted `all_gather` a group of `_groups` (a model column, or the grid
+    for a replicated matrix), each slot's leaf then holding its column's
+    whole piece (one tensor shared where a device repeats)."""
+    coords = state.slots
+    leaves = state.leaves()
+    for name in state.gathered_names():
+        spec = state.specs[name]
+        for members in _groups(spec, coords):
+            column = coords[members[0]][1]
+            sources = [state.params[s][name] for s in members if coords[s][1] == column]
+            for s, g in zip(members, all_gather(sources, spec.index("data"), [coords[s][2] for s in members])):
+                leaves[s][name].data = g
+
+
+def release_leaves(state: ShardedTrainState) -> None:
+    """Empty the FSDP compute leaves (between microbatches and steps only
+    the stored 1/data pieces stay)."""
+    leaves = state.leaves()
+    for name in state.gathered_names():
+        for s in range(len(leaves)):
+            leaves[s][name].data = leaves[s][name].data.new_empty(0)
+
+
+def reduce_gradient(grads: list[torch.Tensor], spec: tuple, state: ShardedTrainState) -> list[torch.Tensor]:
+    """One tensor's gradient from every slot (its compute layout) to every
+    slot's stored layout, by the rule in this module's docstring: summed
+    over each group of `_groups` (the whole grid for a replicated tensor, a
+    model column for a model-sharded one) and across processes, then
+    reduce-scattered over the data rows under FSDP. One counted collective
+    a group: a `grad_all_reduce` or a `reduce_scatter`."""
+    coords = state.slots
+    out = [None] * len(coords)
+    for members in _groups(spec, coords):
+        devices = [coords[s][2] for s in members]
+        if "data" in spec:
+            reduced = reduce_scatter([grads[s] for s in members], spec.index("data"), state.mesh.shape["data"],
+                                     devices, [coords[s][0] for s in members])
+        else:
+            total = D.sum_across_processes(grad_all_reduce([grads[s] for s in members])[0])
+            reduced = [total.to(d, non_blocking=True) for d in devices]
+        for s, g in zip(members, reduced):
+            out[s] = g
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Rows:
+    """Where a data row's slice sits in the global batch (across
+    processes): dropout draws the global batch's mask and keeps these
+    rows."""
+
+    batch: int
+    start: int
+
+
+class ShardedStep:
+    """The sharded train step of `shard_train_step`: `(state, inp, text,
+    lens, generator=None, draws=None) -> loss`, updating a
+    `ShardedTrainState` in place. `inp`, `text` and `lens` are this
+    process's batch (with a leading microbatch axis under `grad_accum`);
+    `draws`, when given, cover the global batch (across processes; a list of
+    one a microbatch under `grad_accum`). `gradients` returns the reduced
+    gradient of one batch, gathered to the full tensors, without an
+    update."""
+
+    def __init__(self, step_fn, mesh: Mesh, grad_accum: int, fsdp: bool):
+        check_trainable(mesh)
+        self.objective, self.rule = step_fn.objective, step_fn.rule
+        if grad_accum != self.rule.grad_accum:
+            raise ValueError(f"shard_train_step(grad_accum={grad_accum}) for a step built with "
+                             f"grad_accum={self.rule.grad_accum}")
+        self.mesh = mesh
+        self.fsdp = fsdp
+
+    def _check(self, state: ShardedTrainState) -> None:
+        if state.fsdp != self.fsdp or state.mesh is not self.mesh:
+            raise ValueError(f"a state sharded with fsdp={state.fsdp} over {state.mesh} given to a step built with "
+                             f"fsdp={self.fsdp} over {self.mesh}")
+
+    def _micro(self, state: ShardedTrainState, inp, text, lens, generator, draws):
+        """One microbatch's forward and backward over the grid: (its loss on
+        the first slot's device, each slot's reduced gradient by name)."""
+        obj = self.objective
+        inp, text = D.pad_across_processes(obj.prepare(inp, lens), text)
+        world, rank = D.process_count(), D.process_index()
+        b = inp.shape[0]
+        data = self.mesh.shape["data"]
+        if b % data:
+            raise ValueError(f"batch size {b} is not divisible by the mesh's data-axis size {data}")
+        if draws is None:
+            draws = obj.draw(generator, b * world, inp)
+        draws = obj.take(draws, slice(rank * b, (rank + 1) * b))
+        seeds = obj.seeds(state.groups[0], generator)
+        denominator = D.sum_across_processes(obj.count(inp, lens, draws)).clamp(min=1e-6)
+        if state.fsdp:
+            gather_leaves(state)
+        per = b // data
+        losses = []
+        for r, group in enumerate(state.groups):
+            sl = slice(r * per, (r + 1) * per)
+            dev = group.device
+            row = [t.to(dev, non_blocking=True) for t in (inp[sl], text[sl], lens[sl])]
+            numerator = obj.numerator(group, *row, obj.take(draws, sl, dev), seeds, Rows(b * world, rank * b + r * per))
+            losses.append(numerator / denominator.to(dev))
+        leaves = state.leaves()
+        flat = [(s, name, p) for s, d in enumerate(leaves) for name, p in d.items()]
+        got = torch.autograd.grad(losses, [p for _, _, p in flat], allow_unused=True)
+        grads = [{} for _ in leaves]
+        for (s, name, p), g in zip(flat, got):
+            grads[s][name] = torch.zeros_like(p) if g is None else g
+        del got
+        if state.fsdp:
+            release_leaves(state)
+        first = state.slots[0][2]
+        loss = sum(l.detach().to(first) for l in losses)
+        reduced = [{} for _ in leaves]
+        for name, spec in state.specs.items():
+            for s, g in enumerate(reduce_gradient([grads[s][name] for s in range(len(grads))], spec, state)):
+                reduced[s][name] = g
+        return D.sum_across_processes(loss).float(), reduced
+
+    def _accumulate(self, state, inp, text, lens, generator, draws):
+        """The step's loss and each slot's gradient in the stored layout, by
+        the step's `UpdateRule.accumulate` (under `grad_accum` the
+        accumulator is in the stored layout: 1/data under FSDP)."""
+        def micro(i):
+            if i is None:
+                return self._micro(state, inp, text, lens, generator, draws)
+            return self._micro(state, inp[i], text[i], lens[i], generator, None if draws is None else draws[i])
+
+        return self.rule.accumulate(micro)
+
+    def global_norm(self, state: ShardedTrainState, grads: list[dict]) -> torch.Tensor:
+        """The norm of the whole reduced gradient, each logical tensor once:
+        every slot's norms of the pieces it owns, joined on the first
+        slot's device."""
+        first = state.slots[0][2]
+        norms = []
+        for s, (r, j, _) in enumerate(state.slots):
+            owned = [g for name, g in grads[s].items() if owns(state.specs[name], r, j)]
+            if owned:
+                norms.extend(n.to(first) for n in torch._foreach_norm(owned))
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    def __call__(self, state: ShardedTrainState, inp, text, lens, generator=None, draws=None) -> torch.Tensor:
+        self._check(state)
+        loss, grads = self._accumulate(state, inp, text, lens, generator, draws)
+        norm = self.global_norm(state, grads) if self.rule.optimizer.max_grad_norm > 0 else None
+        count = state.opt_state["count"]
+        for s, (_, _, dev) in enumerate(state.slots):
+            sub = {"mu": state.opt_state["mu"][s], "nu": state.opt_state["nu"][s], "count": count}
+            self.rule.apply_(state.params[s], grads[s], sub, None if state.ema is None else state.ema[s],
+                             norm=None if norm is None else norm.to(dev))
+        state.opt_state["count"] = count + 1
+        state.step += 1
+        return loss
+
+    def gradients(self, state: ShardedTrainState, inp, text, lens, generator=None, draws=None) -> tuple:
+        """(loss, the reduced gradient as full tensors by name) of one step's
+        batch, without an update."""
+        self._check(state)
+        loss, grads = self._accumulate(state, inp, text, lens, generator, draws)
+        grid = {(r, j): s for s, (r, j, _) in enumerate(state.slots)}
+        full = {name: assemble({rj: grads[s][name] for rj, s in grid.items() if owns(spec, *rj)}, spec,
+                               state.mesh.shape)
+                for name, spec in state.specs.items()}
+        return loss, full
+
+
+def shard_train_step(step_fn, mesh: Mesh, state: ShardedTrainState | None = None, grad_accum: int = 1,
+                     fsdp: bool = False) -> ShardedStep:
+    """The step of `step_fn` (training/trainer.py `make_train_step`,
+    `make_train_step_from_audio` or `make_duration_train_step`) over the
+    grid, for a state from `shard_state(..., mesh, fsdp=fsdp)` (the same
+    flag, as in the JAX package). `grad_accum` must be the step's; the
+    microbatch axis then leads the inputs, and each microbatch splits over
+    "data" as a step of one does. Raises NotImplementedError for a seq axis
+    above 1."""
+    if state is not None and state.fsdp != fsdp:
+        raise ValueError(f"a state sharded with fsdp={state.fsdp} given to shard_train_step(fsdp={fsdp})")
+    return ShardedStep(step_fn, mesh, grad_accum, fsdp)

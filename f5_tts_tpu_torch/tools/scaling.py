@@ -1,5 +1,5 @@
-"""Mesh-parallel sampling on grids of 1, 2, 4 and 8 slots: the sampling
-half of the JAX package's `tools/scaling.py`.
+"""Mesh-parallel sampling and training on grids of 1, 2, 4 and 8 slots: the
+port of the JAX package's `tools/scaling.py`.
 
     PYTHONPATH=. python -m f5_tts_tpu_torch.tools.scaling               # slots on the cards
     PYTHONPATH=. python -m f5_tts_tpu_torch.tools.scaling --device cpu  # slots on the CPU
@@ -13,8 +13,16 @@ the 1-slot run, the reductions it made (`mesh.all_reduce.counts`: the
 port's counterpart of the collectives the JAX tool counts in the compiled
 HLO) and its wall. The slots cycle over the devices of `--device`'s type,
 so on one card or on the CPU every slot shares the one device: the walls
-then measure host cost, not scaling. The training half (DP, FSDP, SP)
-comes with training over a mesh.
+then measure host cost, not scaling.
+
+The training half: for each grid (the same data x model), three sharded
+CFM steps (parallel/mesh.py `shard_train_step`) of the same DiT on the same
+global batch of 8 x 64 frames with the same draws: the losses, their max
+|delta| against the 1-slot run, and the counted collectives (the
+row-parallel sums forward and backward, the gradients' all-reduces; under
+FSDP the gathers and reduce-scatters), then an FSDP row on the largest grid
+of 4 slots or more. Sequence parallelism waits for ROADMAP item 4b-ii: its
+row says so.
 """
 
 from __future__ import annotations
@@ -27,21 +35,30 @@ import torch
 
 from f5_tts_tpu_torch.config import CFMConfig, DiTConfig
 from f5_tts_tpu_torch.models.cfm import F5TTS
-from f5_tts_tpu_torch.parallel.mesh import all_reduce, create_mesh, device_list
+from f5_tts_tpu_torch.models.shard import shard_train_state
+from f5_tts_tpu_torch.parallel.mesh import (
+    SEQ_WAITS,
+    all_reduce,
+    collective_counts,
+    create_mesh,
+    device_list,
+    reset_collective_counts,
+    shard_train_step,
+)
+from f5_tts_tpu_torch.training.trainer import init_train_state, make_optimizer, make_train_step
 
 CFG = DiTConfig(dim=128, depth=2, heads=4, dim_head=64, ff_mult=2, mel_dim=100, text_num_embeds=64, text_dim=64,
                 conv_layers=1, compute_dtype="float32")
 GLOBAL_BATCH = 8
 SEQ = 64
 STEPS = 5  # Euler: 4 flow evaluations with CFG
+TRAIN_STEPS = 3
 
 
 def run_sampling(n: int, device: str) -> tuple[np.ndarray, dict, float]:
     """(the sampled mel, the reductions, the wall in s) on a grid of n slots
     over the devices of `device`'s type."""
-    model_par = 2 if n >= 2 else 1
-    devices = device_list(device)
-    mesh = create_mesh(data=n // model_par, model=model_par, devices=[devices[i % len(devices)] for i in range(n)])
+    mesh = _grid(n, device)
     dev = mesh.devices.flat[0]
     model = F5TTS.init(torch.Generator(device=dev).manual_seed(0), CFG, device=dev,
                        cfm_cfg=CFMConfig(duration_bucket=SEQ)).use_mesh(mesh)
@@ -63,6 +80,53 @@ def run_sampling(n: int, device: str) -> tuple[np.ndarray, dict, float]:
     return out, dict(all_reduce.counts), time.perf_counter() - t0
 
 
+def _grid(n: int, device: str):
+    model_par = 2 if n >= 2 else 1
+    devices = device_list(device)
+    return create_mesh(data=n // model_par, model=model_par, devices=[devices[i % len(devices)] for i in range(n)])
+
+
+def run_training(n: int, device: str, fsdp: bool = False) -> tuple[list[float], dict, float]:
+    """(the losses of TRAIN_STEPS sharded steps, the collectives they made,
+    the wall in s) on a grid of n slots over the devices of `device`'s
+    type."""
+    mesh = _grid(n, device)
+    dev = mesh.devices.flat[0]
+    model = F5TTS.init(torch.Generator(device=dev).manual_seed(0), CFG, device=dev, cfm_cfg=CFMConfig())
+    optimizer = make_optimizer(learning_rate=1e-4, total_steps=100)
+    state = shard_train_state(init_train_state(model.dit, optimizer), mesh, fsdp=fsdp)
+    step = shard_train_step(make_train_step(model.cfm_cfg, optimizer), mesh, state, fsdp=fsdp)
+    g = torch.Generator(device=dev).manual_seed(1)
+    mel = torch.randn(GLOBAL_BATCH, SEQ, CFG.mel_dim, generator=g, device=dev)
+    text = torch.zeros(GLOBAL_BATCH, SEQ, dtype=torch.int32, device=dev)
+    lens = torch.full((GLOBAL_BATCH,), SEQ, device=dev)
+    reset_collective_counts()
+    t0 = time.perf_counter()
+    losses = [step(state, mel, text, lens, torch.Generator(device=dev).manual_seed(2 + i)).item()
+              for i in range(TRAIN_STEPS)]
+    return losses, collective_counts(), time.perf_counter() - t0
+
+
+def training_rows(slots: list[int], device: str) -> list[dict]:
+    """The training half's rows: each grid of `slots`, then FSDP on the
+    largest grid of 4 slots or more."""
+    rows, base = [], None
+    runs = [(n, False) for n in slots] + [(n, True) for n in sorted(slots)[-1:] if n >= 4]
+    for n, fsdp in runs:
+        losses, counts, wall = run_training(n, device, fsdp)
+        base = losses if base is None else base
+        mp = 2 if n >= 2 else 1
+        row = {"part": "training", "slots": n, "mesh": f"{n // mp}x{mp}" + (" FSDP" if fsdp else ""),
+               "losses": losses, "max_abs_delta_loss": max(abs(a - b) for a, b in zip(losses, base)),
+               "collectives": counts, "wall_s": wall}
+        print(f"training {row['slots']} slots ({row['mesh']}): losses {', '.join(f'{x:.6f}' for x in losses)}; "
+              f"max |delta loss| vs 1 slot {row['max_abs_delta_loss']:.3e}; collectives over {TRAIN_STEPS} "
+              f"steps {counts}; wall {wall:.3f} s")
+        rows.append(row)
+    print(f"training, sequence parallel (data x seq x model): not run: {SEQ_WAITS}")
+    return rows
+
+
 def main(argv: list[str] | None = None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="the slots' device type: the cards by default, 'cpu' on request")
@@ -72,15 +136,17 @@ def main(argv: list[str] | None = None) -> list[dict]:
     print(f"mesh sampling on {where}: batch {GLOBAL_BATCH}, {SEQ} frames, {STEPS - 1} Euler evaluations with CFG, "
           f"dim {CFG.dim} x depth {CFG.depth}, float32")
     rows, base = [], None
-    for n in (int(s) for s in args.slots.split(",")):
+    slots = [int(s) for s in args.slots.split(",")]
+    for n in slots:
         out, reductions, wall = run_sampling(n, args.device)
         base = out if base is None else base
-        row = {"slots": n, "mesh": f"{n // (2 if n >= 2 else 1)}x{2 if n >= 2 else 1}",
+        row = {"part": "sampling", "slots": n, "mesh": f"{n // (2 if n >= 2 else 1)}x{2 if n >= 2 else 1}",
                "max_abs_delta": float(np.abs(out - base).max()), "reductions": reductions, "wall_s": wall}
         print(f"{row['slots']} slots ({row['mesh']}): max |delta| vs 1 slot {row['max_abs_delta']:.3e}; "
               f"reductions {reductions}; wall {wall:.3f} s")
         rows.append(row)
-    return rows
+    print(f"mesh training on {where}: global batch {GLOBAL_BATCH}, {SEQ} frames, {TRAIN_STEPS} CFM steps")
+    return rows + training_rows(slots, args.device)
 
 
 if __name__ == "__main__":

@@ -30,7 +30,8 @@ from torch import nn
 
 from f5_tts_tpu_torch.audio.mel import log_mel_spectrogram
 from f5_tts_tpu_torch.config import AudioConfig, CFMConfig
-from f5_tts_tpu_torch.models.cfm import F5TTS, cfm_loss
+from f5_tts_tpu_torch.models.blocks import draw_seeds
+from f5_tts_tpu_torch.models.cfm import F5TTS, CFMDraws, cfm_loss, cfm_span, cfm_terms, draw_cfm
 from f5_tts_tpu_torch.models.convert import (
     convert_dit_state,
     export_mlx_state,
@@ -38,6 +39,9 @@ from f5_tts_tpu_torch.models.convert import (
     state_numpy,
     to_mlx_model_naming,
 )
+from f5_tts_tpu_torch.models.shard import shard_train_state
+from f5_tts_tpu_torch.parallel import distributed as D
+from f5_tts_tpu_torch.parallel.mesh import ShardedTrainState, check_trainable, create_mesh, gather_state, shard_train_step
 from f5_tts_tpu_torch.training import checkpoints as C
 from f5_tts_tpu_torch.utils.safetensors import load_file, save_file
 
@@ -96,15 +100,20 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update_(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor], opt_state: dict) -> None:
-        """One update of `params` and `opt_state`, in place."""
+    def update_(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor], opt_state: dict,
+                norm: torch.Tensor | None = None) -> None:
+        """One update of `params` and `opt_state`, in place. `norm` is the
+        global gradient norm when the caller took it (a shard's update
+        clips by the whole gradient's norm), else it is taken over
+        `grads`."""
         names = list(params)
         p = [params[k] for k in names]
         g = [grads[k] for k in names]
         mu = [opt_state["mu"][k] for k in names]
         nu = [opt_state["nu"][k] for k in names]
         if self.max_grad_norm > 0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            if norm is None:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
             factor = torch.where(norm < self.max_grad_norm, torch.ones_like(norm), self.max_grad_norm / norm)
             g = torch._foreach_mul(g, factor)
         torch._foreach_mul_(mu, self.b1)
@@ -166,10 +175,114 @@ def _grads(loss: torch.Tensor, params: list[torch.Tensor]) -> list[torch.Tensor]
     return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
 
 
-def _build_step(loss_fn, optimizer: AdamW, ema_decay: float | None, grad_accum: int):
-    """The train step shared by both trainers, around `loss_fn(model, inp,
-    text, lens, generator, draws) -> scalar`. The step is `(state, inp, text,
-    lens, generator=None, draws=None) -> loss` and updates `state` in place.
+def dropout_seeds(model, generator: torch.Generator | None) -> list[int] | None:
+    """The layers' dropout seeds of one forward of `model` (a model or a
+    group of its shards: anything with its `cfg`), drawn from `generator`
+    as the model's own forward draws them (after the loss's draws), or None
+    without dropout."""
+    cfg = model.cfg
+    if generator is None or cfg.dropout <= 0.0:
+        return None
+    return draw_seeds(generator, cfg.depth)
+
+
+class CFMObjective:
+    """The CFM loss as both steps take it. The unsharded step calls `loss`;
+    the sharded one (parallel/mesh.py `ShardedStep`) draws the global
+    batch's randomness (`draw`, `seeds`), takes each data row's share
+    (`take`), and sums each row's `numerator` over the global `count` (the
+    span's elements). With an `audio_cfg` the inputs are raw audio and
+    `prepare` computes the log-mel on their device, frames past each
+    length re-zeroed (the training forward has no attention mask, so the
+    padding value counts)."""
+
+    def __init__(self, cfm_cfg: CFMConfig, audio_cfg: AudioConfig | None = None):
+        self.cfm_cfg = cfm_cfg
+        self.audio_cfg = audio_cfg
+
+    def prepare(self, inp: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        if self.audio_cfg is None:
+            return inp
+        a = self.audio_cfg
+        mel = log_mel_spectrogram(inp, a.sample_rate, a.n_mels, a.n_fft, a.hop_length)
+        frames = torch.arange(mel.shape[1], device=mel.device)[None, :]
+        return torch.where((frames < lens[:, None])[..., None], mel, torch.zeros_like(mel))
+
+    def loss(self, dit, inp, text, lens, generator, draws) -> torch.Tensor:
+        return cfm_loss(dit, self.cfm_cfg, self.prepare(inp, lens), text, lens, generator=generator, draws=draws)
+
+    def draw(self, generator: torch.Generator, batch: int, mel: torch.Tensor) -> CFMDraws:
+        return draw_cfm(generator, self.cfm_cfg, batch, mel.shape[1], mel.shape[2], mel.device)
+
+    @staticmethod
+    def take(draws: CFMDraws, sl: slice, device=None) -> CFMDraws:
+        return draws.rows(sl, device)
+
+    seeds = staticmethod(dropout_seeds)
+
+    @staticmethod
+    def count(mel: torch.Tensor, lens: torch.Tensor, draws: CFMDraws) -> torch.Tensor:
+        return (cfm_span(lens, draws, mel.shape[1]).sum() * mel.shape[2]).float()
+
+    def numerator(self, group, mel, text, lens, draws, seeds, rows) -> torch.Tensor:
+        return cfm_terms(group, self.cfm_cfg, mel, text, lens, draws, seeds=seeds, rows=rows)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateRule:
+    """What a step does with its gradients, shared by the unsharded step
+    (`_build_step`) and the sharded one (parallel/mesh.py `ShardedStep`),
+    each over dicts of tensors by name: `accumulate` the microbatches'
+    gradients, then `apply_` the clip, AdamW and the EMA."""
+
+    optimizer: AdamW
+    ema_decay: float | None
+    grad_accum: int
+
+    def accumulate(self, micro: Callable) -> tuple[torch.Tensor, list[dict]]:
+        """The step's loss and gradients from `micro(i) -> (loss, grads)`:
+        microbatch i's detached float32 loss and its gradients, a list of
+        dicts name -> tensor (one dict unsharded, one a slot sharded).
+        grad_accum == 1: `micro(None)`, the batch as it is. grad_accum == k
+        > 1: the float32 sum of the k microbatches' gradients divided by k,
+        each in its own dtype again, and the microbatches' mean loss."""
+        k = self.grad_accum
+        if k <= 1:
+            return micro(None)
+        acc, dtypes, loss = None, None, 0.0
+        for i in range(k):
+            loss_i, g_i = micro(i)
+            if acc is None:
+                dtypes = [{n: g.dtype for n, g in d.items()} for d in g_i]
+                # a copy: the slots of one device may be handed one tensor
+                acc = [{n: g.to(torch.float32, copy=True) for n, g in d.items()} for d in g_i]
+            else:
+                for a, d in zip(acc, g_i):
+                    torch._foreach_add_(list(a.values()), [d[n].float() for n in a])
+            loss = loss + loss_i
+        for a in acc:
+            torch._foreach_div_(list(a.values()), float(k))
+        return loss / k, [{n: g.to(dt[n]) for n, g in a.items()} for a, dt in zip(acc, dtypes)]
+
+    @torch.no_grad()
+    def apply_(self, params: dict, grads: dict, opt_state: dict, ema: dict | None,
+               norm: torch.Tensor | None = None) -> None:
+        """AdamW on `params` and `opt_state` in place (clipped by `norm`,
+        the whole gradient's norm, when given, else by `grads`' own), then
+        the optional EMA e <- d e + (1 - d) p on the updated parameters."""
+        self.optimizer.update_(params, grads, opt_state, norm=norm)
+        if self.ema_decay is not None:
+            e = [ema[name] for name in params]
+            torch._foreach_mul_(e, self.ema_decay)
+            torch._foreach_add_(e, list(params.values()), alpha=1.0 - self.ema_decay)
+
+
+def _build_step(objective, optimizer: AdamW, ema_decay: float | None, grad_accum: int):
+    """The train step shared by both trainers, around `objective.loss(model,
+    inp, text, lens, generator, draws) -> scalar`. The step is `(state, inp,
+    text, lens, generator=None, draws=None) -> loss` and updates `state` in
+    place. It carries what parallel/mesh.py `shard_train_step` needs to run
+    it over a grid (`objective`, and `rule`, its `UpdateRule`).
 
     grad_accum == 1: one forward and backward, clip and AdamW, then the
     optional EMA e <- d e + (1 - d) p on the updated parameters.
@@ -178,49 +291,33 @@ def _build_step(loss_fn, optimizer: AdamW, ema_decay: float | None, grad_accum: 
     (and `draws`, when given, is a list of k); k forward and backward passes,
     each drawing its own randomness from the generator, a float32 gradient
     sum divided by k, and one update. The loss is the microbatches' mean."""
-    k = int(grad_accum)
+    rule = UpdateRule(optimizer, ema_decay, int(grad_accum))
 
     def train_step(state: TrainState, inp, text, lens, generator=None, draws=None) -> torch.Tensor:
         params = state.params
         tensors = list(params.values())
-        if k <= 1:
-            loss = loss_fn(state.model, inp, text, lens, generator, draws)
-            grads = _grads(loss, tensors)
-            loss = loss.detach().float()
-        else:
-            grads, loss = None, 0.0
-            for i in range(k):
-                loss_i = loss_fn(state.model, inp[i], text[i], lens[i], generator,
-                                 None if draws is None else draws[i])
-                g_i = _grads(loss_i, tensors)
-                if grads is None:
-                    grads = [g.float() for g in g_i]
-                else:
-                    torch._foreach_add_(grads, [g.float() for g in g_i])
-                loss = loss + loss_i.detach().float()
-            torch._foreach_div_(grads, float(k))
-            grads = [g.to(p.dtype) for g, p in zip(grads, tensors)]
-            loss = loss / k
-        optimizer.update_(params, dict(zip(params, grads)), state.opt_state)
+
+        def micro(i):
+            if i is None:
+                loss = objective.loss(state.model, inp, text, lens, generator, draws)
+            else:
+                loss = objective.loss(state.model, inp[i], text[i], lens[i], generator,
+                                      None if draws is None else draws[i])
+            return loss.detach().float(), [dict(zip(params, _grads(loss, tensors)))]
+
+        loss, (grads,) = rule.accumulate(micro)
+        rule.apply_(params, grads, state.opt_state, state.ema)
         state.step += 1
-        if ema_decay is not None:
-            with torch.no_grad():
-                ema = [state.ema[name] for name in params]
-                torch._foreach_mul_(ema, ema_decay)
-                torch._foreach_add_(ema, tensors, alpha=1.0 - ema_decay)
         return loss
 
+    train_step.objective, train_step.rule = objective, rule
     return train_step
 
 
 def make_train_step(cfm_cfg: CFMConfig, optimizer: AdamW, ema_decay: float | None = None, grad_accum: int = 1):
     """The step on mel batches [b, n, d] (or [k, b, n, d] with
     `grad_accum=k`), for a TrainState over the DiT; see `_build_step`."""
-
-    def loss_fn(dit, mel, text, lens, generator, draws):
-        return cfm_loss(dit, cfm_cfg, mel, text, lens, generator=generator, draws=draws)
-
-    return _build_step(loss_fn, optimizer, ema_decay, grad_accum)
+    return _build_step(CFMObjective(cfm_cfg), optimizer, ema_decay, grad_accum)
 
 
 def make_train_step_from_audio(
@@ -235,27 +332,25 @@ def make_train_step_from_audio(
     each length are re-zeroed, so it matches the mel step fed the host mel
     (the training forward has no attention mask, so the padding value
     counts)."""
-    acfg = audio_cfg or AudioConfig()
-
-    def loss_fn(dit, audio, text, lens, generator, draws):
-        mel = log_mel_spectrogram(audio, acfg.sample_rate, acfg.n_mels, acfg.n_fft, acfg.hop_length)
-        frames = torch.arange(mel.shape[1], device=mel.device)[None, :]
-        mel = torch.where((frames < lens[:, None])[..., None], mel, torch.zeros_like(mel))
-        return cfm_loss(dit, cfm_cfg, mel, text, lens, generator=generator, draws=draws)
-
-    return _build_step(loss_fn, optimizer, ema_decay, grad_accum)
+    return _build_step(CFMObjective(cfm_cfg, audio_cfg or AudioConfig()), optimizer, ema_decay, grad_accum)
 
 
-def split_microbatches(grad_accum: int, *arrays):
+def split_microbatches(grad_accum: int, *arrays, data_size: int | None = None):
     """Reshape per-batch arrays [b, ...] into [grad_accum, b // grad_accum,
     ...] for an accumulated step; unchanged when grad_accum == 1. Raises
-    ValueError when the batch does not divide."""
+    ValueError when the batch does not divide, or when, under a mesh
+    (`data_size`: its data axis), the microbatch does not split evenly over
+    the data rows."""
     b = arrays[0].shape[0]
     if b % grad_accum:
         raise ValueError(f"batch size {b} is not divisible by grad_accum={grad_accum}")
+    micro = b // grad_accum
+    if data_size and micro % data_size:
+        raise ValueError(f"microbatch size {micro} (batch {b} / grad_accum {grad_accum}) "
+                         f"is not divisible by the mesh's data-axis size {data_size}")
     if grad_accum <= 1:
         return arrays
-    return tuple(a.reshape(grad_accum, b // grad_accum, *a.shape[1:]) for a in arrays)
+    return tuple(a.reshape(grad_accum, micro, *a.shape[1:]) for a in arrays)
 
 
 def step_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
@@ -277,8 +372,46 @@ def batch_text(batch: dict, seq_len: int | None, device: torch.device) -> torch.
     return torch.as_tensor(text.astype(np.int32), device=device)
 
 
+def training_grid(mesh, device: torch.device):
+    """The grid a trainer trains over: its `mesh`; without one, a grid of
+    one slot on the model's device when several processes run (the
+    sharded step is the one that sums the gradient across them), else None
+    (the unsharded step)."""
+    if mesh is None and D.process_count() > 1:
+        return create_mesh(data=1, devices=[device])
+    return mesh
+
+
+def gathered_train_state(state, model: nn.Module) -> TrainState:
+    """A sharded train state (parallel/mesh.py `ShardedTrainState`) as an
+    unsharded `TrainState` over `model`: the stored pieces gathered into
+    the model's parameters (in place), the moments and the EMA into full
+    tensors. An unsharded state is returned as it is."""
+    if isinstance(state, TrainState):
+        return state
+    full = gather_state(state)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(full["params"][name])
+    return TrainState(model, {"mu": full["mu"], "nu": full["nu"], "count": full["count"]}, full["step"], full["ema"])
+
+
 class F5TTSTrainer:
-    """Training loop, checkpoints and probe samples for an `F5TTS` model's DiT."""
+    """Training loop, checkpoints and probe samples for an `F5TTS` model's DiT.
+
+    `mesh` (parallel/mesh.py `create_mesh`) trains over a grid: DP over its
+    "data" axis (spanning the processes when `parallel.initialize()` started
+    several) and TP over "model"; `fsdp=True` also shards the weight
+    matrices, their moments and EMA over the process's data rows (no effect
+    without a mesh, as in the JAX package; NotImplementedError with several
+    processes, ROADMAP item 4b-iii). Without a mesh, several processes train
+    over a grid of one slot each (`training_grid`), so their gradients are
+    summed. A mesh whose "seq" axis is above 1 raises NotImplementedError
+    (ROADMAP item 4b-ii). `use_orbax=True` keeps the whole train state,
+    sharded, in an asynchronous checkpoint manager (training/checkpoints.py
+    `TrainCheckpointManager`, over torch.distributed.checkpoint) beside the
+    MLX-named weight files. With several processes, process 0 alone writes
+    the files and the probe samples."""
 
     def __init__(
         self,
@@ -289,16 +422,23 @@ class F5TTSTrainer:
         results_dir: str = "results",
         ema_decay: float | None = None,
         use_orbax: bool = False,
+        mesh=None,
+        fsdp: bool = False,
     ):
-        if use_orbax:
-            raise NotImplementedError(C.ORBAX_UNSUPPORTED)
+        if mesh is not None:
+            check_trainable(mesh)
         self.model = model
         self.num_warmup_steps = num_warmup_steps
         self.max_grad_norm = max_grad_norm
         self.log_with_wandb = log_with_wandb
         self.results_dir = Path(results_dir)
         self.ema_decay = ema_decay
-        self.state: TrainState | None = None
+        self.use_orbax = use_orbax
+        self.mesh = mesh
+        self.fsdp = fsdp
+        self.ckpt_mgr: C.TrainCheckpointManager | None = None
+        self.state: TrainState | ShardedTrainState | None = None
+        self.last_loss: torch.Tensor | None = None
 
     # ------------------------------------------------------------ checkpoint
 
@@ -306,28 +446,43 @@ class F5TTSTrainer:
         """Weights in full-model MLX naming ("transformer." prefix and the
         rotary inv_freq), which the reference and the JAX package's
         `convert_dit_state` load; the EMA weights beside them; and the
-        optimizer state and step for an exact resume."""
+        optimizer state and step for an exact resume: in the checkpoint
+        manager (sharded, asynchronous) with `use_orbax`, else a
+        .trainstate file. A sharded state is gathered for the files. Every
+        process calls it (the manager saves across them); process 0 alone
+        writes the files."""
         os.makedirs(self.results_dir, exist_ok=True)
         dim_head = self.model.dit_cfg.dim_head
-        save_file(to_mlx_model_naming(export_mlx_state(self.model.dit), dim_head),
-                  self.results_dir / f"f5tts_{step}.safetensors")
-        if self.state is not None:
-            if self.state.ema is not None:
-                save_file(to_mlx_model_naming(mlx_names(state_numpy(self.state.ema)), dim_head),
+        state = None if self.state is None else gathered_train_state(self.state, self.model.dit)
+        writer = D.process_index() == 0
+        if writer:
+            save_file(to_mlx_model_naming(export_mlx_state(self.model.dit), dim_head),
+                      self.results_dir / f"f5tts_{step}.safetensors")
+        if state is not None:
+            if state.ema is not None and writer:
+                save_file(to_mlx_model_naming(mlx_names(state_numpy(state.ema)), dim_head),
                           self.results_dir / f"f5tts_{step}.ema.safetensors")
-            C.save_train_state(self.state, self.results_dir / f"f5tts_{step}.trainstate.safetensors")
+            if self.ckpt_mgr is not None:
+                self.ckpt_mgr.save(step, self.state)
+            elif writer:
+                C.save_train_state(state, self.results_dir / f"f5tts_{step}.trainstate.safetensors")
 
     def load_checkpoint(self, step: int) -> None:
+        """The step's weights into the model, and with a train state its
+        EMA, moments and step (a sharded state is re-sharded from them)."""
         cfg = self.model.dit_cfg
         flat = load_file(self.results_dir / f"f5tts_{step}.safetensors")
+        state = None if self.state is None else gathered_train_state(self.state, self.model.dit)
         self.model.dit.load_state_dict(convert_dit_state(flat, cfg))
-        if self.state is not None:
+        if state is not None:
             ema_path = self.results_dir / f"f5tts_{step}.ema.safetensors"
-            if self.state.ema is not None and ema_path.exists():
+            if state.ema is not None and ema_path.exists():
                 for k, v in convert_dit_state(load_file(ema_path), cfg).items():
-                    self.state.ema[k].copy_(v)
-            C.restore_train_state_file(self.state, self.results_dir / f"f5tts_{step}.trainstate.safetensors",
+                    state.ema[k].copy_(v)
+            C.restore_train_state_file(state, self.results_dir / f"f5tts_{step}.trainstate.safetensors",
                                        "a weights-only resume restarts the schedule")
+            if not isinstance(self.state, TrainState):
+                self.state = shard_train_state(state, self.state.mesh, self.state.fsdp)
 
     # ------------------------------------------------------------ sampling
 
@@ -355,9 +510,10 @@ class F5TTSTrainer:
             audio = audio * TARGET_RMS / rms
 
         model = self.model
-        if self.state is not None and self.state.ema is not None:
+        state = None if self.state is None else gathered_train_state(self.state, model.dit)
+        if state is not None and state.ema is not None:
             dit = copy.deepcopy(model.dit)
-            dit.load_state_dict(self.state.ema)
+            dit.load_state_dict(state.ema)
             model = F5TTS(dit, model.dit_cfg, model.cfm_cfg, model.audio_cfg, model.vocab_char_map,
                           model.vocoder, model.duration_predictor)
         start = datetime.datetime.now()
@@ -438,23 +594,23 @@ class F5TTSTrainer:
         optimizer = make_optimizer(learning_rate, weight_decay, self.num_warmup_steps, total_steps,
                                    self.max_grad_norm)
         self.state = init_train_state(self.model.dit, optimizer, ema=self.ema_decay is not None)
-        if checkpoint == "latest":
-            checkpoint = C.latest_checkpoint_step(self.results_dir, "f5tts_")
-            if checkpoint is None:
-                print("No checkpoint found; starting fresh")
-        start_step = 0
-        if checkpoint is not None:
-            self.load_checkpoint(checkpoint)
-            start_step = checkpoint
-            print(f"Starting training at step {start_step}")
+        if self.use_orbax:
+            self.ckpt_mgr = C.TrainCheckpointManager(self.results_dir / "checkpoints")
+        start_step = C.resume(self, checkpoint, "f5tts_")
 
         cfm_cfg = self.model.cfm_cfg
         if on_device_mel:
             step_fn = make_train_step_from_audio(cfm_cfg, optimizer, self.ema_decay, self.model.audio_cfg, grad_accum)
         else:
             step_fn = make_train_step(cfm_cfg, optimizer, self.ema_decay, grad_accum)
-
         device = self.model.device
+        data_size = None
+        mesh = training_grid(self.mesh, device)
+        if mesh is not None:
+            self.state = shard_train_state(self.state, mesh, fsdp=self.fsdp)
+            step_fn = shard_train_step(step_fn, mesh, self.state, grad_accum=grad_accum, fsdp=self.fsdp)
+            device, data_size = self.state.slots[0][2], mesh.shape["data"]
+
         global_step = start_step
         start_date = datetime.datetime.now()
         try:
@@ -469,9 +625,10 @@ class F5TTSTrainer:
                     seq_len = inp.shape[1]
                 lens = torch.as_tensor(np.asarray(batch["mel_len"], np.int32).reshape(-1), device=device)
                 text = batch_text(batch, seq_len, device)
-                inp, text, lens = split_microbatches(grad_accum, inp, text, lens)
+                inp, text, lens = split_microbatches(grad_accum, inp, text, lens, data_size=data_size)
 
                 loss = step_fn(self.state, inp, text, lens, step_generator(device, seed, global_step))
+                self.last_loss = loss
                 global_step += 1
                 if global_step % log_every == 0 or global_step == start_step + 1:
                     loss_val, batch_len = float(loss), int(lens.sum())
@@ -483,7 +640,7 @@ class F5TTSTrainer:
                     print(f"step {global_step}/{total_steps}: loss {loss_val:.4f} batch_len {batch_len} lr {lr:.3e}")
                 if global_step % save_every == 0:
                     self.save_checkpoint(global_step)
-                if (global_step % sample_every == 0 and sample_reference_audio is not None
+                if (global_step % sample_every == 0 and D.process_index() == 0 and sample_reference_audio is not None
                         and sample_reference_text is not None and sample_generation_text is not None
                         and sample_generation_duration is not None):
                     self.generate_sample(sample_reference_audio, sample_reference_text, sample_generation_text,
@@ -491,6 +648,9 @@ class F5TTSTrainer:
                 if global_step >= total_steps:
                     break
         finally:
+            gathered_train_state(self.state, self.model.dit)  # the caller's model holds the trained weights
+            if self.ckpt_mgr is not None:
+                self.ckpt_mgr.wait()  # pending asynchronous writes finish even when the loop raised
             if self.log_with_wandb:
                 import wandb
 

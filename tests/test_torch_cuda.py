@@ -14,7 +14,11 @@ the card; for mesh inference, K1 on one slot's heads of strided local
 projections, K3 and K3-f32 at the shard shapes of a model axis of 2, the
 W8A8 row-parallel kernels (`row_absmax`, `quantize_scaled`) bit for bit,
 and a W8A8 DiT split over two slots equal to the unsharded one to the bit;
-the ISTFT on the card, whatever the batch, against the CPU's.
+the ISTFT on the card, whatever the batch, against the CPU's; for training
+over a mesh, K1 with its log-sum-exp and K2 at a 2 x 2 slot's shape on
+strided projections (bf16 [2, 8, 1024, 64], float32 [2, 4, 1024, 64]), and
+one sharded step of a float32 DiT over 2 x 2 slots of the card against the
+unsharded step (within 2e-5, the JAX suite's sharded-step tolerance).
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -1427,3 +1431,80 @@ def test_istft_on_the_card_is_batch_invariant_and_matches_the_cpu(gen):
         return ((a.cpu() - b.cpu()).norm() / b.cpu().norm()).item()
 
     assert rel(halves, whole) < 1e-5 and rel(whole, cpu) < 1e-5
+
+
+# ------------------------------------------------------------ training over a mesh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "row_masks"])
+@pytest.mark.parametrize("dtype, h", [(torch.bfloat16, 8), (torch.float32, 4)], ids=["bf16", "f32"])
+def test_k1_k2_at_the_training_slot_shape(gen, dtype, h, masked):
+    """K1 (with its lse) and K2 at a 2 x 2 grid's slot shape in training: a
+    data row's 2 of 4 rows at 1024 frames, the slot's heads of 64 as strided
+    views of its [2, 1024, h * 64] projections; without a key mask (the
+    training forward) and with a data row's lengths as key masks."""
+    b, n, d = 2, 1024, 64
+    projections = [torch.randn(b, n, h * d, generator=gen, device="cuda").to(dtype).requires_grad_() for _ in range(3)]
+    q, k, v = (t.view(b, n, h, d).transpose(1, 2) for t in projections)
+    mask = (torch.arange(n, device="cuda")[None, :] < torch.tensor([[924], [807]], device="cuda")) if masked else None
+    rope = _rope(n, d)
+    g = torch.randn(b, h, n, d, generator=gen, device="cuda").to(dtype)
+    before = (flash_attention.launches + flash_attention.launches_f32,
+              flash_attention.launches_bwd + flash_attention.launches_bwd_f32)
+    out = flash_attention(q, k, v, d ** -0.5, key_mask=mask, rope=rope)
+    got = torch.autograd.grad(out, projections, g)
+    assert (flash_attention.launches + flash_attention.launches_f32,
+            flash_attention.launches_bwd + flash_attention.launches_bwd_f32) == (before[0] + 1, before[1] + 1)
+    ref_out = flash_attention_plain(q, k, v, d ** -0.5, mask, rope)
+    ref = torch.autograd.grad(ref_out, projections, g)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=TOL if dtype == torch.bfloat16 else TOL_F32, rtol=0)
+    for a, r in zip(got, ref):
+        assert (a.float() - r.float()).abs().max().item() <= GRAD_TOL[dtype] * max(r.float().abs().max().item(), 0.1)
+
+
+@pytest.mark.cuda
+def test_sharded_training_step_on_the_card(gen, monkeypatch):
+    """One CFM step of a float32 DiT (dim 256, 4 heads of 64) over 2 x 2
+    slots of the card against the unsharded step from the same state and
+    draws: the reduced gradient's relative L2, the loss and the parameters
+    within 2e-5, and K1-f32 and K2-f32 launched 4 times a block (each slot
+    its heads). cuDNN's TF32 is off here as in chip_smoke.py: the text
+    embedding's convolutions otherwise take TF32 at the slots' batch and
+    the unsharded batch alike, 3.3e-5 apart."""
+    import copy
+
+    from f5_tts_tpu_torch.config import CFMConfig, F5TTS_V1_BASE
+    from f5_tts_tpu_torch.models.cfm import F5TTS, cfm_loss, draw_cfm
+    from f5_tts_tpu_torch.models.shard import shard_train_state
+    from f5_tts_tpu_torch.parallel import mesh as M
+    from f5_tts_tpu_torch.training import trainer as T
+
+    cfg = F5TTS_V1_BASE.replace(dim=256, depth=2, heads=4, text_dim=128, text_num_embeds=95, compute_dtype="float32")
+    model = F5TTS.init(gen, cfg, device="cuda", cfm_cfg=CFMConfig())
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    b, n = 4, 256
+    mel = torch.randn(b, n, 100, generator=gen, device="cuda")
+    text = torch.randint(0, 95, (b, 60), generator=gen, device="cuda", dtype=torch.int32)
+    lens = torch.tensor([n, 230, 200, 160], device="cuda")
+    draws = draw_cfm(gen, model.cfm_cfg, b, n, 100, torch.device("cuda"))
+    opt = T.make_optimizer(1e-5, 1e-2, 0, 100)
+    step = T.make_train_step(model.cfm_cfg, opt)
+    ref = copy.deepcopy(model.dit)
+    loss1 = step(T.init_train_state(ref, opt), mel, text, lens, draws=draws).item()
+    ref0 = copy.deepcopy(model.dit)
+    mesh = M.create_mesh(data=2, model=2, devices=["cuda:0"] * 4)
+    state = shard_train_state(T.init_train_state(model.dit, opt), mesh)
+    sharded = M.shard_train_step(step, mesh, state)
+    loss0 = cfm_loss(ref0, model.cfm_cfg, mel, text, lens, draws=draws)
+    want = dict(zip((k for k, _ in ref0.named_parameters()), torch.autograd.grad(loss0, list(ref0.parameters()))))
+    _, grads = sharded.gradients(state, mel, text, lens, draws=draws)
+    flat = torch.cat([(grads[k] - want[k]).flatten() for k in want])
+    assert flat.norm().item() <= 2e-5 * torch.cat([w.flatten() for w in want.values()]).norm().item()
+    before = (flash_attention.launches_f32, flash_attention.launches_bwd_f32)
+    loss2 = sharded(state, mel, text, lens, draws=draws).item()
+    assert (flash_attention.launches_f32 - before[0], flash_attention.launches_bwd_f32 - before[1]) == (8, 8)
+    assert abs(loss2 - loss1) <= 2e-5 * abs(loss1)
+    got = M.gather_state(state)["params"]
+    for name, p in ref.named_parameters():
+        torch.testing.assert_close(got[name], p, atol=2e-5, rtol=0, msg=name)

@@ -444,8 +444,6 @@ def test_trainer_on_device_mel_and_grad_accum(tmp_path):
     with pytest.raises(ValueError, match="not divisible"):
         T.F5TTSTrainer(_fresh_f5tts(0), results_dir=tmp_path).train(
             _dataset(1, b=3), total_steps=1, save_every=10**9, sample_every=10**9, grad_accum=2)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        T.F5TTSTrainer(_fresh_f5tts(0), use_orbax=True)
 
 
 def test_trainer_generate_sample_with_ema(tmp_path):
