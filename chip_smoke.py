@@ -2299,7 +2299,106 @@ def artifact_phase(card: str, snap: str, tmp_base: str | None, live_lat: dict) -
     launched = counts()
     print(f"export and artifact serving: phase {time.perf_counter() - t_phase:.1f} s; launches over the phase "
           f"{launched}; on {card}")
-    return launched
+    # phase 7b: the batch-4 sampler the server loaded from b4.bin (load_sampler), over data-parallel grids
+    grid_launched = artifact_mesh_phase(card, b4.sampler, b4.spec, depth, cond1.expand(4, -1, -1),
+                                        ids_for(SERVE_DURATIONS))
+    return launched, grid_launched
+
+
+# phase 7b: the data axes the batch-4 sampler is placed on (data 4: one row a slot)
+ARTIFACT_DATA = (2, 4)
+
+
+def artifact_mesh_phase(card: str, sampler, spec, depth: int, cond, ids) -> dict:
+    """Phase 7b: the loaded batch-4 sampler (RK4 x 8, external weights)
+    called on the card as loaded, on each data row's share of its four
+    requests, then placed over data 2 and data 4 of `mesh_devices()` (the
+    card repeated where there are fewer than four): each data row's rows
+    equal to the bit to the one-device call on its share, the batch within
+    SERVE_TOL of the one-device batch, exact K1 launches with K1's plain
+    version made to raise; then `place_weights("cuda")` to the bit, and a
+    model axis of 2 refused. Returns the grid calls' launches."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from f5_tts_tpu_torch import export as E
+    from f5_tts_tpu_torch.ops import flash_attention as fa
+    from f5_tts_tpu_torch.parallel.mesh import create_mesh, pad_batch
+
+    devices = mesh_devices()
+    axes = " and ".join(map(str, ARTIFACT_DATA))
+    phase(f"artifact over data-parallel grids: the batch-4 sampler placed on data {axes} of "
+          f"{'the one card repeated' if devices else 'distinct cards'}, each data row against its share, "
+          "place_weights('cuda'), a model axis refused")
+    t_phase = time.perf_counter()
+    args = E.prep_inputs(spec, cond, ids, np.asarray(SERVE_FRAMES), seed=0)
+    lens, durations, hop = args[1], args[2], spec.hop_length
+    k1 = (SERVE_STEPS - 1) * 4 * depth  # a flow evaluation a stage, each DiT block once
+
+    def timed(call_args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler.call(*call_args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (mel1, wave1), one_s = timed(args)
+    shares = {}
+    for data in ARTIFACT_DATA:
+        padded = [pad_batch(torch.as_tensor(a), data) if i in E._BATCHED else a for i, a in enumerate(args[:6])]
+        n = padded[0].shape[0] // data
+        shares[data] = [timed([a[r * n:(r + 1) * n] if i in E._BATCHED else a for i, a in enumerate(padded)]
+                              + [args[6]]) for r in range(data)]
+    print(f"one device: the batch-4 call {one_s:.3f} s; each data row's share alone: "
+          + "; ".join(f"data {data} " + ", ".join(f"{s:.3f}" for _, s in calls) + " s"
+                      for data, calls in shares.items()) + f"; on {card}", flush=True)
+
+    reset_counts()
+    walls = {}
+    for data in ARTIFACT_DATA:
+        grid = create_mesh(data=data, devices=None if devices is None else devices[:data])
+        t0 = time.perf_counter()
+        sampler.place_weights(grid)
+        place_s = time.perf_counter() - t0
+        before = counts()
+        with mock.patch.object(fa, "flash_attention_plain", side_effect=AssertionError("K1 fell back to plain")):
+            (mel, wave), walls[data] = timed(args)
+        launched = {k: v - before[k] for k, v in counts().items()}
+        n = -(-4 // data)
+        exact = [torch.equal(mel[r * n:(r + 1) * n], m[:n]) and torch.equal(wave[r * n:(r + 1) * n], w[:n])
+                 for r, ((m, w), _) in enumerate(shares[data])]
+        errs = _rows_rel_l2((wave, mel[None]), (wave1, mel1[None]), lens.tolist(), durations.tolist(), hop)
+        copies = len(sampler._weights_dev)
+        print(f"data {data} on {grid}: place_weights {place_s:.3f} s ({copies} weight "
+              f"cop{'y' if copies == 1 else 'ies'}); call {walls[data]:.3f} s against one device's {one_s:.3f} s "
+              f"({walls[data] / one_s:.2f}x); each data row's rows equal to the bit to its share alone: {exact}; "
+              f"against the one-device batch of 4: "
+              f"largest relative L2 of a row's mel {errs['mel']:.3e}, wave {errs['wave']:.3e} (tol {SERVE_TOL}); "
+              f"launches {launched}", flush=True)
+        expect = {**ZERO, "flash_attention_fwd": k1 * data}
+        if not all(exact) or launched != expect or not all(errs[x] <= SERVE_TOL[x] for x in SERVE_TOL):
+            raise AssertionError(f"data {data}: rows to the bit {exact}, launches {launched} (expected {expect}), "
+                                 f"against one device {errs}")
+    grid_launched = counts()
+
+    sampler.place_weights("cuda")
+    mel, wave = sampler.call(*args)
+    same = torch.equal(mel, mel1) and torch.equal(wave, wave1)
+    try:
+        sampler.place_weights(create_mesh(data=1, model=2, devices=None if devices is None else devices[:2]))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        refused = None
+    print(f"place_weights('cuda') after the grids: equal to the one-device call to the bit: {same}; a model axis of "
+          f"2: ValueError {refused!r}")
+    if not same or refused is None or "not tensor-partitioned" not in refused:
+        raise AssertionError("place_weights('cuda') changed the output, or a model axis was not refused")
+    print(f"artifact over data-parallel grids: phase {time.perf_counter() - t_phase:.1f} s; launches of the grid "
+          f"calls {grid_launched}; on {card}")
+    return grid_launched
 
 
 def _attention_grad_case(gen, name: str, dtype, b: int, h: int, n: int, d: int, lens) -> dict:
@@ -2683,6 +2782,40 @@ def _trained(label: str, trainer, pipeline, card: str, expect: dict, steps: int,
     return {"launches": launched, "losses": losses, **summary}
 
 
+def _archive_scan_check(root: Path, archive_root: Path) -> None:
+    """The WAV tree as a LibriTTS-R split's archive already on disk: tarred
+    as LibriTTS_R/dev-clean and gzipped to dev_clean.tar.gz under
+    `archive_root`; load_libritts_r must gunzip it (the .gz removed),
+    extract it and scan the samples load_dir scans on the tree."""
+    import gzip
+    import tarfile
+
+    from f5_tts_tpu_torch.data import load_dir, load_libritts_r
+
+    t0 = time.perf_counter()
+    archive_root.mkdir()
+    tar = archive_root / "dev_clean.tar"
+    with tarfile.open(tar, "w") as t:
+        t.add(root, arcname="LibriTTS_R/dev-clean")
+    with open(tar, "rb") as fin, gzip.open(f"{tar}.gz", "wb") as fout:
+        shutil.copyfileobj(fin, fout)
+    tar.unlink()
+    size = Path(f"{tar}.gz").stat().st_size
+    t1 = time.perf_counter()
+    stream, path = load_libritts_r(archive_root, "dev-clean", max_duration=WAV_MAX_DURATION)
+    t2 = time.perf_counter()
+    got = [(s["file"].relative_to(path), s["transcript_file"].relative_to(path)) for s in stream]
+    want = [(s["file"].relative_to(root), s["transcript_file"].relative_to(root))
+            for s in load_dir(root, max_duration=WAV_MAX_DURATION)]
+    gunzipped = tar.is_file() and not Path(f"{tar}.gz").exists()
+    print(f"LibriTTS-R archive on disk: dev_clean.tar.gz of {size / 2**20:.1f} MiB written in {t1 - t0:.2f} s; "
+          f"load_libritts_r gunzipped (the .gz removed: {gunzipped}), extracted and scanned it in {t2 - t1:.2f} s: "
+          f"{len(got)} samples, the same as load_dir on the tree: {got == want}")
+    if not gunzipped or got != want or not got:
+        raise AssertionError(f"load_libritts_r on the archive scanned {len(got)} samples against load_dir's "
+                             f"{len(want)}, or left the .gz")
+
+
 def wav_training_phase(card: str, tmp_base: str | None) -> dict:
     """Training from a directory of WAV files: load_dir ->
     make_training_pipeline -> F5TTSTrainer.train (the base DiT, bf16
@@ -2690,7 +2823,10 @@ def wav_training_phase(card: str, tmp_base: str | None) -> dict:
     the host-mel pipeline) and DurationTrainer.train (DURATION_V2 in float32,
     host mel, 2 steps), each run's data wait and step wall timed; then K1
     and K2 against their plain versions at each bucket the runs saw, and one
-    loader_bench line. Returns the kernels' launches summed over the runs."""
+    loader_bench line. Before the runs, the tree is also tarred and gzipped
+    as a LibriTTS-R split's archive, which load_libritts_r must scan as
+    load_dir scans the tree. Returns the kernels' launches summed over the
+    runs."""
     import torch
 
     from f5_tts_tpu_torch import F5TTS, CFMConfig
@@ -2710,6 +2846,7 @@ def wav_training_phase(card: str, tmp_base: str | None) -> dict:
         kept = write_wav_tree(root)
         print(f"WAV tree: {len(kept)} clips of {min(kept.values()):.2f} to {max(kept.values()):.2f} s "
               f"({sum(kept.values()):.1f} s of audio) and three to be dropped")
+        _archive_scan_check(root, Path(tmp) / "archive")
         cfg = F5TTS_V1_BASE.replace(compute_dtype="bfloat16")
         model = F5TTS.init(torch.Generator(device="cuda").manual_seed(7), cfg, device="cuda", cfm_cfg=CFMConfig())
         trainer = F5TTSTrainer(model, num_warmup_steps=2, results_dir=str(results), ema_decay=0.999)
@@ -3642,7 +3779,7 @@ def main() -> int:
         mesh_launches, mesh_rows = mesh_phase(card, snap)
         w8a8_times, w8a8_launches = w8a8_path_phase(card, snap, tmp_base)
         serve_launches, live_lat = serving_phase(card, snap)
-        artifact_launches = artifact_phase(card, snap, tmp_base, live_lat)
+        artifact_launches, artifact_grid_launches = artifact_phase(card, snap, tmp_base, live_lat)
         bwd = bwd_kernel_phase()
         with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
             _, cfm_ms, cfm_launches = cfm_training_phase(card, tmp)
@@ -3659,8 +3796,8 @@ def main() -> int:
           f"duration step median {sorted(dur_ms)[len(dur_ms) // 2]:.1f} ms; the whole run so far "
           f"{time.perf_counter() - T_START:.1f} s; on {card}")
     # launches summed over the main paths' counted runs; the probe kernels' over the probe tools' run
-    paths = (float_launches, q_launches, mesh_launches, w8a8_launches, serve_launches, artifact_launches, cfm_launches,
-             dur_launches, wav_launches, mesh_train_launches)
+    paths = (float_launches, q_launches, mesh_launches, w8a8_launches, serve_launches, artifact_launches,
+             artifact_grid_launches, cfm_launches, dur_launches, wav_launches, mesh_train_launches)
     launches = {k: sum(p[k] for p in paths) for k in float_launches}
     for name, n in launches.items():
         if n <= 0:

@@ -41,11 +41,29 @@ Differences from the JAX module, each deliberate:
     attention without Pallas to make a program portable, which the
     operators already are, and the port runs no plain attention on the
     card.
+  - Placement over a mesh. The JAX `.call` re-traces into the serving
+    runtime, where GSPMD partitions the program over sharded inputs. The
+    port has no partitioner, so a sampler of batch B >= 2 is exported with
+    a symbolic batch (`torch.export.Dim`, 1 to B; the header records B,
+    which the program's input shapes no longer carry), and
+    `place_weights(mesh)` keeps one program and one weight copy per
+    distinct device of the mesh's data rows. A call then draws the noise
+    for the B rows as a one-device call does (first, on the first row's
+    device), pads every batched argument, the noise included, with copies
+    of row 0 to a multiple of "data" (`parallel/mesh.py` `pad_batch`),
+    runs each data row's program on its share and joins the rows on the
+    first row's device, trimmed to B. Drawing before padding keeps the
+    one-device call the yardstick: a draw over more rows need not give the
+    same first B rows on the card. A mesh with a "model" axis above 1 is
+    refused (a `torch.export` program is not tensor-partitioned; the live
+    `F5TTS.use_mesh` serves tensor parallelism), and so is a file written
+    with a static batch of 2 or more on more than one data row.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -62,6 +80,7 @@ from torch import nn
 from f5_tts_tpu_torch.ops import flash_attention as _k1  # noqa: F401
 from f5_tts_tpu_torch.ops import qmatmul as _k3  # noqa: F401
 from f5_tts_tpu_torch.ops import w8a8 as _n2  # noqa: F401
+from f5_tts_tpu_torch.parallel.mesh import Mesh, gather_batch, pad_batch, split_batch
 from f5_tts_tpu_torch.utils.sampling import clamp_duration, draw_noise, sway_time_grid
 
 _MAGIC = b"F5T1"
@@ -70,6 +89,8 @@ _JAX_MAGIC = b"F5X1"
 # the fixed device-argument signature of every sampler: (cond, lens, duration, max_dur, text, ts, seed);
 # the program takes y0 in the place of seed
 _N_CALL_ARGS = 7
+# the program's arguments with a batch dimension: cond, lens, duration, text, y0 (max_dur and ts are shared)
+_BATCHED = (0, 1, 2, 4, 6)
 
 # the fixed device-argument signature of every duration predictor: (cond, text, lens)
 _N_DURATION_ARGS = 3
@@ -77,8 +98,8 @@ _N_DURATION_ARGS = 3
 # SamplerSpec fields load_sampler takes from the program's input shapes, never from the header
 _DERIVED_SPEC_FIELDS = {"batch", "padded_len", "steps", "mel_dim"}
 
-# header fields the exporter writes itself
-_CONTRACT_FIELDS = {"format", "weights", "kind", "device", "shared_noise"}
+# header fields the exporter writes itself ("batch": a symbolic batch leaves it out of the input shapes)
+_CONTRACT_FIELDS = {"format", "weights", "kind", "device", "shared_noise", "batch"}
 
 USE_FLASH_REFUSED = (
     "use_flash=False (--no-flash) is not supported by the PyTorch port: the JAX flag lowers attention "
@@ -169,11 +190,16 @@ def _no_stack_traces():
             config.do_not_emit_stack_traces = old
 
 
-def _export(module: nn.Module, args: tuple, embed_weights: bool) -> torch.export.ExportedProgram:
+def _export(module: nn.Module, args: tuple, embed_weights: bool, dynamic: tuple | None = None
+            ) -> torch.export.ExportedProgram:
+    """`dynamic`: one `dynamic_shapes` entry an argument of `args`, or None
+    for static shapes."""
     if not embed_weights:
-        module, args = _WeightsAsInput(module), (_weights(module), *args)
+        weights = _weights(module)
+        module, args = _WeightsAsInput(module), (weights, *args)
+        dynamic = None if dynamic is None else ({k: None for k in weights}, dynamic)  # forward(weights, *args)
     with torch.no_grad(), _no_stack_traces():
-        program = torch.export.export(module, args, strict=False)
+        program = torch.export.export(module, args, dynamic_shapes=dynamic, strict=False)
     program.example_inputs = None  # else torch.export.save writes them too: for external weights, a second copy
     return program
 
@@ -226,7 +252,11 @@ def export_sampler(
     `embed_weights=False` exports the weights (every parameter and buffer of
     the DiT copy and the vocoder) as a leading dict argument instead of
     program state; `save_sampler` then stores them beside the program and
-    `load_sampler` binds them again (`BoundSampler`)."""
+    `load_sampler` binds them again (`BoundSampler`).
+
+    A `batch` of 2 or more is a symbolic dimension of the program (1 to
+    `batch`), so that the data rows of a mesh each run their share of the
+    rows (`LoadedProgram.place_weights`); a batch-1 bucket stays static."""
     if use_flash is False:
         raise ValueError(USE_FLASH_REFUSED)
     from f5_tts_tpu_torch.models.ode import METHODS
@@ -249,8 +279,12 @@ def export_sampler(
     args = (zeros(batch, padded_len, d), zeros(batch, dtype=torch.int32), zeros(batch, dtype=torch.int32),
             zeros(dtype=torch.int32), zeros(batch, padded_len, dtype=torch.int32), zeros(steps),
             zeros(batch, padded_len, d))
-    return Exported(_export(program, args, embed_weights),
-                    {"kind": "sampler", "device": str(dev), "shared_noise": bool(shared_noise)})
+    dynamic = None
+    if batch >= 2:
+        rows = {0: torch.export.Dim("batch", min=1, max=batch)}
+        dynamic = tuple(rows if i in _BATCHED else None for i in range(len(args)))
+    return Exported(_export(program, args, embed_weights, dynamic),
+                    {"kind": "sampler", "device": str(dev), "shared_noise": bool(shared_noise), "batch": batch})
 
 
 def _user_inputs(program: torch.export.ExportedProgram) -> list:
@@ -420,21 +454,82 @@ class LoadedProgram:
     numpy arrays or tensors, puts them on the program's device in the
     program's dtypes and runs it under `torch.inference_mode`; a sampler's
     `.call` takes the seed in the program's last place and draws the noise
-    (see the module's note)."""
+    (see the module's note).
+
+    `place_weights(target)` moves the program once: to a device, or, for a
+    sampler, over the data rows of a `parallel/mesh.py` `Mesh` (one program
+    a distinct device; each call splits the batch over the rows, see the
+    module's note). It returns self."""
 
     def __init__(self, program: torch.export.ExportedProgram, device: torch.device, n_args: int,
                  noise: dict | None):
         self.program = program
         self.device = device
         self._noise = noise  # {"shared": bool} for a sampler, None for a duration predictor
-        self._module = program.module()
+        self._programs = {device: program}
+        self._modules = {device: program.module()}
+        self._rows: list[torch.device] | None = None  # the data rows' devices after place_weights(mesh)
         self._dtypes = [v.dtype for v in _user_inputs(program)[-n_args:]]
 
-    def _weights(self) -> tuple:
+    def _weights(self, device=None) -> tuple:
         return ()
 
+    def _keep_weights(self, devices: list) -> None:
+        pass
+
+    def _place(self, devices: list, rows: list | None) -> None:
+        """Keep one program a device of `devices`, each moved from the one
+        on `self.device` (`move_to_device_pass` moves in place, so a copy of
+        it where that one stays in use), then one weight copy each."""
+        from torch.export.passes import move_to_device_pass
+
+        source = self._programs[self.device]
+        missing = [d for d in devices if d not in self._programs]
+        for i, d in enumerate(missing):
+            last_use = self.device not in devices and i == len(missing) - 1
+            self._programs[d] = move_to_device_pass(source if last_use else copy.deepcopy(source), str(d))
+            self._modules[d] = self._programs[d].module()
+        self._programs = {d: self._programs[d] for d in devices}
+        self._modules = {d: self._modules[d] for d in devices}
+        self._rows, self.device = rows, devices[0] if rows is None else rows[0]
+        self.program = self._programs[self.device]
+        for d in devices:
+            self._weights(d)
+        self._keep_weights(devices)
+
+    def place_weights(self, target) -> "LoadedProgram":
+        """Place the program and its weights on a device, or over the data
+        rows of a mesh (a sampler's); returns self."""
+        if not isinstance(target, Mesh):
+            device = torch.device(target)
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            self._place([device], None)
+            return self
+        if self._noise is None:
+            raise ValueError("a duration artifact runs on one device: place it with a device, not a mesh")
+        if target.shape["model"] > 1:
+            raise ValueError(
+                f"a {target} has a model axis of {target.shape['model']}: a torch.export program is not "
+                "tensor-partitioned, so an artifact runs over data rows only (create_mesh(data=N)); the live "
+                "F5TTS.use_mesh serves tensor parallelism")
+        rows = [group[0] for group in target.tp_groups()]
+        batch_dim = _user_inputs(self.program)[-_N_CALL_ARGS].shape[0]
+        if len(rows) > 1 and isinstance(batch_dim, int) and batch_dim >= 2:
+            raise ValueError(
+                f"this artifact was exported with a static batch of {batch_dim}, so a data row cannot run a share "
+                "of it: export it again (export_sampler gives a batch of 2 or more a symbolic dimension)")
+        self._place(list(dict.fromkeys(rows)), rows)
+        return self
+
+    def _run(self, device: torch.device, args: list):
+        weights = self._weights(device)
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                return self._modules[device](*weights, *args)
+        return self._modules[device](*weights, *args)
+
     def call(self, *args):
-        weights = self._weights()
         dtypes = self._dtypes
         if self._noise is not None:
             *args, seed = args
@@ -443,29 +538,44 @@ class LoadedProgram:
             args.append(draw_noise(int(seed), self._noise["shared"], b, length, d, self.device))
         args = [torch.as_tensor(a, dtype=dt, device=self.device) for a, dt in zip(args, dtypes)]
         with torch.inference_mode():
-            if self.device.type == "cuda":
-                with torch.cuda.device(self.device):
-                    return self._module(*weights, *args)
-            return self._module(*weights, *args)
+            if self._rows is None:
+                return self._run(self.device, args)
+            rows = self._rows
+            b = args[0].shape[0]
+            parts = [split_batch(pad_batch(a, len(rows)), rows) if i in _BATCHED else [a.to(r) for r in rows]
+                     for i, a in enumerate(args)]
+            results = [self._run(r, [p[j] for p in parts]) for j, r in enumerate(rows)]
+            if isinstance(results[0], torch.Tensor):
+                return gather_batch(results, self.device, b)
+            return tuple(gather_batch(list(out), self.device, b) for out in zip(*results))
 
 
 class BoundSampler(LoadedProgram):
     """An `embed_weights=False` artifact bound again to its stored weights:
     `.call` takes the same device arguments as an embedded one. The weights
-    move to the program's device once, on the first call."""
+    move to the program's device once, on the first call, or when
+    `place_weights` places the program: one copy a distinct device."""
 
     def __init__(self, program, device, n_args: int, noise, weights: dict):
         super().__init__(program, device, n_args, noise)
         self._weights_host = weights
-        self._weights_dev: dict | None = None
+        self._weights_dev: dict = {}  # device -> the weights there
 
-    def _weights(self) -> tuple:
-        if self._weights_dev is None:
-            self._weights_dev = {k: (nn.Parameter(v.to(self.device), v.requires_grad)
-                                     if isinstance(v, nn.Parameter) else v.to(self.device))
-                                 for k, v in self._weights_host.items()}
+    def _weights(self, device=None) -> tuple:
+        device = self.device if device is None else device
+        if device not in self._weights_dev:
+            src = self._weights_host if self._weights_host is not None else next(iter(self._weights_dev.values()))
+            # normal tensors even when the first call runs under inference mode (a server's batcher thread): the
+            # card's matmuls took other kernels at batch 1 with inference-tensor weights than the live model's
+            with torch.inference_mode(False):
+                self._weights_dev[device] = {k: (nn.Parameter(v.to(device), v.requires_grad)
+                                                 if isinstance(v, nn.Parameter) else v.to(device))
+                                             for k, v in src.items()}
             self._weights_host = None
-        return (self._weights_dev,)
+        return (self._weights_dev[device],)
+
+    def _keep_weights(self, devices: list) -> None:
+        self._weights_dev = {d: self._weights_dev[d] for d in devices}
 
 
 def _loaded(program, weights, meta, path, device, n_args: int, noise):
@@ -496,9 +606,13 @@ def load_sampler(path, device=None) -> tuple[LoadedProgram, SamplerSpec]:
     shared = meta.pop("shared_noise", None)
     if shared is None:
         raise ValueError(f"{path}: the header records no noise rule (shared_noise)")
-    sampler = _loaded(program, weights, meta, path, device, _N_CALL_ARGS, {"shared": bool(shared)})
     shapes = _input_shapes(program)
     (b, length, d), (steps,) = shapes[-7], shapes[-2]
+    # a symbolic batch: the header records the bucket's (a file with a static batch may not)
+    b = meta.pop("batch", b)
+    if not isinstance(b, int):
+        raise ValueError(f"{path}: the program's batch is symbolic and the header records none")
+    sampler = _loaded(program, weights, meta, path, device, _N_CALL_ARGS, {"shared": bool(shared)})
     known = {f.name for f in dataclasses.fields(SamplerSpec)} - _DERIVED_SPEC_FIELDS
     meta = {k: v for k, v in meta.items() if k in known}
     return sampler, SamplerSpec(batch=b, padded_len=length, steps=steps, mel_dim=d, **meta)
@@ -731,7 +845,8 @@ def main(argv=None) -> None:
                               embed_weights=not args.external_weights)
     save_sampler(exported, args.out, model=model,
                  extra_meta={"method": args.method, "cfg_strength": args.cfg_strength})
-    print(f"wrote {args.out}: bucket {list(exported.input_shapes()[-7])}, {args.steps} {args.method} steps, "
+    bucket = [args.batch, *exported.input_shapes()[-7][1:]]
+    print(f"wrote {args.out}: bucket {bucket}, {args.steps} {args.method} steps, "
           f"device {exported.meta['device']}" + (" (external weights)" if args.external_weights else ""))
 
 

@@ -40,3 +40,17 @@ def mask_from_frac_lengths(
     max_start = seq_len - lengths
     start = (max_start * rand).to(torch.int32).clamp(min=0)
     return mask_from_start_end_indices(start, start + lengths, max_length)
+
+
+def pad_to_length(t: torch.Tensor, length: int, value=0) -> torch.Tensor:
+    """Pad (or truncate) the last axis to `length`, padding with `value`."""
+    seq_len = t.shape[-1]
+    if length > seq_len:
+        t = torch.nn.functional.pad(t, (0, length - seq_len), value=value)
+    return t[..., :length]
+
+
+def pad_sequence(ts: list[torch.Tensor], padding_value=0) -> torch.Tensor:
+    """Stack tensors padded on the last axis to the longest."""
+    max_len = max(t.shape[-1] for t in ts)
+    return torch.stack([pad_to_length(t, max_len, padding_value) for t in ts])

@@ -10,7 +10,8 @@ P5), and the W8A8 linear's Triton kernels (`quantize_rows`,
 `rescale_bias`) bit for bit against their plain versions; the registered
 operators that carry K1, K3 and the W8A8 kernels into exported programs
 launch them, and a program exported on the CPU launches K1 once moved to
-the card; for mesh inference, K1 on one slot's heads of strided local
+the card, also over a data-2 grid of the card, each data row to the bit
+against its share; for mesh inference, K1 on one slot's heads of strided local
 projections, K3 and K3-f32 at the shard shapes of a model axis of 2, the
 W8A8 row-parallel kernels (`row_absmax`, `quantize_scaled`) bit for bit,
 and a W8A8 DiT split over two slots equal to the unsharded one to the bit;
@@ -1296,6 +1297,76 @@ def test_program_exported_on_the_cpu_runs_the_kernels_when_moved_to_the_card(gen
     card = F5TTS(model.dit.cuda(), cfg, cfm_cfg=model.cfm_cfg, vocoder=model.vocoder.cuda())
     ref, _ = card.sample(cond.cuda(), text, duration=48, steps=3, method="euler", seed=5, return_trajectory=False)
     assert ((wave[0, :47 * 256] - ref).norm() / ref.norm()).item() < 1.5e-2
+
+
+@pytest.mark.cuda
+def test_artifact_over_a_data_grid_of_the_card_equals_its_shares(gen, tmp_path):
+    """A batch-4 sampler with a symbolic batch, exported on the CPU and
+    loaded onto the card, placed over a data-2 grid that repeats the card
+    (`place_weights`): each data row's two rows equal to the bit to the
+    one-device call on its share, K1 launched depth x 2 evaluations a data
+    row, and one program and one weight copy on the card."""
+    from f5_tts_tpu_torch import export as E
+    from f5_tts_tpu_torch.config import CFMConfig, DiTConfig, VocosConfig
+    from f5_tts_tpu_torch.models.cfm import F5TTS
+    from f5_tts_tpu_torch.models.vocos import Vocos
+    from f5_tts_tpu_torch.parallel.mesh import create_mesh
+
+    g = torch.Generator().manual_seed(0)
+    cfg = DiTConfig(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, mel_dim=100, text_num_embeds=256,
+                    text_dim=64, conv_layers=1, compute_dtype="bfloat16")
+    model = F5TTS.init(g, cfg, device="cpu", cfm_cfg=CFMConfig(duration_bucket=64),
+                       vocoder=Vocos.init(g, VocosConfig(dim=32, intermediate_dim=64, num_layers=2), device="cpu"))
+    path = tmp_path / "b4.bin"
+    E.save_sampler(E.export_sampler(model, batch=4, steps=3, method="euler", embed_weights=False, device="cpu"),
+                   path, model=model)
+    sampler, spec = E.load_sampler(path, device="cuda")
+    cond = (torch.randn(4, 20, 100, generator=g) * 0.1).numpy()
+    text = torch.randint(0, 255, (4, 12), generator=g).numpy()
+    args = E.prep_inputs(spec, cond, text, 48, seed=5)
+    shares = [sampler.call(*(a[r * 2:(r + 1) * 2] if i in E._BATCHED else a for i, a in enumerate(args[:6])),
+                           args[6]) for r in range(2)]
+    sampler.place_weights(create_mesh(data=2, devices=["cuda:0"] * 2))
+    before = flash_attention.launches
+    mel, wave = sampler.call(*args)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == 2 * cfg.depth * 2
+    for r, (mel_r, wave_r) in enumerate(shares):
+        assert torch.equal(mel[r * 2:(r + 1) * 2], mel_r) and torch.equal(wave[r * 2:(r + 1) * 2], wave_r), r
+    assert list(sampler._modules) == list(sampler._weights_dev) == [torch.device("cuda", 0)]
+
+
+@pytest.mark.cuda
+def test_weights_bound_under_inference_mode_give_the_same_bits(gen, tmp_path):
+    """A loaded sampler whose first call runs under `torch.inference_mode`
+    (an artifact server's batcher thread) binds its weights as normal
+    tensors on the card, parameters where the model had them, and its
+    batch-1 wave equals that of one bound outside it, to the bit
+    (inference-tensor weights took other matmul kernels at batch 1)."""
+    from f5_tts_tpu_torch import export as E
+    from f5_tts_tpu_torch.config import CFMConfig, DiTConfig, VocosConfig
+    from f5_tts_tpu_torch.models.cfm import F5TTS
+    from f5_tts_tpu_torch.models.vocos import Vocos
+
+    g = torch.Generator().manual_seed(0)
+    cfg = DiTConfig(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, mel_dim=100, text_num_embeds=256,
+                    text_dim=64, conv_layers=1, compute_dtype="bfloat16")
+    model = F5TTS.init(g, cfg, device="cpu", cfm_cfg=CFMConfig(duration_bucket=64),
+                       vocoder=Vocos.init(g, VocosConfig(dim=32, intermediate_dim=64, num_layers=2), device="cpu"))
+    path = tmp_path / "b1.bin"
+    E.save_sampler(E.export_sampler(model, batch=1, steps=3, method="euler", embed_weights=False, device="cpu"),
+                   path, model=model)
+    args = E.prep_inputs(E.load_sampler(path, device="cpu")[1], (torch.randn(1, 20, 100, generator=g) * 0.1).numpy(),
+                         torch.randint(0, 255, (1, 12), generator=g).numpy(), 48, seed=5)
+    inside, _ = E.load_sampler(path, device="cuda")
+    with torch.inference_mode():
+        got = inside.call(*args)
+    outside, _ = E.load_sampler(path, device="cuda")
+    want = outside.call(*args)
+    weights = inside._weights()[0]
+    assert not any(w.is_inference() for w in weights.values())
+    assert any(isinstance(w, torch.nn.Parameter) and w.requires_grad for w in weights.values())
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # ------------------------------------------------------------ mesh inference: the shard shapes
