@@ -142,8 +142,23 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      asynchronous sharded save, latest, and restores over FSDP and without
      EMA; DURATION_V2 (float32) on 2 x 2 at 2e-5; and two ranks over gloo
      on the card (a process each, `parallel.initialize`, the one-slot grid
-     of a trainer given no mesh) whose DP step must give one loss, equal to
-     the one-process data-2 step's;
+     of a trainer given no mesh; the base DiT cut to 4 layers) whose DP step
+     must give one loss, equal to the one-process data-2 step's;
+ 10c. sequence parallelism (the mesh's "seq" axis): K1 with its lse and K2
+     on query blocks at their RoPE offsets (bf16 [2, 8, 1024, 64] in 2 and
+     4 blocks, d 128 in 2, float32 [2, 4, 1024, 64] in 2) against the full
+     call's rows (printed, to the bit where the blocks are whole query
+     tiles), the seq sums of their dk and dv against the full call's, each
+     block against plain, with the blocks' device times; a ragged block
+     (200 rows at offset 300 of 640, row masks) against plain; the
+     ValueError of bf16 at d 256 and float32 at d 128 with a block; then,
+     against phase 10b's unsharded references (none recomputed), the base
+     DiT (bf16) one step over 2 x 2 x 2 and one over 1 x 4 x 1 (data x seq
+     x model), the float32 witness over 2 x 2 x 2 and DURATION_V2 over
+     1 x 2 x 2, each with its gradient, exact K1/K2 launches and exact
+     gathers, reduce-scatters and seq sums; and F5TTSTrainer over 1 x 2 x 1
+     (the witness's model) through `.train`, two steps and a checkpoint
+     that an unsharded trainer loads to the bit;
  11. probe kernels vs plain, timed with CUDA events: the attention variants
      (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope; each
      also at a ragged n, and with their device time as in phase 13, the
@@ -1924,9 +1939,9 @@ def _served_group_check(model, calls) -> None:
         return _rows_rel_l2((wave, traj), (want_wave, want_traj), lens.tolist(), durations.tolist(), hop)
 
     def plain(roll):
-        def attention(q, k, v, scale, key_mask=None, rope=None):
+        def attention(q, k, v, scale, key_mask=None, rope=None, q_offset=0):
             mask = key_mask if key_mask is None or not roll else key_mask.roll(1, 0)
-            return fa.flash_attention_plain(q, k, v, scale, mask, rope)
+            return fa.flash_attention_plain(q, k, v, scale, mask, rope, q_offset)
 
         with mock.patch.object(fa, "flash_attention", attention):
             return model.sample(*args, **kw)
@@ -2938,30 +2953,37 @@ def _updates_agree(p0: dict, got: dict, want: dict, lr: float) -> float:
 
 def _expected_collectives(state, micro: int) -> dict:
     """The collectives of `micro` microbatches of a sharded step: the
-    row-parallel sums (2 a block a data row, forward and backward, and the
-    recompute under remat), one gradient reduction a tensor a group (a
-    model column for a model-sharded tensor, else the grid), gathers and
-    reduce-scatters for the FSDP tensors."""
-    data, model = state.mesh.shape["data"], state.mesh.shape["model"]
+    row-parallel sums (2 a block a tensor-parallel group, one a data row's
+    seq slot; forward and backward, and the recompute under remat), one
+    gradient reduction a tensor a group (a model column for a model-sharded
+    tensor, else the grid), gathers and reduce-scatters for the FSDP
+    tensors; under sequence parallelism a key and value gather an attention
+    a model column a data row (again in the recompute) and its
+    reduce-scatter in the backward, and the duration head's seq sum
+    (forward and backward) a data row."""
+    data, model, seq = state.mesh.shape["data"], state.mesh.shape["model"], state.mesh.seq
     cfg = state.groups[0].cfg
     passes = 3 if getattr(cfg, "remat", False) else 2
-    sums = data * cfg.depth * 2 * passes if model > 1 else 0
+    sums = data * seq * cfg.depth * 2 * passes if model > 1 else 0
     groups = {name: model if "model" in spec else 1 for name, spec in state.specs.items()}
     fsdp = sum(g for name, g in groups.items() if "data" in state.specs[name])
+    gathers = data * model * cfg.depth if seq > 1 else 0
+    seq_sums = 2 * data if seq > 1 and type(state.groups[0]).__name__ == "DurationGroup" else 0
     return {"all_reduce_sum": micro * sums, "all_reduce_max": 0,
             "grad_all_reduce": micro * (sum(groups.values()) - fsdp), "all_gather": micro * fsdp,
-            "reduce_scatter": micro * fsdp}
+            "reduce_scatter": micro * fsdp, "seq_all_gather": micro * gathers * (passes - 1),
+            "seq_reduce_scatter": micro * gathers, "seq_sum": micro * seq_sums}
 
 
 def _sharded_runs(label, card, model, make_step, opt, mesh, batch, draws, steps, tol, per_micro, fsdp=False, k=1,
                   generator=None, reference=None, keep=False):
     """The unsharded step (or `reference`: its losses, step walls, gradient
-    and parameters, already run) and the sharded step over `mesh` from the same
-    state and draws: the gradient at the start (k == 1), then `steps`
-    steps. Checks each sharded step's kernel launches (`per_micro` a
-    microbatch) and collectives exactly, and the loss, gradient and updates
-    against `tol`. Returns (the reference, the sharded run's record, the
-    sharded state when `keep`)."""
+    and parameters after each step, already run for at least `steps` steps)
+    and the sharded step over `mesh` from the same state and draws: the
+    gradient at the start (k == 1), then `steps` steps. Checks each sharded
+    step's kernel launches (`per_micro` a microbatch) and collectives
+    exactly, and the loss, gradient and updates against `tol`. Returns (the
+    reference, the sharded run's record, the sharded state when `keep`)."""
     import copy
 
     import torch
@@ -2986,15 +3008,18 @@ def _sharded_runs(label, card, model, make_step, opt, mesh, batch, draws, steps,
             del dit
         dit = copy.deepcopy(model)
         state = T.init_train_state(dit, opt, ema=True)
-        reference["losses"], reference["walls_ms"] = [], []
+        reference["losses"], reference["walls_ms"], reference["params"] = [], [], []
         for i in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             reference["losses"].append(step(state, *batch, gen(i), draws).item())
             reference["walls_ms"].append((time.perf_counter() - t0) * 1e3)
-        reference["params"] = {n: p.detach().clone() for n, p in dit.named_parameters()}
+            reference["params"].append({n: p.detach().clone() for n, p in dit.named_parameters()})
         del dit, state
         torch.cuda.empty_cache()
+    if len(reference["params"]) < steps:
+        raise ValueError(f"{label}: a reference of {len(reference['params'])} steps for {steps}")
+    final = reference["params"][steps - 1]
 
     torch.cuda.reset_peak_memory_stats()
     state = shard_train_state(T.init_train_state(model, opt, ema=True), mesh, fsdp=fsdp)
@@ -3035,16 +3060,15 @@ def _sharded_runs(label, card, model, make_step, opt, mesh, batch, draws, steps,
                   collectives_a_step=M.collective_counts(), launches=launched)
     full = M.gather_state(state)["params"]
     record["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(losses, reference["losses"]))
-    record["updates_agree"] = _updates_agree(p0, full, reference["params"], MESH_TRAIN_LR)
-    record["update_rel_l2"] = _rel_l2({n: full[n] - p0[n] for n in p0},
-                                      {n: reference["params"][n] - p0[n] for n in p0})
+    record["updates_agree"] = _updates_agree(p0, full, final, MESH_TRAIN_LR)
+    record["update_rel_l2"] = _rel_l2({n: full[n] - p0[n] for n in p0}, {n: final[n] - p0[n] for n in p0})
     print(f"{label}: losses {', '.join(f'{x:.6f}' for x in losses)} against unsharded "
-          f"{', '.join(f'{x:.6f}' for x in reference['losses'])} (largest relative difference "
+          f"{', '.join(f'{x:.6f}' for x in reference['losses'][:steps])} (largest relative difference "
           f"{record['loss_rel']:.3e}, tol {tol['loss']}); gradient relative L2 "
           f"{record.get('grad_rel_l2', float('nan')):.3e} (tol {tol['grad']}); updates within lr/10 of "
           f"unsharded {record['updates_agree']:.6f} (at least {tol['updates']}), the update's relative L2 "
           f"{record['update_rel_l2']:.3e}; step walls {', '.join(f'{w:.1f}' for w in record['walls_ms'])} ms "
-          f"against the unsharded steps' {', '.join(f'{w:.1f}' for w in reference['walls_ms'])} ms; "
+          f"against the unsharded steps' {', '.join(f'{w:.1f}' for w in reference['walls_ms'][:steps])} ms; "
           f"peak memory {record['peak_gib']:.2f} GiB; slot 0 stores {json.dumps(stored)} bytes; collectives a "
           f"step {json.dumps(record['collectives_a_step'])}; kernel launches {json.dumps(launched)}; the run with its "
           f"unsharded reference {time.perf_counter() - t_run:.1f} s; on {card}")
@@ -3060,8 +3084,8 @@ def _sharded_runs(label, card, model, make_step, opt, mesh, batch, draws, steps,
 
 
 def dp_rank_child(rank: int, port: int, out: str) -> None:
-    """One rank of phase 10b's two-rank step: the base DiT of the phase
-    (the same seed), the grid of one slot on the card that a trainer without
+    """One rank of phase 10b's two-rank step: the base DiT of the phase at
+    `TWO_RANK_DEPTH` layers (the same seed), the grid of one slot on the card that a trainer without
     a mesh takes when several processes run (training/trainer.py
     `training_grid`), the process group over gloo at localhost:`port`; one DP step on this rank's half of the global
     batch with the global draws. Writes the loss and a few parameters."""
@@ -3075,7 +3099,7 @@ def dp_rank_child(rank: int, port: int, out: str) -> None:
 
     device_phase_quiet()
     initialize(coordinator_address=f"localhost:{port}", num_processes=2, process_id=rank, backend="gloo")
-    model, (mel, text, lens), draws = _mesh_train_inputs()
+    model, (mel, text, lens), draws = _mesh_train_inputs(_two_rank_cfg())
     opt = T.make_optimizer(MESH_TRAIN_LR, 1e-2, 0, 1000)
     mesh = T.training_grid(None, torch.device("cuda:0"))  # a trainer's grid without a mesh, with two processes
     state = shard_train_state(T.init_train_state(model.dit, opt, ema=True), mesh)
@@ -3093,6 +3117,15 @@ def dp_rank_child(rank: int, port: int, out: str) -> None:
 
 
 TWO_RANK_WATCHED = ("proj_out.weight", "transformer_blocks.0.attn.to_q.weight", "time_embed.time_mlp.0.weight")
+# the two-rank case's depth: full width, cut from 22 layers (the case shows the processes' sums, which do not depend
+# on the depth; each process then builds and steps a smaller model)
+TWO_RANK_DEPTH = 4
+
+
+def _two_rank_cfg():
+    from f5_tts_tpu_torch.config import F5TTS_V1_BASE
+
+    return F5TTS_V1_BASE.replace(compute_dtype="bfloat16", depth=TWO_RANK_DEPTH)
 
 
 def device_phase_quiet() -> None:
@@ -3131,20 +3164,20 @@ def mesh_training_phase(card: str, tmp_base: str | None) -> dict:
     continues; the checkpoint manager's asynchronous sharded save, latest
     and restores (another layout; EMA adapted); DURATION_V2 on 2 x 2 at
     2e-5; two ranks over gloo on the card against the one-process data-2
-    step. Returns the kernels' launches of the sharded runs."""
+    step. Returns (the kernels' launches of the sharded runs, the unsharded
+    references of the base DiT, the float32 witness and DURATION_V2 that
+    phase 10c holds its sequence-parallel steps to)."""
     import copy
 
     import torch
 
     from f5_tts_tpu_torch import F5TTS
     from f5_tts_tpu_torch.config import DURATION_V2, F5TTS_V1_BASE
-    from f5_tts_tpu_torch.models.duration import DurationPredictor
     from f5_tts_tpu_torch.models.shard import shard_train_state
     from f5_tts_tpu_torch.ops import flash_attention as fa
     from f5_tts_tpu_torch.parallel import mesh as M
     from f5_tts_tpu_torch.training import checkpoints as C
     from f5_tts_tpu_torch.training import trainer as T
-    from f5_tts_tpu_torch.training.duration_trainer import make_duration_train_step
 
     t_phase = time.perf_counter()
     phase(f"mesh training: a {MESH_TRAIN['data']} x {MESH_TRAIN['model']} grid (data x model) of the card: the "
@@ -3194,7 +3227,6 @@ def mesh_training_phase(card: str, tmp_base: str | None) -> dict:
     _, fsdp, _ = _sharded_runs("base DiT, FSDP", card, model.dit, cfm_step, opt, mesh, batch, draws, 2,
                                MESH_TRAIN_TOL, per_micro, fsdp=True, reference=ref)
     add(fsdp["launches"])
-    del ref
     micro = T.split_microbatches(2, *batch, data_size=MESH_TRAIN["data"])
     half = TRAIN_BATCH // 2
     draws2 = [draws.rows(slice(0, half)), draws.rows(slice(half, TRAIN_BATCH))]
@@ -3288,20 +3320,15 @@ def mesh_training_phase(card: str, tmp_base: str | None) -> dict:
               f"{t1 - t0:.2f} s, committed {t2 - t1:.2f} s later ({size / 2**20:.0f} MiB); latest {mgr.latest_step()}; "
               f"restored over 2 x 2 FSDP in {t4 - t3:.2f} s, and unsharded without EMA (dropped), both identical")
         del plain, saved
-    del wstate, wmodel, wref, sharded
+    del wstate, wmodel, sharded
     torch.cuda.empty_cache()
 
     # DURATION_V2 in float32
-    gen = torch.Generator(device="cuda").manual_seed(15)
-    predictor = DurationPredictor.init(gen, DURATION_V2, device="cuda")
-    dbatch = _train_batch(gen)
-    rand_frac = torch.rand(TRAIN_BATCH, generator=gen, device="cuda")
-    fps = predictor.audio_cfg.frames_per_second
+    predictor, dbatch, rand_frac = _duration_inputs()
     dper = {**ZERO, "flash_attention_fwd_f32": DURATION_V2.depth * slots,
             "flash_attention_bwd_f32": DURATION_V2.depth * slots}
-    _, dur, _ = _sharded_runs("DURATION_V2, DP x TP", card, predictor,
-                              lambda o, k: make_duration_train_step(o, fps, ema_decay=0.999, grad_accum=k), opt, mesh,
-                              dbatch, rand_frac, 1, WITNESS_TOL, dper)
+    dref, dur, _ = _sharded_runs("DURATION_V2, DP x TP", card, predictor, _duration_step(predictor), opt, mesh,
+                                 dbatch, rand_frac, 1, WITNESS_TOL, dper)
     add(dur["launches"])
     del predictor
     torch.cuda.empty_cache()
@@ -3316,7 +3343,7 @@ def mesh_training_phase(card: str, tmp_base: str | None) -> dict:
         t0 = time.perf_counter()
         procs = [_started([f"import chip_smoke as s; s.dp_rank_child({rank}, {port}, {tmp!r})"], f"{tmp}/rank{rank}")
                  for rank in range(2)]
-        model, batch, draws = _mesh_train_inputs()
+        model, batch, draws = _mesh_train_inputs(_two_rank_cfg())
         step = T.make_train_step(model.cfm_cfg, opt, ema_decay=0.999)
         one = M.create_mesh(data=2, devices=["cuda:0"] * 2)
         state = shard_train_state(T.init_train_state(model.dit, opt, ema=True), one)
@@ -3330,7 +3357,7 @@ def mesh_training_phase(card: str, tmp_base: str | None) -> dict:
         for r in range(2):
             got = torch.load(f"{tmp}/rank{r}.pt")
             diffs.append(max((got[k] - want[k].cpu()).abs().max().item() for k in TWO_RANK_WATCHED))
-        print(f"two ranks over gloo on {card}: losses {ranks[0]['loss']:.8f}, {ranks[1]['loss']:.8f} (world "
+        print(f"two ranks over gloo on {card} (the base DiT at {TWO_RANK_DEPTH} layers): losses {ranks[0]['loss']:.8f}, {ranks[1]['loss']:.8f} (world "
               f"{ranks[0]['world']}), the one-process data-2 step {want_loss:.8f}; watched parameters' largest "
               f"difference {max(diffs):.3e}; each rank's step {ranks[0]['step_s']:.2f}, {ranks[1]['step_s']:.2f} s "
               f"(its first, with gloo's copies through the host), both ranks {wall:.1f} s with start-up")
@@ -3342,6 +3369,238 @@ def mesh_training_phase(card: str, tmp_base: str | None) -> dict:
     torch.cuda.empty_cache()
     print(f"mesh training phase: {time.perf_counter() - t_phase:.1f} s; launches of its sharded runs "
           f"{json.dumps(total)}; slot kernels' device ms {json.dumps(slot_ms)}; on {card}")
+    return total, {"base": ref, "witness": wref, "duration": dref}
+
+
+def _duration_inputs():
+    """Phases 10b's and 10c's DURATION_V2 (float32), batch and prefix draws,
+    from seed 15 on the card."""
+    import torch
+
+    from f5_tts_tpu_torch.config import DURATION_V2
+    from f5_tts_tpu_torch.models.duration import DurationPredictor
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    predictor = DurationPredictor.init(gen, DURATION_V2, device="cuda")
+    dbatch = _train_batch(gen)
+    return predictor, dbatch, torch.rand(TRAIN_BATCH, generator=gen, device="cuda")
+
+
+def _duration_step(predictor):
+    from f5_tts_tpu_torch.training.duration_trainer import make_duration_train_step
+
+    fps = predictor.audio_cfg.frames_per_second
+    return lambda o, k: make_duration_train_step(o, fps, ema_decay=0.999, grad_accum=k)
+
+
+# phase 10c's grids (data, seq, model) for the base DiT, and the float32 witness's and DURATION_V2's
+SEQ_GRIDS = ({"data": 2, "seq": 2, "model": 2}, {"data": 1, "seq": 4, "model": 1})
+SEQ_WITNESS_GRID = {"data": 2, "seq": 2, "model": 2}
+SEQ_DURATION_GRID = {"data": 1, "seq": 2, "model": 2}
+
+
+def _grid_devices(n: int) -> list:
+    """n slots on distinct cards where there are n, else the one card repeated."""
+    import torch
+
+    return [f"cuda:{i}" for i in range(n)] if torch.cuda.device_count() >= n else ["cuda:0"] * n
+
+
+def _query_block_checks(card: str) -> dict:
+    """K1 with its lse and K2 on seq slots' query blocks at their RoPE
+    offsets against the full call at the 2 x 2 x 2 slot's shape (a data
+    row's 2 rows, 8 heads, 1024 gathered keys; bf16 at d 64 in 2 and 4
+    blocks, d 128 in 2; float32 [2, 4, 1024, 64] in 2) and against the plain
+    versions; a ragged block (n_q 200 at offset 300, with row masks) against
+    plain; the ValueError of bf16 at d 256 and float32 at d 128 with a
+    block. Returns the device ms of the blocks beside the full calls'."""
+    import torch
+
+    from f5_tts_tpu_torch.models.rope import rotary_freqs
+    from f5_tts_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    times = {}
+    for name, dtype, h, d, seqs in (("bf16", torch.bfloat16, 8, 64, (2, 4)), ("bf16 d128", torch.bfloat16, 8, 128, (2,)),
+                                    ("f32", torch.float32, 4, 64, (2,))):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        c = _attention_grad_case(gen, f"query blocks, the full call ({name})", dtype, 2, h, TRAIN_FRAMES, d, None)
+        q, k, v, g, out, lse, rope, scale = c["q"], c["k"], c["v"], c["g"], c["out"], c["lse"], c["rope"], c["scale"]
+        dq, dk, dv = c["got"]
+        full_fwd = device_ms(lambda: fa._forward_kernel(q, k, v, scale, None, *rope, with_lse=True))
+        full_bwd = device_ms(lambda: fa._backward_kernel(q, k, v, out, lse, g, scale, None, *rope))
+        for seq in seqs:
+            rows = TRAIN_FRAMES // seq
+            apart = {"out": 0.0, "lse": 0.0, "dq": 0.0}
+            plain_errs = []
+            sums = [torch.zeros_like(dk, dtype=torch.float32), torch.zeros_like(dv, dtype=torch.float32)]
+            for start in range(0, TRAIN_FRAMES, rows):
+                qb, gb = q[:, :, start:start + rows], g[:, :, start:start + rows]
+                _, cos, sin = fa._checked(qb, k, v, None, rope, start)
+                ob, lb = fa._forward_kernel(qb, k, v, scale, None, cos, sin, True, start)
+                got = fa._backward_kernel(qb, k, v, ob, lb, gb, scale, None, cos, sin, start)
+                for key, a, b in (("out", ob, out), ("lse", lb, lse), ("dq", got[0], dq)):
+                    apart[key] = max(apart[key], (a.float() - b[:, :, start:start + rows].float()).abs().max().item())
+                sums[0] += got[1].float()
+                sums[1] += got[2].float()
+                plain_out = fa.flash_attention_plain(qb, k, v, scale, None, rope, start)
+                ref = fa.flash_attention_bwd_plain(qb, k, v, ob, gb, scale, None, rope, q_offset=start)
+                plain_errs.append(max([(ob.float() - plain_out.float()).abs().max().item()]
+                                      + [(a.float() - r).abs().max().item() / r.abs().max().item()
+                                         for a, r in zip(got, ref)]))
+            sum_errs = [(a - r.float()).abs().max().item() / r.float().abs().max().item() for a, r in zip(sums, (dk, dv))]
+            qb = q[:, :, rows:2 * rows]
+            blk_fwd = device_ms(lambda: fa._forward_kernel(qb, k, v, scale, None, *rope, True, rows))
+            ob, lb = fa._forward_kernel(qb, k, v, scale, None, *rope, True, rows)
+            gb = g[:, :, rows:2 * rows]
+            blk_bwd = device_ms(lambda: fa._backward_kernel(qb, k, v, ob, lb, gb, scale, None, *rope, rows))
+            times[f"{name} seq {seq}"] = {"block_fwd": blk_fwd, "block_bwd": blk_bwd, "full_fwd": full_fwd,
+                                          "full_bwd": full_bwd}
+            bit = all(x == 0.0 for x in apart.values())
+            print(f"query blocks {name} [2, {h}, {rows} of {TRAIN_FRAMES}, {d}], seq {seq}, RoPE at each offset: "
+                  f"against the full call's rows out {apart['out']:.3e}, lse {apart['lse']:.3e}, dq {apart['dq']:.3e} "
+                  f"({'to the bit' if bit else 'NOT to the bit'}); the seq sums of dk, dv against the full call's "
+                  f"{sum_errs[0]:.3e}, {sum_errs[1]:.3e} of their largest (tol {GRAD_TOL[tag]}); each block "
+                  f"against plain at most {max(plain_errs):.3e}; device ms a block K1 {blk_fwd:.4f}, K2 "
+                  f"{blk_bwd:.4f} against the full call's {full_fwd:.4f}, {full_bwd:.4f}; on {card}")
+            tol = ATTN_TOL if tag == "bf16" else F32_TOL
+            if not (max(apart["out"], apart["lse"]) <= tol and max(sum_errs) <= GRAD_TOL[tag]
+                    and max(plain_errs) <= max(tol, GRAD_TOL[tag])):
+                raise AssertionError(f"query blocks {name} seq {seq} disagree: {apart}, {sum_errs}, {plain_errs}")
+    # a ragged block, row masks, against plain
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v, g = (torch.randn(2, 640, 8 * 64, generator=gen, device="cuda").to(dtype).view(2, 640, 8, 64)
+                      .transpose(1, 2) for _ in range(4))
+        mask = torch.arange(640, device="cuda")[None, :] < torch.tensor([[640], [603]], device="cuda")
+        tab = rotary_freqs(640, 64, device="cuda")
+        rope = (torch.cos(tab), torch.sin(tab))
+        qb, gb = q[:, :, 300:500], g[:, :, 300:500]
+        km, cos, sin = fa._checked(qb, k, v, mask, rope, 300)
+        ob, lb = fa._forward_kernel(qb, k, v, 0.125, km, cos, sin, True, 300)
+        got = fa._backward_kernel(qb, k, v, ob, lb, gb, 0.125, km, cos, sin, 300)
+        out_err = (ob.float() - fa.flash_attention_plain(qb, k, v, 0.125, mask, rope, 300).float()).abs().max().item()
+        ref = fa.flash_attention_bwd_plain(qb, k, v, ob, gb, 0.125, mask, rope, q_offset=300)
+        errs = [(a.float() - r).abs().max().item() / r.abs().max().item() for a, r in zip(got, ref)]
+        print(f"ragged query block {tag} [2, 8, 200 at 300 of 640, 64] with row masks: forward {out_err:.3e} from "
+              f"plain, dq, dk, dv {', '.join(f'{e:.3e}' for e in errs)} of their largest")
+        if not (out_err <= (ATTN_TOL if tag == "bf16" else F32_TOL) and max(errs) <= GRAD_TOL[tag]):
+            raise AssertionError(f"the ragged query block {tag} disagrees with plain: {out_err}, {errs}")
+    for dtype, d in ((torch.bfloat16, 256), (torch.float32, 128)):
+        x = torch.zeros(1, 2, 256, d, device="cuda", dtype=dtype)
+        try:
+            fa.flash_attention(x[:, :, :128], x, x, d ** -0.5, q_offset=128)
+        except ValueError as err:
+            print(f"a query block in {dtype} at d {d}: ValueError ({err})")
+        else:
+            raise AssertionError(f"a query block in {dtype} at d {d} did not raise")
+    return times
+
+
+def seq_training_phase(card: str, tmp_base: str | None, refs: dict) -> dict:
+    """Training with sequence parallelism (the mesh's "seq" axis): the query
+    blocks (`_query_block_checks`); the base DiT (bf16) one step over 2 x 2 x
+    2 and one over 1 x 4 x 1, the float32 witness (dropout and remat) over
+    2 x 2 x 2 and DURATION_V2 over 1 x 2 x 2, each against phase 10b's
+    unsharded reference (`refs`; no second one is computed), with exact
+    K1/K2 launches, gathers and reduce-scatters; and F5TTSTrainer over a
+    1 x 2 x 1 grid through `.train`, two steps, whose checkpoint an
+    unsharded trainer loads. Returns the kernels' launches of its runs."""
+    import torch
+
+    from f5_tts_tpu_torch import F5TTS
+    from f5_tts_tpu_torch.config import DURATION_V2, F5TTS_V1_BASE
+    from f5_tts_tpu_torch.parallel import mesh as M
+    from f5_tts_tpu_torch.training import trainer as T
+
+    t_phase = time.perf_counter()
+    phase("sequence parallelism: K1 and K2 on query blocks at their RoPE offsets; the base DiT (bf16) over 2 x 2 x 2 "
+          "and 1 x 4 x 1, the float32 witness over 2 x 2 x 2 and DURATION_V2 over 1 x 2 x 2 against phase 10b's "
+          "unsharded steps; a trainer over 1 x 2 x 1")
+    block_ms = _query_block_checks(card)
+    total = dict(ZERO)
+
+    def add(launched):
+        for key, v in launched.items():
+            total[key] += v
+
+    opt = T.make_optimizer(MESH_TRAIN_LR, 1e-2, 0, 1000)
+    model, batch, draws = _mesh_train_inputs()
+    cfm_cfg = model.cfm_cfg
+
+    def cfm_step(o, k):
+        return T.make_train_step(cfm_cfg, o, ema_decay=0.999, grad_accum=k)
+
+    walls = {}
+    for grid in SEQ_GRIDS:
+        n = grid["data"] * grid["seq"] * grid["model"]
+        mesh = M.create_mesh(**grid, devices=_grid_devices(n))
+        depth = model.dit_cfg.depth
+        per = {**ZERO, "flash_attention_fwd": depth * n, "flash_attention_bwd": depth * n}
+        label = f"base DiT, SP {grid['data']} x {grid['seq']} x {grid['model']}"
+        _, rec, _ = _sharded_runs(label, card, model.dit, cfm_step, opt, mesh, batch, draws, 1, MESH_TRAIN_TOL, per,
+                                  reference=refs["base"])
+        walls[label] = rec["walls_ms"][0]
+        add(rec["launches"])
+    del model, batch
+    torch.cuda.empty_cache()
+
+    wcfg = F5TTS_V1_BASE.replace(compute_dtype="float32", depth=WITNESS_DEPTH, dropout=0.1, remat=True)
+    wmodel, wbatch, wdraws = _mesh_train_inputs(wcfg, seed=13)
+    n = SEQ_WITNESS_GRID["data"] * SEQ_WITNESS_GRID["seq"] * SEQ_WITNESS_GRID["model"]
+    wper = {**ZERO, "flash_attention_fwd_f32": 2 * wcfg.depth * n, "flash_attention_bwd_f32": wcfg.depth * n}
+    _, rec, _ = _sharded_runs("float32 witness, SP 2 x 2 x 2", card, wmodel.dit, cfm_step, opt,
+                              M.create_mesh(**SEQ_WITNESS_GRID, devices=_grid_devices(n)), wbatch, wdraws, 1,
+                              WITNESS_TOL, wper, generator=100, reference=refs["witness"])
+    add(rec["launches"])
+
+    predictor, dbatch, rand_frac = _duration_inputs()
+    n = SEQ_DURATION_GRID["data"] * SEQ_DURATION_GRID["seq"] * SEQ_DURATION_GRID["model"]
+    dper = {**ZERO, "flash_attention_fwd_f32": DURATION_V2.depth * n, "flash_attention_bwd_f32": DURATION_V2.depth * n}
+    _, rec, _ = _sharded_runs("DURATION_V2, SP 1 x 2 x 2", card, predictor, _duration_step(predictor), opt,
+                              M.create_mesh(**SEQ_DURATION_GRID, devices=_grid_devices(n)), dbatch, rand_frac, 1,
+                              WITNESS_TOL, dper, reference=refs["duration"])
+    add(rec["launches"])
+    del predictor
+    torch.cuda.empty_cache()
+
+    # a trainer over 1 x 2 x 1 through .train (the witness's width and depth), its checkpoint loaded unsharded
+    with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
+        mesh = M.create_mesh(data=1, seq=2, devices=["cuda", "cuda"])
+        trainer = T.F5TTSTrainer(wmodel, num_warmup_steps=0, results_dir=tmp, mesh=mesh)
+        mel, text, lens = (t.cpu().numpy() for t in wbatch)
+        data = [{"mel_spec": mel, "mel_len": lens, "transcript": text}] * 2
+        before = counts()
+        t0 = time.perf_counter()
+        trainer.train(data, learning_rate=MESH_TRAIN_LR, total_steps=2, save_every=2, sample_every=10**9, log_every=1)
+        t1 = time.perf_counter()
+        launched = {key: v - before[key] for key, v in counts().items()}
+        want = {**ZERO, "flash_attention_fwd_f32": 2 * 2 * wcfg.depth * 2, "flash_attention_bwd_f32": 2 * wcfg.depth * 2}
+        if launched != want:
+            raise AssertionError(f"the 1 x 2 x 1 trainer's kernel launches {launched}, expected {want}")
+        add(launched)
+        full = M.gather_state(trainer.state)
+        fresh = T.F5TTSTrainer(F5TTS.init(torch.Generator(device="cuda").manual_seed(14), wcfg, device="cuda"),
+                               results_dir=tmp)
+        fresh.state = T.init_train_state(fresh.model.dit, opt)
+        fresh.load_checkpoint(2)
+        t2 = time.perf_counter()
+        for name, p in fresh.model.dit.named_parameters():
+            if not (torch.equal(p, full["params"][name]) and torch.equal(fresh.state.opt_state["mu"][name],
+                                                                         full["mu"][name])):
+                raise AssertionError(f"the 1 x 2 x 1 trainer's checkpoint did not load as it was: {name}")
+        if (fresh.state.step, trainer.state.step) != (2, 2) or not math.isfinite(float(trainer.last_loss)):
+            raise AssertionError(f"the 1 x 2 x 1 trainer: steps {trainer.state.step}, {fresh.state.step}, loss "
+                                 f"{trainer.last_loss}")
+        print(f"F5TTSTrainer over 1 x 2 x 1 (float32 witness): 2 steps through .train in {t1 - t0:.1f} s with its "
+              f"checkpoint, loss {float(trainer.last_loss):.6f}; launches {json.dumps(launched)}; an unsharded "
+              f"trainer loaded it in {t2 - t1:.1f} s, weights, moments and step identical; on {card}")
+        del trainer, fresh, full
+    del wmodel
+    torch.cuda.empty_cache()
+    print(f"sequence parallel phase: {time.perf_counter() - t_phase:.1f} s; launches of its runs {json.dumps(total)}; "
+          f"SP step walls {json.dumps(walls)} ms against phase 10b's unsharded "
+          f"{', '.join(f'{w:.1f}' for w in refs['base']['walls_ms'])} ms; query blocks' device ms "
+          f"{json.dumps(block_ms)}; on {card}")
     return total
 
 
@@ -3785,7 +4044,9 @@ def main() -> int:
             _, cfm_ms, cfm_launches = cfm_training_phase(card, tmp)
         _, dur_ms, dur_launches = duration_training_phase(card)
         wav_launches = wav_training_phase(card, tmp_base)
-        mesh_train_launches = mesh_training_phase(card, tmp_base)
+        mesh_train_launches, mesh_refs = mesh_training_phase(card, tmp_base)
+        seq_train_launches = seq_training_phase(card, tmp_base, mesh_refs)
+        del mesh_refs
         probe = probe_kernel_phase()
         probe_launches = probe_tools_phase(card)
         ranking_phase(card, snap)
@@ -3797,7 +4058,7 @@ def main() -> int:
           f"{time.perf_counter() - T_START:.1f} s; on {card}")
     # launches summed over the main paths' counted runs; the probe kernels' over the probe tools' run
     paths = (float_launches, q_launches, mesh_launches, w8a8_launches, serve_launches, artifact_launches,
-             artifact_grid_launches, cfm_launches, dur_launches, wav_launches, mesh_train_launches)
+             artifact_grid_launches, cfm_launches, dur_launches, wav_launches, mesh_train_launches, seq_train_launches)
     launches = {k: sum(p[k] for p in paths) for k in float_launches}
     for name, n in launches.items():
         if n <= 0:

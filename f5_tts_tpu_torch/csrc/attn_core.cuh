@@ -3,23 +3,25 @@
 // tools' variants (attn_rope_wgmma.cu) launch over q, k and v, or over a
 // pre-pass's rotated scratch.
 //
-// It computes softmax(q k^T * scale + bias) v over [b, h, n, d], d 64 or
-// 128, for q, k, v and the output addressed through (batch, head, row)
+// It computes softmax(q k^T * scale + bias) v for q [b, h, n, d] against k
+// and v [b, h, nk, d] (nk = n but for a query block, whose rows attend to
+// every key: sequence parallelism's slot against its group's gathered keys),
+// d 64 or 128, for q, k, v and the output addressed through (batch, head, row)
 // strides: q, k and v through 4-d tensor maps with coordinates (column, row,
 // head, batch row), the output by its strides. Two compile-time options:
 //   - BIAS false (the probe tools, and K1 without a key mask): the online
 //     softmax keeps the running max of the raw scores and scales it
 //     afterwards, in base 2 with scale * log2(e) folded in;
 //   - BIAS true, a key bias (K1 with a key mask): the producer brings
-//     each key tile's 128 float32 biases (0 or -1e30, [b, n_pad] from the
+//     each key tile's 128 float32 biases (0 or -1e30, [b, nk_pad] from the
 //     pre-pass) into the stage with one bulk copy beside K and V, and the
 //     consumers form x = s * scale * log2(e) + bias * log2(e) before the
 //     running max, so the max is taken over the biased scores. -1e30 * log2(e)
 //     is finite in float32: a row whose first tile is all masked has a finite
 //     running max of about -1.44e30, the score added to it vanishes, and
 //     exp2 of the later differences is exactly 0 or 1; only keys past n are
-//     -inf (by index), so a row with every key masked averages its n keys,
-//     not n_pad.
+//     -inf (by index), so a row with every key masked averages its nk keys,
+//     not nk_pad.
 //   - LSE (K1 for training): the epilogue also writes the row
 //     log-sum-exp of the scaled, biased scores in natural log,
 //     (m2 + log2(l)) * ln(2) with m2 the base-2 running max, float32
@@ -40,7 +42,9 @@
 // transpose bit), a tile's two products and softmax in turn; the other
 // warpgroup's work fills the tensor cores meanwhile. Keys past n (the last
 // tile's zero rows: a scratch's padding, or TMA's zero fill) score -inf by
-// index; query rows past n are zero and not written. The epilogue divides by
+// index; query rows past n are zero and not written. Nothing in the core
+// knows a query block's place in the sequence: only its rotation does (the
+// pre-pass). The epilogue divides by
 // the row sum and writes bf16 through the output's strides. No atomics: the
 // kernel is deterministic.
 
@@ -62,7 +66,7 @@ constexpr int BOX = 64;         // rows of a TMA box
 constexpr int KN = 128;         // keys a streamed tile, two boxes a panel
 constexpr int WGS = 2;          // consumer warpgroups, 64 query rows each
 constexpr int ROWS = 64 * WGS;  // query rows a block owns
-constexpr int ROW_PAD = 128;    // n_pad is a multiple of this (= ROWS)
+constexpr int ROW_PAD = 128;    // n_pad and nk_pad are multiples of this (= ROWS)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -70,8 +74,9 @@ constexpr float LN2 = 0.6931471805599453f;
 struct CoreParams {
   __nv_bfloat16* o;    // [b, h, n, d] by (batch, head, row) strides
   float* lse;          // [b, h, n], written only with LSE
-  const float* kbias;  // [b, n_pad] key biases, read only with BIAS
-  int h, n, n_pad;
+  const float* kbias;  // [b, nk_pad] key biases, read only with BIAS
+  int h, n, n_pad;     // the query rows, and their padding to ROWS (the grid)
+  int nk, nk_pad;      // the keys, and the key biases' row length
   long long o_sb, o_sh, o_sn;
   float scale;
 };
@@ -134,7 +139,7 @@ attn_core_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_con
 
   const int q0 = blockIdx.x * ROWS;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int tiles = (p.n + KN - 1) / KN;
+  const int tiles = (p.nk + KN - 1) / KN;
 
   if (threadIdx.x == 0) {
     mbar_init(own, 1);
@@ -167,7 +172,7 @@ attn_core_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_con
           }
         }
         if constexpr (BIAS) {
-          bulk_load(st + 2 * S::TILE, p.kbias + static_cast<long long>(b) * p.n_pad + it * KN, S::BIAS_BYTES,
+          bulk_load(st + 2 * S::TILE, p.kbias + static_cast<long long>(b) * p.nk_pad + it * KN, S::BIAS_BYTES,
                     &full[s]);
         }
       }
@@ -217,13 +222,13 @@ attn_core_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_con
         sc[4 * j + 3] = fmaf(sc[4 * j + 3], sl2, bv.y * LOG2E);
       }
     }
-    // keys past n (zero rows) score -inf; the first tile
+    // keys past nk (zero rows) score -inf; the first tile
     // holds key 0, so the running max is finite from then on
     const int k0 = it * KN;
-    if (k0 + KN > p.n) {
+    if (k0 + KN > p.nk) {
 #pragma unroll
       for (int i = 0; i < KN / 2; ++i) {
-        if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= p.n) sc[i] = -INFINITY;
+        if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= p.nk) sc[i] = -INFINITY;
       }
     }
     float mt[2] = {m[0], m[1]};
@@ -298,13 +303,14 @@ cudaError_t tile_map(CUtensorMap* map, const void* base, int rows, int d2, int d
 }
 
 // The core over q and k as tensor maps with coordinates (dim, row, head,
-// batch row), and over v [b, h, n, d] by its (batch, head, row) strides.
+// batch row), and over v [b, h, nk, d] by its (batch, head, row) strides;
+// one block a ROWS query rows of n_pad.
 template <int D, bool BIAS, bool LSE>
 cudaError_t launch_core(const CUtensorMap& q_map, const CUtensorMap& k_map, const void* v, long long v_sb,
                         long long v_sh, long long v_sn, int b, const CoreParams& p, cudaStream_t stream) {
   using S = FwdShape<D, BIAS>;
   CUtensorMap v_map;
-  cudaError_t err = tile_map<D>(&v_map, v, p.n, p.h, b, v_sn, v_sh, v_sb);
+  cudaError_t err = tile_map<D>(&v_map, v, p.nk, p.h, b, v_sn, v_sh, v_sb);
   if (err != cudaSuccess) return err;
   static std::atomic<bool> raised[MAX_DEVICES];
   err = raise_smem_limit(reinterpret_cast<const void*>(attn_core_fwd_kernel<D, BIAS, LSE>), S::SMEM, raised);

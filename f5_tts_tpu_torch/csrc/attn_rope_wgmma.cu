@@ -252,6 +252,8 @@ CoreParams core_params(const Params& p) {
   c.h = p.h;
   c.n = p.n;
   c.n_pad = p.n_pad;
+  c.nk = p.n;
+  c.nk_pad = p.n_pad;
   c.o_sb = p.o_sb; c.o_sh = p.o_sh; c.o_sn = p.o_sn;
   c.scale = p.scale;
   return c;

@@ -117,6 +117,18 @@
 // q, k, v and g are addressed through (batch, head, row) strides, so
 // [b, n, h, d] projection views are read without a transpose copy; the head
 // dim must be contiguous and rows 16-byte aligned.
+//
+// A query block (sequence parallelism in training, as the forward takes it:
+// q, g, out and lse of a slot's n rows of the sequence from row q_off,
+// against k and v [b, h, nk, d] of the whole group): the bf16 kernels at
+// d = 64 and 128 and the 3xTF32 kernels at d = 64. dq, delta and the row
+// stats are n rows, dk and dv nk rows; the pre-passes rotate query row i by
+// table row q_off + i and key row i by row i, and the epilogue's RoPE
+// backward of dq uses the query rows' tables. The dK/dV kernel's grid covers
+// the keys and streams the n query rows, the dQ kernel's the reverse. A
+// slot's dk and dv are its share of the keys' gradient: the caller sums them
+// over the group. The mma.sync and FMA kernels (bf16 d = 256, float32 d = 128
+// and 256) take nk = n and q_off = 0 only: the entry points refuse a block.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -144,14 +156,15 @@ struct Params {
   const T* v;
   const T* g;
   const float2* stats;  // [b, h, n_pad]: (lse, delta) of each query row, (FLT_MAX, 0) past n (the pre-pass)
-  const float* kbias;   // [b, n_pad]: each key's additive bias (the pre-pass)
-  const uint8_t* mask;  // [b, n] or null
-  const float* cos;     // [n, d] or null
-  const float* sin;     // [n, d] or null
+  const float* kbias;   // [b, nk_pad]: each key's additive bias (the pre-pass)
+  const uint8_t* mask;  // [b, nk] or null
+  const float* cos;     // [nk, d] or null
+  const float* sin;     // [nk, d] or null
   float* dq;            // [b, h, n, d], contiguous float32
-  float* dk;
+  float* dk;            // [b, h, nk, d]
   float* dv;
-  int n, n_pad;
+  int n, n_pad;         // the query rows
+  int nk, nk_pad, q_off;  // the keys, and the queries' first table row
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
   long long v_sb, v_sh, v_sn;
@@ -190,17 +203,18 @@ struct BwdParams {
   const __nv_bfloat16* g;
   const __nv_bfloat16* out;
   const float* lse;     // [b, h, n]
-  const uint8_t* mask;  // [b, n] or null
-  const float* cos;     // [n, d] or null
+  const uint8_t* mask;  // [b, nk] or null
+  const float* cos;     // [nk, d] or null
   const float* sin;
-  __nv_bfloat16* qr;    // rope(q), rope(k): [b, h, n, d] contiguous
+  __nv_bfloat16* qr;    // rope(q) [b, h, n, d] and rope(k) [b, h, nk, d], contiguous
   __nv_bfloat16* kr;
   float2* stats;        // [b, h, n_pad]: (lse, delta) of each query row; (FLT_MAX, 0) past n
-  float* kbias;         // [b, n_pad]: each key's additive bias; -FLT_MAX past n
+  float* kbias;         // [b, nk_pad]: each key's additive bias; -FLT_MAX past nk
   __nv_bfloat16* dq;    // [b, h, n, d] contiguous
-  __nv_bfloat16* dk;
+  __nv_bfloat16* dk;    // [b, h, nk, d] contiguous
   __nv_bfloat16* dv;
-  int h, n, n_pad;
+  int h, n, n_pad;        // the query rows
+  int nk, nk_pad, q_off;  // the keys, and the queries' first table row
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
   long long v_sb, v_sh, v_sn;
@@ -222,10 +236,16 @@ __device__ __forceinline__ void copy_rotated_chunk(__nv_bfloat16* dst, const __n
   *reinterpret_cast<uint4*>(dst) = val;
 }
 
-// The pre-pass: one launch over the (b, h, n_pad) rows, D / 8 threads a row.
-// Writes qr = rope(q) and kr = rope(k) once (every main-kernel block used to
-// rotate each tile it read), stats = (lse, rowsum(g * out)) in float32, and
-// from the h = 0 rows each key's bias (0, MASKED, or -FLT_MAX past n).
+// The rows of a (b, h) pair that the pre-pass walks: the query rows' and the
+// keys' padding, whichever is longer.
+__host__ __device__ inline int prepass_rows(const BwdParams& p) { return p.n_pad > p.nk_pad ? p.n_pad : p.nk_pad; }
+
+// The pre-pass: one launch over the (b, h, max(n_pad, nk_pad)) rows, D / 8
+// threads a row (row i is query row i where i < n and key row i where
+// i < nk). Writes qr = rope(q) and kr = rope(k) once (every main-kernel block
+// used to rotate each tile it read), stats = (lse, rowsum(g * out)) in
+// float32, and from the h = 0 rows each key's bias (0, MASKED, or -FLT_MAX
+// past nk).
 template <int D>
 __global__ void __launch_bounds__(256) flash_bwd_prepass_kernel(const BwdParams p, long long rows) {
   constexpr int TPR = D / 8;
@@ -233,15 +253,19 @@ __global__ void __launch_bounds__(256) flash_bwd_prepass_kernel(const BwdParams 
   const long long row = idx / TPR;
   if (row >= rows) return;  // rows is a multiple of ROW_PAD, so whole warps leave together
   const int sub = static_cast<int>(idx % TPR);
-  const long long bh = row / p.n_pad;
-  const int i = static_cast<int>(row % p.n_pad);
+  const int per = prepass_rows(p);
+  const long long bh = row / per;
+  const int i = static_cast<int>(row % per);
   const int b = static_cast<int>(bh / p.h), h = static_cast<int>(bh % p.h);
   const int c = sub * 8;
   float delta = 0.f;
+  if (i < p.nk) {
+    copy_rotated_chunk<D>(p.kr + (bh * p.nk + i) * D + c, p.k + b * p.k_sb + h * p.k_sh + i * p.k_sn + c, p.cos,
+                          p.sin, i, c);
+  }
   if (i < p.n) {
     const long long o = (bh * p.n + i) * D + c;
-    copy_rotated_chunk<D>(p.qr + o, p.q + b * p.q_sb + h * p.q_sh + i * p.q_sn + c, p.cos, p.sin, i, c);
-    copy_rotated_chunk<D>(p.kr + o, p.k + b * p.k_sb + h * p.k_sh + i * p.k_sn + c, p.cos, p.sin, i, c);
+    copy_rotated_chunk<D>(p.qr + o, p.q + b * p.q_sb + h * p.q_sh + i * p.q_sn + c, p.cos, p.sin, i + p.q_off, c);
     const uint4 gv = *reinterpret_cast<const uint4*>(p.g + b * p.g_sb + h * p.g_sh + i * p.g_sn + c);
     const uint4 ov = *reinterpret_cast<const uint4*>(p.out + b * p.o_sb + h * p.o_sh + i * p.o_sn + c);
     const __nv_bfloat162* gx = reinterpret_cast<const __nv_bfloat162*>(&gv);
@@ -255,10 +279,12 @@ __global__ void __launch_bounds__(256) flash_bwd_prepass_kernel(const BwdParams 
 #pragma unroll
   for (int off = TPR / 2; off > 0; off >>= 1) delta += __shfl_xor_sync(0xffffffffu, delta, off);
   if (sub == 0) {
-    p.stats[row] = i < p.n ? make_float2(p.lse[bh * p.n + i], delta) : make_float2(FLT_MAX, 0.f);
-    if (h == 0) {
-      const uint8_t* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(b) * p.n;
-      p.kbias[static_cast<long long>(b) * p.n_pad + i] = key_bias(mask, i, p.n);
+    if (i < p.n_pad) {
+      p.stats[bh * p.n_pad + i] = i < p.n ? make_float2(p.lse[bh * p.n + i], delta) : make_float2(FLT_MAX, 0.f);
+    }
+    if (h == 0 && i < p.nk_pad) {
+      const uint8_t* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(b) * p.nk;
+      p.kbias[static_cast<long long>(b) * p.nk_pad + i] = key_bias(mask, i, p.nk);
     }
   }
 }
@@ -315,10 +341,11 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)
 
 // Store a thread's share of a [64 x D] accumulator (rows row0 + g and
 // row0 + g + 8 of the block's rows) as bf16 rows of a contiguous [n, D]
-// head, with the RoPE backward when tables are given.
+// head, with the RoPE backward when tables are given (row i by table row
+// t_off + i).
 template <int D>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[D / 2], int row0, int n,
-                                          const float* cos, const float* sin) {
+                                          const float* cos, const float* sin, int t_off) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
@@ -328,7 +355,7 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)
     for (int i = 0; i < D / 8; ++i) {
       const int col = 8 * i + 2 * t;
       *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * D + col) =
-          rope_bwd_pair<D>(acc[4 * i + 2 * hi], acc[4 * i + 2 * hi + 1], cos, sin, row, col);
+          rope_bwd_pair<D>(acc[4 * i + 2 * hi], acc[4 * i + 2 * hi + 1], cos, sin, row + t_off, col);
     }
   }
 }
@@ -397,9 +424,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qr_map, const __
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int row0 = wg * 64 + (threadIdx.x / 32 % 4) * 16;  // this warp's first key in the block
-  const float* kbias = p.kbias + static_cast<long long>(b) * p.n_pad + k0 + row0 + g;
+  const float* kbias = p.kbias + static_cast<long long>(b) * p.nk_pad + k0 + row0 + g;
   const float bias[2] = {kbias[0], kbias[8]};  // keys row0 + g and row0 + g + 8
-  const float inv_n = 1.f / p.n;
+  const float inv_n = 1.f / p.nk;
 
   float dk[D / 2], dv[D / 2];
 #pragma unroll
@@ -460,8 +487,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qr_map, const __
     mbar_arrive(&empty[s]);
   }
 
-  store_acc<D>(p.dk + bh * p.n * D, dk, k0 + row0, p.n, p.cos, p.sin);
-  store_acc<D>(p.dv + bh * p.n * D, dv, k0 + row0, p.n, nullptr, nullptr);
+  store_acc<D>(p.dk + bh * p.nk * D, dk, k0 + row0, p.nk, p.cos, p.sin, 0);
+  store_acc<D>(p.dv + bh * p.nk * D, dv, k0 + row0, p.nk, nullptr, nullptr, 0);
 }
 
 // dQ for ROWS queries. The producer loads the block's Q' and g once and then
@@ -491,7 +518,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qr_map, const __gr
   const int q0 = blockIdx.x * W::ROWS;
   const int h = blockIdx.y, b = blockIdx.z;
   const long long bh = static_cast<long long>(b) * p.h + h;
-  const int tiles = (p.n + BM - 1) / BM;
+  const int tiles = (p.nk + BM - 1) / BM;
 
   if (threadIdx.x == 0) {
     mbar_init(own, 1);
@@ -522,7 +549,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qr_map, const __gr
           tma_load_4d(st + pn * W::PANEL, &kr_map, &full[s], pn * 64, it * BM, h, b);
           tma_load_4d(st + W::TILE + pn * W::PANEL, &v_map, &full[s], pn * 64, it * BM, h, b);
         }
-        bulk_load(st + 2 * W::TILE, p.kbias + static_cast<long long>(b) * p.n_pad + it * BM, BM * 4, &full[s]);
+        bulk_load(st + 2 * W::TILE, p.kbias + static_cast<long long>(b) * p.nk_pad + it * BM, BM * 4, &full[s]);
       }
     }
     return;
@@ -533,7 +560,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qr_map, const __gr
   const int row0 = wg * 64 + (threadIdx.x / 32 % 4) * 16;  // this warp's first query in the block
   const float2* stats = p.stats + bh * p.n_pad + q0 + row0 + g;
   const float2 sd[2] = {stats[0], stats[8]};  // rows row0 + g and row0 + g + 8
-  const float inv_n = 1.f / p.n;
+  const float inv_n = 1.f / p.nk;
 
   float dq[D / 2];
 #pragma unroll
@@ -587,7 +614,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qr_map, const __gr
     mbar_arrive(&empty[s]);
   }
 
-  store_acc<D>(p.dq + bh * p.n * D, dq, q0 + row0, p.n, p.cos, p.sin);
+  store_acc<D>(p.dq + bh * p.n * D, dq, q0 + row0, p.n, p.cos, p.sin, p.q_off);
 }
 
 // A 4-d tensor map of a [b, h, n, D] bf16 tensor with (batch, head, row)
@@ -606,11 +633,11 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int b, int h, int n, lo
 template <int D>
 cudaError_t launch_wgmma(const BwdParams& p, int b, cudaStream_t stream) {
   using W = WShape<D>;
-  const long long hn = static_cast<long long>(p.n) * D;
+  const long long hq = static_cast<long long>(p.n) * D, hk = static_cast<long long>(p.nk) * D;
   CUtensorMap qr_map, kr_map, v_map, g_map;
-  cudaError_t err = head_map<D>(&qr_map, p.qr, b, p.h, p.n, p.h * hn, hn, D);
-  if (err == cudaSuccess) err = head_map<D>(&kr_map, p.kr, b, p.h, p.n, p.h * hn, hn, D);
-  if (err == cudaSuccess) err = head_map<D>(&v_map, p.v, b, p.h, p.n, p.v_sb, p.v_sh, p.v_sn);
+  cudaError_t err = head_map<D>(&qr_map, p.qr, b, p.h, p.n, p.h * hq, hq, D);
+  if (err == cudaSuccess) err = head_map<D>(&kr_map, p.kr, b, p.h, p.nk, p.h * hk, hk, D);
+  if (err == cudaSuccess) err = head_map<D>(&v_map, p.v, b, p.h, p.nk, p.v_sb, p.v_sh, p.v_sn);
   if (err == cudaSuccess) err = head_map<D>(&g_map, p.g, b, p.h, p.n, p.g_sb, p.g_sh, p.g_sn);
   if (err != cudaSuccess) return err;
   static std::atomic<bool> dkdv_raised[MAX_DEVICES], dq_raised[MAX_DEVICES];
@@ -619,11 +646,11 @@ cudaError_t launch_wgmma(const BwdParams& p, int b, cudaStream_t stream) {
     err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel<D>), W::SMEM, dq_raised);
   }
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.n + W::ROWS - 1) / W::ROWS, p.h, b);
-  flash_bwd_dkdv_wgmma_kernel<D><<<grid, W::THREADS, W::SMEM, stream>>>(qr_map, kr_map, v_map, g_map, p);
+  const dim3 keys((p.nk + W::ROWS - 1) / W::ROWS, p.h, b), queries((p.n + W::ROWS - 1) / W::ROWS, p.h, b);
+  flash_bwd_dkdv_wgmma_kernel<D><<<keys, W::THREADS, W::SMEM, stream>>>(qr_map, kr_map, v_map, g_map, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_wgmma_kernel<D><<<grid, W::THREADS, W::SMEM, stream>>>(qr_map, kr_map, v_map, g_map, p);
+  flash_bwd_dq_wgmma_kernel<D><<<queries, W::THREADS, W::SMEM, stream>>>(qr_map, kr_map, v_map, g_map, p);
   return cudaGetLastError();
 }
 
@@ -885,7 +912,7 @@ cudaError_t launch_mma(const BwdParams& p, int b, cudaStream_t stream) {
 // and 128, the mma.sync pair at d = 256 (chosen by d, see above).
 template <int D>
 cudaError_t launch(const BwdParams& p, int b, cudaStream_t stream) {
-  const long long rows = static_cast<long long>(b) * p.h * p.n_pad;
+  const long long rows = static_cast<long long>(b) * p.h * prepass_rows(p);
   const long long threads = rows * (D / 8);
   flash_bwd_prepass_kernel<D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(p, rows);
   const cudaError_t err = cudaGetLastError();
@@ -1176,11 +1203,11 @@ __device__ __forceinline__ void tc_refill(unsigned char* st, uint64_t* full, con
 
 // Store a warp's share of a [64 x 64] float32 accumulator (rows row0 + g and
 // row0 + g + 8 of a contiguous [n, 64] head), with the RoPE backward when
-// tables are given: dx[2j] = dx'[2j] c[2j] + dx'[2j+1] s[2j+1],
-// dx[2j+1] = dx'[2j+1] c[2j+1] - dx'[2j] s[2j], each product and sum rounded
-// once, as the plain version.
+// tables are given (row i by table row t_off + i): dx[2j] = dx'[2j] c[2j] +
+// dx'[2j+1] s[2j+1], dx[2j+1] = dx'[2j+1] c[2j+1] - dx'[2j] s[2j], each
+// product and sum rounded once, as the plain version.
 __device__ __forceinline__ void tc_store(float* out, const float (&acc)[32], int row0, int n, const float* cos,
-                                         const float* sin) {
+                                         const float* sin, int t_off) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
@@ -1192,7 +1219,8 @@ __device__ __forceinline__ void tc_store(float* out, const float (&acc)[32], int
       const long long o = static_cast<long long>(row) * TC_D + col;
       float x0 = acc[4 * nb + 2 * hi], x1 = acc[4 * nb + 2 * hi + 1];
       if (cos != nullptr) {
-        const float2 c = *reinterpret_cast<const float2*>(cos + o), sn = *reinterpret_cast<const float2*>(sin + o);
+        const long long ot = static_cast<long long>(row + t_off) * TC_D + col;
+        const float2 c = *reinterpret_cast<const float2*>(cos + ot), sn = *reinterpret_cast<const float2*>(sin + ot);
         const float y0 = __fadd_rn(__fmul_rn(x0, c.x), __fmul_rn(x1, sn.y));
         const float y1 = __fsub_rn(__fmul_rn(x1, c.y), __fmul_rn(x0, sn.x));
         x0 = y0;
@@ -1245,7 +1273,7 @@ flash_bwd_dkdv_f32_tc_kernel(const __grid_constant__ CUtensorMap qh_map, const _
   const int k0 = blockIdx.x * S::ROWS;
   const int h = blockIdx.y, b = blockIdx.z;
   const long long bh = static_cast<long long>(b) * gridDim.y + h;
-  const int tiles = (p.n + TC_BM - 1) / TC_BM;
+  const int tiles = (p.n + TC_BM - 1) / TC_BM;  // query tiles
   const int split = threadIdx.x / 128;  // this warpgroup takes tiles split, split + 2, ... into stage split
   unsigned char* st = smem + 4 * S::OWN + split * S::STAGE;  // Q' hi, Q' lo, g hi, g lo, row stats
   // the maps stay in parameter space, where TMA reads them
@@ -1260,9 +1288,9 @@ flash_bwd_dkdv_f32_tc_kernel(const __grid_constant__ CUtensorMap qh_map, const _
 
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int row0 = (threadIdx.x / 32 % 4) * 16;  // this warp's first key in the block
-  const float* kbias = p.kbias + static_cast<long long>(b) * p.n_pad + k0 + row0 + g;
+  const float* kbias = p.kbias + static_cast<long long>(b) * p.nk_pad + k0 + row0 + g;
   const float bias[2] = {kbias[0], kbias[8]};  // keys row0 + g and row0 + g + 8
-  const float inv_n = 1.f / p.n;
+  const float inv_n = 1.f / p.nk;
 
   float dk[32], dv[32];
 #pragma unroll
@@ -1304,8 +1332,8 @@ flash_bwd_dkdv_f32_tc_kernel(const __grid_constant__ CUtensorMap qh_map, const _
   tc_sum_split(smem, dk, 0);
   tc_sum_split(smem, dv, 1);
   if (split == 0) {
-    tc_store(p.dk + bh * p.n * TC_D, dk, k0 + row0, p.n, p.cos, p.sin);
-    tc_store(p.dv + bh * p.n * TC_D, dv, k0 + row0, p.n, nullptr, nullptr);
+    tc_store(p.dk + bh * p.nk * TC_D, dk, k0 + row0, p.nk, p.cos, p.sin, 0);
+    tc_store(p.dv + bh * p.nk * TC_D, dv, k0 + row0, p.nk, nullptr, nullptr, 0);
   }
 }
 
@@ -1327,11 +1355,11 @@ flash_bwd_dq_f32_tc_kernel(const __grid_constant__ CUtensorMap qh_map, const __g
   const int q0 = blockIdx.x * S::ROWS;
   const int h = blockIdx.y, b = blockIdx.z;
   const long long bh = static_cast<long long>(b) * gridDim.y + h;
-  const int tiles = (p.n + TC_BM - 1) / TC_BM;
+  const int tiles = (p.nk + TC_BM - 1) / TC_BM;  // key tiles
   const int split = threadIdx.x / 128;  // this warpgroup takes tiles split, split + 2, ... into stage split
   unsigned char* st = smem + 4 * S::OWN + split * S::STAGE;  // K' hi, K' lo, V hi, V lo, key biases
   const CUtensorMap* const streamed[4] = {&kh_map, &kl_map, &vh_map, &vl_map};
-  const unsigned char* bias_src = reinterpret_cast<const unsigned char*>(p.kbias + static_cast<long long>(b) * p.n_pad);
+  const unsigned char* bias_src = reinterpret_cast<const unsigned char*>(p.kbias + static_cast<long long>(b) * p.nk_pad);
   tc_init_barriers(own, full);
   if (threadIdx.x == 0) {
     const CUtensorMap* const owned[4] = {&qh_map, &ql_map, &gh_map, &gl_map};
@@ -1343,7 +1371,7 @@ flash_bwd_dq_f32_tc_kernel(const __grid_constant__ CUtensorMap qh_map, const __g
   const int row0 = (threadIdx.x / 32 % 4) * 16;  // this warp's first query in the block
   const float2* rs = p.stats + bh * p.n_pad + q0 + row0 + g;
   const float2 sd[2] = {rs[0], rs[8]};  // rows row0 + g and row0 + g + 8
-  const float inv_n = 1.f / p.n;
+  const float inv_n = 1.f / p.nk;
 
   float dq[32];
 #pragma unroll
@@ -1380,14 +1408,16 @@ flash_bwd_dq_f32_tc_kernel(const __grid_constant__ CUtensorMap qh_map, const __g
   }
 
   tc_sum_split(smem, dq, 0);
-  if (split == 0) tc_store(p.dq + bh * p.n * TC_D, dq, q0 + row0, p.n, p.cos, p.sin);
+  if (split == 0) tc_store(p.dq + bh * p.n * TC_D, dq, q0 + row0, p.n, p.cos, p.sin, p.q_off);
 }
 
 cudaError_t launch_f32_tc(const Params<float>& p, const TcPrep& pp, int b, int h, cudaStream_t stream) {
   CUtensorMap maps[8];
   const float* halves[8] = {pp.qh, pp.ql, pp.kh, pp.kl, pp.vh, pp.vl, pp.gh, pp.gl};
   cudaError_t err = cudaSuccess;
-  for (int i = 0; i < 8 && err == cudaSuccess; ++i) err = tc_head_map(&maps[i], halves[i], b, h, p.n);
+  for (int i = 0; i < 8 && err == cudaSuccess; ++i) {
+    err = tc_head_map(&maps[i], halves[i], b, h, i < 2 || i >= 6 ? p.n : p.nk);  // q' and g: the query rows
+  }
   if (err != cudaSuccess) return err;
   static std::atomic<bool> dkdv_raised[MAX_DEVICES], dq_raised[MAX_DEVICES];
   err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dkdv_f32_tc_kernel), BwdTc::SMEM, dkdv_raised);
@@ -1395,12 +1425,13 @@ cudaError_t launch_f32_tc(const Params<float>& p, const TcPrep& pp, int b, int h
     err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dq_f32_tc_kernel), BwdTc::SMEM, dq_raised);
   }
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.n + BwdTc::ROWS - 1) / BwdTc::ROWS, h, b);
-  flash_bwd_dkdv_f32_tc_kernel<<<grid, BWD_TC_THREADS, BwdTc::SMEM, stream>>>(maps[0], maps[1], maps[2], maps[3],
+  const dim3 keys((p.nk + BwdTc::ROWS - 1) / BwdTc::ROWS, h, b);
+  const dim3 queries((p.n + BwdTc::ROWS - 1) / BwdTc::ROWS, h, b);
+  flash_bwd_dkdv_f32_tc_kernel<<<keys, BWD_TC_THREADS, BwdTc::SMEM, stream>>>(maps[0], maps[1], maps[2], maps[3],
                                                                               maps[4], maps[5], maps[6], maps[7], p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_f32_tc_kernel<<<grid, BWD_TC_THREADS, BwdTc::SMEM, stream>>>(maps[0], maps[1], maps[2], maps[3],
+  flash_bwd_dq_f32_tc_kernel<<<queries, BWD_TC_THREADS, BwdTc::SMEM, stream>>>(maps[0], maps[1], maps[2], maps[3],
                                                                             maps[4], maps[5], maps[6], maps[7], p);
   return cudaGetLastError();
 }
@@ -1427,16 +1458,19 @@ cudaError_t launch_f32_all(Params<float>& p, TcPrep& pp, float* scratch, int b, 
 extern "C" {
 
 // Returns the cudaError_t of the launches (0 on success). The bf16 backward:
-// q, k, v, g and out are [b, h, n, d] with (batch, head, row) strides in
-// elements in `strides` (q, k, v, g, out in turn) and a contiguous head dim;
-// lse is contiguous float32 [b, h, n]. Scratch the caller allocates: qr and
-// kr bf16 [b, h, n, d], stats float32 [b, h, n_pad, 2] and kbias float32
-// [b, n_pad], n_pad = n rounded up to a multiple of 128. dq, dk, dv are
-// contiguous bf16 [b, h, n, d].
+// q, g and out are [b, h, n, d], k and v [b, h, nk, d], with (batch, head,
+// row) strides in elements in `strides` (q, k, v, g, out in turn) and a
+// contiguous head dim; lse is contiguous float32 [b, h, n], the mask
+// [b, nk], the tables [nk, d] (query row i takes row q_off + i, with
+// q_off + n <= nk). Scratch the caller allocates: qr bf16 [b, h, n, d], kr
+// bf16 [b, h, nk, d], stats float32 [b, h, n_pad, 2] and kbias float32
+// [b, nk_pad], n_pad and nk_pad = n and nk rounded up to a multiple of 128.
+// dq is contiguous bf16 [b, h, n, d], dk and dv [b, h, nk, d]. At d = 256,
+// nk = n and q_off = 0.
 int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const void* g, const void* out,
                            const void* lse, const void* mask, const void* cos, const void* sin, void* qr, void* kr,
-                           void* stats, void* kbias, void* dq, void* dk, void* dv, int b, int h, int n, int d,
-                           const long long* strides, float scale, void* stream) {
+                           void* stats, void* kbias, void* dq, void* dk, void* dv, int b, int h, int n, int nk,
+                           int q_off, int d, const long long* strides, float scale, void* stream) {
   BwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -1457,6 +1491,9 @@ int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
   p.h = h;
   p.n = n;
   p.n_pad = (n + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
+  p.nk = nk;
+  p.nk_pad = (nk + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
+  p.q_off = q_off;
   p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_sn = strides[2];
   p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_sn = strides[5];
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_sn = strides[8];
@@ -1464,6 +1501,9 @@ int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
   p.o_sb = strides[12]; p.o_sh = strides[13]; p.o_sn = strides[14];
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || nk < 1 || q_off < 0 || (cos != nullptr && q_off + n > nk) || (d == 256 && (nk != n || q_off != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (d) {
     case 64: return static_cast<int>(launch<64>(p, b, s));
     case 128: return static_cast<int>(launch<128>(p, b, s));
@@ -1473,16 +1513,15 @@ int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
 }
 
 // The float32 kernels. Returns the cudaError_t of the launches (0 on
-// success). q, k, v, g and out are [b, h, n, d] with (batch, head, row)
-// strides in elements in `strides` (q, k, v, g, out in turn) and a contiguous
-// head dim; lse is contiguous float32 [b, h, n]; `scratch` is the pre-pass's
-// float32 scratch (`tc_carve`, csrc/tf32.cuh: the row stats, key biases
-// and, at d = 64, the TF32 halves); dq, dk, dv are
-// contiguous float32 [b, h, n, d].
+// success). The shapes, strides and tables of f5_flash_attention_bwd; a
+// query block (nk != n or q_off != 0) at d = 64 only. `scratch` is the
+// pre-pass's float32 scratch (`tc_carve`, csrc/tf32.cuh: the row stats, key
+// biases and, at d = 64, the TF32 halves); dq is contiguous float32
+// [b, h, n, d], dk and dv [b, h, nk, d].
 int f5_flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* g, const void* out,
                                const void* lse, const void* mask, const void* cos, const void* sin, void* scratch,
-                               void* dq, void* dk, void* dv, int b, int h, int n, int d, const long long* strides,
-                               float scale, void* stream) {
+                               void* dq, void* dk, void* dv, int b, int h, int n, int nk, int q_off, int d,
+                               const long long* strides, float scale, void* stream) {
   Params<float> p{};
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -1496,6 +1535,9 @@ int f5_flash_attention_bwd_f32(const void* q, const void* k, const void* v, cons
   p.dv = static_cast<float*>(dv);
   p.n = n;
   p.n_pad = align_up(n, TC_ROW_PAD);
+  p.nk = nk;
+  p.nk_pad = align_up(nk, TC_ROW_PAD);
+  p.q_off = q_off;
   p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_sn = strides[2];
   p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_sn = strides[5];
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_sn = strides[8];
@@ -1514,6 +1556,9 @@ int f5_flash_attention_bwd_f32(const void* q, const void* k, const void* v, cons
   pp.h = h;
   pp.n = n;
   pp.n_pad = p.n_pad;
+  pp.nk = nk;
+  pp.nk_pad = p.nk_pad;
+  pp.q_off = q_off;
   pp.q_sb = p.q_sb; pp.q_sh = p.q_sh; pp.q_sn = p.q_sn;
   pp.k_sb = p.k_sb; pp.k_sh = p.k_sh; pp.k_sn = p.k_sn;
   pp.v_sb = p.v_sb; pp.v_sh = p.v_sh; pp.v_sn = p.v_sn;
@@ -1521,6 +1566,9 @@ int f5_flash_attention_bwd_f32(const void* q, const void* k, const void* v, cons
   pp.o_sb = strides[12]; pp.o_sh = strides[13]; pp.o_sn = strides[14];
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || nk < 1 || q_off < 0 || (cos != nullptr && q_off + n > nk) || (d != TC_D && (nk != n || q_off != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (d) {
     case 64: return static_cast<int>(launch_f32_all<64>(p, pp, sc, b, h, s));
     case 128: return static_cast<int>(launch_f32_all<128>(p, pp, sc, b, h, s));

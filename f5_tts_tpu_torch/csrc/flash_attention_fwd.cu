@@ -84,6 +84,16 @@
 // null: the backward (flash_attention_bwd.cu) recomputes P = exp(s - lse)
 // from it instead of rescanning a whole row of keys.
 //
+// A query block (sequence parallelism in training: a slot's n rows of the
+// sequence, from row q_off, against all nk keys its group gathered): the
+// bf16 pre-pass + core at d = 64 and 128 and the float32 3xTF32 kernel at
+// d = 64 take q [b, h, n, d] against k and v [b, h, nk, d], a key mask
+// [b, nk] and tables [nk, d], whose rows q_off .. q_off + n - 1 rotate the
+// queries and rows 0 .. nk - 1 the keys. Only the pre-passes know the
+// offset; the query grid, the scratch rows and the lse cover n, the key loop
+// and the key biases nk. The other kernels (bf16 d = 256, float32 d = 128
+// and 256) take n = nk and q_off = 0 only: their entry points refuse a block.
+//
 // The Python wrapper raises ValueError for any dtype but bf16 and float32.
 
 #include <cuda_bf16.h>
@@ -289,31 +299,33 @@ constexpr int PRE_HEADS = 4;  // heads a pre-pass thread rotates with its chunk 
 struct PrepassParams {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
-  const uint8_t* mask;  // [b, n] or null
-  const float* cos;     // [n, d] or null
+  const uint8_t* mask;  // [b, nk] or null
+  const float* cos;     // [nk, d] or null: key row i takes row i, query row i row q_off + i
   const float* sin;
-  __nv_bfloat16* rot;   // [2, b * h, n_pad, d] (rope(q), then rope(k)), written when cos is not null
-  float* kbias;         // [b, n_pad], written when mask is not null
-  int b, h, n, n_pad;
+  __nv_bfloat16* rot;   // rope(q) [b * h, n_pad, d], then rope(k) [b * h, nk_pad, d]; written when cos is not null
+  float* kbias;         // [b, nk_pad], written when mask is not null
+  int b, h, n, n_pad;   // the query rows
+  int nk, nk_pad, q_off;  // the keys, and the queries' first table row
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
 };
 
-// One thread per 16-byte chunk of a scratch row (grid x over n_pad * D / 8
-// chunks) and PRE_HEADS heads (grid y); the heads' q and k chunks are loaded
-// before any is rotated, so eight loads are in flight a thread. The first
-// row of blocks also writes the key biases of its rows.
+// One thread per 16-byte chunk of a scratch row (grid x over
+// max(n_pad, nk_pad) * D / 8 chunks) and PRE_HEADS heads (grid y); the heads'
+// q and k chunks are loaded before any is rotated, so eight loads are in
+// flight a thread. The first row of blocks also writes the key biases of its
+// rows. Without an offset a row's tables serve both its query and its key.
 template <int D>
 __global__ void __launch_bounds__(PRE_THREADS) flash_fwd_prepass_kernel(const PrepassParams p) {
   constexpr int CH = D / 8;
   const int i = blockIdx.x * PRE_THREADS + threadIdx.x;
   const int row = i / CH, c = (i % CH) * 8;
-  if (row >= p.n_pad) return;
-  const bool valid = row < p.n;
-  if (p.kbias != nullptr && blockIdx.y == 0 && c == 0) {
+  if (row >= max(p.n_pad, p.nk_pad)) return;
+  const bool q_valid = row < p.n, k_valid = row < p.nk;
+  if (p.kbias != nullptr && blockIdx.y == 0 && c == 0 && row < p.nk_pad) {
     for (int b = 0; b < p.b; ++b) {
-      p.kbias[static_cast<long long>(b) * p.n_pad + row] =
-          valid && p.mask[static_cast<long long>(b) * p.n + row] ? 0.f : MASKED;
+      p.kbias[static_cast<long long>(b) * p.nk_pad + row] =
+          k_valid && p.mask[static_cast<long long>(b) * p.nk + row] ? 0.f : MASKED;
     }
   }
   if (p.cos == nullptr) return;
@@ -323,23 +335,36 @@ __global__ void __launch_bounds__(PRE_THREADS) flash_fwd_prepass_kernel(const Pr
   for (int j = 0; j < PRE_HEADS; ++j) {
     const int head = blockIdx.y * PRE_HEADS + j;
     x[2 * j] = x[2 * j + 1] = make_uint4(0u, 0u, 0u, 0u);
-    if (valid && head < bh) {
+    if (head < bh) {
       const int b = head / p.h, h = head % p.h;
-      x[2 * j] = *reinterpret_cast<const uint4*>(p.q + b * p.q_sb + h * p.q_sh + row * p.q_sn + c);
-      x[2 * j + 1] = *reinterpret_cast<const uint4*>(p.k + b * p.k_sb + h * p.k_sh + row * p.k_sn + c);
+      if (q_valid) x[2 * j] = *reinterpret_cast<const uint4*>(p.q + b * p.q_sb + h * p.q_sh + row * p.q_sn + c);
+      if (k_valid) x[2 * j + 1] = *reinterpret_cast<const uint4*>(p.k + b * p.k_sb + h * p.k_sh + row * p.k_sn + c);
     }
   }
-  uint4 cs = make_uint4(0u, 0u, 0u, 0u), sn = cs;  // the chunk's tables as bf16 pairs; zero past n
-  if (valid) {
-    cs = table_chunk_bf16<D>(p.cos, row, c);
-    sn = table_chunk_bf16<D>(p.sin, row, c);
+  // the chunk's tables as bf16 pairs, zero past the rows (zero rows stay zero)
+  uint4 kc = make_uint4(0u, 0u, 0u, 0u), ks = kc, qc = kc, qs = kc;
+  if (k_valid) {
+    kc = table_chunk_bf16<D>(p.cos, row, c);
+    ks = table_chunk_bf16<D>(p.sin, row, c);
   }
+  if (p.q_off == 0) {  // q_off + n <= nk: a valid query row is a valid key row
+    qc = kc;
+    qs = ks;
+  } else if (q_valid) {
+    qc = table_chunk_bf16<D>(p.cos, row + p.q_off, c);
+    qs = table_chunk_bf16<D>(p.sin, row + p.q_off, c);
+  }
+  __nv_bfloat16* rot_k = p.rot + static_cast<long long>(bh) * p.n_pad * D;
 #pragma unroll
   for (int j = 0; j < 2 * PRE_HEADS; ++j) {
     const int head = blockIdx.y * PRE_HEADS + j / 2;
-    if (head < bh) {
-      *reinterpret_cast<uint4*>(p.rot + (static_cast<long long>((j % 2) * bh + head) * p.n_pad + row) * D + c) =
-          rope_chunk_bf16(x[j], cs, sn);
+    if (head >= bh) continue;
+    if (j % 2 == 0 && row < p.n_pad) {
+      *reinterpret_cast<uint4*>(p.rot + (static_cast<long long>(head) * p.n_pad + row) * D + c) =
+          rope_chunk_bf16(x[j], qc, qs);
+    } else if (j % 2 == 1 && row < p.nk_pad) {
+      *reinterpret_cast<uint4*>(rot_k + (static_cast<long long>(head) * p.nk_pad + row) * D + c) =
+          rope_chunk_bf16(x[j], kc, ks);
     }
   }
 }
@@ -347,15 +372,16 @@ __global__ void __launch_bounds__(PRE_THREADS) flash_fwd_prepass_kernel(const Pr
 template <int D>
 cudaError_t launch_fwd_prepass(const PrepassParams& p, cudaStream_t stream) {
   const int bh = p.b * p.h;
-  const dim3 grid(p.n_pad * (D / 8) / PRE_THREADS, p.cos == nullptr ? 1 : (bh + PRE_HEADS - 1) / PRE_HEADS);
+  const dim3 grid((p.n_pad > p.nk_pad ? p.n_pad : p.nk_pad) * (D / 8) / PRE_THREADS,
+                  p.cos == nullptr ? 1 : (bh + PRE_HEADS - 1) / PRE_HEADS);
   flash_fwd_prepass_kernel<D><<<grid, PRE_THREADS, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 // The pre-pass (when there is a rotation or a mask), then the core: over the
-// scratch's halves, each a contiguous [b, h, n_pad, d], or over q and k in
-// place (rows past n arrive as TMA's zero fill); with the key biases when
-// there is a mask, and writing the lse when asked.
+// scratch's parts, contiguous [b, h, n_pad, d] and [b, h, nk_pad, d], or over
+// q and k in place (rows past n or nk arrive as TMA's zero fill); with the
+// key biases when there is a mask, and writing the lse when asked.
 template <int D>
 cudaError_t launch_core_fwd(const PrepassParams& pp, const void* v, long long v_sb, long long v_sh, long long v_sn,
                             const CoreParams& c, cudaStream_t stream) {
@@ -364,12 +390,14 @@ cudaError_t launch_core_fwd(const PrepassParams& pp, const void* v, long long v_
   if (err != cudaSuccess) return err;
   CUtensorMap q_map, k_map;
   if (pp.cos != nullptr) {
-    const long long hn = static_cast<long long>(pp.n_pad) * D;
-    err = tile_map<D>(&q_map, pp.rot, pp.n_pad, pp.h, pp.b, D, hn, pp.h * hn);
-    if (err == cudaSuccess) err = tile_map<D>(&k_map, pp.rot + pp.b * pp.h * hn, pp.n_pad, pp.h, pp.b, D, hn, pp.h * hn);
+    const long long hq = static_cast<long long>(pp.n_pad) * D, hk = static_cast<long long>(pp.nk_pad) * D;
+    err = tile_map<D>(&q_map, pp.rot, pp.n_pad, pp.h, pp.b, D, hq, pp.h * hq);
+    if (err == cudaSuccess) {
+      err = tile_map<D>(&k_map, pp.rot + pp.b * pp.h * hq, pp.nk_pad, pp.h, pp.b, D, hk, pp.h * hk);
+    }
   } else {
     err = tile_map<D>(&q_map, pp.q, pp.n, pp.h, pp.b, pp.q_sn, pp.q_sh, pp.q_sb);
-    if (err == cudaSuccess) err = tile_map<D>(&k_map, pp.k, pp.n, pp.h, pp.b, pp.k_sn, pp.k_sh, pp.k_sb);
+    if (err == cudaSuccess) err = tile_map<D>(&k_map, pp.k, pp.nk, pp.h, pp.b, pp.k_sn, pp.k_sh, pp.k_sb);
   }
   if (err != cudaSuccess) return err;
   const bool bias = pp.mask != nullptr, lse = c.lse != nullptr;
@@ -379,8 +407,9 @@ cudaError_t launch_core_fwd(const PrepassParams& pp, const void* v, long long v_
 }
 
 PrepassParams prepass_params(const void* q, const void* k, const void* mask, const void* cos, const void* sin,
-                             void* rot, void* kbias, int b, int h, int n, int n_pad, long long q_sb,
-                             long long q_sh, long long q_sn, long long k_sb, long long k_sh, long long k_sn) {
+                             void* rot, void* kbias, int b, int h, int n, int nk, int n_pad, int nk_pad, int q_off,
+                             long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
+                             long long k_sn) {
   PrepassParams p{};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -393,16 +422,22 @@ PrepassParams prepass_params(const void* q, const void* k, const void* mask, con
   p.h = h;
   p.n = n;
   p.n_pad = n_pad;
+  p.nk = nk;
+  p.nk_pad = nk_pad;
+  p.q_off = q_off;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
   return p;
 }
 
-// The scratch the pre-pass writes must be there for what it writes, and
-// n_pad the rows the core's blocks cover.
+// The scratch the pre-pass writes must be there for what it writes, n_pad
+// and nk_pad the rows the core's blocks and key tiles cover, and the tables
+// must hold the query block's rows.
 bool core_args_ok(const PrepassParams& p) {
-  return p.b >= 1 && p.h >= 1 && p.n >= 1 && p.n_pad >= p.n && p.n_pad % ROW_PAD == 0 &&
-         (p.cos == nullptr || p.rot != nullptr) && (p.mask == nullptr || p.kbias != nullptr);
+  return p.b >= 1 && p.h >= 1 && p.n >= 1 && p.nk >= 1 && p.n_pad >= p.n && p.n_pad % ROW_PAD == 0 &&
+         p.nk_pad >= p.nk && p.nk_pad % ROW_PAD == 0 && p.q_off >= 0 &&
+         (p.cos == nullptr || (p.rot != nullptr && p.q_off + p.n <= p.nk)) &&
+         (p.mask == nullptr || p.kbias != nullptr);
 }
 
 // ---------------------------------------------------------------- float32
@@ -413,10 +448,11 @@ struct ParamsF32 {
   const float* v;
   float* o;
   float* lse;           // [b, h, n] or null
-  const uint8_t* mask;  // [b, n] or null
-  const float* cos;     // [n, d] or null
-  const float* sin;     // [n, d] or null
-  int n;
+  const uint8_t* mask;  // [b, nk] or null
+  const float* cos;     // [nk, d] or null
+  const float* sin;     // [nk, d] or null
+  int n;                // the query rows
+  int nk, q_off;        // the keys, and the queries' first table row (nk = n, q_off = 0 but at d = 64)
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
   long long v_sb, v_sh, v_sn;
@@ -435,7 +471,7 @@ __global__ void __launch_bounds__(FwdTc::THREADS, 1)
 flash_fwd_f32_tc_kernel(const __grid_constant__ CUtensorMap qh_map, const __grid_constant__ CUtensorMap ql_map,
                         const __grid_constant__ CUtensorMap kh_map, const __grid_constant__ CUtensorMap kl_map,
                         const __grid_constant__ CUtensorMap vh_map, const __grid_constant__ CUtensorMap vl_map,
-                        const ParamsF32 p, const float* kbias, int n_pad) {
+                        const ParamsF32 p, const float* kbias, int nk_pad) {
   using S = FwdTc;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -449,7 +485,7 @@ flash_fwd_f32_tc_kernel(const __grid_constant__ CUtensorMap qh_map, const __grid
 
   const int q0 = blockIdx.x * S::ROWS;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int tiles = (p.n + TC_BM - 1) / TC_BM;
+  const int tiles = (p.nk + TC_BM - 1) / TC_BM;
 
   if (threadIdx.x == 0) {
     mbar_init(own, 1);
@@ -483,7 +519,7 @@ flash_fwd_f32_tc_kernel(const __grid_constant__ CUtensorMap qh_map, const __grid
           tma_load_4d(st + 2 * S::TILE + off, &vh_map, &full[s], pn * 32, it * TC_BM, h, b);
           tma_load_4d(st + 3 * S::TILE + off, &vl_map, &full[s], pn * 32, it * TC_BM, h, b);
         }
-        bulk_load(st + 4 * S::TILE, kbias + static_cast<long long>(b) * n_pad + it * TC_BM, TC_BM * 4, &full[s]);
+        bulk_load(st + 4 * S::TILE, kbias + static_cast<long long>(b) * nk_pad + it * TC_BM, TC_BM * 4, &full[s]);
       }
     }
     return;
@@ -580,6 +616,9 @@ cudaError_t launch_f32_tc(const ParamsF32& p, float* scratch, int b, int h, cuda
   pp.h = h;
   pp.n = p.n;
   pp.n_pad = align_up(p.n, TC_ROW_PAD);
+  pp.nk = p.nk;
+  pp.nk_pad = align_up(p.nk, TC_ROW_PAD);
+  pp.q_off = p.q_off;
   pp.q_sb = p.q_sb; pp.q_sh = p.q_sh; pp.q_sn = p.q_sn;
   pp.k_sb = p.k_sb; pp.k_sh = p.k_sh; pp.k_sn = p.k_sn;
   pp.v_sb = p.v_sb; pp.v_sh = p.v_sh; pp.v_sn = p.v_sn;
@@ -588,14 +627,14 @@ cudaError_t launch_f32_tc(const ParamsF32& p, float* scratch, int b, int h, cuda
   if (err != cudaSuccess) return err;
   CUtensorMap maps[6];
   float* halves[6] = {pp.qh, pp.ql, pp.kh, pp.kl, pp.vh, pp.vl};
-  for (int i = 0; i < 6 && err == cudaSuccess; ++i) err = tc_head_map(&maps[i], halves[i], b, h, p.n);
+  for (int i = 0; i < 6 && err == cudaSuccess; ++i) err = tc_head_map(&maps[i], halves[i], b, h, i < 2 ? p.n : p.nk);
   if (err != cudaSuccess) return err;
   static std::atomic<bool> raised[MAX_DEVICES];
   err = raise_smem_limit(reinterpret_cast<const void*>(flash_fwd_f32_tc_kernel), FwdTc::SMEM, raised);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.n + FwdTc::ROWS - 1) / FwdTc::ROWS, h, b);
   flash_fwd_f32_tc_kernel<<<grid, FwdTc::THREADS, FwdTc::SMEM, stream>>>(maps[0], maps[1], maps[2], maps[3],
-                                                                         maps[4], maps[5], p, pp.kbias, pp.n_pad);
+                                                                         maps[4], maps[5], p, pp.kbias, pp.nk_pad);
   return cudaGetLastError();
 }
 
@@ -776,21 +815,24 @@ int f5_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // bf16 at d = 64 and 128: the pre-pass into `rot` (with cos) and `kbias`
-// (with a mask), then the core. q, k, v and o [b, h, n, d] by (batch, head,
-// row) strides in elements, the head dim contiguous, strides multiples of 8
-// and the tensors 16-byte aligned, v without a zero stride (q and k too
-// without cos: the core reads them through tensor maps); rot
-// [2, b * h, n_pad, d] bf16, kbias [b, n_pad] float32 (16-byte aligned),
-// n_pad a multiple of 128; lse [b, h, n] or null. The tensors on `device`,
-// the stream one of its streams. Returns the cudaError_t (0 on success).
+// (with a mask), then the core. q and o [b, h, n, d], k and v [b, h, nk, d]
+// by (batch, head, row) strides in elements, the head dim contiguous,
+// strides multiples of 8 and the tensors 16-byte aligned, v without a zero
+// stride (q and k too without cos: the core reads them through tensor maps);
+// mask [b, nk], cos and sin [nk, d] with q_off + n <= nk (query row i is
+// rotated by table row q_off + i, key row i by row i); rot bf16 [b * h,
+// n_pad, d] then [b * h, nk_pad, d], kbias [b, nk_pad] float32 (16-byte
+// aligned), n_pad and nk_pad multiples of 128; lse [b, h, n] or null. The
+// tensors on `device`, the stream one of its streams. Returns the
+// cudaError_t (0 on success).
 int f5_flash_attention_fwd_core(const void* q, const void* k, const void* v, void* o, void* lse, const void* mask,
                                 const void* cos, const void* sin, void* rot, void* kbias, int b, int h, int n,
-                                int n_pad, int d, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
-                                long long k_sh, long long k_sn, long long v_sb, long long v_sh, long long v_sn,
-                                long long o_sb, long long o_sh, long long o_sn, float scale, int device,
-                                void* stream) {
-  const PrepassParams pp =
-      prepass_params(q, k, mask, cos, sin, rot, kbias, b, h, n, n_pad, q_sb, q_sh, q_sn, k_sb, k_sh, k_sn);
+                                int nk, int n_pad, int nk_pad, int q_off, int d, long long q_sb, long long q_sh,
+                                long long q_sn, long long k_sb, long long k_sh, long long k_sn, long long v_sb,
+                                long long v_sh, long long v_sn, long long o_sb, long long o_sh, long long o_sn,
+                                float scale, int device, void* stream) {
+  const PrepassParams pp = prepass_params(q, k, mask, cos, sin, rot, kbias, b, h, n, nk, n_pad, nk_pad, q_off, q_sb,
+                                          q_sh, q_sn, k_sb, k_sh, k_sn);
   if (!core_args_ok(pp)) return static_cast<int>(cudaErrorInvalidValue);
   const DeviceScope scope(device);
   if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
@@ -801,6 +843,8 @@ int f5_flash_attention_fwd_core(const void* q, const void* k, const void* v, voi
   c.h = h;
   c.n = n;
   c.n_pad = n_pad;
+  c.nk = nk;
+  c.nk_pad = nk_pad;
   c.o_sb = o_sb; c.o_sh = o_sh; c.o_sn = o_sn;
   c.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -814,10 +858,11 @@ int f5_flash_attention_fwd_core(const void* q, const void* k, const void* v, voi
 // The pre-pass alone (the arguments of f5_flash_attention_fwd_core that it
 // reads); with neither cos nor mask it launches nothing.
 int f5_flash_fwd_prepass(const void* q, const void* k, const void* mask, const void* cos, const void* sin, void* rot,
-                         void* kbias, int b, int h, int n, int n_pad, int d, long long q_sb, long long q_sh,
-                         long long q_sn, long long k_sb, long long k_sh, long long k_sn, int device, void* stream) {
-  const PrepassParams pp =
-      prepass_params(q, k, mask, cos, sin, rot, kbias, b, h, n, n_pad, q_sb, q_sh, q_sn, k_sb, k_sh, k_sn);
+                         void* kbias, int b, int h, int n, int nk, int n_pad, int nk_pad, int q_off, int d,
+                         long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
+                         long long k_sn, int device, void* stream) {
+  const PrepassParams pp = prepass_params(q, k, mask, cos, sin, rot, kbias, b, h, n, nk, n_pad, nk_pad, q_off, q_sb,
+                                          q_sh, q_sn, k_sb, k_sh, k_sn);
   if (!core_args_ok(pp)) return static_cast<int>(cudaErrorInvalidValue);
   if (cos == nullptr && mask == nullptr) return 0;
   const DeviceScope scope(device);
@@ -830,11 +875,14 @@ int f5_flash_fwd_prepass(const void* q, const void* k, const void* mask, const v
   }
 }
 
-// The float32 kernels; the same arguments as f5_flash_attention_fwd, and
-// at d = 64 the pre-pass's float32 scratch (`tc_carve`, csrc/tf32.cuh; null
-// at d = 128 and 256).
+// The float32 kernels; the arguments of f5_flash_attention_fwd, at d = 64
+// the pre-pass's float32 scratch (`tc_carve`, csrc/tf32.cuh; null at d = 128
+// and 256), and a query block as f5_flash_attention_fwd_core takes it (q
+// [b, h, n, d] against k, v [b, h, nk, d], tables [nk, d] from row q_off for
+// the queries) at d = 64 only: d = 128 and 256 take nk = n and q_off = 0.
 int f5_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, const void* mask,
-                               const void* cos, const void* sin, void* scratch, int b, int h, int n, int d,
+                               const void* cos, const void* sin, void* scratch, int b, int h, int n, int nk,
+                               int q_off, int d,
                                long long q_sb, long long q_sh, long long q_sn, long long k_sb,
                                long long k_sh, long long k_sn, long long v_sb, long long v_sh,
                                long long v_sn, long long o_sb, long long o_sh, long long o_sn,
@@ -849,12 +897,17 @@ int f5_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void
   p.cos = static_cast<const float*>(cos);
   p.sin = static_cast<const float*>(sin);
   p.n = n;
+  p.nk = nk;
+  p.q_off = q_off;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || nk < 1 || q_off < 0 || (cos != nullptr && q_off + n > nk) || (d != TC_D && (nk != n || q_off != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (d) {
     case 64: return static_cast<int>(launch_f32_tc(p, static_cast<float*>(scratch), b, h, s));
     case 128: return static_cast<int>(launch_f32<128>(p, b, h, s));

@@ -202,7 +202,10 @@ __device__ __forceinline__ void pv_3xtf32(float (&acc)[32], const float (&x)[32]
 //   - each key's bias, 0, -1e30 masked, -FLT_MAX past n, padded too: TMA's
 //     zero fill of a ragged tile cannot change the result.
 // Null split pointers skip the split (d = 128 and 256, whose FMA kernels
-// need only the stats and biases).
+// need only the stats and biases). A query block (flash_attention_fwd.cu)
+// has n query rows against nk keys: q, g, out, lse and the stats take the
+// query rows, k, v, the mask and the key biases the keys; query row i is
+// rotated by table row q_off + i, key row i by row i.
 struct TcPrep {
   const float* q;
   const float* k;
@@ -210,20 +213,21 @@ struct TcPrep {
   const float* g;       // null in the forward
   const float* out;     // null in the forward
   const float* lse;     // [b, h, n]; null in the forward
-  const uint8_t* mask;  // [b, n] or null
-  const float* cos;     // [n, d] or null
+  const uint8_t* mask;  // [b, nk] or null
+  const float* cos;     // [nk, d] or null
   const float* sin;
-  float* qh;  // [b, h, n, d] each, or null
+  float* qh;  // [b, h, n, d], or null; the same for ql, gh, gl
   float* ql;
-  float* kh;
+  float* kh;  // [b, h, nk, d], or null; the same for kl, vh, vl
   float* kl;
   float* vh;
   float* vl;
   float* gh;  // null in the forward
   float* gl;
   float2* stats;  // [b, h, n_pad], or null in the forward
-  float* kbias;   // [b, n_pad]
+  float* kbias;   // [b, nk_pad]
   int h, n, n_pad;
+  int nk, nk_pad, q_off;
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
   long long v_sb, v_sh, v_sn;
@@ -252,7 +256,12 @@ __device__ __forceinline__ void tc_store_split(float* hi, float* lo, long long o
   *reinterpret_cast<float4*>(lo + o) = l;
 }
 
-// One launch over the (b, h, n_pad) rows, TC_PREP_TPR threads a row.
+// The rows of a (b, h) pair that the pre-pass walks: the query rows' and the
+// keys' padding, whichever is longer.
+__host__ __device__ inline int tc_prep_rows(const TcPrep& p) { return p.n_pad > p.nk_pad ? p.n_pad : p.nk_pad; }
+
+// One launch over the (b, h, max(n_pad, nk_pad)) rows, TC_PREP_TPR threads a
+// row: row i is query row i where i < n and key row i where i < nk.
 template <int D>
 __global__ void __launch_bounds__(256) tc_prep_kernel(const TcPrep p, long long rows) {
   constexpr int CH = D / 4 / TC_PREP_TPR;  // float4 chunks a thread
@@ -260,32 +269,32 @@ __global__ void __launch_bounds__(256) tc_prep_kernel(const TcPrep p, long long 
   const long long row = idx / TC_PREP_TPR;
   if (row >= rows) return;  // rows is a multiple of TC_ROW_PAD, so whole warps leave together
   const int sub = static_cast<int>(idx % TC_PREP_TPR);
-  const long long bh = row / p.n_pad;
-  const int i = static_cast<int>(row % p.n_pad);
+  const int per = tc_prep_rows(p);
+  const long long bh = row / per;
+  const int i = static_cast<int>(row % per);
   const int b = static_cast<int>(bh / p.h), h = static_cast<int>(bh % p.h);
+  const bool q_valid = i < p.n, k_valid = i < p.nk;
   float delta = 0.f;
-  if (i < p.n) {
 #pragma unroll
-    for (int j = 0; j < CH; ++j) {
-      const int c = (sub + TC_PREP_TPR * j) * 4;
-      const long long o = (bh * p.n + i) * D + c;
-      if (p.qh != nullptr) {
-        float4 x = *reinterpret_cast<const float4*>(p.q + b * p.q_sb + h * p.q_sh + i * p.q_sn + c);
-        float4 y = *reinterpret_cast<const float4*>(p.k + b * p.k_sb + h * p.k_sh + i * p.k_sn + c);
-        if (p.cos != nullptr) {
-          x = tc_rope<D>(x, p.cos, p.sin, i, c);
-          y = tc_rope<D>(y, p.cos, p.sin, i, c);
-        }
-        tc_store_split(p.qh, p.ql, o, x);
-        tc_store_split(p.kh, p.kl, o, y);
-        tc_store_split(p.vh, p.vl, o, *reinterpret_cast<const float4*>(p.v + b * p.v_sb + h * p.v_sh + i * p.v_sn + c));
-      }
-      if (p.stats != nullptr) {
-        const float4 gv = *reinterpret_cast<const float4*>(p.g + b * p.g_sb + h * p.g_sh + i * p.g_sn + c);
-        const float4 ov = *reinterpret_cast<const float4*>(p.out + b * p.o_sb + h * p.o_sh + i * p.o_sn + c);
-        delta += gv.x * ov.x + gv.y * ov.y + gv.z * ov.z + gv.w * ov.w;
-        if (p.gh != nullptr) tc_store_split(p.gh, p.gl, o, gv);
-      }
+  for (int j = 0; j < CH; ++j) {
+    const int c = (sub + TC_PREP_TPR * j) * 4;
+    const long long oq = (bh * p.n + i) * D + c, ok = (bh * p.nk + i) * D + c;
+    if (p.qh != nullptr && q_valid) {
+      float4 x = *reinterpret_cast<const float4*>(p.q + b * p.q_sb + h * p.q_sh + i * p.q_sn + c);
+      if (p.cos != nullptr) x = tc_rope<D>(x, p.cos, p.sin, i + p.q_off, c);
+      tc_store_split(p.qh, p.ql, oq, x);
+    }
+    if (p.qh != nullptr && k_valid) {
+      float4 y = *reinterpret_cast<const float4*>(p.k + b * p.k_sb + h * p.k_sh + i * p.k_sn + c);
+      if (p.cos != nullptr) y = tc_rope<D>(y, p.cos, p.sin, i, c);
+      tc_store_split(p.kh, p.kl, ok, y);
+      tc_store_split(p.vh, p.vl, ok, *reinterpret_cast<const float4*>(p.v + b * p.v_sb + h * p.v_sh + i * p.v_sn + c));
+    }
+    if (p.stats != nullptr && q_valid) {
+      const float4 gv = *reinterpret_cast<const float4*>(p.g + b * p.g_sb + h * p.g_sh + i * p.g_sn + c);
+      const float4 ov = *reinterpret_cast<const float4*>(p.out + b * p.o_sb + h * p.o_sh + i * p.o_sn + c);
+      delta += gv.x * ov.x + gv.y * ov.y + gv.z * ov.z + gv.w * ov.w;
+      if (p.gh != nullptr) tc_store_split(p.gh, p.gl, oq, gv);
     }
   }
   if (p.stats != nullptr) {
@@ -293,20 +302,20 @@ __global__ void __launch_bounds__(256) tc_prep_kernel(const TcPrep p, long long 
     for (int off = TC_PREP_TPR / 2; off > 0; off >>= 1) delta += __shfl_xor_sync(0xffffffffu, delta, off);
   }
   if (sub == 0) {
-    if (p.stats != nullptr) {
-      p.stats[row] = i < p.n ? make_float2(p.lse[bh * p.n + i], delta) : make_float2(FLT_MAX, 0.f);
+    if (p.stats != nullptr && i < p.n_pad) {
+      p.stats[bh * p.n_pad + i] = q_valid ? make_float2(p.lse[bh * p.n + i], delta) : make_float2(FLT_MAX, 0.f);
     }
-    if (h == 0) {
-      const uint8_t* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(b) * p.n;
-      p.kbias[static_cast<long long>(b) * p.n_pad + i] =
-          i >= p.n ? -FLT_MAX : (mask != nullptr && !mask[i]) ? -1e30f : 0.f;
+    if (h == 0 && i < p.nk_pad) {
+      const uint8_t* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(b) * p.nk;
+      p.kbias[static_cast<long long>(b) * p.nk_pad + i] =
+          !k_valid ? -FLT_MAX : (mask != nullptr && !mask[i]) ? -1e30f : 0.f;
     }
   }
 }
 
 template <int D>
 cudaError_t launch_tc_prep(const TcPrep& p, int b, cudaStream_t stream) {
-  const long long rows = static_cast<long long>(b) * p.h * p.n_pad;
+  const long long rows = static_cast<long long>(b) * p.h * tc_prep_rows(p);
   const long long threads = rows * TC_PREP_TPR;
   tc_prep_kernel<D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(p, rows);
   return cudaGetLastError();
@@ -324,10 +333,11 @@ inline cudaError_t tc_head_map(CUtensorMap* map, const void* base, int b, int h,
 }
 
 // Point p's stats, kbias and TF32 halves into `scratch`, one float32 buffer
-// the caller allocates (ops/flash_attention.py `_f32_scratch` sizes it): the row stats (2 b h n_pad floats, backward only), the key biases
-// (b n_pad), then `splits` [b, h, n, 64] tensors (6 in the forward: q', k',
-// v; 8 in the backward: q', k', v, g; hi then lo of each; none at d = 128
-// and 256). Every part starts 512-byte aligned.
+// the caller allocates (ops/flash_attention.py `_f32_scratch` sizes it): the
+// row stats (2 b h n_pad floats, backward only), the key biases (b nk_pad),
+// then `splits` tensors, hi then lo of each (6 in the forward: q' [b, h, n,
+// 64], k' and v [b, h, nk, 64]; 8 in the backward, g [b, h, n, 64] last;
+// none at d = 128 and 256). Every part starts 16-byte aligned (TMA's rule).
 inline void tc_carve(TcPrep& p, float* scratch, int b, bool stats, int splits) {
   float* at = scratch;
   p.stats = nullptr;
@@ -336,10 +346,11 @@ inline void tc_carve(TcPrep& p, float* scratch, int b, bool stats, int splits) {
     at += 2LL * b * p.h * p.n_pad;
   }
   p.kbias = at;
-  at += static_cast<long long>(b) * p.n_pad;
+  at += static_cast<long long>(b) * p.nk_pad;
   float** halves[8] = {&p.qh, &p.ql, &p.kh, &p.kl, &p.vh, &p.vl, &p.gh, &p.gl};
   for (int i = 0; i < 8; ++i) {
     *halves[i] = i < splits ? at : nullptr;
-    if (i < splits) at += static_cast<long long>(b) * p.h * p.n * TC_D;
+    const int rows = i < 2 || i >= 6 ? p.n : p.nk;
+    if (i < splits) at += static_cast<long long>(b) * p.h * rows * TC_D;
   }
 }

@@ -21,7 +21,10 @@ the slots of a group run in step under `mesh.lockstep`. With tp 1 nothing
 yields, and the launches and bits are those of the plain module. In a
 sharded training step the row-parallel sum is an autograd function
 (parallel/mesh.py `RowSum`), and dropout applies each slot's slice of the
-unsharded mask (`dropout`'s `rows` and `cols`).
+unsharded mask (`dropout`'s `rows`, `cols` and `frames`). Under sequence
+parallelism (`frames`, parallel/mesh.py `Frames`) a slot's attention also
+yields its keys and values for its seq group's gather, and attends with
+its queries at their offset against the whole sequence's keys.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from f5_tts_tpu_torch.utils.modules import apply_linear, cast, conv1d, embedding
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator, rows=None,
-            cols: tuple[int, int] | None = None) -> torch.Tensor:
+            cols: tuple[int, int] | None = None, frames=None) -> torch.Tensor:
     """Inverted dropout: each element kept with probability 1 - rate and
     scaled by 1 / (1 - rate), else zeroed; the keep mask is drawn from
     `generator`, which must live on x's device.
@@ -46,18 +49,23 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator, rows=None,
     In a shard of a sharded training step, x is a slice of the unsharded
     tensor and gets that slice of the unsharded mask: the mask is drawn at
     the global batch's size and `rows` (parallel/mesh.py `Rows`: the global
-    batch and this data row's first row) kept, and `cols` = (ways, index)
+    batch and this data row's first row) kept, `cols` = (ways, index)
     keeps the index-th of `ways` column blocks of the last dim (a
-    tensor-parallel slot's hidden units)."""
+    tensor-parallel slot's hidden units), and `frames` (parallel/mesh.py
+    `Frames`) a seq slot's frames of dim 1."""
     keep = 1.0 - rate
     shape = list(x.shape)
     if rows is not None:
         shape[0] = rows.batch
+    if frames is not None:
+        shape[1] = frames.total
     if cols is not None:
         shape[-1] *= cols[0]
     kept = torch.rand(shape, generator=generator, device=x.device) < keep
     if rows is not None:
         kept = kept[rows.start:rows.start + x.shape[0]]
+    if frames is not None:
+        kept = frames.take(kept)
     if cols is not None:
         kept = kept.chunk(cols[0], dim=-1)[cols[1]]
     return torch.where(kept, x / keep, torch.zeros_like(x))
@@ -162,6 +170,12 @@ class ConvPositionEmbedding(nn.Module):
             nn.Conv1d(dim, dim, kernel_size, groups=groups), nn.Mish(),
         )
 
+    @property
+    def reach(self) -> int:
+        """How many frames each way an output frame depends on: each "same"
+        convolution reaches (k - 1) / 2 (30 for the two k31 ones)."""
+        return sum((c.kernel_size[0] - 1) // 2 for c in (self.conv1d[0], self.conv1d[2]))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c1, c2 = self.conv1d[0], self.conv1d[2]
         out = mish(conv1d(x, c1.weight, c1.bias, groups=self.groups))
@@ -265,6 +279,20 @@ class TextEmbedding(nn.Module):
 # ------------------------------------------------------------ input embedding
 
 
+def embed_frames(embed: nn.Module, frames, *seqs: torch.Tensor, **kw) -> torch.Tensor:
+    """A seq slot's frames of an input embedding (`InputEmbedding` or the
+    duration predictor's) of whole-sequence inputs [b, n, ...]: the
+    embedding runs on the window that its convolutions reach around the
+    slot's frames (parallel/mesh.py `Frames.window`, clipped to the
+    sequence), and the slot's frames are kept, equal to the whole
+    sequence's. Without `frames`, the whole embedding."""
+    if frames is None:
+        return embed(*seqs, **kw)
+    lo, hi = frames.window(embed.conv_pos_embed.reach)
+    out = embed(*(t[:, lo:hi] for t in seqs), **kw)
+    return out[:, frames.start - lo:frames.stop - lo]
+
+
 class InputEmbedding(nn.Module):
     def __init__(self, mel_dim: int, text_dim: int, out_dim: int):
         super().__init__()
@@ -316,18 +344,32 @@ class Attention(nn.Module):
         without a copy."""
         return run_local(self.steps(x, mask, rope, dropout_rate, generator))
 
-    def steps(self, x, mask=None, rope=None, dropout_rate: float = 0.0, generator=None, rows=None):
-        """`forward` as a generator, which yields only with tp above 1.
-        `rows`: a data row's place in a sharded step's batch (`dropout`);
-        the dropout after `to_out` is full width, the same on every slot."""
+    def steps(self, x, mask=None, rope=None, dropout_rate: float = 0.0, generator=None, rows=None, frames=None):
+        """`forward` as a generator, which yields with tp above 1 and under
+        sequence parallelism. `rows`: a data row's place in a sharded
+        step's batch (`dropout`); the dropout after `to_out` is full width,
+        the same on every slot. `frames` (parallel/mesh.py `Frames`, more
+        than one way): x holds a seq slot's frames, and `mask` and `rope`
+        are the whole sequence's; the slot yields ("gather", its k and v
+        side by side [b, n_slot, 2 inner]) and is sent the seq group's
+        [b, n, 2 inner], attends with its queries at their offset
+        (`q_offset`: a query block) and re-zeroes its own rows."""
         b, n, _ = x.shape
 
-        def heads(lin: nn.Module) -> torch.Tensor:
-            return apply_linear(lin, x).view(b, n, self.heads, -1).transpose(1, 2)
+        def heads(t: torch.Tensor) -> torch.Tensor:
+            return t.view(b, t.shape[1], self.heads, -1).transpose(1, 2)
 
-        q, k, v = heads(self.to_q), heads(self.to_k), heads(self.to_v)
+        q = heads(apply_linear(self.to_q, x))
+        offset, row_mask = 0, mask
+        if frames is not None and frames.ways > 1:
+            kv = yield "gather", torch.cat([apply_linear(self.to_k, x), apply_linear(self.to_v, x)], dim=-1)
+            k, v = (heads(t) for t in kv.chunk(2, dim=-1))
+            offset = frames.start
+            row_mask = None if mask is None else frames.take(mask)
+        else:
+            k, v = heads(apply_linear(self.to_k, x)), heads(apply_linear(self.to_v, x))
         out = scaled_dot_product_attention(
-            q, k, v, 1.0 / math.sqrt(q.shape[-1]), key_mask=mask, rope=rope
+            q, k, v, 1.0 / math.sqrt(q.shape[-1]), key_mask=mask, rope=rope, q_offset=offset
         )
         out = out.transpose(1, 2).reshape(b, n, -1)
         if self.tp > 1:
@@ -335,9 +377,9 @@ class Attention(nn.Module):
         else:
             out = apply_linear(self.to_out[0], out)
         if generator is not None and dropout_rate > 0.0:
-            out = dropout(out, dropout_rate, generator, rows)
-        if mask is not None:
-            out = out * mask[..., None].to(out.dtype)
+            out = dropout(out, dropout_rate, generator, rows, frames=frames)
+        if row_mask is not None:
+            out = out * row_mask[..., None].to(out.dtype)
         return out
 
 
@@ -363,12 +405,13 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor, dropout_rate: float = 0.0, generator: torch.Generator | None = None) -> torch.Tensor:
         return run_local(self.steps(x, dropout_rate, generator))
 
-    def steps(self, x, dropout_rate: float = 0.0, generator=None, rows=None):
+    def steps(self, x, dropout_rate: float = 0.0, generator=None, rows=None, frames=None):
         """`forward` as a generator, which yields only with tp above 1. A
-        slot's hidden dropout is its columns of the unsharded mask."""
+        slot's hidden dropout is its columns (and frames) of the unsharded
+        mask."""
         h = gelu(apply_linear(self.ff[0][0], x), approximate=True)
         if generator is not None and dropout_rate > 0.0:
-            h = dropout(h, dropout_rate, generator, rows, (self.tp, self.tp_index) if self.tp > 1 else None)
+            h = dropout(h, dropout_rate, generator, rows, (self.tp, self.tp_index) if self.tp > 1 else None, frames)
         if self.tp > 1:
             return (yield from row_parallel(self.ff[2], h))
         return apply_linear(self.ff[2], h)
@@ -422,14 +465,14 @@ class DiTBlock(nn.Module):
         return run_local(self.steps(x, mod, mask, rope, dropout_rate, dropout_seed))
 
     def steps(self, x, mod, mask=None, rope=None, dropout_rate: float = 0.0, dropout_seed: int | None = None,
-              rows=None):
+              rows=None, frames=None):
         """`forward` as a generator: it yields where its attention and
-        feed-forward do (a shard of a tensor-parallel group)."""
+        feed-forward do (a shard of a tensor-parallel group, a seq slot)."""
         g_attn, g_ff = dropout_generators(dropout_seed, 2, x.device)
         norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.attn_norm(x, mod)
         attn = yield from self.attn.steps(norm, mask=mask, rope=rope, dropout_rate=dropout_rate, generator=g_attn,
-                                          rows=rows)
+                                          rows=rows, frames=frames)
         x = x + gate_msa[:, None] * attn
         norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-        ff = yield from self.ff.steps(norm, dropout_rate=dropout_rate, generator=g_ff, rows=rows)
+        ff = yield from self.ff.steps(norm, dropout_rate=dropout_rate, generator=g_ff, rows=rows, frames=frames)
         return x + gate_mlp[:, None] * ff

@@ -32,7 +32,7 @@ from f5_tts_tpu_torch.models.ode import odeint
 from f5_tts_tpu_torch.models.quant import w8a8_blocks_
 from f5_tts_tpu_torch.models.vocos import Vocos
 from f5_tts_tpu_torch.models.shard import shard_model_for_inference
-from f5_tts_tpu_torch.parallel.mesh import gather_batch, pad_batch, split_batch
+from f5_tts_tpu_torch.parallel.mesh import gather_batch, pad_batch, seq_frames, split_batch
 from f5_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
 from f5_tts_tpu_torch.utils.modules import init_parameters_
 from f5_tts_tpu_torch.utils.sampling import clamp_duration, draw_noise, sway_time_grid
@@ -121,7 +121,10 @@ def cfm_terms(dit, cfm_cfg: CFMConfig, inp: torch.Tensor, text: torch.Tensor, le
     the span's elements, the span's element count in float32). A sharded
     step sums each data row's numerator over the global batch's count;
     `forward_kw` goes to `dit.forward_train` (a DiT, or a `DiTGroup` with
-    the seeds and rows)."""
+    the seeds and rows). Under sequence parallelism the group returns one
+    prediction a seq slot, over its frames: each slot's squared error is
+    taken against its frames of the flow and the span (built here from the
+    global draws and lens), and the numerator is their sum."""
     seq_len, mel_dim = inp.shape[1], inp.shape[2]
     span = cfm_span(lens, draws, seq_len)
 
@@ -137,8 +140,14 @@ def cfm_terms(dit, cfm_cfg: CFMConfig, inp: torch.Tensor, text: torch.Tensor, le
     pred = dit.forward_train(
         phi, cond, text, draws.time, drop_audio_cond=drop_audio[0], drop_text=drop_text[0], **forward_kw,
     )
-    se = torch.where(span[..., None], (pred - flow).square(), torch.zeros_like(pred))
-    return se.sum(), (span.sum() * mel_dim).float()
+    count = (span.sum() * mel_dim).float()
+    if isinstance(pred, torch.Tensor):
+        return torch.where(span[..., None], (pred - flow).square(), torch.zeros_like(pred)).sum(), count
+    total = 0.0
+    for frames, p in zip(seq_frames(len(pred), seq_len), pred):
+        f, m = (frames.take(t).to(p.device, non_blocking=True) for t in (flow, span))
+        total = total + torch.where(m[..., None], (p - f).square(), torch.zeros_like(p)).sum().to(inp.device)
+    return total, count
 
 
 def cfm_sample_mel(

@@ -9,8 +9,8 @@ The JAX functions map to methods of `DiT`:
     per-sample times in, optional dropout and activation checkpointing)
 The depth dimension is a ModuleList walked in Python; the output is float32.
 Under a mesh (parallel/mesh.py) the sampler and the sharded train step run
-a `DiTGroup`: one DiT shard a slot of a data row's tensor-parallel group,
-run block by block in step.
+a `DiTGroup`: one DiT shard a slot of a data row's tensor-parallel group
+(and, in training, of each of its seq slots), run block by block in step.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from f5_tts_tpu_torch.config import DiTConfig
 from f5_tts_tpu_torch.models import blocks as B
 from f5_tts_tpu_torch.models.rope import rotary_freqs
-from f5_tts_tpu_torch.parallel.mesh import lockstep
+from f5_tts_tpu_torch.parallel.mesh import group_frames, lockstep
 from f5_tts_tpu_torch.utils.modules import apply_linear
 
 
@@ -116,9 +116,14 @@ class DiT(nn.Module):
                 h = run_block(block, h, seed)
         return self.train_head(h, t_emb)
 
-    def train_inputs(self, x, cond, text, time, drop_audio_cond=False, drop_text=False) -> tuple:
+    def train_inputs(self, x, cond, text, time, drop_audio_cond=False, drop_text=False, frames=None) -> tuple:
         """The training forward up to the first block: (the blocks' input
-        [b, n, dim], the time embedding [b, dim], RoPE's (cos, sin))."""
+        [b, n, dim], the time embedding [b, dim], RoPE's (cos, sin)). With
+        `frames` (a seq slot, parallel/mesh.py `Frames`) x and cond are the
+        whole sequence's and the blocks' input is the slot's frames: the
+        text embedding runs whole (its GRN sums over every frame), the input
+        embedding on the window its convolutions reach (`blocks.embed_frames`);
+        the tables stay the whole sequence's."""
         dtype = self.compute_dtype
         b, n = x.shape[0], x.shape[1]
         time = torch.as_tensor(time, dtype=torch.float32, device=x.device)
@@ -126,7 +131,8 @@ class DiT(nn.Module):
             time = time.expand(b)
         t_emb = self.time_embed(time, dtype)  # [b, dim]
         text_embed = self.embed_text(text, n, drop_text=drop_text)
-        h = self.input_embed(x.to(dtype), cond.to(dtype), text_embed, drop_audio_cond=drop_audio_cond)
+        h = B.embed_frames(self.input_embed, frames, x.to(dtype), cond.to(dtype), text_embed,
+                           drop_audio_cond=drop_audio_cond)
         raw = rotary_freqs(n, self.cfg.dim_head, device=x.device)
         return h, t_emb, (torch.cos(raw), torch.sin(raw))
 
@@ -157,10 +163,16 @@ class DiTGroup:
     block across the group in step (`mesh.lockstep`): each slot's partial,
     then the reduction, then the next block. Every slot computes the
     replicated layers itself, as GSPMD does, and the first slot's output is
-    returned. A group of one shard is that shard's plain forward."""
+    returned. A group of one shard is that shard's plain forward.
 
-    def __init__(self, shards: list[DiT]):
+    In training, `seq` above 1 (sequence parallelism): the shards are
+    row-major over (seq, model) slots, each seq slot a copy of the model
+    group that computes its frames of the sequence (parallel/mesh.py
+    `Frames`), and `forward_train` returns one output a seq slot."""
+
+    def __init__(self, shards: list[DiT], seq: int = 1):
         self.shards = list(shards)
+        self.seq = seq
         self.cfg = self.shards[0].cfg
         self.devices = [next(s.parameters()).device for s in self.shards]
 
@@ -186,20 +198,24 @@ class DiTGroup:
         return lockstep(steps)[0]
 
     def forward_train(self, x, cond, text, time, drop_audio_cond=False, drop_text=False, mask=None, seeds=None,
-                      rows=None) -> torch.Tensor:
+                      rows=None):
         """`DiT.forward_train` over the group (trainable shards, models/shard.py
         `shard_model_for_training`): every slot computes the replicated
         layers from its own leaves, the blocks run in step with their
-        row-parallel sums recorded by autograd, and the first slot's output
-        is returned. `seeds` are the layers' dropout seeds, drawn once for
-        the global batch; `rows` place this data row in it. With cfg.remat
-        each block of the whole group is one checkpointed function: the
-        backward recomputes every slot's block, the forward's reductions
-        included (one more counted sum a row-parallel linear), then runs the
-        block's backward with its own reductions."""
+        row-parallel sums (and seq gathers) recorded by autograd, and the
+        first slot's output is returned; with `seq` above 1, a list of each
+        seq slot's first slot's output over its frames, in seq order. `seeds`
+        are the layers' dropout seeds, drawn once for the global batch;
+        `rows` place this data row in it. With cfg.remat each block of the
+        whole group is one checkpointed function: the backward recomputes
+        every slot's block, the forward's reductions and gathers included
+        (one more counted sum a row-parallel linear, one more gather an
+        attention), then runs the block's backward with its own."""
         cfg = self.cfg
         args = (x, cond, text, time, drop_audio_cond, drop_text)
-        prepared = [shard.train_inputs(*(_on(a, dev) for a in args)) for shard, dev in zip(self.shards, self.devices)]
+        frames = group_frames(self.seq, len(self.shards), x.shape[1])
+        prepared = [shard.train_inputs(*(_on(a, dev) for a in args), frames=f)
+                    for shard, dev, f in zip(self.shards, self.devices, frames)]
         hs = tuple(h for h, _, _ in prepared)
         masks = [None if mask is None else mask.to(dev) for dev in self.devices]
         seeds = [None] * cfg.depth if seeds is None else seeds
@@ -208,9 +224,11 @@ class DiTGroup:
             def run_group_block(*hs, i=i, seed=seed):
                 steps = [shard.transformer_blocks[i].steps(
                     h, shard.transformer_blocks[i].attn_norm.mods(t_emb), mask=m, rope=rope,
-                    dropout_rate=cfg.dropout, dropout_seed=seed, rows=rows)
-                    for shard, h, (_, t_emb, rope), m in zip(self.shards, hs, prepared, masks)]
-                return tuple(lockstep(steps))
+                    dropout_rate=cfg.dropout, dropout_seed=seed, rows=rows, frames=f)
+                    for shard, h, (_, t_emb, rope), m, f in zip(self.shards, hs, prepared, masks, frames)]
+                return tuple(lockstep(steps, self.seq))
 
             hs = checkpoint(run_group_block, *hs, use_reentrant=False) if cfg.remat else run_group_block(*hs)
-        return self.shards[0].train_head(hs[0], prepared[0][1])
+        heads = [self.shards[s].train_head(hs[s], prepared[s][1])
+                 for s in range(0, len(self.shards), len(self.shards) // self.seq)]
+        return heads if self.seq > 1 else heads[0]

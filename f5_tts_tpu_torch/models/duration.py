@@ -24,7 +24,7 @@ from f5_tts_tpu_torch.audio.mel import log_mel_spectrogram
 from f5_tts_tpu_torch.config import AudioConfig, DurationConfig
 from f5_tts_tpu_torch.models import blocks as B
 from f5_tts_tpu_torch.models.rope import rotary_freqs
-from f5_tts_tpu_torch.parallel.mesh import lockstep
+from f5_tts_tpu_torch.parallel.mesh import group_frames, lockstep, seq_frames, seq_sum
 from f5_tts_tpu_torch.utils.masks import lens_to_mask, maybe_masked_mean
 from f5_tts_tpu_torch.utils.modules import apply_linear, init_parameters_, layer_norm, linear, rms_norm
 
@@ -46,14 +46,15 @@ class DurationBlock(nn.Module):
         feed-forward's dropout streams."""
         return B.run_local(self.steps(x, rope, dropout_rate, dropout_seed))
 
-    def steps(self, x, rope, dropout_rate: float = 0.0, dropout_seed: int | None = None, rows=None):
+    def steps(self, x, rope, dropout_rate: float = 0.0, dropout_seed: int | None = None, rows=None, frames=None):
         """`forward` as a generator: it yields where its attention and
-        feed-forward do (a shard of a tensor-parallel group)."""
+        feed-forward do (a shard of a tensor-parallel group, a seq slot)."""
         g_attn, g_ff = B.dropout_generators(dropout_seed, 2, x.device)
         attn = yield from self.attn.steps(layer_norm(x), mask=None, rope=rope, dropout_rate=dropout_rate,
-                                          generator=g_attn, rows=rows)
+                                          generator=g_attn, rows=rows, frames=frames)
         x = x + attn
-        ff = yield from self.ff.steps(layer_norm(x), dropout_rate=dropout_rate, generator=g_ff, rows=rows)
+        ff = yield from self.ff.steps(layer_norm(x), dropout_rate=dropout_rate, generator=g_ff, rows=rows,
+                                      frames=frames)
         return x + ff
 
 
@@ -104,13 +105,14 @@ class DurationTransformer(nn.Module):
             h = block(h, rope, dropout_rate=rate, dropout_seed=seed)
         return self.norm_out(h)
 
-    def train_inputs(self, x: torch.Tensor, text: torch.Tensor) -> tuple:
+    def train_inputs(self, x: torch.Tensor, text: torch.Tensor, frames=None) -> tuple:
         """The forward up to the first block: (its input [b, n, dim], RoPE's
-        (cos, sin))."""
+        (cos, sin)); with `frames`, a seq slot's frames of it, as
+        `DiT.train_inputs` computes them."""
         dtype = getattr(torch, self.cfg.compute_dtype)
         seq_len = x.shape[1]
         text_embed = self.text_embed(text, seq_len, False, dtype)
-        h = self.input_embed(x.to(dtype), text_embed)
+        h = B.embed_frames(self.input_embed, frames, x.to(dtype), text_embed)
         raw = rotary_freqs(seq_len, self.cfg.dim_head, device=x.device)
         return h, (torch.cos(raw), torch.sin(raw))
 
@@ -178,7 +180,12 @@ class DurationPredictor(nn.Module):
     def head(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Masked mean of the transformer's output, the float32 linear to one
         value, softplus: seconds [b]."""
-        return F.softplus(linear(maybe_masked_mean(x, mask).float(), self.to_pred[0].weight))[..., 0]
+        return self.seconds_from_mean(maybe_masked_mean(x, mask))
+
+    def seconds_from_mean(self, mean: torch.Tensor) -> torch.Tensor:
+        """The float32 linear to one value and the softplus of the pooled
+        output [b, dim]: seconds [b]."""
+        return F.softplus(linear(mean.float(), self.to_pred[0].weight))[..., 0]
 
 
 class DurationGroup:
@@ -186,10 +193,14 @@ class DurationGroup:
     group (models/shard.py `shard_model_for_training`): one trainable shard
     a slot, the blocks run in step (parallel/mesh.py `lockstep`), the
     replicated layers computed by every slot from its own leaves, the first
-    slot's output used (as `DiTGroup.forward_train`)."""
+    slot's output used (as `DiTGroup.forward_train`). With `seq` above 1
+    the shards are row-major over (seq, model) slots, each seq slot computing
+    its frames as `DiTGroup` does, and the head's masked sums join over the
+    seq group (`head`)."""
 
-    def __init__(self, shards: list["DurationPredictor"]):
+    def __init__(self, shards: list["DurationPredictor"], seq: int = 1):
         self.shards = list(shards)
+        self.seq = seq
         self.cfg = self.shards[0].cfg
         self.devices = [s.device for s in self.shards]
 
@@ -197,19 +208,36 @@ class DurationGroup:
     def device(self) -> torch.device:
         return self.devices[0]
 
-    def transformer(self, x: torch.Tensor, text: torch.Tensor, seeds=None, rows=None) -> torch.Tensor:
+    def transformer(self, x: torch.Tensor, text: torch.Tensor, seeds=None, rows=None):
         """`DurationTransformer.forward` over the group with the layers'
-        dropout seeds drawn by the caller -> the first slot's [b, n, dim]."""
-        prepared = [s.transformer.train_inputs(x.to(d), text.to(d)) for s, d in zip(self.shards, self.devices)]
+        dropout seeds drawn by the caller -> the first slot's [b, n, dim];
+        with `seq` above 1 a list of each seq slot's [b, n / seq, dim]."""
+        model = len(self.shards) // self.seq
+        frames = group_frames(self.seq, len(self.shards), x.shape[1])
+        prepared = [s.transformer.train_inputs(x.to(d), text.to(d), frames=f)
+                    for s, d, f in zip(self.shards, self.devices, frames)]
         hs = [h for h, _ in prepared]
         seeds = [None] * self.cfg.depth if seeds is None else seeds
         for i, seed in enumerate(seeds):
-            hs = lockstep([s.transformer.transformer_blocks[i].steps(h, rope, self.cfg.dropout, seed, rows)
-                           for s, h, (_, rope) in zip(self.shards, hs, prepared)])
-        return self.shards[0].transformer.norm_out(hs[0])
+            hs = lockstep([s.transformer.transformer_blocks[i].steps(h, rope, self.cfg.dropout, seed, rows, f)
+                           for s, h, (_, rope), f in zip(self.shards, hs, prepared, frames)], self.seq)
+        outs = [self.shards[s].transformer.norm_out(hs[s]) for s in range(0, len(self.shards), model)]
+        return outs if self.seq > 1 else outs[0]
 
-    def head(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return self.shards[0].head(x, mask)
+    def head(self, x, mask: torch.Tensor) -> torch.Tensor:
+        """`DurationPredictor.head`; under sequence parallelism x is the seq
+        slots' outputs, and the masked mean's sums (each slot's over its
+        frames) join in a counted `seq_sum` before the linear and the
+        softplus, on the first slot."""
+        if self.seq == 1:
+            return self.shards[0].head(x, mask)
+        parts = []
+        for frames, xs in zip(seq_frames(self.seq, mask.shape[1]), x):
+            m = frames.take(mask).to(xs.device)
+            parts.append(torch.where(m[..., None], xs, torch.zeros_like(xs)).sum(dim=1))
+        num = seq_sum(parts)[0]
+        den = mask.sum(dim=-1).clamp(min=1).to(num.device)
+        return self.shards[0].seconds_from_mean(num / den[:, None].to(num.dtype))
 
 
 def duration_prefix(inp: torch.Tensor, lens: torch.Tensor, rand_frac: torch.Tensor) -> tuple:

@@ -7,9 +7,10 @@ whose sharded tensors are its slot's slices, with each attention's local
 head count and each linear's local widths (`shard_module`). For sampling
 the rows' shards are wrapped in `models/dit.py` `DiTGroup`s
 (`shard_model_for_inference`); for training every slot gets a trainable
-copy, its parameters leaves of their own (`shard_model_for_training`),
-`shard_train_state` cuts a train state over them, and `gather_shards` joins a sharded train state's stored pieces back into the
-full `state_dict`.
+copy, its parameters leaves of their own (`shard_model_for_training`; a
+seq slot of sequence parallelism gets a copy of its model column's shard),
+`shard_train_state` cuts a train state over them, and `gather_shards` joins
+a sharded train state's stored pieces back into the full `state_dict`.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ from f5_tts_tpu_torch.parallel.mesh import (
     ROW_SHARDED,
     Mesh,
     ShardedTrainState,
-    check_trainable,
     gather_state,
     param_specs,
     shard_state,
@@ -84,18 +84,20 @@ def _shard(dit: nn.Module, specs: dict, slot: int, ways: int) -> nn.Module:
     return shard
 
 
-def shard_module(module: nn.Module, mesh: Mesh) -> list[list[nn.Module]]:
+def shard_module(module: nn.Module, mesh: Mesh, seq_slots: bool = False) -> list[list[nn.Module]]:
     """One shard of `module` a slot of the grid by `param_specs`, on its
-    slot's device: a list a data row of its tensor-parallel group's shards.
-    Raises ValueError where the model axis does not divide an attention's
-    heads or a feed-forward's hidden width, or leaves a quantized
-    row-sharded linear an input width that is not a multiple of 64 a
-    slot."""
+    slot's device: a list a data row of its tensor-parallel group's shards,
+    or with `seq_slots` of its seq x model slots' (row-major; each seq slot
+    a copy of the model group). Raises ValueError where the model axis does
+    not divide an attention's heads or a feed-forward's hidden width, or
+    leaves a quantized row-sharded linear an input width that is not a
+    multiple of 64 a slot."""
     ways = mesh.shape["model"]
     _check_shardable(module, ways)
     specs = param_specs(module)
-    return [[_shard(module, specs, j, ways).to(device) for j, device in enumerate(group)]
-            for group in mesh.tp_groups()]
+    groups = [list(row.flat) for row in mesh.devices] if seq_slots else mesh.tp_groups()
+    return [[_shard(module, specs, i % ways, ways).to(device) for i, device in enumerate(group)]
+            for group in groups]
 
 
 def shard_model_for_inference(dit: nn.Module, mesh: Mesh) -> list[DiTGroup]:
@@ -112,24 +114,24 @@ def shard_model_for_training(model: nn.Module, mesh: Mesh) -> list:
     """Trainable shards of a DiT or a duration predictor, one a slot of the
     grid by `param_specs`, every parameter a leaf of its own that requires
     grad (a replicated tensor is copied into each slot: one parameter tied
-    across the grid). Returns one group a data row: `DiTGroup`s or
-    `DurationGroup`s. Raises ValueError as `shard_module` does, and
-    NotImplementedError for a seq axis above 1."""
-    check_trainable(mesh)
+    across the grid; a seq slot holds its own copy of its model column's
+    shard). Returns one group a data row over its seq x model slots:
+    `DiTGroup`s or `DurationGroup`s. Raises ValueError as `shard_module`
+    does."""
     group = {DiT: DiTGroup, DurationPredictor: DurationGroup}[type(model)]
-    rows = shard_module(model, mesh)
+    rows = shard_module(model, mesh, seq_slots=True)
     for shards in rows:
         for shard in shards:
             shard.requires_grad_(True)
-    return [group(shards) for shards in rows]
+    return [group(shards, mesh.seq) for shards in rows]
 
 
 def shard_train_state(state, mesh: Mesh, fsdp: bool = False) -> ShardedTrainState:
     """A train state (training/trainer.py `TrainState`) over the grid: its
     model's trainable shards (`shard_model_for_training`) and its
     parameters, moments and EMA cut by the specs (parallel/mesh.py
-    `shard_state`, which raises NotImplementedError for a seq axis above 1
-    and for FSDP across processes)."""
+    `shard_state`, which raises NotImplementedError for FSDP across
+    processes)."""
     return shard_state(state, mesh, shard_model_for_training(state.model, mesh), fsdp)
 
 

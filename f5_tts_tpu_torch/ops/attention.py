@@ -34,20 +34,20 @@ def scaled_dot_product_attention(
     scale: float,
     key_mask: torch.Tensor | None = None,
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,  # (cos, sin) [n', rot_dim]
+    q_offset: int = 0,  # a query block's first row among k's (ops/flash_attention.py)
 ) -> torch.Tensor:
     """Attention after the interleaved rotary embedding of q and k. A rotation
-    of the full head goes into the kernel with the last n table rows; a
-    partial one is applied here first."""
-    from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb
-    from f5_tts_tpu_torch.ops.flash_attention import flash_attention
+    of the full head goes into the kernel with the last n_k table rows (the
+    keys'; a query block takes its rows from q_offset of those); a partial
+    one is applied here first."""
+    from f5_tts_tpu_torch.ops.flash_attention import _rotated, flash_attention
 
     if rope is not None:
         cos, sin = rope
-        n = q.shape[-2]
+        n_k = k.shape[-2]
         if cos.shape[-1] == q.shape[-1]:
-            rope = (cos[-n:], sin[-n:])
+            rope = (cos[-n_k:], sin[-n_k:])
         else:
-            q = apply_rotary_pos_emb(q, rope)
-            k = apply_rotary_pos_emb(k, rope)
+            q, k = _rotated(q, k, rope, q_offset)
             rope = None
-    return flash_attention(q, k, v, scale, key_mask=key_mask, rope=rope)
+    return flash_attention(q, k, v, scale, key_mask=key_mask, rope=rope, q_offset=q_offset)

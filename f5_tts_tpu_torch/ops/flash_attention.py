@@ -26,7 +26,15 @@ rotates and splits the inputs into scratch the wrapper allocates; at d = 128
 and 256 on the FMA units. The source notes give the designs.
 
 `flash_attention` computes softmax(rope(q) rope(k)^T * scale, keys masked by
-key_mask) v. When q, k or v requires grad it goes through `FlashAttentionFn`,
+key_mask) v. q may be a query block: [b, h, n_q, d] rows from `q_offset` of
+a sequence whose n_k keys k and v hold (sequence parallelism in training, a
+slot's frames against the keys its group gathered); the tables are the keys'
+[n_k, d], and the queries take rows q_offset .. q_offset + n_q - 1 of them.
+On the card the bf16 kernels at d = 64 and 128 and the float32 ones at d = 64
+take a block; elsewhere a block raises ValueError. A block goes through
+`FlashAttentionFn` (with grad) or the kernels' wrappers, never through the
+registered operator, whose schema artifacts record.
+When q, k or v requires grad it goes through `FlashAttentionFn`,
 whose backward launches K2 for CUDA tensors and runs
 `flash_attention_bwd_plain` for CPU tensors; otherwise (every sampling path,
 under torch.no_grad) it calls K1 alone as the registered operator
@@ -67,10 +75,21 @@ TC_HEAD_DIM = 64  # the head dim of the float32 kernels on the tensor cores (3xT
 # ------------------------------------------------------------ plain versions
 
 
-def _rotated(q, k, rope):
+def _tables(rope, n_q: int, n_k: int, q_offset: int):
+    """(the queries' (cos, sin), the keys' (cos, sin)): the keys take the
+    table's last n_k rows, the queries n_q rows from q_offset of those.
+    Sliced here, because `apply_rotary_pos_emb` rotates by a table's last
+    rows, which would turn a query block as if it ended the sequence."""
+    base = rope[0].shape[0] - n_k
+    rows = slice(base + q_offset, base + q_offset + n_q)
+    return tuple(t[rows] for t in rope), tuple(t[base:] for t in rope)
+
+
+def _rotated(q, k, rope, q_offset: int = 0):
     if rope is None:
         return q, k
-    return apply_rotary_pos_emb(q, rope), apply_rotary_pos_emb(k, rope)
+    q_tab, k_tab = _tables(rope, q.shape[-2], k.shape[-2], q_offset)
+    return apply_rotary_pos_emb(q, q_tab), apply_rotary_pos_emb(k, k_tab)
 
 
 def _logits(q, k, scale, key_mask):
@@ -82,25 +101,26 @@ def _logits(q, k, scale, key_mask):
 
 
 def flash_attention_plain(
-    q: torch.Tensor,  # [b, h, n, d]
-    k: torch.Tensor,
+    q: torch.Tensor,  # [b, h, n_q, d]
+    k: torch.Tensor,  # [b, h, n_k, d]; v too
     v: torch.Tensor,
     scale: float,
-    key_mask: torch.Tensor | None = None,  # [b, n] bool, True = keep
-    rope: tuple[torch.Tensor, torch.Tensor] | None = None,  # (cos, sin), each [n, d] f32
+    key_mask: torch.Tensor | None = None,  # [b, n_k] bool, True = keep
+    rope: tuple[torch.Tensor, torch.Tensor] | None = None,  # (cos, sin), each [n_k, d] f32
+    q_offset: int = 0,  # the queries' first table row
 ) -> torch.Tensor:
     """K1's function in plain PyTorch: rotary embedding, then
     `sdpa_reference`."""
-    q, k = _rotated(q, k, rope)
+    q, k = _rotated(q, k, rope, q_offset)
     return sdpa_reference(q, k, v, scale, key_mask)
 
 
-def attention_lse_plain(q, k, scale, key_mask=None, rope=None) -> torch.Tensor:
+def attention_lse_plain(q, k, scale, key_mask=None, rope=None, q_offset: int = 0) -> torch.Tensor:
     """The per-row log-sum-exp of the scaled scores that K1 writes for the
-    backward, [b, h, n] float32. A row whose keys are all masked is left
+    backward, [b, h, n_q] float32. A row whose keys are all masked is left
     out of the comparison: K1 biases masked keys by -1e30, where this
     version masks with the float32 minimum."""
-    q, k = _rotated(q, k, rope)
+    q, k = _rotated(q, k, rope, q_offset)
     return torch.logsumexp(_logits(q, k, scale, key_mask), dim=-1)
 
 
@@ -130,24 +150,25 @@ def flash_prepass_plain(
 
 
 def bwd_prepass_plain(
-    q: torch.Tensor,  # [b, h, n, d]
-    k: torch.Tensor,
+    q: torch.Tensor,  # [b, h, n_q, d]
+    k: torch.Tensor,  # [b, h, n_k, d]
     g: torch.Tensor,  # the output's gradient
     out: torch.Tensor,  # the forward's output
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The pre-pass of K2's bf16 path in plain PyTorch: the rotated q', k'
-    in q's dtype and delta = rowsum(g * out) in float32, [b, h, n]."""
-    qr, kr = _rotated(q, k, rope)
+    in q's dtype and delta = rowsum(g * out) in float32, [b, h, n_q]."""
+    qr, kr = _rotated(q, k, rope, q_offset)
     return qr, kr, (g.float() * out.float()).sum(dim=-1)
 
 
 def bwd_main_plain(
-    qr: torch.Tensor,  # [b, h, n, d], rotated
-    kr: torch.Tensor,
+    qr: torch.Tensor,  # [b, h, n_q, d], rotated
+    kr: torch.Tensor,  # [b, h, n_k, d], rotated; v too
     v: torch.Tensor,
     g: torch.Tensor,
-    delta: torch.Tensor,  # [b, h, n] float32
+    delta: torch.Tensor,  # [b, h, n_q] float32
     scale: float,
     key_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -165,22 +186,25 @@ def bwd_main_plain(
 
 
 def bwd_epilogue_plain(
-    dqr: torch.Tensor,  # [b, h, n, d] float32
-    dkr: torch.Tensor,
+    dqr: torch.Tensor,  # [b, h, n_q, d] float32
+    dkr: torch.Tensor,  # [b, h, n_k, d] float32; dv too
     dv: torch.Tensor,
     rope: tuple[torch.Tensor, torch.Tensor] | None,
     dtype: torch.dtype,  # the inputs' dtype: the tables are rounded to it
     out_dtype: torch.dtype = torch.float32,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's epilogue in plain PyTorch: the RoPE backward
-    dx = dx' cos + (dx' sin) P^T = dx' cos - rotate_half(dx' sin) of dQ' and
-    dK', then one rounding of dq, dk, dv to `out_dtype` (the kernels write
-    q's dtype)."""
+    dx = dx' cos + (dx' sin) P^T = dx' cos - rotate_half(dx' sin) of dQ'
+    (by the queries' table rows) and dK' (by the keys'), then one rounding
+    of dq, dk, dv to `out_dtype` (the kernels write q's dtype)."""
     if rope is not None:
-        n = dqr.shape[-2]
-        cos, sin = (t[-n:].to(dtype).float() for t in rope)
-        dqr = dqr * cos - rotate_half(dqr * sin)
-        dkr = dkr * cos - rotate_half(dkr * sin)
+        def backward(x, tab):
+            cos, sin = (t.to(dtype).float() for t in tab)
+            return x * cos - rotate_half(x * sin)
+
+        q_tab, k_tab = _tables(rope, dqr.shape[-2], dkr.shape[-2], q_offset)
+        dqr, dkr = backward(dqr, q_tab), backward(dkr, k_tab)
     return dqr.to(out_dtype), dkr.to(out_dtype), dv.to(out_dtype)
 
 
@@ -204,8 +228,8 @@ def tf32_split_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def flash_attention_bwd_plain(
-    q: torch.Tensor,  # [b, h, n, d]
-    k: torch.Tensor,
+    q: torch.Tensor,  # [b, h, n_q, d]
+    k: torch.Tensor,  # [b, h, n_k, d]; v too
     v: torch.Tensor,
     out: torch.Tensor,  # the forward's output
     g: torch.Tensor,  # its gradient
@@ -213,11 +237,14 @@ def flash_attention_bwd_plain(
     key_mask: torch.Tensor | None = None,
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
     out_dtype: torch.dtype = torch.float32,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's function in plain PyTorch, the pre-pass, main and epilogue
-    stages in turn: dq, dk, dv in `out_dtype` (float32 unless asked)."""
-    qr, kr, delta = bwd_prepass_plain(q, k, g, out, rope)
-    return bwd_epilogue_plain(*bwd_main_plain(qr, kr, v, g, delta, scale, key_mask), rope, q.dtype, out_dtype)
+    stages in turn: dq, dk, dv in `out_dtype` (float32 unless asked). For a
+    query block dk and dv are the block's share of the keys' gradient."""
+    qr, kr, delta = bwd_prepass_plain(q, k, g, out, rope, q_offset)
+    return bwd_epilogue_plain(*bwd_main_plain(qr, kr, v, g, delta, scale, key_mask), rope, q.dtype, out_dtype,
+                              q_offset)
 
 
 # ------------------------------------------------------------ the kernels
@@ -227,11 +254,13 @@ def flash_attention_bwd_plain(
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_build.build(SOURCE)[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    tail = [i32] * 4 + [i64] * 12 + [ctypes.c_float, ptr]
-    lib.f5_flash_attention_fwd.argtypes = [ptr] * 8 + tail
-    lib.f5_flash_attention_fwd_f32.argtypes = [ptr] * 9 + tail  # + the pre-pass's scratch
-    lib.f5_flash_attention_fwd_core.argtypes = [ptr] * 10 + [i32] * 5 + [i64] * 12 + [ctypes.c_float, i32, ptr]
-    lib.f5_flash_fwd_prepass.argtypes = [ptr] * 7 + [i32] * 5 + [i64] * 6 + [i32, ptr]
+    tail = [i64] * 12 + [ctypes.c_float, ptr]
+    lib.f5_flash_attention_fwd.argtypes = [ptr] * 8 + [i32] * 4 + tail
+    # + the pre-pass's scratch; b, h, n, nk, q_off, d
+    lib.f5_flash_attention_fwd_f32.argtypes = [ptr] * 9 + [i32] * 6 + tail
+    # b, h, n, nk, n_pad, nk_pad, q_off, d
+    lib.f5_flash_attention_fwd_core.argtypes = [ptr] * 10 + [i32] * 8 + [i64] * 12 + [ctypes.c_float, i32, ptr]
+    lib.f5_flash_fwd_prepass.argtypes = [ptr] * 7 + [i32] * 8 + [i64] * 6 + [i32, ptr]
     for name in (*_ENTRY.values(), "f5_flash_attention_fwd_core", "f5_flash_fwd_prepass"):
         getattr(lib, name).restype = i32
     lib.f5_cuda_error_string.argtypes = [i32]
@@ -244,8 +273,9 @@ def _bwd_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_build.build(BWD_SOURCE)[0]))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     strides = ctypes.POINTER(ctypes.c_longlong)
-    lib.f5_flash_attention_bwd.argtypes = [ptr] * 16 + [i32] * 4 + [strides, ctypes.c_float, ptr]
-    lib.f5_flash_attention_bwd_f32.argtypes = [ptr] * 13 + [i32] * 4 + [strides, ctypes.c_float, ptr]
+    # b, h, n, nk, q_off, d
+    lib.f5_flash_attention_bwd.argtypes = [ptr] * 16 + [i32] * 6 + [strides, ctypes.c_float, ptr]
+    lib.f5_flash_attention_bwd_f32.argtypes = [ptr] * 13 + [i32] * 6 + [strides, ctypes.c_float, ptr]
     for name in _BWD_ENTRY.values():
         getattr(lib, name).restype = i32
     lib.f5_cuda_error_string.argtypes = [i32]
@@ -258,9 +288,9 @@ def _layout_ok(x: torch.Tensor) -> bool:
     return x.stride(3) == 1 and not any(s % per16 for s in x.stride()[:3]) and not x.data_ptr() % 16
 
 
-def _check_bhnd(x: torch.Tensor, name: str, q: torch.Tensor) -> None:
-    if x.shape != q.shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(q.shape)}")
+def _check_bhnd(x: torch.Tensor, name: str, q: torch.Tensor, shape: tuple) -> None:
+    if x.shape != shape:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
     if x.dtype not in _ENTRY or x.dtype != q.dtype:
         raise ValueError(f"the attention kernels take bfloat16 or float32 (all alike); {name} is {x.dtype}")
     if x.device != q.device:
@@ -272,27 +302,48 @@ def _check_bhnd(x: torch.Tensor, name: str, q: torch.Tensor) -> None:
         )
 
 
-def _checked(q, k, v, key_mask, rope):
+def is_block(q: torch.Tensor, k: torch.Tensor, q_offset: int) -> bool:
+    """Whether q is a query block: other rows than k's, or an offset."""
+    return q.shape[-2] != k.shape[-2] or q_offset != 0
+
+
+def block_covered(dtype: torch.dtype, d: int) -> bool:
+    """Whether the kernels take a query block at this dtype and head dim:
+    bf16 at d = 64 and 128 (the pre-pass + core, K2's wgmma pair) and float32
+    at d = 64 (3xTF32)."""
+    return (dtype == torch.bfloat16 and d in CORE_HEAD_DIMS) or (dtype == torch.float32 and d == TC_HEAD_DIM)
+
+
+def _checked(q, k, v, key_mask, rope, q_offset: int = 0):
     """Validate the kernels' inputs; returns (key_mask, cos, sin) as the
-    kernels take them."""
+    kernels take them. q may differ from k and v in its rows only (a query
+    block, where `block_covered`)."""
     b, h, n, d = q.shape
+    n_k = k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
-    if n < 1:
-        raise ValueError("flash_attention needs at least one key")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_bhnd(x, name, q)
+    if n < 1 or n_k < 1:
+        raise ValueError("flash_attention needs at least one query and one key")
+    for name, x, shape in (("q", q, (b, h, n, d)), ("k", k, (b, h, n_k, d)), ("v", v, (b, h, n_k, d))):
+        _check_bhnd(x, name, q, shape)
+    if is_block(q, k, q_offset):
+        if not block_covered(q.dtype, d):
+            raise ValueError(f"the attention kernels take a query block (n_q {n} against n_k {n_k} keys from row "
+                             f"{q_offset}) in bfloat16 at head dims {CORE_HEAD_DIMS} and float32 at "
+                             f"{TC_HEAD_DIM}; got {q.dtype} at {d}")
+        if q_offset < 0 or q_offset + n > n_k:
+            raise ValueError(f"a query block of {n} rows from row {q_offset} does not lie in {n_k} keys")
     if key_mask is not None:
-        if key_mask.shape != (b, n) or key_mask.dtype != torch.bool or key_mask.device != q.device:
-            raise ValueError(f"key_mask must be bool [{b}, {n}] on {q.device}")
+        if key_mask.shape != (b, n_k) or key_mask.dtype != torch.bool or key_mask.device != q.device:
+            raise ValueError(f"key_mask must be bool [{b}, {n_k}] on {q.device}")
         key_mask = key_mask.contiguous()
     cos = sin = None
     if rope is not None:
         cos, sin = rope
         for name, tab in (("cos", cos), ("sin", sin)):
-            if (tab.shape != (n, d) or tab.dtype != torch.float32 or tab.device != q.device
+            if (tab.shape != (n_k, d) or tab.dtype != torch.float32 or tab.device != q.device
                     or not tab.is_contiguous() or tab.data_ptr() % 16):
-                raise ValueError(f"rope {name} must be a contiguous float32 [{n}, {d}] table on {q.device}")
+                raise ValueError(f"rope {name} must be a contiguous float32 [{n_k}, {d}] table on {q.device}")
     return key_mask, cos, sin
 
 
@@ -300,17 +351,20 @@ def _ptr(x: torch.Tensor | None):
     return None if x is None else x.data_ptr()
 
 
-def _f32_scratch(b: int, h: int, n: int, d: int, backward: bool, device) -> torch.Tensor | None:
+def _f32_scratch(b: int, h: int, n: int, d: int, backward: bool, device, n_k: int | None = None):
     """The float32 kernels' pre-pass scratch (laid out by `tc_carve` in
     csrc/tf32.cuh): the backward's row stats (2 b h n_pad floats), the key
-    biases (b n_pad), and at d = 64 the TF32 halves of rope(q), rope(k), v
-    (and g in the backward), each [b, h, n, d]. None for the forward at
-    d = 128 and 256, which has no pre-pass."""
-    n_pad = -(-n // BWD_ROW_PAD) * BWD_ROW_PAD
+    biases (b nk_pad), and at d = 64 the TF32 halves of rope(q) [b, h, n, d],
+    rope(k) and v [b, h, n_k, d] (and g [b, h, n, d] in the backward). None
+    for the forward at d = 128 and 256, which has no pre-pass. n_k defaults
+    to n."""
+    n_k = n if n_k is None else n_k
+    n_pad, nk_pad = (-(-x // BWD_ROW_PAD) * BWD_ROW_PAD for x in (n, n_k))
+    stats = 2 * b * h * n_pad if backward else 0
     if d != TC_HEAD_DIM:
-        floats = 2 * b * h * n_pad + b * n_pad if backward else 0
+        floats = stats + b * nk_pad if backward else 0
     else:
-        floats = (2 * b * h * n_pad if backward else 0) + b * n_pad + (8 if backward else 6) * b * h * n * d
+        floats = stats + b * nk_pad + 2 * b * h * d * ((2 if backward else 1) * n + 2 * n_k)
     return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
 
 
@@ -319,13 +373,15 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {lib.f5_cuda_error_string(err).decode()}")
 
 
-def _core_scratch(b: int, h: int, n_pad: int, d: int, rotate: bool, masked: bool, device):
-    """One allocation for what K1's bf16 pre-pass writes: the rotated q and
-    k, bf16 [2, b * h, n_pad, d] (with RoPE), then the key biases, float32
-    [b, n_pad] (with a mask). Returns (buffer, rot pointer, kbias pointer);
-    the pointers are None for what is not written."""
-    rot_bytes = 4 * b * h * n_pad * d if rotate else 0
-    bias_bytes = 4 * b * n_pad if masked else 0
+def _core_scratch(b: int, h: int, n_pad: int, d: int, rotate: bool, masked: bool, device, nk_pad: int | None = None):
+    """One allocation for what K1's bf16 pre-pass writes: the rotated q,
+    bf16 [b * h, n_pad, d], and k, [b * h, nk_pad, d] (with RoPE), then the
+    key biases, float32 [b, nk_pad] (with a mask); nk_pad defaults to n_pad.
+    Returns (buffer, rot pointer, kbias pointer); the pointers are None for
+    what is not written."""
+    nk_pad = n_pad if nk_pad is None else nk_pad
+    rot_bytes = 2 * b * h * (n_pad + nk_pad) * d if rotate else 0
+    bias_bytes = 4 * b * nk_pad if masked else 0
     if not rot_bytes + bias_bytes:
         return None, None, None
     buf = torch.empty(rot_bytes + bias_bytes, dtype=torch.uint8, device=device)
@@ -333,47 +389,52 @@ def _core_scratch(b: int, h: int, n_pad: int, d: int, rotate: bool, masked: bool
     return buf, base if rotate else None, base + rot_bytes if masked else None
 
 
-def _core_forward(q, k, v, scale, key_mask, cos, sin, with_lse: bool):
+def _core_forward(q, k, v, scale, key_mask, cos, sin, with_lse: bool, q_offset: int = 0):
     """K1 bf16 at d = 64 and 128 on checked inputs: the pre-pass (with RoPE
     or a mask), then the core, on the current stream of q's device (which
     need not be the current device). Returns (out, lse or None)."""
     b, h, n, d = q.shape
+    n_k = k.shape[2]
     out = torch.empty_like(q)
     if cos is None:  # the core reads q and k through tensor maps
         q, k = _dense(q), _dense(k)
     v = _dense(v)
     dev = q.get_device()
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
-    n_pad = -(-n // CORE_ROW_PAD) * CORE_ROW_PAD
-    _, rot, kbias = _core_scratch(b, h, n_pad, d, cos is not None, key_mask is not None, q.device)
+    n_pad, nk_pad = (-(-x // CORE_ROW_PAD) * CORE_ROW_PAD for x in (n, n_k))
+    _, rot, kbias = _core_scratch(b, h, n_pad, d, cos is not None, key_mask is not None, q.device, nk_pad)
     lib = _library()
     err = lib.f5_flash_attention_fwd_core(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(key_mask), _ptr(cos), _ptr(sin),
-        rot, kbias, b, h, n, n_pad, d, *[s for x in (q, k, v, out) for s in x.stride()[:3]], float(scale), dev,
-        torch._C._cuda_getCurrentRawStream(dev),  # the raw stream getter torch's compiled code calls
+        rot, kbias, b, h, n, n_k, n_pad, nk_pad, q_offset, d, *[s for x in (q, k, v, out) for s in x.stride()[:3]],
+        float(scale), dev, torch._C._cuda_getCurrentRawStream(dev),  # the raw stream getter torch's compiled code calls
     )
     _raise_on(err, lib, "flash attention")
     flash_attention.launches += 1
     return out, lse
 
 
-def _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse: bool):
+def _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse: bool, q_offset: int = 0):
     """Launch K1 on checked inputs; returns (out, lse or None). The output
     has q's strides when q is dense, else it is contiguous; d stays
-    innermost, so the other strides are multiples of d."""
+    innermost, so the other strides are multiples of d. A query block
+    (`_checked` let it through) goes to a kernel that takes one."""
     b, h, n, d = q.shape
+    n_k = k.shape[2]
     if q.dtype == torch.bfloat16 and d in CORE_HEAD_DIMS:
-        return _core_forward(q, k, v, scale, key_mask, cos, sin, with_lse)
+        return _core_forward(q, k, v, scale, key_mask, cos, sin, with_lse, q_offset)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
     lib = _library()
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(key_mask), _ptr(cos), _ptr(sin)]
+    dims = (b, h, n, d)
     if q.dtype == torch.float32:
-        ptrs.append(_ptr(_f32_scratch(b, h, n, d, False, q.device)))
+        ptrs.append(_ptr(_f32_scratch(b, h, n, d, False, q.device, n_k)))
+        dims = (b, h, n, n_k, q_offset, d)
     with torch.cuda.device(q.device):
         err = getattr(lib, _ENTRY[q.dtype])(
-            *ptrs, b, h, n, d, *strides, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+            *ptrs, *dims, *strides, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, lib, "flash attention")
     if q.dtype == torch.float32:
@@ -400,7 +461,7 @@ def flash_prepass(q, k, key_mask, rope, n_pad: int):
     dev = q.get_device()
     lib = _library()
     err = lib.f5_flash_fwd_prepass(
-        q.data_ptr(), k.data_ptr(), _ptr(key_mask), _ptr(cos), _ptr(sin), rot, kbias, b, h, n, n_pad, d,
+        q.data_ptr(), k.data_ptr(), _ptr(key_mask), _ptr(cos), _ptr(sin), rot, kbias, b, h, n, n, n_pad, n_pad, 0, d,
         *q.stride()[:3], *k.stride()[:3], dev, torch._C._cuda_getCurrentRawStream(dev),
     )
     _raise_on(err, lib, "flash attention pre-pass")
@@ -414,19 +475,21 @@ def flash_prepass(q, k, key_mask, rope, n_pad: int):
     return qr, kr, bias
 
 
-def _backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin):
+def _backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset: int = 0):
     """Launch K2; returns (dq, dk, dv) in q's dtype, contiguous
-    [b, h, n, d]. g (and v) are taken as strided views when their layout
-    allows, else made contiguous. The pre-pass, then the main kernels, with
-    the pre-pass's scratch allocated here."""
-    return _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin)[:3]
+    [b, h, n, d] (dk and dv [b, h, n_k, d] for a query block: its share of
+    the keys' gradient). g (and v) are taken as strided views when their
+    layout allows, else made contiguous. The pre-pass, then the main
+    kernels, with the pre-pass's scratch allocated here."""
+    return _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset)[:3]
 
 
-def _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin):
+def _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset: int = 0):
     """`_backward_kernel`'s launch; returns (dq, dk, dv, qr, kr), where qr
-    and kr are the bf16 pre-pass's rope(q) and rope(k) [b, h, n, d] (None in
-    float32)."""
+    and kr are the bf16 pre-pass's rope(q) [b, h, n, d] and rope(k)
+    [b, h, n_k, d] (None in float32)."""
     b, h, n, d = q.shape
+    n_k = k.shape[2]
     if g.dtype != q.dtype:
         raise ValueError(f"the output's gradient is {g.dtype}, the inputs {q.dtype}")
     # TMA reads v and g by their strides, and takes no zero stride (an expanded gradient)
@@ -437,28 +500,32 @@ def _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin):
     lib = _bwd_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = (ctypes.c_longlong * 15)(*[s for x in (q, k, v, g, out) for s in x.stride()[:3]])
+    def rows(m, dtype):
+        return torch.empty((b, h, m, d), dtype=dtype, device=q.device)
+
     if q.dtype == torch.float32:
-        scratch = _f32_scratch(b, h, n, d, True, q.device)
-        dq, dk, dv = (torch.empty((b, h, n, d), dtype=torch.float32, device=q.device) for _ in range(3))
+        scratch = _f32_scratch(b, h, n, d, True, q.device, n_k)
+        dq, dk, dv = rows(n, torch.float32), rows(n_k, torch.float32), rows(n_k, torch.float32)
         with torch.cuda.device(q.device):
             err = lib.f5_flash_attention_bwd_f32(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 _ptr(key_mask), _ptr(cos), _ptr(sin), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), b, h, n, d, strides, float(scale), stream,
+                dv.data_ptr(), b, h, n, n_k, q_offset, d, strides, float(scale), stream,
             )
         _raise_on(err, lib, "flash attention backward")
         flash_attention.launches_bwd_f32 += 1
         return dq, dk, dv, None, None
-    n_pad = -(-n // BWD_ROW_PAD) * BWD_ROW_PAD
-    qr, kr, dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(5))
+    n_pad, nk_pad = (-(-x // BWD_ROW_PAD) * BWD_ROW_PAD for x in (n, n_k))
+    qr, dq = rows(n, q.dtype), rows(n, q.dtype)
+    kr, dk, dv = rows(n_k, q.dtype), rows(n_k, q.dtype), rows(n_k, q.dtype)
     stats = torch.empty((b, h, n_pad, 2), dtype=torch.float32, device=q.device)
-    kbias = torch.empty((b, n_pad), dtype=torch.float32, device=q.device)
+    kbias = torch.empty((b, nk_pad), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.f5_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _ptr(key_mask), _ptr(cos), _ptr(sin), qr.data_ptr(), kr.data_ptr(), stats.data_ptr(),
-            kbias.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, d, strides, float(scale),
-            stream,
+            kbias.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, n_k, q_offset, d, strides,
+            float(scale), stream,
         )
     _raise_on(err, lib, "flash attention backward")
     flash_attention.launches_bwd += 1
@@ -506,19 +573,23 @@ def _flash_attention_fwd_fake(q, k, v, scale, key_mask, cos, sin, with_lse):
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with K1 forward and K2 backward on CUDA tensors, the plain
-    versions on CPU tensors. Gradients flow to q, k and v; the mask and the
-    rotary tables are constants."""
+    versions on CPU tensors. Gradients flow to q, k and v; the mask, the
+    rotary tables and the query offset are constants. A query block launches
+    K1 through its wrapper (`_forward_kernel`), not the registered operator."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, key_mask, cos, sin):
+    def forward(ctx, q, k, v, scale, key_mask, cos, sin, q_offset=0):
         rope = None if cos is None else (cos, sin)
         lse = None
         if q.device.type == "cpu":
-            out = flash_attention_plain(q, k, v, scale, key_mask, rope)
+            out = flash_attention_plain(q, k, v, scale, key_mask, rope, q_offset)
         else:
-            key_mask, cos, sin = _checked(q, k, v, key_mask, rope)
-            out, lse = flash_attention_fwd(q, k, v, scale, key_mask, cos, sin, True)
-        ctx.scale = scale
+            key_mask, cos, sin = _checked(q, k, v, key_mask, rope, q_offset)
+            if is_block(q, k, q_offset):
+                out, lse = _forward_kernel(q, k, v, scale, key_mask, cos, sin, True, q_offset)
+            else:
+                out, lse = flash_attention_fwd(q, k, v, scale, key_mask, cos, sin, True)
+        ctx.scale, ctx.q_offset = scale, q_offset
         ctx.save_for_backward(q, k, v, out, lse, key_mask, cos, sin)
         return out
 
@@ -527,24 +598,27 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse, key_mask, cos, sin = ctx.saved_tensors
         if q.device.type == "cpu":
             rope = None if cos is None else (cos, sin)
-            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, g, ctx.scale, key_mask, rope, out_dtype=q.dtype)
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, g, ctx.scale, key_mask, rope, out_dtype=q.dtype,
+                                                   q_offset=ctx.q_offset)
         else:
-            dq, dk, dv = _backward_kernel(q, k, v, out, lse, g, ctx.scale, key_mask, cos, sin)
-        return dq, dk, dv, None, None, None, None
+            dq, dk, dv = _backward_kernel(q, k, v, out, lse, g, ctx.scale, key_mask, cos, sin, ctx.q_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
-    q: torch.Tensor,  # [b, h, n, d]
-    k: torch.Tensor,
+    q: torch.Tensor,  # [b, h, n_q, d]
+    k: torch.Tensor,  # [b, h, n_k, d]; v too
     v: torch.Tensor,
     scale: float,
-    key_mask: torch.Tensor | None = None,  # [b, n] bool, True = keep
-    rope: tuple[torch.Tensor, torch.Tensor] | None = None,  # (cos, sin), each [n, d] f32
+    key_mask: torch.Tensor | None = None,  # [b, n_k] bool, True = keep
+    rope: tuple[torch.Tensor, torch.Tensor] | None = None,  # (cos, sin), each [n_k, d] f32
+    q_offset: int = 0,  # a query block's first row in the keys' sequence
 ) -> torch.Tensor:
     """Non-causal attention with an optional key mask and in-kernel rotary
     embedding. CPU tensors run the plain versions; CUDA tensors launch the
     kernels of their dtype (bfloat16 or float32), and anything the kernels
-    do not take raises ValueError. Differentiable in q, k and v.
+    do not take raises ValueError. Differentiable in q, k and v. q may be a
+    query block (see the module's docstring).
 
     The output has q's shape and dtype (and q's strides when q is dense), so
     a q viewed from a [b, n, h*d] projection gives an output that reshapes
@@ -553,7 +627,12 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, not {q.device.type}")
     cos, sin = (None, None) if rope is None else rope
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, scale, key_mask, cos, sin)
+        return FlashAttentionFn.apply(q, k, v, scale, key_mask, cos, sin, q_offset)
+    if is_block(q, k, q_offset):
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, scale, key_mask, rope, q_offset)
+        key_mask, cos, sin = _checked(q, k, v, key_mask, rope, q_offset)
+        return _forward_kernel(q, k, v, float(scale), key_mask, cos, sin, False, q_offset)[0]
     return flash_attention_fwd(q, k, v, float(scale), key_mask, cos, sin, False)[0]
 
 

@@ -8,8 +8,9 @@ tensor-parallel and FSDP rules by the port's names (`param_specs`,
 `F5TTS.use_mesh`, `generate(mesh=...)` and `--mesh-data`/`--mesh-model`.
 Training: `shard_state` (over the groups of trainable shards that
 models/shard.py `shard_train_state` builds) and `shard_train_step` (DP x
-TP, FSDP, gradient accumulation), behind the trainers' `mesh=` and `fsdp=`
-and the examples' `--mesh-data`/`--mesh-model`/`--fsdp`.
+TP, FSDP, sequence parallelism over "seq", gradient accumulation), behind
+the trainers' `mesh=` and `fsdp=` and the examples'
+`--mesh-data`/`--mesh-model`/`--fsdp`.
 
 `distributed`: several processes. `initialize()` starts the process group;
 each process loads its slice of the global batch
@@ -17,8 +18,7 @@ each process loads its slice of the global batch
 across the processes (`sum_across_processes`). A trainer without a mesh
 trains over a grid of one slot when several processes run.
 
-Not ported yet: sequence parallelism in training (the "seq" axis, ROADMAP
-item 4b-ii), and FSDP across processes (item 4b-iii).
+Not ported yet: FSDP across processes (ROADMAP item 4b-iii).
 
 Names of the JAX package's `parallel` that the port leaves out on purpose:
 `shard_params`, since the port holds no parameter tree to place (a

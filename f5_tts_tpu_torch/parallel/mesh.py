@@ -1,6 +1,7 @@
-"""Mesh parallelism in one process: data parallelism over a "data" axis and
+"""Mesh parallelism in one process: data parallelism over a "data" axis,
 Megatron-style tensor parallelism over a "model" axis, for sampling and for
-training (the port of the JAX package's `parallel/mesh.py`).
+training, and sequence parallelism over a "seq" axis in training (the port
+of the JAX package's `parallel/mesh.py`).
 
 The JAX package is single-controller: one process, a `Mesh` over
 `jax.devices()`, and GSPMD inserting the collectives. The port keeps that
@@ -67,15 +68,32 @@ the model's modules: the groups of shards come from models/shard.py, the
 trainer's objective runs them (`numerator`), and the trainer's
 `UpdateRule` accumulates and applies the update, as in the unsharded step.
 
-Not ported yet: sequence parallelism (the "seq" axis in training, ROADMAP
-item 4b-ii): a trainer given a mesh with seq above 1 raises
-NotImplementedError.
+Sequence parallelism (a "seq" axis above 1, training only; JAX shards the
+step's frames over it with `sequence_sharding` and GSPMD adds the
+collectives). The slots are row-major over (data, seq, model); a seq slot
+holds a copy of its model column's shard (the parameters are replicated
+over "seq", and seq index 0 owns the piece: the gradient norm and the
+checkpoints read it alone), and a data row's group runs all its seq x model
+slots in step (`lockstep`). Each seq slot computes its `Frames` of the
+sequence: the text embedding whole (its GRN sums over every frame), the
+input embedding on a window its two convolutions reach, clipped to the
+sequence, then the blocks and the head on its own frames. Its attention
+takes its queries against the keys and values gathered over its seq group
+(one data row, one model column: `seq_all_gather`, whose backward
+reduce-scatters the keys' and values' gradient back to the slots' frames
+within the group; not FSDP's `reduce_scatter`, which also sums across
+processes), with RoPE at the slot's offset (ops/flash_attention.py, a query
+block). The gradient rule above then sums over the seq slots too: they are
+more slots of the group. A duration step's pooled sums are joined by a
+counted `seq_sum`. Frames that "seq" does not divide raise ValueError, as
+JAX's `device_put` refuses them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -105,6 +123,10 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    @property
+    def seq(self) -> int:
+        return self.shape.get("seq", 1)
 
     def tp_groups(self) -> list[list[torch.device]]:
         """Each data row's tensor-parallel group: the devices along "model"
@@ -143,9 +165,9 @@ def create_mesh(data: int | None = None, model: int = 1, seq: int = 1, devices=N
     virtual grid on one card or on the CPU). `data` defaults to all the
     devices left over by model * seq. Too few devices raise ValueError.
 
-    `seq` is accepted as in the JAX package, where it shards the training
-    step's frames; sampling replicates the parameters over it and splits the
-    batch over "data" only, so its slots hold replicas and do no work."""
+    `seq` shards the training step's frames, as in the JAX package;
+    sampling replicates the parameters over it and splits the batch over
+    "data" only, so its slots hold replicas and do no work."""
     devices = [_as_device(d) for d in (device_list("cuda") if devices is None else devices)]
     n = len(devices)
     if data is None:
@@ -329,27 +351,92 @@ def reduce_scatter(tensors: list[torch.Tensor], dim: int, parts: int,
 reduce_scatter.count = 0
 
 
+class SeqGather(torch.autograd.Function):
+    """The gather of sequence parallelism, in one process: the seq group's
+    pieces (in seq order) joined along `dim` on the first piece's device and
+    handed to every slot (counted in `gathers`, once a gather). The backward
+    is the matching reduce-scatter: the slots' gradients of the whole summed
+    in seq order on the first device, cut back into the pieces' frames and
+    each sent to its slot (counted in `reduce_scatters`). It stays within
+    the group: no sum across processes."""
+
+    gathers = 0
+    reduce_scatters = 0
+
+    @staticmethod
+    def forward(ctx, dim, *pieces):
+        ctx.dim, ctx.sizes, ctx.devices = dim, [p.shape[dim] for p in pieces], [p.device for p in pieces]
+        full = torch.cat([p.to(pieces[0].device, non_blocking=True) for p in pieces], dim)
+        SeqGather.gathers += 1
+        return tuple(_distinct([full.to(p.device, non_blocking=True) for p in pieces]))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = grads[0].to(ctx.devices[0])
+        for g in grads[1:]:
+            total = total + g.to(ctx.devices[0], non_blocking=True)
+        SeqGather.reduce_scatters += 1
+        parts = total.split(ctx.sizes, ctx.dim)
+        return (None, *(part.to(dev, non_blocking=True) for part, dev in zip(parts, ctx.devices)))
+
+
+def seq_all_gather(pieces: list[torch.Tensor], dim: int = 1) -> list[torch.Tensor]:
+    """Each seq slot's piece of an activation (its frames along `dim`) to
+    the whole, on every slot's device, through `SeqGather`."""
+    return list(SeqGather.apply(dim, *pieces))
+
+
+class SeqSum(torch.autograd.Function):
+    """A sum over a seq group (the duration head's pooled sums), counted in
+    `count`, forward and backward, as `RowSum` counts its own: every slot's
+    output is the same sum, so each part's gradient is the sum of the
+    outputs' gradients."""
+
+    count = 0
+
+    @staticmethod
+    def forward(ctx, *parts):
+        SeqSum.count += 1
+        return tuple(_distinct(_combined(list(parts), torch.add)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        SeqSum.count += 1
+        return tuple(_distinct(_combined(list(grads), torch.add)))
+
+
+def seq_sum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The seq group's sum of `parts`, one a slot (its copy on each slot's
+    device), through `SeqSum`."""
+    return list(SeqSum.apply(*parts))
+
+
 def collective_counts() -> dict:
     """Every counted collective: the all-reduces by op, the gathers and the
-    reduce-scatters."""
+    reduce-scatters of FSDP, and those of sequence parallelism."""
     return {**{f"all_reduce_{op}": n for op, n in all_reduce.counts.items()},
             "grad_all_reduce": grad_all_reduce.count, "all_gather": all_gather.count,
-            "reduce_scatter": reduce_scatter.count}
+            "reduce_scatter": reduce_scatter.count, "seq_all_gather": SeqGather.gathers,
+            "seq_reduce_scatter": SeqGather.reduce_scatters, "seq_sum": SeqSum.count}
 
 
 def reset_collective_counts() -> None:
     all_reduce.counts.update({op: 0 for op in all_reduce.counts})
     grad_all_reduce.count = all_gather.count = reduce_scatter.count = 0
+    SeqGather.gathers = SeqGather.reduce_scatters = SeqSum.count = 0
 
 
-def lockstep(steps: list) -> list:
-    """Run one forward a slot of a tensor-parallel group, each a generator
-    (a module's `steps`), to the end in step: at each point where they
-    yield (op, tensor), the group's tensors are combined (a "sum" through
-    `row_sum`, so that training records it; a "max" by `all_reduce`) and
-    each generator is sent its own copy of the result. Every slot's work up
-    to a reduction is issued before the next slot's; nothing reads back to
-    the host. Returns each generator's value."""
+def lockstep(steps: list, seq: int = 1) -> list:
+    """Run one forward a slot of a data row's group, each a generator (a
+    module's `steps`), to the end in step; the steps are row-major over
+    (seq, model) slots. At each point where they yield (op, tensor), the
+    tensors are combined and each generator is sent its own copy of the
+    result: a "sum" (through `row_sum`, so that training records it) or a
+    "max" (`all_reduce`) within each seq slot's model group, a "gather"
+    (`seq_all_gather`, along the frames) within each model column's seq
+    group. Every slot's work up to a collective is issued before the next
+    slot's; nothing reads back to the host. Returns each generator's value."""
+    model = len(steps) // seq
     sent = [None] * len(steps)
     while True:
         asked, done = [], []
@@ -367,7 +454,15 @@ def lockstep(steps: list) -> list:
             raise RuntimeError(f"the slots of a tensor-parallel group asked for different reductions: {ops}")
         op = ops.pop()
         tensors = [t for _, t in asked]
-        sent = row_sum(tensors) if op == "sum" else all_reduce(tensors, op)
+        sent = [None] * len(steps)
+        if op == "gather":
+            for j in range(model):
+                for s, t in zip(range(j, len(steps), model), seq_all_gather(tensors[j::model])):
+                    sent[s] = t
+        else:
+            for q in range(seq):
+                group = tensors[q * model:(q + 1) * model]
+                sent[q * model:(q + 1) * model] = row_sum(group) if op == "sum" else all_reduce(group, op)
 
 
 # ------------------------------------------------------------- data parallel batches
@@ -393,36 +488,84 @@ def gather_batch(parts: list[torch.Tensor], device: torch.device, batch: int, di
 
 # ------------------------------------------------------------- training over the grid
 
-SEQ_WAITS = ("sequence parallelism (a mesh with seq above 1) is not ported to training yet: a frame-sharded step "
-             "needs one query block against the gathered keys in K1 and K2 (ROADMAP.md queue 1, item 4b-ii)")
+
+@dataclasses.dataclass(frozen=True)
+class Frames:
+    """A seq slot's frames in a frame-sharded training step: slot `index`
+    of `ways` holds rows [start, stop) of `total` (`total` divided evenly)."""
+
+    ways: int
+    index: int
+    total: int
+
+    @property
+    def length(self) -> int:
+        return self.total // self.ways
+
+    @property
+    def start(self) -> int:
+        return self.index * self.length
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.length
+
+    def take(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This slot's frames of a whole-sequence tensor (a view)."""
+        return t.narrow(dim, self.start, self.length)
+
+    def window(self, reach: int) -> tuple[int, int]:
+        """The frames that a stack of convolutions reaching `reach` frames
+        each way needs for this slot's, clipped to the sequence: where the
+        window stops at the sequence's end, the convolutions' zero padding
+        is the sequence's own."""
+        return max(0, self.start - reach), min(self.total, self.stop + reach)
 
 
-def check_trainable(mesh: Mesh) -> None:
-    """Raise NotImplementedError for a mesh whose "seq" axis is above 1."""
-    if mesh.shape.get("seq", 1) > 1:
-        raise NotImplementedError(SEQ_WAITS)
+def seq_frames(ways: int, total: int) -> list[Frames]:
+    """Each seq slot's frames of `total`, in seq order."""
+    return [Frames(ways, q, total) for q in range(ways)]
 
 
-def slots(mesh: Mesh) -> list[tuple[int, int, torch.device]]:
-    """The grid's slots, row-major: (data row, model column, device)."""
-    check_trainable(mesh)
-    grid = mesh.devices.reshape(mesh.shape["data"], mesh.shape["model"])
-    return [(r, j, _as_device(grid[r, j])) for r in range(grid.shape[0]) for j in range(grid.shape[1])]
+def group_frames(seq: int, slots: int, total: int) -> list[Frames | None]:
+    """Each slot's frames in a data row's group of `slots` shards, row-major
+    over (seq, model); None for each without sequence parallelism."""
+    if seq == 1:
+        return [None] * slots
+    return [f for f in seq_frames(seq, total) for _ in range(slots // seq)]
+
+
+class Slot(NamedTuple):
+    """One slot of the grid: its data row, seq index, model column and
+    device."""
+
+    row: int
+    seq: int
+    col: int
+    device: torch.device
+
+
+def slots(mesh: Mesh) -> list[Slot]:
+    """The grid's slots, row-major over (data, seq, model)."""
+    grid = mesh.devices.reshape(mesh.shape["data"], mesh.seq, mesh.shape["model"])
+    return [Slot(r, q, j, _as_device(grid[r, q, j])) for r in range(grid.shape[0]) for q in range(grid.shape[1])
+            for j in range(grid.shape[2])]
 
 
 def piece(t: torch.Tensor, spec: tuple, r: int, j: int, mesh_shape: dict) -> torch.Tensor:
-    """Slot (r, j)'s piece of a full tensor by its spec (a view)."""
+    """Slot (r, j)'s piece of a full tensor by its spec (a view; every seq
+    index of (r, j) holds the same piece)."""
     for axis, index in (("model", j), ("data", r)):
         if axis in spec:
             t = t.chunk(mesh_shape[axis], spec.index(axis))[index]
     return t
 
 
-def owns(spec: tuple, r: int, j: int) -> bool:
-    """Whether slot (r, j) holds a piece of the tensor that no other slot
+def owns(spec: tuple, r: int, j: int, q: int = 0) -> bool:
+    """Whether slot (r, q, j) holds a piece of the tensor that no other slot
     holds: along each axis the spec shards, every slot owns its piece;
-    along the others, the first."""
-    return (r == 0 or "data" in spec) and (j == 0 or "model" in spec)
+    along the others (and always along "seq"), the first."""
+    return q == 0 and (r == 0 or "data" in spec) and (j == 0 or "model" in spec)
 
 
 def assemble(pieces: dict, spec: tuple, mesh_shape: dict, device=None) -> torch.Tensor:
@@ -445,7 +588,8 @@ class ShardedTrainState:
     tensors by name (`params`: the compute leaf itself, or under FSDP the
     slot's 1/data piece, which is gathered into the leaf at each
     microbatch), the AdamW moments and the EMA in the stored layout, the
-    update count and the step. Slots are row-major over (data, model)."""
+    update count and the step. Slots are row-major over (data, seq, model):
+    a data row's group holds its seq x model shards in that order."""
 
     mesh: Mesh
     fsdp: bool
@@ -457,7 +601,7 @@ class ShardedTrainState:
     ema: list[dict] | None = None
 
     @property
-    def slots(self) -> list[tuple[int, int, torch.device]]:
+    def slots(self) -> list[Slot]:
         return slots(self.mesh)
 
     def leaves(self) -> list[dict]:
@@ -491,10 +635,10 @@ def shard_state(state, mesh: Mesh, groups: list, fsdp: bool = False) -> ShardedT
     the trainable shards of its model that `groups` hold (one group a data
     row, from models/shard.py `shard_model_for_training`; models/shard.py
     `shard_train_state` builds both): the parameters, moments and EMA cut
-    by `param_specs` (with FSDP's "data" dims when `fsdp`). Raises
-    NotImplementedError for a seq axis above 1, and for `fsdp` when
-    several processes share the data axis (ROADMAP item 4b-iii)."""
-    check_trainable(mesh)
+    by `param_specs` (with FSDP's "data" dims when `fsdp`; a seq slot
+    stores its own copy of its (data row, model column)'s pieces). Raises
+    NotImplementedError for `fsdp` when several processes share the data
+    axis (ROADMAP item 4b-iii)."""
     if fsdp and D.process_count() > 1:
         raise NotImplementedError(FSDP_WAITS)
     full = dict(state.model.named_parameters())
@@ -503,7 +647,7 @@ def shard_state(state, mesh: Mesh, groups: list, fsdp: bool = False) -> ShardedT
                                 state.step, None if state.ema is None else [])
     leaves = sharded.leaves()
     with torch.no_grad():
-        for s, (r, j, dev) in enumerate(slots(mesh)):
+        for s, (r, _, j, dev) in enumerate(slots(mesh)):
             def cut(t, spec):
                 return piece(t.detach(), spec, r, j, mesh.shape).to(dev, copy=True)
 
@@ -527,8 +671,8 @@ def gather_state(state: ShardedTrainState, device=None) -> dict:
     """The full tensors of a sharded state: {"params", "mu", "nu", "ema"}
     (name -> tensor, on `device`, default the first slot's; "ema" None
     without one), with "count" and "step"."""
-    grid = {(r, j): s for s, (r, j, _) in enumerate(state.slots)}
-    device = device or state.slots[0][2]
+    grid = {(r, j): s for s, (r, q, j, _) in enumerate(state.slots) if q == 0}
+    device = device or state.slots[0].device
 
     def full(per_slot):
         return {name: assemble({rj: per_slot[s][name] for rj, s in grid.items() if owns(spec, *rj)}, spec,
@@ -540,29 +684,30 @@ def gather_state(state: ShardedTrainState, device=None) -> dict:
             "step": state.step}
 
 
-def _groups(spec: tuple, coords: list) -> list[list[int]]:
+def _groups(spec: tuple, coords: list[Slot]) -> list[list[int]]:
     """The slots that hold the same compute piece of a tensor: one group a
-    model column for a model-sharded tensor, else the whole grid; each in
-    row order."""
+    model column (its data rows and seq slots) for a model-sharded tensor,
+    else the whole grid; each in slot order."""
     if "model" not in spec:
         return [list(range(len(coords)))]
-    cols = sorted({j for _, j, _ in coords})
-    return [[s for s, (_, jj, _) in enumerate(coords) if jj == j] for j in cols]
+    cols = sorted({c.col for c in coords})
+    return [[s for s, c in enumerate(coords) if c.col == j] for j in cols]
 
 
 def gather_leaves(state: ShardedTrainState) -> None:
     """Fill the FSDP compute leaves from the data rows' stored pieces: a
     counted `all_gather` a group of `_groups` (a model column, or the grid
-    for a replicated matrix), each slot's leaf then holding its column's
-    whole piece (one tensor shared where a device repeats)."""
+    for a replicated matrix) of the pieces that its column's seq index 0
+    stores, each slot's leaf then holding its column's whole piece (one
+    tensor shared where a device repeats; the seq slots' leaves too)."""
     coords = state.slots
     leaves = state.leaves()
     for name in state.gathered_names():
         spec = state.specs[name]
         for members in _groups(spec, coords):
-            column = coords[members[0]][1]
-            sources = [state.params[s][name] for s in members if coords[s][1] == column]
-            for s, g in zip(members, all_gather(sources, spec.index("data"), [coords[s][2] for s in members])):
+            column = coords[members[0]].col
+            sources = [state.params[s][name] for s in members if coords[s].col == column and coords[s].seq == 0]
+            for s, g in zip(members, all_gather(sources, spec.index("data"), [coords[s].device for s in members])):
                 leaves[s][name].data = g
 
 
@@ -580,15 +725,16 @@ def reduce_gradient(grads: list[torch.Tensor], spec: tuple, state: ShardedTrainS
     slot's stored layout, by the rule in this module's docstring: summed
     over each group of `_groups` (the whole grid for a replicated tensor, a
     model column for a model-sharded one) and across processes, then
-    reduce-scattered over the data rows under FSDP. One counted collective
-    a group: a `grad_all_reduce` or a `reduce_scatter`."""
+    reduce-scattered over the data rows under FSDP (each seq slot gets its
+    data row's piece). One counted collective a group: a `grad_all_reduce`
+    or a `reduce_scatter`."""
     coords = state.slots
     out = [None] * len(coords)
     for members in _groups(spec, coords):
-        devices = [coords[s][2] for s in members]
+        devices = [coords[s].device for s in members]
         if "data" in spec:
             reduced = reduce_scatter([grads[s] for s in members], spec.index("data"), state.mesh.shape["data"],
-                                     devices, [coords[s][0] for s in members])
+                                     devices, [coords[s].row for s in members])
         else:
             total = D.sum_across_processes(grad_all_reduce([grads[s] for s in members])[0])
             reduced = [total.to(d, non_blocking=True) for d in devices]
@@ -618,7 +764,6 @@ class ShardedStep:
     update."""
 
     def __init__(self, step_fn, mesh: Mesh, grad_accum: int, fsdp: bool):
-        check_trainable(mesh)
         self.objective, self.rule = step_fn.objective, step_fn.rule
         if grad_accum != self.rule.grad_accum:
             raise ValueError(f"shard_train_step(grad_accum={grad_accum}) for a step built with "
@@ -641,6 +786,8 @@ class ShardedStep:
         data = self.mesh.shape["data"]
         if b % data:
             raise ValueError(f"batch size {b} is not divisible by the mesh's data-axis size {data}")
+        if inp.shape[1] % self.mesh.seq:
+            raise ValueError(f"{inp.shape[1]} frames are not divisible by the mesh's seq-axis size {self.mesh.seq}")
         if draws is None:
             draws = obj.draw(generator, b * world, inp)
         draws = obj.take(draws, slice(rank * b, (rank + 1) * b))
@@ -665,7 +812,7 @@ class ShardedStep:
         del got
         if state.fsdp:
             release_leaves(state)
-        first = state.slots[0][2]
+        first = state.slots[0].device
         loss = sum(l.detach().to(first) for l in losses)
         reduced = [{} for _ in leaves]
         for name, spec in state.specs.items():
@@ -688,10 +835,10 @@ class ShardedStep:
         """The norm of the whole reduced gradient, each logical tensor once:
         every slot's norms of the pieces it owns, joined on the first
         slot's device."""
-        first = state.slots[0][2]
+        first = state.slots[0].device
         norms = []
-        for s, (r, j, _) in enumerate(state.slots):
-            owned = [g for name, g in grads[s].items() if owns(state.specs[name], r, j)]
+        for s, (r, q, j, _) in enumerate(state.slots):
+            owned = [g for name, g in grads[s].items() if owns(state.specs[name], r, j, q)]
             if owned:
                 norms.extend(n.to(first) for n in torch._foreach_norm(owned))
         return torch.linalg.vector_norm(torch.stack(norms))
@@ -701,7 +848,8 @@ class ShardedStep:
         loss, grads = self._accumulate(state, inp, text, lens, generator, draws)
         norm = self.global_norm(state, grads) if self.rule.optimizer.max_grad_norm > 0 else None
         count = state.opt_state["count"]
-        for s, (_, _, dev) in enumerate(state.slots):
+        for s, slot in enumerate(state.slots):
+            dev = slot.device
             sub = {"mu": state.opt_state["mu"][s], "nu": state.opt_state["nu"][s], "count": count}
             self.rule.apply_(state.params[s], grads[s], sub, None if state.ema is None else state.ema[s],
                              norm=None if norm is None else norm.to(dev))
@@ -714,7 +862,7 @@ class ShardedStep:
         batch, without an update."""
         self._check(state)
         loss, grads = self._accumulate(state, inp, text, lens, generator, draws)
-        grid = {(r, j): s for s, (r, j, _) in enumerate(state.slots)}
+        grid = {(r, j): s for s, (r, q, j, _) in enumerate(state.slots) if q == 0}
         full = {name: assemble({rj: grads[s][name] for rj, s in grid.items() if owns(spec, *rj)}, spec,
                                state.mesh.shape)
                 for name, spec in state.specs.items()}
@@ -728,8 +876,7 @@ def shard_train_step(step_fn, mesh: Mesh, state: ShardedTrainState | None = None
     grid, for a state from `shard_state(..., mesh, fsdp=fsdp)` (the same
     flag, as in the JAX package). `grad_accum` must be the step's; the
     microbatch axis then leads the inputs, and each microbatch splits over
-    "data" as a step of one does. Raises NotImplementedError for a seq axis
-    above 1."""
+    "data" (and its frames over "seq") as a step of one does."""
     if state is not None and state.fsdp != fsdp:
         raise ValueError(f"a state sharded with fsdp={state.fsdp} given to shard_train_step(fsdp={fsdp})")
     return ShardedStep(step_fn, mesh, grad_accum, fsdp)

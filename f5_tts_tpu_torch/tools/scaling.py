@@ -20,9 +20,10 @@ CFM steps (parallel/mesh.py `shard_train_step`) of the same DiT on the same
 global batch of 8 x 64 frames with the same draws: the losses, their max
 |delta| against the 1-slot run, and the counted collectives (the
 row-parallel sums forward and backward, the gradients' all-reduces; under
-FSDP the gathers and reduce-scatters), then an FSDP row on the largest grid
-of 4 slots or more. Sequence parallelism waits for ROADMAP item 4b-ii: its
-row says so.
+FSDP the gathers and reduce-scatters), then an FSDP row and a sequence
+parallel row (data x seq 2 x model 2: each seq slot computes 32 of the 64
+frames, with a key and value gather an attention and its reduce-scatter in
+the backward) on the largest grid of 4 slots or more.
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ from f5_tts_tpu_torch.config import CFMConfig, DiTConfig
 from f5_tts_tpu_torch.models.cfm import F5TTS
 from f5_tts_tpu_torch.models.shard import shard_train_state
 from f5_tts_tpu_torch.parallel.mesh import (
-    SEQ_WAITS,
     all_reduce,
     collective_counts,
     create_mesh,
@@ -80,17 +80,18 @@ def run_sampling(n: int, device: str) -> tuple[np.ndarray, dict, float]:
     return out, dict(all_reduce.counts), time.perf_counter() - t0
 
 
-def _grid(n: int, device: str):
+def _grid(n: int, device: str, seq: int = 1):
     model_par = 2 if n >= 2 else 1
     devices = device_list(device)
-    return create_mesh(data=n // model_par, model=model_par, devices=[devices[i % len(devices)] for i in range(n)])
+    return create_mesh(data=n // (model_par * seq), model=model_par, seq=seq,
+                       devices=[devices[i % len(devices)] for i in range(n)])
 
 
-def run_training(n: int, device: str, fsdp: bool = False) -> tuple[list[float], dict, float]:
+def run_training(n: int, device: str, fsdp: bool = False, seq: int = 1) -> tuple[list[float], dict, float]:
     """(the losses of TRAIN_STEPS sharded steps, the collectives they made,
-    the wall in s) on a grid of n slots over the devices of `device`'s
-    type."""
-    mesh = _grid(n, device)
+    the wall in s) on a grid of n slots (`seq` of them along "seq") over the
+    devices of `device`'s type."""
+    mesh = _grid(n, device, seq)
     dev = mesh.devices.flat[0]
     model = F5TTS.init(torch.Generator(device=dev).manual_seed(0), CFG, device=dev, cfm_cfg=CFMConfig())
     optimizer = make_optimizer(learning_rate=1e-4, total_steps=100)
@@ -108,22 +109,23 @@ def run_training(n: int, device: str, fsdp: bool = False) -> tuple[list[float], 
 
 
 def training_rows(slots: list[int], device: str) -> list[dict]:
-    """The training half's rows: each grid of `slots`, then FSDP on the
-    largest grid of 4 slots or more."""
+    """The training half's rows: each grid of `slots`, then FSDP and
+    sequence parallelism (seq 2) on the largest grid of 4 slots or more."""
     rows, base = [], None
-    runs = [(n, False) for n in slots] + [(n, True) for n in sorted(slots)[-1:] if n >= 4]
-    for n, fsdp in runs:
-        losses, counts, wall = run_training(n, device, fsdp)
+    largest = [n for n in sorted(slots)[-1:] if n >= 4]
+    runs = [(n, False, 1) for n in slots] + [(n, True, 1) for n in largest] + [(n, False, 2) for n in largest]
+    for n, fsdp, seq in runs:
+        losses, counts, wall = run_training(n, device, fsdp, seq)
         base = losses if base is None else base
         mp = 2 if n >= 2 else 1
-        row = {"part": "training", "slots": n, "mesh": f"{n // mp}x{mp}" + (" FSDP" if fsdp else ""),
+        label = f"{n // mp}x{mp}" if seq == 1 else f"{n // (mp * seq)}x{seq}x{mp} SP"
+        row = {"part": "training", "slots": n, "mesh": label + (" FSDP" if fsdp else ""),
                "losses": losses, "max_abs_delta_loss": max(abs(a - b) for a, b in zip(losses, base)),
                "collectives": counts, "wall_s": wall}
         print(f"training {row['slots']} slots ({row['mesh']}): losses {', '.join(f'{x:.6f}' for x in losses)}; "
               f"max |delta loss| vs 1 slot {row['max_abs_delta_loss']:.3e}; collectives over {TRAIN_STEPS} "
               f"steps {counts}; wall {wall:.3f} s")
         rows.append(row)
-    print(f"training, sequence parallel (data x seq x model): not run: {SEQ_WAITS}")
     return rows
 
 

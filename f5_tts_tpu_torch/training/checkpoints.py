@@ -16,9 +16,10 @@ it, asynchronously, with retention (`max_to_keep`) and the committed steps
 (`latest_step`, `all_steps`) as the crash-resume points. Its format is the
 port's own (a torch.distributed.checkpoint directory a step, keys
 "<params|mu|nu|ema>/<data row>.<model column>/<name>", and a layout.json
-with the grid's shape and the specs); a restore reassembles the full
-tensors and cuts them for the target's layout, so a state saved over one
-grid resumes over another or unsharded.
+with the grid's shape, "seq" included, and the specs; the seq slots hold
+copies of seq index 0's pieces and write nothing); a restore reassembles
+the full tensors and cuts them for the target's layout, so a state saved
+over one grid resumes over another or unsharded.
 """
 
 from __future__ import annotations
@@ -123,17 +124,18 @@ KINDS = ("params", "mu", "nu", "ema")
 
 
 def _per_slot(state) -> tuple[list, dict, dict, dict]:
-    """(the slots as (data row, model column), the specs, the grid's shape,
-    {kind: one dict a slot or None}) of a sharded or an unsharded state."""
+    """(the slots as (data row, model column, seq index), the specs, the
+    grid's shape, {kind: one dict a slot or None}) of a sharded or an
+    unsharded state."""
     if isinstance(state, ShardedTrainState):
-        coords = [(r, j) for r, j, _ in state.slots]
+        coords = [(r, j, q) for r, q, j, _ in state.slots]
         tensors = {"params": state.params, "mu": state.opt_state["mu"], "nu": state.opt_state["nu"],
                    "ema": state.ema}
         return coords, state.specs, dict(state.mesh.shape), tensors
     params = dict(state.model.named_parameters())
     tensors = {"params": [params], "mu": [state.opt_state["mu"]], "nu": [state.opt_state["nu"]],
                "ema": None if state.ema is None else [state.ema]}
-    return [(0, 0)], {n: (None,) * p.ndim for n, p in params.items()}, {"data": 1, "model": 1}, tensors
+    return [(0, 0, 0)], {n: (None,) * p.ndim for n, p in params.items()}, {"data": 1, "model": 1}, tensors
 
 
 class TrainCheckpointManager:
@@ -165,9 +167,9 @@ class TrainCheckpointManager:
         self.wait()
         coords, specs, shape, tensors = _per_slot(state)
         flat = {}
-        for s, (r, j) in enumerate(coords):
+        for s, (r, j, q) in enumerate(coords):
             for name, spec in specs.items():
-                if owns(spec, r, j):
+                if owns(spec, r, j, q):
                     for kind, slots in tensors.items():
                         if slots is not None:
                             flat[f"{kind}/{r}.{j}/{name}"] = slots[s][name].detach().to("cpu", copy=True)
@@ -228,7 +230,7 @@ class TrainCheckpointManager:
                     pieces = {(r, j): flat[f"{kind}/{r}.{j}/{name}"] for r in range(layout["shape"]["data"])
                               for j in range(layout["shape"]["model"]) if owns(saved_spec, r, j)}
                     full = assemble(pieces, saved_spec, layout["shape"], "cpu")
-                    for s, (r, j) in enumerate(coords):
+                    for s, (r, j, _) in enumerate(coords):
                         target = tensors[kind][s][name]
                         target.copy_(piece(full, specs[name], r, j, shape))
         state.opt_state["count"] = int(flat["count"])

@@ -23,7 +23,7 @@ from f5_tts_tpu_torch.models.convert import (
 from f5_tts_tpu_torch.models.duration import DurationPredictor, duration_loss, duration_prefix
 from f5_tts_tpu_torch.models.shard import shard_train_state
 from f5_tts_tpu_torch.parallel import distributed as D
-from f5_tts_tpu_torch.parallel.mesh import ShardedTrainState, check_trainable, shard_train_step
+from f5_tts_tpu_torch.parallel.mesh import ShardedTrainState, shard_train_step
 from f5_tts_tpu_torch.training import checkpoints as C
 from f5_tts_tpu_torch.training.trainer import (
     AdamW,
@@ -91,8 +91,8 @@ def make_duration_train_step(
 
 
 class DurationTrainer:
-    """The duration predictor's training loop and checkpoints; `mesh`,
-    `fsdp` and `use_orbax` as in `F5TTSTrainer`."""
+    """The duration predictor's training loop and checkpoints; `mesh`
+    (data, seq and model), `fsdp` and `use_orbax` as in `F5TTSTrainer`."""
 
     def __init__(
         self,
@@ -106,8 +106,6 @@ class DurationTrainer:
         mesh=None,
         fsdp: bool = False,
     ):
-        if mesh is not None:
-            check_trainable(mesh)
         self.model = model
         self.num_warmup_steps = num_warmup_steps
         self.max_grad_norm = max_grad_norm
@@ -197,7 +195,7 @@ class DurationTrainer:
         if mesh is not None:
             self.state = shard_train_state(self.state, mesh, fsdp=self.fsdp)
             step_fn = shard_train_step(step_fn, mesh, self.state, grad_accum=grad_accum, fsdp=self.fsdp)
-            device, data_size = self.state.slots[0][2], mesh.shape["data"]
+            device, data_size = self.state.slots[0].device, mesh.shape["data"]
         global_step = start_step
         start_date = datetime.datetime.now()
         try:

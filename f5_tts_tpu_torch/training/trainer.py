@@ -41,7 +41,7 @@ from f5_tts_tpu_torch.models.convert import (
 )
 from f5_tts_tpu_torch.models.shard import shard_train_state
 from f5_tts_tpu_torch.parallel import distributed as D
-from f5_tts_tpu_torch.parallel.mesh import ShardedTrainState, check_trainable, create_mesh, gather_state, shard_train_step
+from f5_tts_tpu_torch.parallel.mesh import ShardedTrainState, create_mesh, gather_state, shard_train_step
 from f5_tts_tpu_torch.training import checkpoints as C
 from f5_tts_tpu_torch.utils.safetensors import load_file, save_file
 
@@ -401,13 +401,14 @@ class F5TTSTrainer:
 
     `mesh` (parallel/mesh.py `create_mesh`) trains over a grid: DP over its
     "data" axis (spanning the processes when `parallel.initialize()` started
-    several) and TP over "model"; `fsdp=True` also shards the weight
+    several), TP over "model" and sequence parallelism over "seq" (the
+    frames of each batch split over the seq slots, within a process; a
+    batch's frames must divide by it); `fsdp=True` also shards the weight
     matrices, their moments and EMA over the process's data rows (no effect
     without a mesh, as in the JAX package; NotImplementedError with several
     processes, ROADMAP item 4b-iii). Without a mesh, several processes train
     over a grid of one slot each (`training_grid`), so their gradients are
-    summed. A mesh whose "seq" axis is above 1 raises NotImplementedError
-    (ROADMAP item 4b-ii). `use_orbax=True` keeps the whole train state,
+    summed. `use_orbax=True` keeps the whole train state,
     sharded, in an asynchronous checkpoint manager (training/checkpoints.py
     `TrainCheckpointManager`, over torch.distributed.checkpoint) beside the
     MLX-named weight files. With several processes, process 0 alone writes
@@ -425,8 +426,6 @@ class F5TTSTrainer:
         mesh=None,
         fsdp: bool = False,
     ):
-        if mesh is not None:
-            check_trainable(mesh)
         self.model = model
         self.num_warmup_steps = num_warmup_steps
         self.max_grad_norm = max_grad_norm
@@ -609,7 +608,7 @@ class F5TTSTrainer:
         if mesh is not None:
             self.state = shard_train_state(self.state, mesh, fsdp=self.fsdp)
             step_fn = shard_train_step(step_fn, mesh, self.state, grad_accum=grad_accum, fsdp=self.fsdp)
-            device, data_size = self.state.slots[0][2], mesh.shape["data"]
+            device, data_size = self.state.slots[0].device, mesh.shape["data"]
 
         global_step = start_step
         start_date = datetime.datetime.now()

@@ -19,7 +19,11 @@ the ISTFT on the card, whatever the batch, against the CPU's; for training
 over a mesh, K1 with its log-sum-exp and K2 at a 2 x 2 slot's shape on
 strided projections (bf16 [2, 8, 1024, 64], float32 [2, 4, 1024, 64]), and
 one sharded step of a float32 DiT over 2 x 2 slots of the card against the
-unsharded step (within 2e-5, the JAX suite's sharded-step tolerance).
+unsharded step (within 2e-5, the JAX suite's sharded-step tolerance); for
+sequence parallelism, K1 and K2 on query blocks at their RoPE offsets
+against the full call (to the bit where the blocks are whole query tiles)
+and against plain, a ragged block, and the ValueError of the variants that
+take no block.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -1579,3 +1583,92 @@ def test_sharded_training_step_on_the_card(gen, monkeypatch):
     got = M.gather_state(state)["params"]
     for name, p in ref.named_parameters():
         torch.testing.assert_close(got[name], p, atol=2e-5, rtol=0, msg=name)
+
+
+# ------------------------------------------------------------ sequence parallelism: query blocks
+
+
+def _block_inputs(gen, dtype, b, h, n, d):
+    """q, k, v and g as strided views of [b, n, h * d] projections, RoPE
+    tables for n, and key masks with row 1's last 37 keys masked."""
+    x = [torch.randn(b, n, h * d, generator=gen, device="cuda").to(dtype) for _ in range(4)]
+    q, k, v, g = (t.view(b, n, h, d).transpose(1, 2) for t in x)
+    mask = torch.arange(n, device="cuda")[None, :] < torch.tensor([[n], [n - 37]], device="cuda")
+    return q, k, v, g, mask, _rope(n, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [2, 4])
+@pytest.mark.parametrize("dtype, d", [(torch.bfloat16, 64), (torch.bfloat16, 128), (torch.float32, 64)],
+                         ids=["bf16-d64", "bf16-d128", "f32-d64"])
+def test_query_blocks_match_the_full_call_and_plain(gen, dtype, d, seq):
+    """K1 (with its lse) and K2 on a seq slot's query block at its RoPE
+    offset against all the keys: at offsets and lengths that are multiples
+    of the query tile the block's output, lse and dq are the full call's
+    rows to the bit (the same tiles, the same keys in the same order); the
+    seq sums of the blocks' dk and dv are the full call's within K2's
+    limits; each block against the plain versions at its offset."""
+    b, h, n = 2, 4, 512
+    q, k, v, g, mask, rope = _block_inputs(gen, dtype, b, h, n, d)
+    scale = d ** -0.5
+    km, cos, sin = fa._checked(q, k, v, mask, rope)
+    out, lse = fa._forward_kernel(q, k, v, scale, km, cos, sin, True)
+    dq, dk, dv = fa._backward_kernel(q, k, v, out, lse, g, scale, km, cos, sin)
+    dk_sum, dv_sum = torch.zeros_like(dk, dtype=torch.float32), torch.zeros_like(dv, dtype=torch.float32)
+    rows = n // seq
+    for start in range(0, n, rows):
+        qb, gb = q[:, :, start:start + rows], g[:, :, start:start + rows]
+        km, cos, sin = fa._checked(qb, k, v, mask, rope, start)
+        ob, lb = fa._forward_kernel(qb, k, v, scale, km, cos, sin, True, start)
+        dqb, dkb, dvb = fa._backward_kernel(qb, k, v, ob, lb, gb, scale, km, cos, sin, start)
+        assert torch.equal(ob, out[:, :, start:start + rows]) and torch.equal(lb, lse[:, :, start:start + rows])
+        assert torch.equal(dqb, dq[:, :, start:start + rows])
+        dk_sum, dv_sum = dk_sum + dkb.float(), dv_sum + dvb.float()
+        tol = TOL if dtype == torch.bfloat16 else TOL_F32
+        torch.testing.assert_close(ob.float(), flash_attention_plain(qb, k, v, scale, mask, rope, start).float(),
+                                   atol=tol, rtol=0)
+        ref = flash_attention_bwd_plain(qb, k, v, ob, gb, scale, mask, rope, q_offset=start)
+        for a, r in zip((dqb, dkb, dvb), ref):
+            assert (a.float() - r).abs().max().item() <= GRAD_TOL[dtype] * max(r.abs().max().item(), 0.1)
+    for a, r in zip((dk_sum, dv_sum), (dk.float(), dv.float())):
+        assert (a - r).abs().max().item() <= GRAD_TOL[dtype] * max(r.abs().max().item(), 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, d", [(torch.bfloat16, 64), (torch.float32, 64)], ids=["bf16", "f32"])
+def test_ragged_query_block_against_plain(gen, dtype, d):
+    """n_q 200 at offset 300 of 640 keys (neither a multiple of the query
+    tile: the last tile's rows past n_q are padding, not masking), through
+    `flash_attention` with autograd as training calls it, against the plain
+    versions at the offset."""
+    b, h, n = 2, 4, 640
+    q, k, v, g, mask, rope = _block_inputs(gen, dtype, b, h, n, d)
+    leaves = [q[:, :, 300:500].detach().requires_grad_(), k.detach().requires_grad_(), v.detach().requires_grad_()]
+    before = (flash_attention.launches + flash_attention.launches_f32,
+              flash_attention.launches_bwd + flash_attention.launches_bwd_f32)
+    out = flash_attention(*leaves, d ** -0.5, key_mask=mask, rope=rope, q_offset=300)
+    got = torch.autograd.grad(out, leaves, g[:, :, 300:500])
+    assert (flash_attention.launches + flash_attention.launches_f32,
+            flash_attention.launches_bwd + flash_attention.launches_bwd_f32) == (before[0] + 1, before[1] + 1)
+    tol = TOL if dtype == torch.bfloat16 else TOL_F32
+    torch.testing.assert_close(out.float(), flash_attention_plain(*(t.detach() for t in leaves), d ** -0.5, mask, rope,
+                                                                  300).float(), atol=tol, rtol=0)
+    ref = flash_attention_bwd_plain(*(t.detach() for t in leaves), out.detach(), g[:, :, 300:500], d ** -0.5, mask,
+                                    rope, q_offset=300)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape
+        assert (a.float() - r).abs().max().item() <= GRAD_TOL[dtype] * max(r.abs().max().item(), 0.1)
+
+
+@pytest.mark.cuda
+def test_query_blocks_outside_the_covered_kernels_raise(gen):
+    """bf16 at d 256 and float32 at d 128 and 256 take no query block: a
+    block raises ValueError on the card (with and without grad), and never
+    runs a plain version."""
+    for dtype, d in ((torch.bfloat16, 256), (torch.float32, 128), (torch.float32, 256)):
+        q, k, v = (torch.randn(1, 2, 256, d, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        for offset, rows in ((128, 128), (0, 128)):
+            with pytest.raises(ValueError, match="query block"):
+                flash_attention(q[:, :, :rows], k, v, d ** -0.5, q_offset=offset)
+            with pytest.raises(ValueError, match="query block"):
+                flash_attention(q[:, :, :rows].detach().requires_grad_(), k, v, d ** -0.5, q_offset=offset)

@@ -12,8 +12,11 @@ then takes a grid of one slot, `training_grid`). Both must report the same
 loss, equal to one process's unsharded step on the global batch within
 2e-5, and the same parameters (within the float32 tolerance of
 tests/test_torch_training.py: Adam's first update is about lr * sign(g)).
-With several processes, process 0 alone writes the checkpoint files, and
-FSDP across processes raises NotImplementedError (ROADMAP item 4b-iii).
+Two processes each over a 1 x 2 x 1 grid (data x seq x model: sequence
+parallelism within a process, data parallelism across them) give the loss
+and parameters of one process's 2 x 2 x 1 step. With several processes,
+process 0 alone writes the checkpoint files, and FSDP across processes
+raises NotImplementedError (ROADMAP item 4b-iii).
 """
 
 import json
@@ -113,7 +116,7 @@ RANK = textwrap.dedent("""
     import tests.test_torch_distributed as t
 
     initialize(coordinator_address="localhost:{port}", num_processes=2, process_id={rank}, backend="gloo")
-    mesh = create_mesh(data=1, devices=["cpu"]) if {grid} else None
+    mesh = {mesh}
     trainer = F5TTSTrainer(t._model(), num_warmup_steps=0, results_dir={out!r}, mesh=mesh)
     trainer.train(t._pipeline({root!r}, True), learning_rate=t.LR, total_steps=1, save_every=10**9, sample_every=10**9)
     torch.save(dict(trainer.model.dit.named_parameters()), {out!r} + "/params_{rank}.pt")
@@ -122,8 +125,9 @@ RANK = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("grid", [True, False], ids=["grid", "no_mesh"])
-def test_two_process_gloo_dp_step_matches_one_process(tmp_path, grid):
+def _two_ranks(tmp_path, mesh: str) -> tuple[str, list[dict]]:
+    """Two gloo ranks training one step from a WAV tree, each over the grid
+    that `mesh` (Python source) builds: (the tree, each rank's result)."""
     root = str(write_tree(tmp_path / "wavs"))
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -131,7 +135,7 @@ def test_two_process_gloo_dp_step_matches_one_process(tmp_path, grid):
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     env.pop("WORLD_SIZE", None)
     procs = [subprocess.Popen([sys.executable, "-c", RANK.format(repo=str(REPO), port=port, rank=rank, root=root,
-                                                                 out=str(tmp_path), grid=grid)],
+                                                                 out=str(tmp_path), mesh=mesh)],
                               cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for rank in range(2)]
     results = []
@@ -141,8 +145,29 @@ def test_two_process_gloo_dp_step_matches_one_process(tmp_path, grid):
         results.append(json.loads(out.strip().splitlines()[-1]))
     assert [(r["rank"], r["world"]) for r in results] == [(0, 2), (1, 2)]
     assert results[0]["loss"] == results[1]["loss"]
+    return root, results
 
+
+@pytest.mark.parametrize("grid", [True, False], ids=["grid", "no_mesh"])
+def test_two_process_gloo_dp_step_matches_one_process(tmp_path, grid):
+    root, results = _two_ranks(tmp_path, 'create_mesh(data=1, devices=["cpu"])' if grid else "None")
     trainer = F5TTSTrainer(_model(), num_warmup_steps=0, results_dir=tmp_path / "one")
+    trainer.train(_pipeline(root, False), learning_rate=LR, total_steps=1, save_every=10**9, sample_every=10**9)
+    assert abs(float(trainer.last_loss) - results[0]["loss"]) <= 2e-5
+    want = dict(trainer.model.dit.named_parameters())
+    for rank in range(2):
+        got = torch.load(tmp_path / f"params_{rank}.pt")
+        diffs = torch.cat([(got[k] - want[k]).abs().flatten() for k in want])
+        assert diffs.max().item() <= LR / 10 and (diffs <= 1e-6).float().mean().item() >= 0.999
+
+
+def test_two_process_gloo_seq_step_matches_one_process_grid(tmp_path):
+    """Each rank over a 1 x 2 x 1 grid (its frames split over two seq
+    slots) against one process's 2 x 2 x 1 step on the global batch: the
+    same sums in another order of processes and slots."""
+    root, results = _two_ranks(tmp_path, 'create_mesh(data=1, seq=2, devices=["cpu"] * 2)')
+    trainer = F5TTSTrainer(_model(), num_warmup_steps=0, results_dir=tmp_path / "one",
+                           mesh=create_mesh(data=2, seq=2, devices=["cpu"] * 4))
     trainer.train(_pipeline(root, False), learning_rate=LR, total_steps=1, save_every=10**9, sample_every=10**9)
     assert abs(float(trainer.last_loss) - results[0]["loss"]) <= 2e-5
     want = dict(trainer.model.dit.named_parameters())

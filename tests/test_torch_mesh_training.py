@@ -20,6 +20,7 @@ sign(g), so a gradient within a few eps of zero may move by a fraction of
 lr), with proj_out's within the JAX suite's own 2e-5.
 """
 
+import json
 import os
 
 import jax
@@ -229,19 +230,71 @@ def test_dropout_and_remat_under_a_mesh_match_unsharded(jax_params, cfg):
     assert counts["all_reduce_sum"] == 2 * 2 * 2 * (3 if cfg.get("remat") else 2)
 
 
-def test_sequence_parallel_mesh_raises_in_both_trainers():
-    """The counterpart of test_training.py:159: SP waits for ROADMAP item
-    4b-ii (K1 and K2 take one shape of q, k and v)."""
-    mesh = tmesh.create_mesh(data=2, model=2, seq=2, devices=cpu(8))
-    dit_model = F5TTS.init(torch.Generator().manual_seed(0), tcfg.DiTConfig(**TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="4b-ii"):
-        T.F5TTSTrainer(dit_model, mesh=mesh)
-    predictor = DurationPredictor.init(torch.Generator().manual_seed(0), tcfg.DurationConfig(**DUR), device="cpu")
-    with pytest.raises(NotImplementedError, match="4b-ii"):
-        DurationTrainer(predictor, mesh=mesh)
-    opt = T.make_optimizer(LR, 1e-2, 1, 100)
-    with pytest.raises(NotImplementedError, match="4b-ii"):
-        shard_train_state(T.init_train_state(dit_model.dit, opt), mesh)
+@pytest.mark.parametrize("kind", ["dit", "duration"])
+def test_both_trainers_train_over_a_seq_mesh(tmp_path, kind):
+    """F5TTSTrainer and DurationTrainer over 1 x 2 x 2 (data x seq x model;
+    the counterpart of test_training.py:159's mesh in a trainer): two steps
+    from the same batches as an unsharded trainer, to the same parameters
+    (float32 sums in another order)."""
+    def run(mesh):
+        if kind == "dit":
+            trainer = T.F5TTSTrainer(F5TTS.init(torch.Generator().manual_seed(0), tcfg.DiTConfig(**TINY),
+                                                device="cpu", cfm_cfg=tcfg.CFMConfig()),
+                                     num_warmup_steps=1, results_dir=tmp_path / str(mesh), mesh=mesh)
+            trainer.train(_dataset(2), total_steps=2, save_every=10**9, sample_every=10**9)
+            return trainer, trainer.model.dit
+        trainer = DurationTrainer(DurationPredictor.init(torch.Generator().manual_seed(0), tcfg.DurationConfig(**DUR),
+                                                         device="cpu"),
+                                  num_warmup_steps=1, results_dir=tmp_path / str(mesh), mesh=mesh)
+        trainer.train(_duration_batches(2), learning_rate=LR, total_steps=2, save_every=10**9)
+        return trainer, trainer.model
+
+    mesh = tmesh.create_mesh(data=1, seq=2, model=2, devices=cpu(4))
+    trainer, model = run(mesh)
+    assert trainer.state.mesh is mesh and trainer.state.step == 2 and len(trainer.state.slots) == 4
+    plain, plain_model = run(None)
+    assert abs(float(trainer.last_loss) - float(plain.last_loss)) <= 2e-5
+    _close(_params(model), _params(plain_model))
+
+
+def test_seq_mesh_checkpoint_resumes_over_2x2_and_unsharded(tmp_path):
+    """A trainer over 2 x 2 x 2 saves through the checkpoint manager (its
+    layout records seq; the seq slots write nothing); trainers over 2 x 2,
+    unsharded and 2 x 2 x 2 resume "latest" with the whole state and agree;
+    and the 2 x 2 trainer's own checkpoint restores over 2 x 2 x 2."""
+    def fresh(seed):
+        return F5TTS.init(torch.Generator().manual_seed(seed), tcfg.DiTConfig(**TINY), device="cpu",
+                          cfm_cfg=tcfg.CFMConfig())
+
+    sp = tmesh.create_mesh(data=2, seq=2, model=2, devices=cpu(8))
+    two = tmesh.create_mesh(data=2, model=2, devices=cpu(4))
+    trainer = T.F5TTSTrainer(fresh(0), num_warmup_steps=1, results_dir=tmp_path, use_orbax=True, mesh=sp,
+                             ema_decay=0.9)
+    trainer.train(_dataset(2), total_steps=2, save_every=2, sample_every=10**9)
+    trainer.ckpt_mgr.close()
+    layout = json.loads((tmp_path / "checkpoints" / "2" / C.LAYOUT).read_text())
+    assert layout["shape"] == {"data": 2, "seq": 2, "model": 2}
+    owned = sum(tmesh.owns(tuple(spec), r, j) for spec in layout["specs"].values() for r in range(2)
+                for j in range(2))
+    from torch.distributed.checkpoint import FileSystemReader
+
+    meta = FileSystemReader(tmp_path / "checkpoints" / "2").read_metadata().state_dict_metadata
+    assert sum(k.startswith("params/") for k in meta) == owned
+
+    runs = []
+    for grid in (None, two, sp):
+        resumed = T.F5TTSTrainer(fresh(1), num_warmup_steps=1, results_dir=tmp_path, use_orbax=True, mesh=grid,
+                                 ema_decay=0.9)
+        resumed.train(_dataset(1), total_steps=3, checkpoint="latest", save_every=10**9, sample_every=10**9)
+        assert resumed.state.step == 3 and resumed.state.opt_state["count"] == 3
+        if grid is two:
+            mgr = C.TrainCheckpointManager(tmp_path / "from_2x2", async_save=False)
+            mgr.save(3, resumed.state)
+            back = mgr.restore(3, shard_train_state(_state(9, ema=True), sp))
+            _assert_same_state(back, resumed.state)
+        runs.append(_params(resumed.model.dit))
+    _close(runs[1], runs[0])
+    _close(runs[2], runs[0])
 
 
 def test_split_microbatches_errors_match_jax():
@@ -526,18 +579,23 @@ def test_sharded_trainer_files_load_in_the_jax_package_and_resume_unsharded(tmp_
 
 def test_scaling_tool_training_half_on_the_cpu(capsys):
     """The port's `tools/scaling.py` training half: grids of 1, 2 and 4
-    slots and FSDP on 4 train what 1 slot does (float32 sums in another
-    order), with 2 row-parallel sums a block a data row forward and as many
-    backward, and under FSDP one gather and one reduce-scatter a matrix a
-    group; the SP row says what it waits for."""
+    slots, FSDP on 4 and sequence parallelism on 4 (1 x 2 x 2) train what 1
+    slot does (float32 sums in another order), with 2 row-parallel sums a
+    block a tensor-parallel group forward and as many backward, under FSDP
+    one gather and one reduce-scatter a matrix a group, and under SP one
+    key and value gather an attention a model column and its reduce-scatter
+    in the backward."""
     from f5_tts_tpu_torch.tools import scaling
 
     rows = scaling.training_rows([1, 2, 4], "cpu")
-    assert [r["mesh"] for r in rows] == ["1x1", "1x2", "2x2", "2x2 FSDP"]
+    assert [r["mesh"] for r in rows] == ["1x1", "1x2", "2x2", "2x2 FSDP", "1x2x2 SP"]
     depth, steps = scaling.CFG.depth, scaling.TRAIN_STEPS
     assert [r["collectives"]["all_reduce_sum"] for r in rows] == [0, 2 * 2 * depth * steps, 2 * 2 * 2 * depth * steps,
-                                                                 2 * 2 * 2 * depth * steps]
-    assert rows[-1]["collectives"]["all_gather"] == rows[-1]["collectives"]["reduce_scatter"] > 0
-    assert all(r["collectives"]["all_gather"] == 0 for r in rows[:-1])
+                                                                 2 * 2 * 2 * depth * steps, 2 * 2 * 2 * depth * steps]
+    assert rows[3]["collectives"]["all_gather"] == rows[3]["collectives"]["reduce_scatter"] > 0
+    assert all(r["collectives"]["all_gather"] == 0 for i, r in enumerate(rows) if i != 3)
+    assert rows[-1]["collectives"]["seq_all_gather"] == rows[-1]["collectives"]["seq_reduce_scatter"] == \
+        2 * depth * steps
+    assert all(r["collectives"]["seq_all_gather"] == 0 for r in rows[:-1])
     assert all(r["max_abs_delta_loss"] < 1e-5 for r in rows)
-    assert "4b-ii" in capsys.readouterr().out
+    assert "1x2x2 SP" in capsys.readouterr().out
