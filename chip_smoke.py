@@ -143,7 +143,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      EMA; DURATION_V2 (float32) on 2 x 2 at 2e-5; and two ranks over gloo
      on the card (a process each, `parallel.initialize`, the one-slot grid
      of a trainer given no mesh; the base DiT cut to 4 layers) whose DP step
-     must give one loss, equal to the one-process data-2 step's;
+     must give one loss, equal to the one-process data-2 step's; the same
+     two ranks then take an FSDP step over the global data axis of 2 (each
+     rank storing half of each sharded matrix, its moments and EMA) and save
+     it with the checkpoint manager, held to the one-process data-2 FSDP
+     step (loss, watched parameters, exact launches and cross-process
+     gathers and reduce-scatters), the checkpoint restored unsharded here
+     equal to the ranks' gathered state to the bit;
  10c. sequence parallelism (the mesh's "seq" axis): K1 with its lse and K2
      on query blocks at their RoPE offsets (bf16 [2, 8, 1024, 64] in 2 and
      4 blocks, d 128 in 2, float32 [2, 4, 1024, 64] in 2) against the full
@@ -2957,7 +2963,8 @@ def _expected_collectives(state, micro: int) -> dict:
     seq slot; forward and backward, and the recompute under remat), one
     gradient reduction a tensor a group (a model column for a model-sharded
     tensor, else the grid), gathers and reduce-scatters for the FSDP
-    tensors; under sequence parallelism a key and value gather an attention
+    tensors (across processes too, when the state spans several); under
+    sequence parallelism a key and value gather an attention
     a model column a data row (again in the recompute) and its
     reduce-scatter in the backward, and the duration head's seq sum
     (forward and backward) a data row."""
@@ -2969,10 +2976,12 @@ def _expected_collectives(state, micro: int) -> dict:
     fsdp = sum(g for name, g in groups.items() if "data" in state.specs[name])
     gathers = data * model * cfg.depth if seq > 1 else 0
     seq_sums = 2 * data if seq > 1 and type(state.groups[0]).__name__ == "DurationGroup" else 0
+    across = micro * fsdp if state.world > 1 else 0  # FSDP's gathers and reduce-scatters across processes
     return {"all_reduce_sum": micro * sums, "all_reduce_max": 0,
             "grad_all_reduce": micro * (sum(groups.values()) - fsdp), "all_gather": micro * fsdp,
-            "reduce_scatter": micro * fsdp, "seq_all_gather": micro * gathers * (passes - 1),
-            "seq_reduce_scatter": micro * gathers, "seq_sum": micro * seq_sums}
+            "reduce_scatter": micro * fsdp, "process_all_gather": across, "process_reduce_scatter": across,
+            "seq_all_gather": micro * gathers * (passes - 1), "seq_reduce_scatter": micro * gathers,
+            "seq_sum": micro * seq_sums}
 
 
 def _sharded_runs(label, card, model, make_step, opt, mesh, batch, draws, steps, tol, per_micro, fsdp=False, k=1,
@@ -3083,18 +3092,33 @@ def _sharded_runs(label, card, model, make_step, opt, mesh, batch, draws, steps,
     return reference, record, state
 
 
+def _bit_sums(full: dict) -> dict:
+    """Each tensor's float32 bit patterns summed as integers, by kind and
+    name: equal sums of equal tensors wherever they are taken (the sum of
+    integers has no order), so the parent holds a restored checkpoint to the
+    ranks' gathered state without moving it."""
+    import torch
+
+    return {kind: {name: int(t.detach().contiguous().view(torch.int32).to(torch.int64).sum()) for name, t in full[kind].items()}
+            for kind in ("params", "mu", "nu", "ema")}
+
+
 def dp_rank_child(rank: int, port: int, out: str) -> None:
-    """One rank of phase 10b's two-rank step: the base DiT of the phase at
+    """One rank of phase 10b's two-rank steps: the base DiT of the phase at
     `TWO_RANK_DEPTH` layers (the same seed), the grid of one slot on the card that a trainer without
     a mesh takes when several processes run (training/trainer.py
     `training_grid`), the process group over gloo at localhost:`port`; one DP step on this rank's half of the global
-    batch with the global draws. Writes the loss and a few parameters."""
+    batch with the global draws (and a second, warm, timed alone), then one FSDP step from the same state over
+    the global data axis of 2, saved by a synchronous checkpoint manager into `out`/ckpt. Writes each first
+    step's loss, launches and a few
+    parameters (gathered across the processes), the FSDP state's stored bytes, collectives and bit sums."""
     import torch
 
     from f5_tts_tpu_torch.models.shard import shard_train_state
     from f5_tts_tpu_torch.parallel import distributed as D
     from f5_tts_tpu_torch.parallel import initialize
     from f5_tts_tpu_torch.parallel import mesh as M
+    from f5_tts_tpu_torch.training import checkpoints as C
     from f5_tts_tpu_torch.training import trainer as T
 
     device_phase_quiet()
@@ -3102,17 +3126,42 @@ def dp_rank_child(rank: int, port: int, out: str) -> None:
     model, (mel, text, lens), draws = _mesh_train_inputs(_two_rank_cfg())
     opt = T.make_optimizer(MESH_TRAIN_LR, 1e-2, 0, 1000)
     mesh = T.training_grid(None, torch.device("cuda:0"))  # a trainer's grid without a mesh, with two processes
-    state = shard_train_state(T.init_train_state(model.dit, opt, ema=True), mesh)
-    step = M.shard_train_step(T.make_train_step(model.cfm_cfg, opt, ema_decay=0.999), mesh, state)
     half = slice(rank * TRAIN_BATCH // 2, (rank + 1) * TRAIN_BATCH // 2)
-    reset_counts()
-    t0 = time.perf_counter()
-    loss = step(state, mel[half], text[half], lens[half], draws=draws).item()
-    wall = time.perf_counter() - t0
-    full = M.gather_state(state)["params"]
-    torch.save({k: full[k].cpu() for k in TWO_RANK_WATCHED}, f"{out}/rank{rank}.pt")
-    print(json.dumps({"rank": D.process_index(), "world": D.process_count(), "loss": loss, "step_s": wall,
-                      "launches": counts()}), flush=True)
+    result = {"rank": D.process_index(), "world": D.process_count()}
+    for label, fsdp in (("dp", False), ("fsdp", True)):  # each from the model's own parameters: a slot is a copy
+        t_case = time.perf_counter()
+        state = shard_train_state(T.init_train_state(model.dit, opt, ema=True), mesh, fsdp=fsdp)
+        step = M.shard_train_step(T.make_train_step(model.cfm_cfg, opt, ema_decay=0.999), mesh, state, fsdp=fsdp)
+        reset_counts()
+        M.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(state, mel[half], text[half], lens[half], draws=draws).item()
+        wall = time.perf_counter() - t0
+        record = {"loss": loss, "step_s": wall, "launches": counts(), "collectives": M.collective_counts(),
+                  "stored": state.nbytes()[0]}
+        if fsdp:
+            t0 = time.perf_counter()
+            C.TrainCheckpointManager(f"{out}/ckpt", async_save=False).save(1, state)
+            record["save_s"] = time.perf_counter() - t0
+            record["sharded"] = sorted(state.gathered_names())
+        full = M.gather_state(state)
+        if fsdp:
+            stored = (state.params[0], state.opt_state["mu"][0], state.opt_state["nu"][0], state.ema[0])
+            record["halves"] = sorted({2 * part[n].numel() / full["params"][n].numel()
+                                       for part in stored for n in record["sharded"]})
+            record["bit_sums"] = _bit_sums(full)
+        torch.save({k: full["params"][k].cpu() for k in TWO_RANK_WATCHED}, f"{out}/{label}_rank{rank}.pt")
+        if not fsdp:  # a second DP step, warm as the FSDP step will be, for its wall alone
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, mel[half], text[half], lens[half], draws=draws).item()
+            record["warm_step_s"] = time.perf_counter() - t0
+        record["case_s"] = time.perf_counter() - t_case
+        result[label] = record
+        del state, step, full
+        torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
     torch.distributed.destroy_process_group()
 
 
@@ -3333,7 +3382,30 @@ def mesh_training_phase(card: str, tmp_base: str | None) -> dict:
     del predictor
     torch.cuda.empty_cache()
 
-    # two ranks over gloo on the one card against the one-process data-2 step
+    add(two_rank_case(card, opt, tmp_base))
+    torch.cuda.empty_cache()
+    print(f"mesh training phase: {time.perf_counter() - t_phase:.1f} s; launches of its sharded runs "
+          f"{json.dumps(total)}; slot kernels' device ms {json.dumps(slot_ms)}; on {card}")
+    return total, {"base": ref, "witness": wref, "duration": dref}
+
+
+def two_rank_case(card: str, opt, tmp_base: str | None) -> dict:
+    """Phase 10b's two ranks over gloo on the one card (`dp_rank_child`, a
+    process each): a DP step against the one-process data-2 step, then an
+    FSDP step over the global data axis of 2 against the one-process data-2
+    FSDP step, its checkpoint restored here unsharded to the bit, each
+    rank's stored halves, exact launches and collectives. Returns both
+    ranks' kernel launches."""
+    import torch
+
+    from f5_tts_tpu_torch.models.shard import shard_train_state
+    from f5_tts_tpu_torch.parallel import mesh as M
+    from f5_tts_tpu_torch.training import checkpoints as C
+    from f5_tts_tpu_torch.training import trainer as T
+
+    total = dict(ZERO)
+    # two ranks over gloo on the one card: a DP step against the one-process data-2 step, then an FSDP step over
+    # the global data axis of 2 against the one-process data-2 FSDP step, and the FSDP state's checkpoint
     with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
         import socket
 
@@ -3346,30 +3418,86 @@ def mesh_training_phase(card: str, tmp_base: str | None) -> dict:
         model, batch, draws = _mesh_train_inputs(_two_rank_cfg())
         step = T.make_train_step(model.cfm_cfg, opt, ema_decay=0.999)
         one = M.create_mesh(data=2, devices=["cuda:0"] * 2)
-        state = shard_train_state(T.init_train_state(model.dit, opt, ema=True), one)
-        want_loss = M.shard_train_step(step, one, state)(state, *batch, draws=draws).item()
-        want = M.gather_state(state)["params"]
-        del model, state
+        want, fsdp_ref_s = {}, 0.0
+        for label, fsdp in (("dp", False), ("fsdp", True)):
+            t1 = time.perf_counter()
+            state = shard_train_state(T.init_train_state(model.dit, opt, ema=True), one, fsdp=fsdp)
+            loss = M.shard_train_step(step, one, state, fsdp=fsdp)(state, *batch, draws=draws).item()
+            want[label] = (loss, {k: v.cpu() for k, v in M.gather_state(state)["params"].items()
+                                  if k in TWO_RANK_WATCHED})
+            del state
+            if fsdp:
+                fsdp_ref_s = time.perf_counter() - t1
         ranks = [json.loads(_finished(p, f"{tmp}/rank{r}", f"rank {r}", timeout=300).strip().splitlines()[-1])
                  for r, p in enumerate(procs)]
         wall = time.perf_counter() - t0
-        diffs = []
-        for r in range(2):
-            got = torch.load(f"{tmp}/rank{r}.pt")
-            diffs.append(max((got[k] - want[k].cpu()).abs().max().item() for k in TWO_RANK_WATCHED))
-        print(f"two ranks over gloo on {card} (the base DiT at {TWO_RANK_DEPTH} layers): losses {ranks[0]['loss']:.8f}, {ranks[1]['loss']:.8f} (world "
-              f"{ranks[0]['world']}), the one-process data-2 step {want_loss:.8f}; watched parameters' largest "
-              f"difference {max(diffs):.3e}; each rank's step {ranks[0]['step_s']:.2f}, {ranks[1]['step_s']:.2f} s "
-              f"(its first, with gloo's copies through the host), both ranks {wall:.1f} s with start-up")
-        if not (ranks[0]["loss"] == ranks[1]["loss"] and abs(ranks[0]["loss"] - want_loss) <= 1e-6 * abs(want_loss)
-                and max(diffs) <= MESH_TRAIN_LR / 10):
-            raise AssertionError(f"the two ranks disagree with each other or the one-process step: {ranks}, "
-                                 f"{want_loss}, {diffs}")
-        del want
-    torch.cuda.empty_cache()
-    print(f"mesh training phase: {time.perf_counter() - t_phase:.1f} s; launches of its sharded runs "
-          f"{json.dumps(total)}; slot kernels' device ms {json.dumps(slot_ms)}; on {card}")
-    return total, {"base": ref, "witness": wref, "duration": dref}
+        diffs = {label: [] for label in want}
+        for label in want:
+            for r in range(2):
+                got = torch.load(f"{tmp}/{label}_rank{r}.pt")
+                diffs[label].append(max((got[k] - want[label][1][k]).abs().max().item() for k in TWO_RANK_WATCHED))
+        dp = [rank["dp"] for rank in ranks]
+        print(f"two ranks over gloo on {card} (the base DiT at {TWO_RANK_DEPTH} layers): losses {dp[0]['loss']:.8f}, "
+              f"{dp[1]['loss']:.8f} (world {ranks[0]['world']}), the one-process data-2 step {want['dp'][0]:.8f}; "
+              f"watched parameters' largest difference {max(diffs['dp']):.3e}; each rank's step {dp[0]['step_s']:.2f}, "
+              f"{dp[1]['step_s']:.2f} s (its first, with gloo's copies through the host), both ranks {wall:.1f} s "
+              "with start-up and the FSDP case")
+        if not (dp[0]["loss"] == dp[1]["loss"] and abs(dp[0]["loss"] - want["dp"][0]) <= 1e-6 * abs(want["dp"][0])
+                and max(diffs["dp"]) <= MESH_TRAIN_LR / 10):
+            raise AssertionError(f"the two ranks disagree with each other or the one-process step: {dp}, "
+                                 f"{want['dp'][0]}, {diffs['dp']}")
+
+        # FSDP across the two processes: global data rows 0 and 1, one a rank
+        t1 = time.perf_counter()
+        fs = [rank["fsdp"] for rank in ranks]
+        specs = M.param_specs(model.dit, 2)
+        sharded = sorted(n for n, spec in specs.items() if "data" in spec)
+        launches = {**ZERO, "flash_attention_fwd": TWO_RANK_DEPTH, "flash_attention_bwd": TWO_RANK_DEPTH}
+        collectives = {"all_reduce_sum": 0, "all_reduce_max": 0, "grad_all_reduce": len(specs) - len(sharded),
+                       "all_gather": len(sharded), "reduce_scatter": len(sharded), "process_all_gather": len(sharded),
+                       "process_reduce_scatter": len(sharded), "seq_all_gather": 0, "seq_reduce_scatter": 0,
+                       "seq_sum": 0}
+        plain = C.TrainCheckpointManager(f"{tmp}/ckpt").restore(1, T.init_train_state(model.dit, opt, ema=True))
+        restored = {"params": dict(plain.model.named_parameters()), "mu": plain.opt_state["mu"],
+                    "nu": plain.opt_state["nu"], "ema": plain.ema}
+        restored_sums = _bit_sums(restored)
+        watched_equal = all(torch.equal(torch.load(f"{tmp}/fsdp_rank{r}.pt")[k], restored["params"][k].cpu())
+                            for r in range(2) for k in TWO_RANK_WATCHED)
+        ratio = {part: fs[0]["stored"][part] / dp[0]["stored"][part] for part in dp[0]["stored"]}
+        case_s = max(f["case_s"] for f in fs) + fsdp_ref_s + time.perf_counter() - t1
+        print(f"FSDP across two ranks on {card}: losses {fs[0]['loss']:.8f}, {fs[1]['loss']:.8f}, the one-process "
+              f"data-2 FSDP step {want['fsdp'][0]:.8f} (relative {abs(fs[0]['loss'] - want['fsdp'][0]) / abs(want['fsdp'][0]):.3e}, "
+              f"tol 1e-6); watched parameters' largest difference {max(diffs['fsdp']):.3e} (tol {MESH_TRAIN_LR / 10}); "
+              f"the checkpoint restored unsharded equal to the ranks' gathered state to the bit: "
+              f"{restored_sums == fs[0]['bit_sums'] == fs[1]['bit_sums'] and watched_equal}; each rank stores "
+              f"{fs[0]['halves']} of each of the {len(sharded)} sharded matrices (params, mu, nu, EMA), "
+              f"{json.dumps(fs[0]['stored'])} bytes against the DP rank's {json.dumps(dp[0]['stored'])} "
+              f"({', '.join(f'{k} {v:.3f}' for k, v in ratio.items())}); collectives a step {json.dumps(fs[0]['collectives'])}; "
+              f"launches {json.dumps(fs[0]['launches'])}, {json.dumps(fs[1]['launches'])}; each rank's step "
+              f"{fs[0]['step_s']:.2f}, {fs[1]['step_s']:.2f} s against the DP ranks' second (warm) step "
+              f"{dp[0]['warm_step_s']:.2f}, {dp[1]['warm_step_s']:.2f} s; save {fs[0]['save_s']:.2f}, "
+              f"{fs[1]['save_s']:.2f} s; the case {case_s:.1f} s")
+        if not (fs[0]["loss"] == fs[1]["loss"] and abs(fs[0]["loss"] - want["fsdp"][0]) <= 1e-6 * abs(want["fsdp"][0])
+                and max(diffs["fsdp"]) <= MESH_TRAIN_LR / 10):
+            raise AssertionError(f"the FSDP ranks disagree with each other or the one-process FSDP step: "
+                                 f"{[f['loss'] for f in fs]}, {want['fsdp'][0]}, {diffs['fsdp']}")
+        if not (restored_sums == fs[0]["bit_sums"] == fs[1]["bit_sums"] and watched_equal):
+            raise AssertionError("the two ranks' FSDP checkpoint did not restore to their gathered state")
+        for r, f in enumerate(fs):
+            if f["sharded"] != sharded or f["halves"] != [1.0]:
+                raise AssertionError(f"rank {r} shards {f['sharded']} at {f['halves']} of a matrix, expected {sharded} "
+                                     "at a half")
+            dp_collectives = {**{k: 0 for k in collectives}, "grad_all_reduce": len(specs)}
+            for label, got, expect in (("collectives", f["collectives"], collectives),
+                                       ("launches", f["launches"], launches),
+                                       ("DP collectives", ranks[r]["dp"]["collectives"], dp_collectives),
+                                       ("DP launches", ranks[r]["dp"]["launches"], launches)):
+                if got != expect:
+                    raise AssertionError(f"rank {r}'s {label} {got}, expected {expect}")
+            for key in total:
+                total[key] += f["launches"][key] + ranks[r]["dp"]["launches"][key]
+        del want, model, plain, restored
+    return total
 
 
 def _duration_inputs():

@@ -33,7 +33,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="data-parallel rows over the devices of --device's type (one card a slot)")
     ap.add_argument("--mesh-model", type=int, default=1, help="tensor-parallel slots a data row")
     ap.add_argument("--fsdp", action="store_true",
-                    help="shard the weight matrices, their AdamW moments and EMA over this process's data rows")
+                    help="shard the weight matrices, their AdamW moments and EMA over the data rows of every process")
     ap.add_argument("--total-steps", type=int, default=100_000)
     return ap.parse_args(argv)
 

@@ -20,8 +20,10 @@ calls `parallel.distributed.initialize()`, and each process then loads its
 slice of every global batch); the data axis spans the processes, each
 process's grid takes the cards it sees (CUDA_VISIBLE_DEVICES; with the
 default 1 x 1, one slot a process), the gradients are summed across them,
-and process 0 writes the checkpoints and the probe samples. `--fsdp`
-shards over one process's rows only and raises with several processes.
+and process 0 writes the weight files and the probe samples. `--fsdp`
+shards over every process's rows (the global data axis): each process
+stores 1/processes of each matrix, its moments and EMA, and gathers the
+weights and reduce-scatters the gradients across the others.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="data-parallel rows over the devices of --device's type (one card a slot)")
     ap.add_argument("--mesh-model", type=int, default=1, help="tensor-parallel slots a data row")
     ap.add_argument("--fsdp", action="store_true",
-                    help="shard the weight matrices, their AdamW moments and EMA over this process's data rows")
+                    help="shard the weight matrices, their AdamW moments and EMA over the data rows of every process")
     ap.add_argument("--total-steps", type=int, default=1_000_000)
     return ap.parse_args(argv)
 

@@ -130,13 +130,14 @@ def shard_train_state(state, mesh: Mesh, fsdp: bool = False) -> ShardedTrainStat
     """A train state (training/trainer.py `TrainState`) over the grid: its
     model's trainable shards (`shard_model_for_training`) and its
     parameters, moments and EMA cut by the specs (parallel/mesh.py
-    `shard_state`, which raises NotImplementedError for FSDP across
-    processes)."""
+    `shard_state`: with several processes and `fsdp`, this process's global
+    data rows' pieces only)."""
     return shard_state(state, mesh, shard_model_for_training(state.model, mesh), fsdp)
 
 
 def gather_shards(state: ShardedTrainState) -> dict[str, torch.Tensor]:
     """The full `state_dict` of a sharded train state's parameters: each
-    tensor joined from the slots that own its pieces (parallel/mesh.py
-    `gather_state`), on the first slot's device."""
+    tensor joined from the slots that own its pieces, across the processes
+    under FSDP (parallel/mesh.py `gather_state`: every process calls it), on
+    the first slot's device."""
     return gather_state(state)["params"]

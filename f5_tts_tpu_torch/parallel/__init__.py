@@ -15,17 +15,19 @@ the trainers' `mesh=` and `fsdp=` and the examples'
 `distributed`: several processes. `initialize()` starts the process group;
 each process loads its slice of the global batch
 (`process_local_batch_slice`) and the sharded step sums the gradients
-across the processes (`sum_across_processes`). A trainer without a mesh
+across the processes (`sum_across_processes`); under FSDP the data axis
+that shards the weight matrices is the global one (rank x local rows), and
+the step gathers the pieces and reduce-scatters the gradients across the
+processes (`distributed.all_gather_across_processes`,
+`distributed.reduce_scatter_across_processes`). A trainer without a mesh
 trains over a grid of one slot when several processes run.
-
-Not ported yet: FSDP across processes (ROADMAP item 4b-iii).
 
 Names of the JAX package's `parallel` that the port leaves out on purpose:
 `shard_params`, since the port holds no parameter tree to place (a
 model's shards are modules, one a slot, from `shard_model_for_inference`
 and models/shard.py `shard_module`, and a training state's pieces come
 from `shard_state`), and the pipeline schedule's three names
-(`parallel/pipeline.py`, not ported).
+(`parallel/pipeline.py`, not ported yet).
 `shard_model_for_inference` loads models/shard.py on first use, so that
 importing this package loads no model code."""
 

@@ -10,7 +10,12 @@ shard_by_process=True)`), and the data axis spans the processes: the
 sharded step draws the global batch's randomness in every process, pads the
 processes' batches to one shape (`pad_across_processes`), and sums the
 loss's denominator, the loss and every reduced gradient across them
-(`sum_across_processes`).
+(`sum_across_processes`). Under FSDP a weight matrix is sharded over the
+global data rows (rank x local rows): its pieces are gathered across the
+processes (`all_gather_across_processes`) and its gradient is
+reduce-scattered across them (`reduce_scatter_across_processes`). Both
+run on the tensors' own device: gloo takes CUDA tensors for them (it
+stages through the host itself), as NCCL does.
 """
 
 from __future__ import annotations
@@ -68,6 +73,44 @@ def sum_across_processes(t: torch.Tensor) -> torch.Tensor:
     t = t.clone()
     dist.all_reduce(t)
     return t
+
+
+def all_gather_across_processes(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every process's `t` (one shape in all) joined along `dim` in rank
+    order (t itself with one process). Counted in
+    `all_gather_across_processes.count`, once a cross-process gather."""
+    world = process_count()
+    if world == 1:
+        return t
+    src = t.movedim(dim, 0).contiguous()  # the collective joins along dim 0
+    out = src.new_empty((world * src.shape[0], *src.shape[1:]))
+    dist.all_gather_into_tensor(out, src)
+    all_gather_across_processes.count += 1
+    return out.movedim(0, dim).contiguous()
+
+
+all_gather_across_processes.count = 0
+
+
+def reduce_scatter_across_processes(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """`t` summed over the processes and cut into one piece a process along
+    `dim` (process_count() divides it): this process's piece, in rank
+    order (t itself with one process). Counted in
+    `reduce_scatter_across_processes.count`, once a cross-process
+    reduce-scatter."""
+    world = process_count()
+    if world == 1:
+        return t
+    if t.shape[dim] % world:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {world} processes")
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // world, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src)
+    reduce_scatter_across_processes.count += 1
+    return out.movedim(0, dim).contiguous()
+
+
+reduce_scatter_across_processes.count = 0
 
 
 def pad_across_processes(inp: torch.Tensor, text: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -11,8 +11,10 @@ each one counted (`all_reduce`, `all_gather`, `reduce_scatter`). A grid may
 name one device several times, as the JAX suite meshes 8 virtual CPU
 devices: the slots then share that device, which shows correctness and
 host cost, not scaling. Several processes (`distributed.initialize`) each
-drive a grid over their own devices, and the data axis spans them (for
-data parallelism; FSDP shards over one process's data rows only, below).
+drive a grid over their own devices, and the data axis spans them: W
+processes of `data` local rows make a global data axis of data x W rows,
+row `rank x data + r` being process `rank`'s local row r (the device order
+of a JAX mesh over every process's devices).
 
 TP layout (the classic two-collective pattern, `param_specs`):
   - attention to_q/to_k/to_v and feed-forward w1 (`ff.ff.0.0`): output dim
@@ -24,12 +26,10 @@ TP layout (the classic two-collective pattern, `param_specs`):
   - everything else (embeddings, norms, AdaLN modulation, convs, the text
     embedding, proj_out) is replicated.
 FSDP (`param_specs(fsdp_data_size=)`, the JAX `_with_fsdp`) also shards
-the largest free dim of each 2-D weight matrix over "data" (ZeRO): a data
-row stores 1/data of the matrix, its AdamW moments and its EMA, where data
-is the process's own grid's. Unlike the JAX package, the port does not
-shard them across processes: `shard_state(fsdp=True)` raises
-NotImplementedError when several processes share the data axis (ROADMAP
-item 4b-iii).
+the largest free dim of each 2-D weight matrix over "data" (ZeRO), sized
+by the global data axis as JAX sizes it by its mesh's: global row g stores
+piece g of data x W of the matrix, its AdamW moments and its EMA, so each
+process holds 1/W of them and each of its slots 1/(data x W).
 
 Sampling (`F5TTS.use_mesh`) pads the batch to a multiple of "data" with
 copies of row 0 (`pad_batch`), splits it over the data rows
@@ -50,15 +50,19 @@ forward's). The gradient reduction rule (`reduce_gradient`):
     the slots (the tensor-parallel group times the data rows);
   - a model-sharded tensor's gradient is the sum over the data rows of its
     column;
-  - under FSDP the sum is reduce-scattered: each data row keeps its
-    1/data piece (the accumulator of `grad_accum` too, as the JAX
-    `grad_shardings` pins it), and the full weight is gathered into the
-    slots' compute leaves at each microbatch (`all_gather`);
   - with several processes the reduced gradient is then summed across
     them (`distributed.sum_across_processes`);
+  - under FSDP the slots' sum is instead reduce-scattered, across the
+    processes too (`reduce_scatter`): each global data row keeps its piece
+    (the accumulator of `grad_accum` too, as the JAX `grad_shardings` pins
+    it), and the full weight is gathered into the slots' compute leaves at
+    each microbatch, from the local rows and then across the processes
+    (`all_gather`);
   - the global-norm clip is taken over the reduced gradient, each logical
-    tensor counted once (each piece on the slot that owns it, `owns`), and
-    AdamW and the EMA then update every slot's shard in place.
+    tensor counted once (each piece on the slot that owns it, `owns`; the
+    data-sharded pieces' squares summed across the processes, the rest the
+    same in every process and counted once), and AdamW and the EMA then
+    update every slot's shard in place.
 The loss is each data row's numerator over the global batch's denominator
 (the CFM loss's span elements, the duration loss's batch size), and the
 draws and dropout seeds are drawn once for the global batch and split over
@@ -319,11 +323,13 @@ def row_sum(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
 
 
 def all_gather(pieces: list[torch.Tensor], dim: int, devices: list[torch.device]) -> list[torch.Tensor]:
-    """FSDP's gather in one process: the data rows' pieces (in row order)
-    joined along `dim` on the first device, then one tensor for each of
-    `devices` (the same tensor where a device repeats). Counted in
-    `all_gather.count`, once a gather."""
+    """FSDP's gather: the local data rows' pieces (in row order) joined
+    along `dim` on the first device, then the processes' joins along `dim`
+    in rank order (`distributed.all_gather_across_processes`, with several),
+    then one tensor for each of `devices` (the same tensor where a device
+    repeats). Counted in `all_gather.count`, once a gather."""
     full = torch.cat([p.to(devices[0], non_blocking=True) for p in pieces], dim)
+    full = D.all_gather_across_processes(full, dim)
     all_gather.count += 1
     return [full.to(d, non_blocking=True) for d in devices]
 
@@ -333,16 +339,17 @@ all_gather.count = 0
 
 def reduce_scatter(tensors: list[torch.Tensor], dim: int, parts: int,
                    devices: list[torch.device], index: list[int]) -> list[torch.Tensor]:
-    """FSDP's gradient reduction in one process: the slots' tensors summed
-    in slot order on the first slot's device (then across processes, when
-    there are several), cut into `parts` along `dim`, and piece `index[i]`
-    sent to `devices[i]`. Counted in `reduce_scatter.count`, once a
-    reduction."""
+    """FSDP's gradient reduction: the slots' tensors summed in slot order on
+    the first slot's device; with several processes that sum is
+    reduce-scattered across them (`distributed.reduce_scatter_across_processes`:
+    the processes' sum of this process's piece); the result is cut into
+    `parts` (the local data rows) along `dim`, and piece `index[i]` sent to
+    `devices[i]`. Counted in `reduce_scatter.count`, once a reduction."""
     dst = tensors[0].device
     total = tensors[0]
     for t in tensors[1:]:
         total = total + t.to(dst, non_blocking=True)
-    total = D.sum_across_processes(total)
+    total = D.reduce_scatter_across_processes(total, dim)
     pieces = total.chunk(parts, dim)
     reduce_scatter.count += 1
     return [pieces[i].to(d, non_blocking=True) for i, d in zip(index, devices)]
@@ -413,16 +420,21 @@ def seq_sum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
 
 def collective_counts() -> dict:
     """Every counted collective: the all-reduces by op, the gathers and the
-    reduce-scatters of FSDP, and those of sequence parallelism."""
+    reduce-scatters of FSDP (and of those, the ones across processes), and
+    those of sequence parallelism."""
     return {**{f"all_reduce_{op}": n for op, n in all_reduce.counts.items()},
             "grad_all_reduce": grad_all_reduce.count, "all_gather": all_gather.count,
-            "reduce_scatter": reduce_scatter.count, "seq_all_gather": SeqGather.gathers,
-            "seq_reduce_scatter": SeqGather.reduce_scatters, "seq_sum": SeqSum.count}
+            "reduce_scatter": reduce_scatter.count,
+            "process_all_gather": D.all_gather_across_processes.count,
+            "process_reduce_scatter": D.reduce_scatter_across_processes.count,
+            "seq_all_gather": SeqGather.gathers, "seq_reduce_scatter": SeqGather.reduce_scatters,
+            "seq_sum": SeqSum.count}
 
 
 def reset_collective_counts() -> None:
     all_reduce.counts.update({op: 0 for op in all_reduce.counts})
     grad_all_reduce.count = all_gather.count = reduce_scatter.count = 0
+    D.all_gather_across_processes.count = D.reduce_scatter_across_processes.count = 0
     SeqGather.gathers = SeqGather.reduce_scatters = SeqSum.count = 0
 
 
@@ -554,7 +566,9 @@ def slots(mesh: Mesh) -> list[Slot]:
 
 def piece(t: torch.Tensor, spec: tuple, r: int, j: int, mesh_shape: dict) -> torch.Tensor:
     """Slot (r, j)'s piece of a full tensor by its spec (a view; every seq
-    index of (r, j) holds the same piece)."""
+    index of (r, j) holds the same piece). Across processes `r` is the
+    global data row and `mesh_shape` the global grid's
+    (`ShardedTrainState.global_shape`)."""
     for axis, index in (("model", j), ("data", r)):
         if axis in spec:
             t = t.chunk(mesh_shape[axis], spec.index(axis))[index]
@@ -564,13 +578,17 @@ def piece(t: torch.Tensor, spec: tuple, r: int, j: int, mesh_shape: dict) -> tor
 def owns(spec: tuple, r: int, j: int, q: int = 0) -> bool:
     """Whether slot (r, q, j) holds a piece of the tensor that no other slot
     holds: along each axis the spec shards, every slot owns its piece;
-    along the others (and always along "seq"), the first."""
+    along the others (and always along "seq"), the first. With the global
+    data row `r` this holds across processes; with a local row, within
+    one."""
     return q == 0 and (r == 0 or "data" in spec) and (j == 0 or "model" in spec)
 
 
 def assemble(pieces: dict, spec: tuple, mesh_shape: dict, device=None) -> torch.Tensor:
     """The full tensor from the owners' pieces {(r, j): tensor} (the
-    inverse of `piece`), on `device` (default: the first piece's)."""
+    inverse of `piece`), on `device` (default: the first piece's). Over
+    one process's local rows a data-sharded tensor comes out as that
+    process's block along its data dim."""
     data = mesh_shape["data"] if "data" in spec else 1
     model = mesh_shape["model"] if "model" in spec else 1
     device = device or pieces[(0, 0)].device
@@ -589,7 +607,10 @@ class ShardedTrainState:
     slot's 1/data piece, which is gathered into the leaf at each
     microbatch), the AdamW moments and the EMA in the stored layout, the
     update count and the step. Slots are row-major over (data, seq, model):
-    a data row's group holds its seq x model shards in that order."""
+    a data row's group holds its seq x model shards in that order. `world`
+    and `rank` are the processes' count and this one's index when the state
+    was cut: the global data axis has data x world rows, and local row r is
+    global row rank x data + r (`global_row`)."""
 
     mesh: Mesh
     fsdp: bool
@@ -599,10 +620,21 @@ class ShardedTrainState:
     opt_state: dict
     step: int = 0
     ema: list[dict] | None = None
+    world: int = 1
+    rank: int = 0
 
     @property
     def slots(self) -> list[Slot]:
         return slots(self.mesh)
+
+    def global_row(self, r: int) -> int:
+        """The global data row of local row `r`."""
+        return self.rank * self.mesh.shape["data"] + r
+
+    @property
+    def global_shape(self) -> dict[str, int]:
+        """The grid's shape across the processes: data x world data rows."""
+        return {**self.mesh.shape, "data": self.mesh.shape["data"] * self.world}
 
     def leaves(self) -> list[dict]:
         """Each slot's compute leaves by name."""
@@ -625,31 +657,26 @@ class ShardedTrainState:
         return out
 
 
-FSDP_WAITS = ("FSDP across processes is not ported yet: the port shards the weight matrices over this process's "
-              "data rows only, so with one process a data row it would store whole matrices on every rank "
-              "(ROADMAP.md queue 1, item 4b-iii); train with fsdp=False, or in one process over its grid")
-
-
 def shard_state(state, mesh: Mesh, groups: list, fsdp: bool = False) -> ShardedTrainState:
     """A train state (training/trainer.py `TrainState`) over the grid, on
     the trainable shards of its model that `groups` hold (one group a data
     row, from models/shard.py `shard_model_for_training`; models/shard.py
     `shard_train_state` builds both): the parameters, moments and EMA cut
-    by `param_specs` (with FSDP's "data" dims when `fsdp`; a seq slot
-    stores its own copy of its (data row, model column)'s pieces). Raises
-    NotImplementedError for `fsdp` when several processes share the data
-    axis (ROADMAP item 4b-iii)."""
-    if fsdp and D.process_count() > 1:
-        raise NotImplementedError(FSDP_WAITS)
+    by `param_specs` (with FSDP's "data" dims when `fsdp`, sized by the
+    global data axis: with several processes each cuts only its own global
+    rows' pieces; a seq slot stores its own copy of its (data row, model
+    column)'s pieces)."""
+    world, rank = D.process_count(), D.process_index()
     full = dict(state.model.named_parameters())
-    specs = param_specs(full, mesh.shape["data"] if fsdp else None)
+    specs = param_specs(full, mesh.shape["data"] * world if fsdp else None)
     sharded = ShardedTrainState(mesh, fsdp, groups, specs, [], {"mu": [], "nu": [], "count": state.opt_state["count"]},
-                                state.step, None if state.ema is None else [])
+                                state.step, None if state.ema is None else [], world, rank)
+    shape = sharded.global_shape
     leaves = sharded.leaves()
     with torch.no_grad():
         for s, (r, _, j, dev) in enumerate(slots(mesh)):
             def cut(t, spec):
-                return piece(t.detach(), spec, r, j, mesh.shape).to(dev, copy=True)
+                return piece(t.detach(), spec, sharded.global_row(r), j, shape).to(dev, copy=True)
 
             stored = {}
             for name, spec in specs.items():
@@ -667,17 +694,29 @@ def shard_state(state, mesh: Mesh, groups: list, fsdp: bool = False) -> ShardedT
     return sharded
 
 
+def _assembled(state: ShardedTrainState, per_slot: list[dict], device=None) -> dict:
+    """Name -> the full tensor, from one stored-layout dict a slot: the
+    process's owners' pieces joined, then a data-sharded tensor's
+    processes' blocks gathered across them (a collective: with several
+    processes every one must call it)."""
+    grid = {(r, j): s for s, (r, q, j, _) in enumerate(state.slots) if q == 0}
+    out = {}
+    for name, spec in state.specs.items():
+        t = assemble({rj: per_slot[s][name] for rj, s in grid.items() if owns(spec, *rj)}, spec, state.mesh.shape,
+                     device)
+        out[name] = D.all_gather_across_processes(t, spec.index("data")) if "data" in spec else t
+    return out
+
+
 def gather_state(state: ShardedTrainState, device=None) -> dict:
     """The full tensors of a sharded state: {"params", "mu", "nu", "ema"}
     (name -> tensor, on `device`, default the first slot's; "ema" None
-    without one), with "count" and "step"."""
-    grid = {(r, j): s for s, (r, q, j, _) in enumerate(state.slots) if q == 0}
+    without one), with "count" and "step". Under FSDP across processes it
+    gathers across them, so every process calls it."""
     device = device or state.slots[0].device
 
     def full(per_slot):
-        return {name: assemble({rj: per_slot[s][name] for rj, s in grid.items() if owns(spec, *rj)}, spec,
-                               state.mesh.shape, device).detach()
-                for name, spec in state.specs.items()}
+        return {name: t.detach() for name, t in _assembled(state, per_slot, device).items()}
 
     return {"params": full(state.params), "mu": full(state.opt_state["mu"]), "nu": full(state.opt_state["nu"]),
             "ema": None if state.ema is None else full(state.ema), "count": state.opt_state["count"],
@@ -724,8 +763,8 @@ def reduce_gradient(grads: list[torch.Tensor], spec: tuple, state: ShardedTrainS
     """One tensor's gradient from every slot (its compute layout) to every
     slot's stored layout, by the rule in this module's docstring: summed
     over each group of `_groups` (the whole grid for a replicated tensor, a
-    model column for a model-sharded one) and across processes, then
-    reduce-scattered over the data rows under FSDP (each seq slot gets its
+    model column for a model-sharded one) and across processes, or under
+    FSDP reduce-scattered over the global data rows (each seq slot gets its
     data row's piece). One counted collective a group: a `grad_all_reduce`
     or a `reduce_scatter`."""
     coords = state.slots
@@ -834,14 +873,28 @@ class ShardedStep:
     def global_norm(self, state: ShardedTrainState, grads: list[dict]) -> torch.Tensor:
         """The norm of the whole reduced gradient, each logical tensor once:
         every slot's norms of the pieces it owns, joined on the first
-        slot's device."""
+        slot's device; the squares of the data-sharded pieces are summed
+        across the processes (each holds its own global rows'), the rest
+        are the same in every process and counted once."""
         first = state.slots[0].device
-        norms = []
+        norms = {True: [], False: []}  # by whether the tensor is data-sharded
         for s, (r, q, j, _) in enumerate(state.slots):
-            owned = [g for name, g in grads[s].items() if owns(state.specs[name], r, j, q)]
-            if owned:
-                norms.extend(n.to(first) for n in torch._foreach_norm(owned))
-        return torch.linalg.vector_norm(torch.stack(norms))
+            owned = {True: [], False: []}
+            for name, g in grads[s].items():
+                spec = state.specs[name]
+                if owns(spec, r, j, q):
+                    owned["data" in spec].append(g)
+            for sharded, gs in owned.items():
+                if gs:
+                    norms[sharded].extend(n.to(first) for n in torch._foreach_norm(gs))
+
+        def square(ns):
+            return torch.linalg.vector_norm(torch.stack(ns)) ** 2 if ns else torch.zeros((), device=first)
+
+        sharded = square(norms[True])
+        if norms[True]:
+            sharded = D.sum_across_processes(sharded)
+        return torch.sqrt(sharded + square(norms[False]))
 
     def __call__(self, state: ShardedTrainState, inp, text, lens, generator=None, draws=None) -> torch.Tensor:
         self._check(state)
@@ -859,14 +912,11 @@ class ShardedStep:
 
     def gradients(self, state: ShardedTrainState, inp, text, lens, generator=None, draws=None) -> tuple:
         """(loss, the reduced gradient as full tensors by name) of one step's
-        batch, without an update."""
+        batch, without an update (gathered across the processes: every one
+        calls it)."""
         self._check(state)
         loss, grads = self._accumulate(state, inp, text, lens, generator, draws)
-        grid = {(r, j): s for s, (r, q, j, _) in enumerate(state.slots) if q == 0}
-        full = {name: assemble({rj: grads[s][name] for rj, s in grid.items() if owns(spec, *rj)}, spec,
-                               state.mesh.shape)
-                for name, spec in state.specs.items()}
-        return loss, full
+        return loss, _assembled(state, grads)
 
 
 def shard_train_step(step_fn, mesh: Mesh, state: ShardedTrainState | None = None, grad_accum: int = 1,

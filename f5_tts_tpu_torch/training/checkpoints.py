@@ -15,11 +15,15 @@ sharded as the grid holds it, each piece written once by the slot that owns
 it, asynchronously, with retention (`max_to_keep`) and the committed steps
 (`latest_step`, `all_steps`) as the crash-resume points. Its format is the
 port's own (a torch.distributed.checkpoint directory a step, keys
-"<params|mu|nu|ema>/<data row>.<model column>/<name>", and a layout.json
-with the grid's shape, "seq" included, and the specs; the seq slots hold
-copies of seq index 0's pieces and write nothing); a restore reassembles
-the full tensors and cuts them for the target's layout, so a state saved
-over one grid resumes over another or unsharded.
+"<params|mu|nu|ema>/<global data row>.<model column>/<name>", and a
+layout.json with the grid's shape across the processes, "seq" included,
+its "data" the global data axis, and the specs; the seq slots hold copies
+of seq index 0's pieces and write nothing). With several processes each
+writes only the pieces of its own global rows, so under FSDP no two
+processes write one key; a replicated tensor is written by global row 0
+alone. A restore reassembles the full tensors over the global rows and cuts
+them for the target's layout, so a state saved over one grid, or by several
+processes, resumes over another, in one process or several, or unsharded.
 """
 
 from __future__ import annotations
@@ -124,18 +128,33 @@ KINDS = ("params", "mu", "nu", "ema")
 
 
 def _per_slot(state) -> tuple[list, dict, dict, dict]:
-    """(the slots as (data row, model column, seq index), the specs, the
-    grid's shape, {kind: one dict a slot or None}) of a sharded or an
-    unsharded state."""
+    """(this process's slots as (global data row, model column, seq index),
+    the specs, the grid's shape across the processes, {kind: one dict a slot
+    or None}) of a sharded or an unsharded state."""
     if isinstance(state, ShardedTrainState):
-        coords = [(r, j, q) for r, q, j, _ in state.slots]
+        coords = [(state.global_row(r), j, q) for r, q, j, _ in state.slots]
         tensors = {"params": state.params, "mu": state.opt_state["mu"], "nu": state.opt_state["nu"],
                    "ema": state.ema}
-        return coords, state.specs, dict(state.mesh.shape), tensors
+        return coords, state.specs, state.global_shape, tensors
     params = dict(state.model.named_parameters())
     tensors = {"params": [params], "mu": [state.opt_state["mu"]], "nu": [state.opt_state["nu"]],
                "ema": None if state.ema is None else [state.ema]}
     return [(0, 0, 0)], {n: (None,) * p.ndim for n, p in params.items()}, {"data": 1, "model": 1}, tensors
+
+
+def owned_pieces(state) -> dict[str, torch.Tensor]:
+    """The pieces that this process writes of a sharded or an unsharded
+    state, by key "<kind>/<global data row>.<model column>/<name>": each
+    piece that one of its slots owns (`owns` by the global row)."""
+    coords, specs, _, tensors = _per_slot(state)
+    out = {}
+    for s, (r, j, q) in enumerate(coords):
+        for name, spec in specs.items():
+            if owns(spec, r, j, q):
+                for kind, slots in tensors.items():
+                    if slots is not None:
+                        out[f"{kind}/{r}.{j}/{name}"] = slots[s][name]
+    return out
 
 
 class TrainCheckpointManager:
@@ -145,18 +164,24 @@ class TrainCheckpointManager:
     thread), at most `max_to_keep` committed steps kept. One save is in
     flight at a time; `wait` and `close` block until it is committed.
     Works in one process without a process group, and across the processes
-    of one (each piece written once)."""
+    of one (each piece written once, by the process whose global row owns
+    it). Across processes every one constructs it (a collective), and it
+    saves and loads over a gloo group of its own: the write thread's
+    collectives then never interleave with the training step's, nor with
+    the gathers of FSDP across processes."""
 
     def __init__(self, directory: str | Path, max_to_keep: int = 3, async_save: bool = True):
+        import torch.distributed as dist
+
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.async_save = async_save
         self._pending = None
+        self._group = dist.new_group(backend="gloo") if D.process_count() > 1 else None
 
-    @staticmethod
-    def _dist() -> dict:
-        return {"no_dist": D.process_count() == 1}
+    def _dist(self) -> dict:
+        return {"no_dist": self._group is None, "process_group": self._group}
 
     def save(self, step: int, state) -> None:
         """Stage the state on the host and start writing it (asynchronous
@@ -165,14 +190,8 @@ class TrainCheckpointManager:
         import torch.distributed.checkpoint as dcp
 
         self.wait()
-        coords, specs, shape, tensors = _per_slot(state)
-        flat = {}
-        for s, (r, j, q) in enumerate(coords):
-            for name, spec in specs.items():
-                if owns(spec, r, j, q):
-                    for kind, slots in tensors.items():
-                        if slots is not None:
-                            flat[f"{kind}/{r}.{j}/{name}"] = slots[s][name].detach().to("cpu", copy=True)
+        _, specs, shape, tensors = _per_slot(state)
+        flat = {key: t.detach().to("cpu", copy=True) for key, t in owned_pieces(state).items()}
         count = state.opt_state["count"]
         flat["count"], flat["step"] = int(count), int(state.step)
         path = self.directory / str(step)

@@ -404,11 +404,12 @@ class F5TTSTrainer:
     several), TP over "model" and sequence parallelism over "seq" (the
     frames of each batch split over the seq slots, within a process; a
     batch's frames must divide by it); `fsdp=True` also shards the weight
-    matrices, their moments and EMA over the process's data rows (no effect
-    without a mesh, as in the JAX package; NotImplementedError with several
-    processes, ROADMAP item 4b-iii). Without a mesh, several processes train
-    over a grid of one slot each (`training_grid`), so their gradients are
-    summed. `use_orbax=True` keeps the whole train state,
+    matrices, their moments and EMA over the global data axis, every
+    process's data rows (no effect without a mesh in one process, as in the
+    JAX package). Without a mesh, several processes train over a grid of
+    one slot each (`training_grid`), so their gradients are summed, or under
+    `fsdp` reduce-scattered over one row a process. `use_orbax=True` keeps
+    the whole train state,
     sharded, in an asynchronous checkpoint manager (training/checkpoints.py
     `TrainCheckpointManager`, over torch.distributed.checkpoint) beside the
     MLX-named weight files. With several processes, process 0 alone writes
@@ -496,8 +497,14 @@ class F5TTSTrainer:
     ) -> None:
         """Synthesize a probe utterance with the EMA weights when tracked;
         save the wave (with a vocoder) and the mel trajectory as a GIF (when
-        matplotlib and PIL are installed)."""
+        matplotlib and PIL are installed). Every process calls it (a sharded
+        state is gathered, across the processes under FSDP); process 0 alone
+        samples."""
         from f5_tts_tpu_torch.audio.io import read_wav, write_wav
+
+        state = None if self.state is None else gathered_train_state(self.state, self.model.dit)
+        if D.process_index() != 0:
+            return
 
         acfg = self.model.audio_cfg
         audio, _ = read_wav(sample_audio)
@@ -509,7 +516,6 @@ class F5TTSTrainer:
             audio = audio * TARGET_RMS / rms
 
         model = self.model
-        state = None if self.state is None else gathered_train_state(self.state, model.dit)
         if state is not None and state.ema is not None:
             dit = copy.deepcopy(model.dit)
             dit.load_state_dict(state.ema)
@@ -639,7 +645,7 @@ class F5TTSTrainer:
                     print(f"step {global_step}/{total_steps}: loss {loss_val:.4f} batch_len {batch_len} lr {lr:.3e}")
                 if global_step % save_every == 0:
                     self.save_checkpoint(global_step)
-                if (global_step % sample_every == 0 and D.process_index() == 0 and sample_reference_audio is not None
+                if (global_step % sample_every == 0 and sample_reference_audio is not None
                         and sample_reference_text is not None and sample_generation_text is not None
                         and sample_generation_duration is not None):
                     self.generate_sample(sample_reference_audio, sample_reference_text, sample_generation_text,

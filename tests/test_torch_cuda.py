@@ -23,7 +23,9 @@ unsharded step (within 2e-5, the JAX suite's sharded-step tolerance); for
 sequence parallelism, K1 and K2 on query blocks at their RoPE offsets
 against the full call (to the bit where the blocks are whole query tiles)
 and against plain, a ragged block, and the ValueError of the variants that
-take no block.
+take no block; for FSDP across processes, the cross-process gather and
+reduce-scatter of two gloo ranks on CUDA tensors against the in-process
+result.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -1672,3 +1674,61 @@ def test_query_blocks_outside_the_covered_kernels_raise(gen):
                 flash_attention(q[:, :, :rows], k, v, d ** -0.5, q_offset=offset)
             with pytest.raises(ValueError, match="query block"):
                 flash_attention(q[:, :, :rows].detach().requires_grad_(), k, v, d ** -0.5, q_offset=offset)
+
+
+# ------------------------------------------------------------ FSDP across processes: the collectives
+
+PROCESS_COLLECTIVES = '''
+import datetime, json, sys, torch
+import torch.distributed as dist
+sys.path.insert(0, {repo!r})
+from f5_tts_tpu_torch.parallel import distributed as D
+
+rank = {rank}
+dist.init_process_group("gloo", init_method="tcp://localhost:{port}", world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
+gen = torch.Generator(device="cuda").manual_seed(0)
+ts = [torch.randn(4, 6, generator=gen, device="cuda") for _ in range(2)]  # rank r's tensor is ts[r]
+result = {{}}
+for dim in (0, 1):
+    gathered = D.all_gather_across_processes(ts[rank], dim)
+    scattered = D.reduce_scatter_across_processes(ts[rank], dim)
+    result[dim] = [str(gathered.device), torch.equal(gathered, torch.cat(ts, dim)), str(scattered.device),
+                   torch.equal(scattered, (ts[0] + ts[1]).chunk(2, dim)[rank])]
+print(json.dumps({{"result": result, "counts": [D.all_gather_across_processes.count,
+                                               D.reduce_scatter_across_processes.count]}}))
+dist.destroy_process_group()
+'''
+
+
+@pytest.mark.cuda
+def test_cross_process_collectives_on_cuda_tensors(gen):
+    """FSDP's cross-process gather and reduce-scatter (parallel/distributed.py)
+    on CUDA tensors of two gloo ranks on the card, along dim 0 and dim 1:
+    gloo takes the CUDA tensors, and each call hands back, on the card, the
+    in-process result (the ranks' tensors joined in rank order; their sum's
+    piece of this rank)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    env.pop("WORLD_SIZE", None)
+    procs = [subprocess.Popen([sys.executable, "-c", PROCESS_COLLECTIVES.format(repo=str(repo), port=port, rank=r)],
+                              cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    results = []
+    for p in procs:
+        out, err = p.communicate(timeout=180)
+        assert p.returncode == 0, err[-3000:]
+        results.append(json.loads(out.strip().splitlines()[-1]))
+    for r in results:
+        assert r["result"] == {"0": ["cuda:0", True, "cuda:0", True], "1": ["cuda:0", True, "cuda:0", True]}
+        assert r["counts"] == [2, 2]

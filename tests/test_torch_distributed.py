@@ -15,8 +15,9 @@ tests/test_torch_training.py: Adam's first update is about lr * sign(g)).
 Two processes each over a 1 x 2 x 1 grid (data x seq x model: sequence
 parallelism within a process, data parallelism across them) give the loss
 and parameters of one process's 2 x 2 x 1 step. With several processes,
-process 0 alone writes the checkpoint files, and FSDP across processes
-raises NotImplementedError (ROADMAP item 4b-iii).
+process 0 alone writes the checkpoint files, and FSDP cuts each process's
+global data rows' pieces (tests/test_torch_fsdp_processes.py steps and
+checkpoints it across real ranks).
 """
 
 import json
@@ -36,7 +37,7 @@ from f5_tts_tpu_torch.config import CFMConfig, DiTConfig
 from f5_tts_tpu_torch.data import load_dir, make_training_pipeline
 from f5_tts_tpu_torch.models.cfm import F5TTS
 from f5_tts_tpu_torch.models.shard import shard_train_state
-from f5_tts_tpu_torch.parallel import create_mesh
+from f5_tts_tpu_torch.parallel import create_mesh, param_specs
 from f5_tts_tpu_torch.parallel import distributed as D
 from f5_tts_tpu_torch.training import F5TTSTrainer
 from f5_tts_tpu_torch.training import trainer as T
@@ -197,15 +198,34 @@ def test_training_grid_without_mesh(monkeypatch):
     assert T.training_grid(given, torch.device("cpu")) is given
 
 
-def test_fsdp_across_processes_raises(monkeypatch):
-    """FSDP shards over one process's data rows; with several processes it
-    would store whole matrices on every rank, so it raises (item 4b-iii)."""
-    _as_rank(monkeypatch, 0)
+@pytest.mark.parametrize("rank", [0, 1])
+def test_fsdp_across_processes_stores_the_global_rows(monkeypatch, rank):
+    """With two processes of 2 data rows each, FSDP shards over the global
+    data axis of 4: local row r of process `rank` stores global row
+    2 rank + r's piece of each weight matrix, of its moments and of its EMA
+    (a quarter), and the specs are those of one process's data 4; without
+    FSDP every slot holds whole tensors."""
+    _as_rank(monkeypatch, rank)
     model = _model()
     opt = T.make_optimizer(LR, 1e-2, 0, 10)
     mesh = create_mesh(data=2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="4b-iii"):
-        shard_train_state(T.init_train_state(model.dit, opt), mesh, fsdp=True)
+    full = T.init_train_state(model.dit, opt, ema=True)
+    with torch.no_grad():
+        for t in full.ema.values():
+            t.add_(torch.rand(t.shape, generator=torch.Generator().manual_seed(1)))
+    params = {n: p.detach().clone() for n, p in model.dit.named_parameters()}
+    ema = {n: t.clone() for n, t in full.ema.items()}
+    state = shard_train_state(full, mesh, fsdp=True)
+    assert state.specs == param_specs(model.dit, 4) and (state.world, state.rank) == (2, rank)
+    sharded = state.gathered_names()
+    assert sharded
+    for r in range(2):
+        for name in sharded:
+            dim = state.specs[name].index("data")
+            g = 2 * rank + r
+            assert torch.equal(state.params[r][name], params[name].chunk(4, dim)[g])
+            assert torch.equal(state.ema[r][name], ema[name].chunk(4, dim)[g])
+            assert state.opt_state["mu"][r][name].numel() * 4 == params[name].numel()
     assert shard_train_state(T.init_train_state(model.dit, opt), mesh).fsdp is False
 
 

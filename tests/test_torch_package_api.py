@@ -28,7 +28,7 @@ from f5_tts_tpu_torch.config import AudioConfig
 from f5_tts_tpu_torch.data import libritts as lib
 from f5_tts_tpu_torch.utils import masks
 
-PIPELINE = "parallel/pipeline.py is not ported (ROADMAP, 'Not ported'): the depth axis is not needed to fit the model"
+PIPELINE = "parallel/pipeline.py is not ported yet (ROADMAP, queue 1 item 5)"
 # package -> {JAX name the port leaves out: why}
 OMITTED = {
     "parallel": {
