@@ -20,7 +20,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      the widest time-conditioning shape;
   4. snapshot: the base DiT (1024 x 22 layers x 16 heads, bf16), Vocos and a
      float32 duration predictor (DURATION_V2), randomly initialised from a
-     seed, written with save_pretrained as float, int4 and int8 DiT files;
+     seed, written with save_pretrained as float, int4 and int8 DiT files,
+     and a float snapshot of the same widths at 4 layers for phases 7a
+     and 7b;
   5. float main path: from_pretrained, then one warm-up and three requests
      through F5TTS.sample (2 s reference, 10 s total, 32 Euler steps, CFG 2,
      sway -1); checks the waves, the kernels' launch counts per request, and
@@ -82,7 +84,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      3-sentence /synthesize_stream (the first PCM before the end, the
      lengths of its sentences), a malformed request (400), and the
      serve_latency tool's three latencies; K1 launches per group (616);
- 7a. export and artifact serving, on the float snapshot: torch.export
+ 7a. export and artifact serving, on the 4-layer float snapshot (the base
+     DiT's widths; at 22 layers the exports, saves and loads took most of
+     the run): torch.export
      programs (export.py, external weights, the 768-frame bucket) of the
      batch-1 and batch-4 samplers (RK4, 8 steps, CFG 2), the float32
      duration predictor (1024-frame window) and a batch-1 W8A8 sampler
@@ -165,6 +169,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      gathers, reduce-scatters and seq sums; and F5TTSTrainer over 1 x 2 x 1
      (the witness's model) through `.train`, two steps and a checkpoint
      that an unsharded trainer loads to the bit;
+ 10d. pipeline parallelism (parallel/pipeline.py, a "stage" axis): the base
+     DiT (bf16 compute, float32 master weights, all 22 layers) over data
+     1 x stage 2 of the card with 4 microbatches, forward and backward
+     against DiT.forward_train of the same weights on the card (the output,
+     x's gradient and a feed-forward w1 gradient on each stage within
+     relative L2 tolerances; exactly 88 K1 and 88 K2 launches, 4 handoffs
+     and 1 move to the head), the pipelined and unpipelined walls, each
+     stage's parameter and saved-activation bytes and the peak memory; the
+     float32 witness at 8 layers over 2 x 4 with 2 microbatches within the
+     JAX suite's tolerances (forward 1e-5, gradients 2e-4 / 1e-4), and with
+     dropout equal to the unpipelined forward under one generator;
  11. probe kernels vs plain, timed with CUDA events: the attention variants
      (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope; each
      also at a ragged n, and with their device time as in phase 13, the
@@ -587,30 +602,47 @@ def qmatmul_phase():
     return results
 
 
-def snapshot_phase(snap: str):
+def _snapshot_source(depth: int):
+    """The snapshots' model, randomly initialised from seed 0 on the card:
+    the base DiT (bf16) at `depth` layers, Vocos and a float32 DURATION_V2."""
     import torch
 
     from f5_tts_tpu_torch import F5TTS, CFMConfig, Vocos, VocosConfig
     from f5_tts_tpu_torch.config import DURATION_V2, F5TTS_V1_BASE
     from f5_tts_tpu_torch.models.duration import DurationPredictor
 
-    phase("snapshot: base DiT + Vocos + float32 duration predictor -> save_pretrained (float, int4, int8)")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
-    src = F5TTS.init(
-        gen, F5TTS_V1_BASE.replace(compute_dtype="bfloat16"), device="cuda", cfm_cfg=CFMConfig(),
+    return F5TTS.init(
+        gen, F5TTS_V1_BASE.replace(compute_dtype="bfloat16", depth=depth), device="cuda", cfm_cfg=CFMConfig(),
         vocab_char_map={c: i for i, c in enumerate(VOCAB_CHARS)},
         vocoder=Vocos.init(gen, VocosConfig(compute_dtype="bfloat16"), device="cuda"),
         duration_predictor=DurationPredictor.init(gen, DURATION_V2, device="cuda"),
     )
+
+
+def snapshot_phase(snap: str, artifact_snap: str | None = None):
+    """Write the float, int4 and int8 snapshots of the base DiT into `snap`
+    and, with `artifact_snap`, the float snapshot of the same widths at
+    ARTIFACT_DEPTH layers there (phases 7a and 7b)."""
+    from f5_tts_tpu_torch.config import F5TTS_V1_BASE
+
+    phase("snapshot: base DiT + Vocos + float32 duration predictor -> save_pretrained (float, int4, int8)"
+          + ("" if artifact_snap is None else f"; float at {ARTIFACT_DEPTH} layers for the artifact phases"))
+    t0 = time.perf_counter()
+    src = _snapshot_source(F5TTS_V1_BASE.depth)
     n_params = sum(p.numel() for p in src.dit.parameters())
     src.save_pretrained(snap)
     t1 = time.perf_counter()
     for bits in (4, 8):
         src.save_pretrained(snap, quantization_bits=bits)
+    t2 = time.perf_counter()
     print(f"init + save_pretrained: {t1 - t0:.1f} s; quantize + save int4 and int8: "
-          f"{time.perf_counter() - t1:.1f} s; DiT parameters: {n_params}; files: "
+          f"{t2 - t1:.1f} s; DiT parameters: {n_params}; files: "
           + ", ".join(f"{f.name} {f.stat().st_size / 2**20:.1f} MiB" for f in sorted(Path(snap).glob("*.safetensors"))))
+    if artifact_snap is not None:
+        del src
+        _snapshot_source(ARTIFACT_DEPTH).save_pretrained(artifact_snap)
+        print(f"the artifact phases' snapshot ({ARTIFACT_DEPTH} layers): {time.perf_counter() - t2:.1f} s")
 
 
 ZERO = {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0, "qmatmul": 0, "qmatmul_f32": 0,
@@ -1967,6 +1999,9 @@ def _served_group_check(model, calls) -> None:
 # ------------------------------------------------------------ 7a. export and artifact serving
 
 ARTIFACT_BUCKET = 768  # one 256-frame bucket: the serving phase's 6 to 7.5 s requests with the 5.33 s reference
+# phases 7a and 7b run the base DiT's widths at this depth: an RK4 x 8 program's export, save and load take about
+# 1.1 to 1.5 ms a graph node, and at 22 layers (47,908 nodes) they took most of the whole run's time
+ARTIFACT_DEPTH = 4
 ARTIFACT_W8A8_STEPS = 4  # Euler: 3 flow evaluations bound the W8A8 export's time
 DURATION_WINDOW = 1024
 ARTIFACT_TEXT = "A request of {} seconds in all."
@@ -2981,7 +3016,7 @@ def _expected_collectives(state, micro: int) -> dict:
             "grad_all_reduce": micro * (sum(groups.values()) - fsdp), "all_gather": micro * fsdp,
             "reduce_scatter": micro * fsdp, "process_all_gather": across, "process_reduce_scatter": across,
             "seq_all_gather": micro * gathers * (passes - 1), "seq_reduce_scatter": micro * gathers,
-            "seq_sum": micro * seq_sums}
+            "seq_sum": micro * seq_sums, "stage_send": 0, "stage_to_head": 0}
 
 
 def _sharded_runs(label, card, model, make_step, opt, mesh, batch, draws, steps, tol, per_micro, fsdp=False, k=1,
@@ -3456,7 +3491,7 @@ def two_rank_case(card: str, opt, tmp_base: str | None) -> dict:
         collectives = {"all_reduce_sum": 0, "all_reduce_max": 0, "grad_all_reduce": len(specs) - len(sharded),
                        "all_gather": len(sharded), "reduce_scatter": len(sharded), "process_all_gather": len(sharded),
                        "process_reduce_scatter": len(sharded), "seq_all_gather": 0, "seq_reduce_scatter": 0,
-                       "seq_sum": 0}
+                       "seq_sum": 0, "stage_send": 0, "stage_to_head": 0}
         plain = C.TrainCheckpointManager(f"{tmp}/ckpt").restore(1, T.init_train_state(model.dit, opt, ema=True))
         restored = {"params": dict(plain.model.named_parameters()), "mu": plain.opt_state["mu"],
                     "nu": plain.opt_state["nu"], "ema": plain.ema}
@@ -3729,6 +3764,246 @@ def seq_training_phase(card: str, tmp_base: str | None, refs: dict) -> dict:
           f"SP step walls {json.dumps(walls)} ms against phase 10b's unsharded "
           f"{', '.join(f'{w:.1f}' for w in refs['base']['walls_ms'])} ms; query blocks' device ms "
           f"{json.dumps(block_ms)}; on {card}")
+    return total
+
+
+# phase 10d: pipeline parallelism (parallel/pipeline.py). The base DiT (bf16, all 22 layers) over data 1 x stage 2
+# with 4 microbatches of one row (22 layers do not split over 4 stages), and the float32 witness at 8 layers over
+# data 2 x stage 4 with 2 microbatches
+PIPE_GRID = {"data": 1, "stages": 2, "microbatches": 4}
+PIPE_WITNESS = {"data": 2, "stages": 4, "microbatches": 2, "depth": 8}
+# the bf16 DiT is not batch-invariant on the card (cuBLAS picks its kernels by the rows), so a microbatch of one
+# row differs from the batch of four in the last bits, which 22 layers carry on: relative L2 of the forward and
+# of the gradients against the unpipelined forward, set before the first run
+PIPE_TOL = {"forward": 1e-2, "grad": 5e-2}
+PIPE_F32_TOL = {"forward": (1e-5, 1e-5), "grad": (2e-4, 1e-4)}  # (atol, rtol): the JAX suite's
+PIPE_DROPOUT = 0.1
+
+
+def _pipe_inputs(gen, cfg):
+    """Phase 10d's batch (4 x 1024 frames): noised x, the cond mel and the
+    text of `_train_batch`, per-sample times, the ragged lengths' key masks
+    and per-sample drop flags; and a fixed cotangent for the loss."""
+    import torch
+
+    cond, text, lens = _train_batch(gen, cfg.mel_dim)
+    x = torch.randn(cond.shape, generator=gen, device="cuda")
+    time_ = torch.rand(TRAIN_BATCH, generator=gen, device="cuda")
+    kw = {"mask": torch.arange(TRAIN_FRAMES, device="cuda")[None, :] < lens[:, None],
+          "drop_audio_cond": torch.tensor([False, True, False, True], device="cuda"),
+          "drop_text": torch.tensor([False, False, True, True], device="cuda")}
+    return x, cond, text, time_, kw, torch.randn(x.shape, generator=gen, device="cuda")
+
+
+def _pipe_run(forward, module, x, cotangent, watched):
+    """One forward and backward of sum(out * cotangent): (the output, x's
+    gradient, the `watched` parameters' gradients, the wall in ms)."""
+    import torch
+
+    xg = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = forward(xg)
+    (out * cotangent).sum().backward()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    grads = [p.grad.clone() for p in watched]
+    for p in module.parameters():
+        p.grad = None
+    return out.detach(), xg.grad, grads, wall
+
+
+def _stage_held_bytes(pipelined, forward) -> list:
+    """Each stage's bytes at the end of one pipelined forward: its
+    parameters' and the storages autograd saves for its backward while its
+    blocks run (each storage once; a stage's work runs from one of its
+    blocks' AdaLN-Zero to another stage's, the head's norm_out ends the
+    last). On one card the stages share the device, so this is what each
+    stage's own card would hold at its peak."""
+    import torch
+
+    stage_of = {}  # each block's AdaLN-Zero -> its stage; the head's norm_out -> None
+    for row, trunk in zip(pipelined.stages, pipelined.trunks):
+        stage_of[trunk.norm_out] = None
+        for s, blocks in enumerate(row):
+            for block in blocks:
+                stage_of[block.attn_norm] = s
+    params = {p.untyped_storage().data_ptr() for p in pipelined.parameters()}
+    current = [None]
+    saved = [dict() for _ in pipelined.stages[0]]
+
+    def pack(t):
+        ptr = t.untyped_storage().data_ptr()
+        if current[0] is not None and ptr not in params:
+            saved[current[0]][ptr] = t.untyped_storage().nbytes()
+        return t
+
+    hooks = [m.register_forward_pre_hook(lambda m, a: current.__setitem__(0, stage_of[m])) for m in stage_of]
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = forward()
+    finally:
+        for h in hooks:
+            h.remove()
+    del out
+    weights = [sum(p.numel() * p.element_size() for p in blocks.parameters()) for blocks in pipelined.stages[0]]
+    return [{"params": w, "saved": sum(s.values())} for w, s in zip(weights, saved)]
+
+
+def pipeline_phase(card: str) -> dict:
+    """Phase 10d: pipeline parallelism over a ("data", "stage") grid of the
+    card repeated (distinct cards where there are enough). The base DiT
+    (bf16 compute, float32 master weights, all 22 layers) over 1 x 2 with 4
+    microbatches, forward and backward against `DiT.forward_train` of the
+    same weights on the card: the output, x's gradient and one feed-forward
+    w1 gradient on each stage within PIPE_TOL, exactly 88 K1 and 88 K2
+    launches and (S - 1) M handoffs; the pipelined and unpipelined walls
+    (host cost on one card, not scaling), each stage's parameter and saved
+    bytes, and the peak memory. The float32 witness at 8 layers over 2 x 4
+    with 2 microbatches within the JAX suite's tolerances, and with dropout
+    equal to the unpipelined forward under the same generator. Returns the
+    kernels' launches of the pipelined runs."""
+    import copy
+
+    import torch
+
+    from f5_tts_tpu_torch import F5TTS
+    from f5_tts_tpu_torch.config import F5TTS_V1_BASE
+    from f5_tts_tpu_torch.parallel import mesh as M
+    from f5_tts_tpu_torch.parallel.pipeline import create_pipeline_mesh, dit_forward_pipelined, shard_params_for_pipeline
+
+    t_phase = time.perf_counter()
+    phase(f"pipeline: the base DiT (bf16, 22 layers) over data {PIPE_GRID['data']} x stage {PIPE_GRID['stages']}, "
+          f"M {PIPE_GRID['microbatches']}, forward and backward against unpipelined; the float32 witness "
+          f"({PIPE_WITNESS['depth']} layers) over {PIPE_WITNESS['data']} x {PIPE_WITNESS['stages']}, M "
+          f"{PIPE_WITNESS['microbatches']}, with and without dropout")
+    total = dict(ZERO)
+
+    def counted(grid, depth, launch_keys, run):
+        """`run()` with every count set to 0 just before it, its launches
+        and handoffs held to the schedule's: depth x M a data row of each of
+        `launch_keys`, (S - 1) M handoffs and one move to the head a data
+        row."""
+        reset_counts()
+        M.reset_collective_counts()
+        result = run()
+        launched, coll = counts(), M.collective_counts()
+        per_row = depth * grid["microbatches"] * grid["data"]
+        want = {**ZERO, **{k: per_row for k in launch_keys}}
+        handoffs = {"stage_send": grid["data"] * (grid["stages"] - 1) * grid["microbatches"],
+                    "stage_to_head": grid["data"]}
+        got = {k: coll[k] for k in handoffs}
+        if launched != want or got != handoffs:
+            raise AssertionError(f"pipeline {grid}: launches {launched} (expected {want}), handoffs {got} "
+                                 f"(expected {handoffs})")
+        for k, v in launched.items():
+            total[k] += v
+        return result, launched, got
+
+    # the base DiT in bf16 over 1 x 2
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    dit = F5TTS.init(gen, F5TTS_V1_BASE.replace(compute_dtype="bfloat16"), device="cuda").dit
+    x, cond, text, time_, kw, cot = _pipe_inputs(gen, dit.cfg)
+    depth, stages, m = dit.cfg.depth, PIPE_GRID["stages"], PIPE_GRID["microbatches"]
+    mesh = create_pipeline_mesh(stages, PIPE_GRID["data"], _grid_devices(stages * PIPE_GRID["data"]))
+    pipelined = shard_params_for_pipeline(dit, mesh)
+    firsts = [s * depth // stages for s in range(stages)]  # the first block of each stage
+
+    def plain(xg):
+        return dit.forward_train(xg, cond, text, time_, **kw)
+
+    def piped(xg):
+        return dit_forward_pipelined(pipelined, xg, cond, text, time_, num_microbatches=m, **kw)
+
+    plain_w = [dit.transformer_blocks[i].ff.ff[0][0].weight for i in firsts]
+    pipe_w = [pipelined.block(i).ff.ff[0][0].weight for i in firsts]
+    walls = {"unpipelined": [], "pipelined": []}
+    peaks = {}
+    for _ in range(2):  # the first of each is a warm-up
+        torch.cuda.reset_peak_memory_stats()
+        ref, ref_gx, ref_gw, wall = _pipe_run(plain, dit, x, cot, plain_w)
+        walls["unpipelined"].append(wall)
+        peaks["unpipelined"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (out, gx, gw, wall), launched, handoffs = counted(
+            PIPE_GRID, depth, ("flash_attention_fwd", "flash_attention_bwd"),
+            lambda: _pipe_run(piped, pipelined, x, cot, pipe_w))
+        walls["pipelined"].append(wall)
+        peaks["pipelined"] = torch.cuda.max_memory_allocated()
+    held = _stage_held_bytes(pipelined, lambda: piped(x.clone().requires_grad_(True)))
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    errs = {"forward": rel(out, ref), "grad x": rel(gx, ref_gx),
+            **{f"grad ff w1 block {i} (stage {s})": rel(g, r) for s, (i, g, r) in enumerate(zip(firsts, gw, ref_gw))}}
+    print(f"base DiT (bf16, {depth} layers) over {mesh}, M {m}: against DiT.forward_train on the card, relative L2 "
+          f"{json.dumps({k: float(f'{v:.4e}') for k, v in errs.items()})} (tol {PIPE_TOL}); launches {launched}; "
+          f"handoffs {handoffs}; forward + backward walls (warm-up, then timed) pipelined "
+          f"{', '.join(f'{w:.1f}' for w in walls['pipelined'])} ms against unpipelined "
+          f"{', '.join(f'{w:.1f}' for w in walls['unpipelined'])} ms "
+          f"({walls['pipelined'][1] / walls['unpipelined'][1]:.2f}x: host cost, every stage on the one card); peak "
+          f"memory pipelined {peaks['pipelined'] / 2**30:.3f} GiB, unpipelined {peaks['unpipelined'] / 2**30:.3f} GiB; "
+          f"each stage's parameters and saved activations at the forward's end "
+          + "; ".join(f"stage {s} {h['params'] / 2**30:.3f} + {h['saved'] / 2**30:.3f} GiB "
+                      f"({h['params'] / sum(x['params'] for x in held):.3f} of the blocks' parameter bytes)"
+                      for s, h in enumerate(held)) + f"; on {card}", flush=True)
+    if not (errs["forward"] <= PIPE_TOL["forward"] and all(v <= PIPE_TOL["grad"] for k, v in errs.items()
+                                                            if k != "forward")):
+        raise AssertionError(f"the pipelined base DiT disagrees with the unpipelined forward: {errs}")
+    del dit, pipelined, ref, ref_gx, ref_gw, out, gx, gw, plain_w, pipe_w
+    torch.cuda.empty_cache()
+
+    # the float32 witness over 2 x 4, then with dropout under one generator
+    wgrid = PIPE_WITNESS
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    wcfg = F5TTS_V1_BASE.replace(compute_dtype="float32", depth=wgrid["depth"])
+    wdit = F5TTS.init(gen, wcfg, device="cuda").dit
+    x, cond, text, time_, kw, cot = _pipe_inputs(gen, wcfg)
+    mesh = create_pipeline_mesh(wgrid["stages"], wgrid["data"], _grid_devices(wgrid["stages"] * wgrid["data"]))
+    wpiped = shard_params_for_pipeline(wdit, mesh)
+    firsts = [s * wcfg.depth // wgrid["stages"] for s in range(wgrid["stages"])]
+    ref, ref_gx, ref_gw, _ = _pipe_run(lambda xg: wdit.forward_train(xg, cond, text, time_, **kw), wdit, x, cot,
+                                       [wdit.transformer_blocks[i].ff.ff[0][0].weight for i in firsts])
+    (out, gx, gw, _), wlaunched, whandoffs = counted(
+        wgrid, wcfg.depth, ("flash_attention_fwd_f32", "flash_attention_bwd_f32"),
+        lambda: _pipe_run(lambda xg: dit_forward_pipelined(wpiped, xg, cond, text, time_,
+                                                           num_microbatches=wgrid["microbatches"], **kw),
+                          wpiped, x, cot, [wpiped.block(i).ff.ff[0][0].weight for i in firsts]))
+
+    def beyond(got, want, tol):
+        """The largest |got - want| - (atol + rtol |want|): at most 0 within tol."""
+        atol, rtol = tol
+        return ((got - want).abs() - (atol + rtol * want.abs())).max().item()
+
+    over = {"forward": beyond(out, ref, PIPE_F32_TOL["forward"]), "grad x": beyond(gx, ref_gx, PIPE_F32_TOL["grad"]),
+            **{f"grad ff w1 block {i}": beyond(g, r, PIPE_F32_TOL["grad"]) for i, g, r in zip(firsts, gw, ref_gw)}}
+    apart = {"forward": (out - ref).abs().max().item(), "grad x": (gx - ref_gx).abs().max().item()}
+
+    drop = copy.deepcopy(wdit)
+    drop.cfg = wcfg.replace(dropout=PIPE_DROPOUT)
+    dpiped = shard_params_for_pipeline(drop, mesh)
+    with torch.no_grad():
+        dref = drop.forward_train(x, cond, text, time_, generator=torch.Generator(device="cuda").manual_seed(31), **kw)
+        dout, dlaunched, _ = counted(
+            wgrid, wcfg.depth, ("flash_attention_fwd_f32",),
+            lambda: dit_forward_pipelined(dpiped, x, cond, text, time_, num_microbatches=wgrid["microbatches"],
+                                          generator=torch.Generator(device="cuda").manual_seed(31), **kw))
+    over["dropout forward"] = beyond(dout, dref, PIPE_F32_TOL["forward"])
+    dropped = (dout - out).abs().max().item()
+    print(f"float32 witness ({wcfg.depth} layers) over {mesh}, M {wgrid['microbatches']}: against DiT.forward_train "
+          f"the largest excess over atol + rtol |ref| {json.dumps({k: float(f'{v:.3e}') for k, v in over.items()})} "
+          f"(at most 0: forward {PIPE_F32_TOL['forward']}, gradients {PIPE_F32_TOL['grad']}), largest |difference| "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in apart.items()})}; with dropout {PIPE_DROPOUT} under one "
+          f"generator (dropout's own effect on the output {dropped:.3e}); launches {wlaunched}, with dropout "
+          f"{dlaunched}; handoffs {whandoffs}; on {card}", flush=True)
+    if max(over.values()) > 0 or dropped < 1e-4:
+        raise AssertionError(f"the pipelined float32 witness disagrees with the unpipelined forward: {over}, or "
+                             f"dropout did not act ({dropped})")
+    del wdit, wpiped, drop, dpiped
+    torch.cuda.empty_cache()
+    print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s; launches of its pipelined runs "
+          f"{json.dumps(total)}; on {card}")
     return total
 
 
@@ -4159,14 +4434,14 @@ def main() -> int:
     qmm = qmatmul_phase()
     w8a8 = w8a8_kernel_phase()
     tmp_base = "/dev/shm" if os.path.isdir("/dev/shm") and shutil.disk_usage("/dev/shm").free > 8 * 2**30 else None
-    with tempfile.TemporaryDirectory(dir=tmp_base) as snap:
-        snapshot_phase(snap)
+    with tempfile.TemporaryDirectory(dir=tmp_base) as snap, tempfile.TemporaryDirectory(dir=tmp_base) as art_snap:
+        snapshot_phase(snap, art_snap)
         float_times, float_launches = float_path_phase(card, snap)
         q_times, q_launches = quantized_path_phase(card, snap)
         mesh_launches, mesh_rows = mesh_phase(card, snap)
         w8a8_times, w8a8_launches = w8a8_path_phase(card, snap, tmp_base)
         serve_launches, live_lat = serving_phase(card, snap)
-        artifact_launches, artifact_grid_launches = artifact_phase(card, snap, tmp_base, live_lat)
+        artifact_launches, artifact_grid_launches = artifact_phase(card, art_snap, tmp_base, live_lat)
         bwd = bwd_kernel_phase()
         with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
             _, cfm_ms, cfm_launches = cfm_training_phase(card, tmp)
@@ -4175,6 +4450,7 @@ def main() -> int:
         mesh_train_launches, mesh_refs = mesh_training_phase(card, tmp_base)
         seq_train_launches = seq_training_phase(card, tmp_base, mesh_refs)
         del mesh_refs
+        pipeline_launches = pipeline_phase(card)
         probe = probe_kernel_phase()
         probe_launches = probe_tools_phase(card)
         ranking_phase(card, snap)
@@ -4186,7 +4462,8 @@ def main() -> int:
           f"{time.perf_counter() - T_START:.1f} s; on {card}")
     # launches summed over the main paths' counted runs; the probe kernels' over the probe tools' run
     paths = (float_launches, q_launches, mesh_launches, w8a8_launches, serve_launches, artifact_launches,
-             artifact_grid_launches, cfm_launches, dur_launches, wav_launches, mesh_train_launches, seq_train_launches)
+             artifact_grid_launches, cfm_launches, dur_launches, wav_launches, mesh_train_launches, seq_train_launches,
+             pipeline_launches)
     launches = {k: sum(p[k] for p in paths) for k in float_launches}
     for name, n in launches.items():
         if n <= 0:

@@ -80,7 +80,7 @@ from torch import nn
 from f5_tts_tpu_torch.ops import flash_attention as _k1  # noqa: F401
 from f5_tts_tpu_torch.ops import qmatmul as _k3  # noqa: F401
 from f5_tts_tpu_torch.ops import w8a8 as _n2  # noqa: F401
-from f5_tts_tpu_torch.parallel.mesh import Mesh, gather_batch, pad_batch, split_batch
+from f5_tts_tpu_torch.parallel.mesh import Mesh, gather_batch, pad_batch, refuse_stage, split_batch
 from f5_tts_tpu_torch.utils.sampling import clamp_duration, draw_noise, sway_time_grid
 
 _MAGIC = b"F5T1"
@@ -499,13 +499,15 @@ class LoadedProgram:
 
     def place_weights(self, target) -> "LoadedProgram":
         """Place the program and its weights on a device, or over the data
-        rows of a mesh (a sampler's); returns self."""
+        rows of a mesh (a sampler's; a "stage" axis raises ValueError);
+        returns self."""
         if not isinstance(target, Mesh):
             device = torch.device(target)
             if device.type == "cuda" and device.index is None:
                 device = torch.device("cuda", torch.cuda.current_device())
             self._place([device], None)
             return self
+        refuse_stage(target, "place_weights")
         if self._noise is None:
             raise ValueError("a duration artifact runs on one device: place it with a device, not a mesh")
         if target.shape["model"] > 1:

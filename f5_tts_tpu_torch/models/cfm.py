@@ -32,7 +32,7 @@ from f5_tts_tpu_torch.models.ode import odeint
 from f5_tts_tpu_torch.models.quant import w8a8_blocks_
 from f5_tts_tpu_torch.models.vocos import Vocos
 from f5_tts_tpu_torch.models.shard import shard_model_for_inference
-from f5_tts_tpu_torch.parallel.mesh import gather_batch, pad_batch, seq_frames, split_batch
+from f5_tts_tpu_torch.parallel.mesh import gather_batch, pad_batch, refuse_stage, seq_frames, split_batch
 from f5_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
 from f5_tts_tpu_torch.utils.modules import init_parameters_
 from f5_tts_tpu_torch.utils.sampling import clamp_duration, draw_noise, sway_time_grid
@@ -457,8 +457,11 @@ class F5TTS:
         and a vocoder replica on that row's devices, and returns the
         trimmed result on the model's device. The duration predictor is not
         sharded: it runs on the model's device. The master DiT stays as it
-        is; the shards are built here, from the sampler's cast copy.
-        Returns self."""
+        is; the shards are built here, from the sampler's cast copy. A mesh
+        with a "stage" axis (the pipeline's) raises ValueError. Returns
+        self."""
+        if mesh is not None:
+            refuse_stage(mesh, "F5TTS.use_mesh")
         self._mesh = mesh
         self._cast_cache = None
         self._inference_dit()

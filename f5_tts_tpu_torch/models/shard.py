@@ -32,6 +32,7 @@ from f5_tts_tpu_torch.parallel.mesh import (
     ShardedTrainState,
     gather_state,
     param_specs,
+    refuse_stage,
     shard_state,
 )
 
@@ -91,7 +92,9 @@ def shard_module(module: nn.Module, mesh: Mesh, seq_slots: bool = False) -> list
     a copy of the model group). Raises ValueError where the model axis does
     not divide an attention's heads or a feed-forward's hidden width, or
     leaves a quantized row-sharded linear an input width that is not a
-    multiple of 64 a slot."""
+    multiple of 64 a slot, and for a mesh with a "stage" axis (the
+    pipeline's, parallel/pipeline.py)."""
+    refuse_stage(mesh, "shard_module")
     ways = mesh.shape["model"]
     _check_shardable(module, ways)
     specs = param_specs(module)

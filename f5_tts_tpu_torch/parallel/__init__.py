@@ -22,14 +22,19 @@ processes (`distributed.all_gather_across_processes`,
 `distributed.reduce_scatter_across_processes`). A trainer without a mesh
 trains over a grid of one slot when several processes run.
 
-Names of the JAX package's `parallel` that the port leaves out on purpose:
-`shard_params`, since the port holds no parameter tree to place (a
-model's shards are modules, one a slot, from `shard_model_for_inference`
-and models/shard.py `shard_module`, and a training state's pieces come
-from `shard_state`), and the pipeline schedule's three names
-(`parallel/pipeline.py`, not ported yet).
-`shard_model_for_inference` loads models/shard.py on first use, so that
-importing this package loads no model code."""
+`pipeline`: GPipe pipeline parallelism over the DiT's depth, on a
+("data", "stage") grid (`create_pipeline_mesh`; the other users of a mesh
+refuse a "stage" axis): `shard_params_for_pipeline` places each stage's
+blocks on its device, `dit_forward_pipelined` streams microbatches through
+the stages, and autograd through it is pipeline-parallel backprop.
+
+The one name of the JAX package's `parallel` that the port leaves out on
+purpose is `shard_params`, since the port holds no parameter tree to place
+(a model's shards are modules, one a slot, from `shard_model_for_inference`
+and models/shard.py `shard_module`, and a training state's pieces come from
+`shard_state`). `shard_model_for_inference` and the pipeline's names load
+their modules on first use, so that importing this package loads no model
+code."""
 
 import importlib
 
@@ -48,12 +53,18 @@ from f5_tts_tpu_torch.parallel.mesh import (
 )
 
 
+_LAZY = {"shard_model_for_inference": "f5_tts_tpu_torch.models.shard",
+         "create_pipeline_mesh": "f5_tts_tpu_torch.parallel.pipeline",
+         "dit_forward_pipelined": "f5_tts_tpu_torch.parallel.pipeline",
+         "shard_params_for_pipeline": "f5_tts_tpu_torch.parallel.pipeline"}
+
+
 def __getattr__(name: str):
-    if name == "shard_model_for_inference":
-        return importlib.import_module("f5_tts_tpu_torch.models.shard").shard_model_for_inference
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name]), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["Mesh", "all_gather", "all_reduce", "create_mesh", "device_list", "initialize", "param_specs",
-           "reduce_scatter", "shard_model_for_inference", "shard_state", "shard_train_step", "state_specs",
-           "sum_across_processes"]
+__all__ = ["Mesh", "all_gather", "all_reduce", "create_mesh", "create_pipeline_mesh", "device_list",
+           "dit_forward_pipelined", "initialize", "param_specs", "reduce_scatter", "shard_model_for_inference",
+           "shard_params_for_pipeline", "shard_state", "shard_train_step", "state_specs", "sum_across_processes"]

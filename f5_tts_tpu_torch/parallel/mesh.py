@@ -113,8 +113,10 @@ ROW_SHARDED = ("attn.to_out.0", "ff.ff.2")  # input dim
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """A grid of torch devices: `devices` is a numpy object array with one
-    axis per name of `axis_names`, ("data", "model") or ("data", "seq",
-    "model")."""
+    axis per name of `axis_names`: ("data", "model") or ("data", "seq",
+    "model") (`create_mesh`), or ("data", "stage") for the pipeline
+    (parallel/pipeline.py `create_pipeline_mesh`), which the other users of
+    a mesh refuse (`refuse_stage`)."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
@@ -144,6 +146,15 @@ class Mesh:
         dims = "x".join(str(s) for s in self.devices.shape)
         return (f"{dims} mesh {self.axis_names} over {distinct} distinct device{'s' if distinct > 1 else ''} "
                 f"({', '.join(str(d) for d in self.devices.flat)})")
+
+
+def refuse_stage(mesh: Mesh, user: str) -> None:
+    """Raise ValueError when `mesh` has a "stage" axis: `user` takes a
+    ("data", "model") or ("data", "seq", "model") grid, and a pipeline's
+    grid is for parallel/pipeline.py alone."""
+    if "stage" in mesh.axis_names:
+        raise ValueError(f"{user} takes a mesh of ('data', 'model') or ('data', 'seq', 'model'), not {mesh}: a "
+                         "'stage' axis is the pipeline's (parallel/pipeline.py shard_params_for_pipeline)")
 
 
 def _as_device(d) -> torch.device:
@@ -418,17 +429,41 @@ def seq_sum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     return list(SeqSum.apply(*parts))
 
 
+def stage_send(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The pipeline's handoff (parallel/pipeline.py): a stage's output for
+    one microbatch copied to the next stage's device (the same tensor where
+    the device repeats), as JAX's `ppermute` over "stage"; autograd carries
+    the gradient back through the copy. Counted in `stage_send.count`, once
+    a handoff of the forward."""
+    stage_send.count += 1
+    return t.to(device, non_blocking=True)
+
+
+stage_send.count = 0
+
+
+def stage_to_head(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A data row's output of the pipeline's last stage moved to the device
+    where its head runs (JAX psums it over "stage"). Counted in
+    `stage_to_head.count`, once a data row of the forward."""
+    stage_to_head.count += 1
+    return t.to(device, non_blocking=True)
+
+
+stage_to_head.count = 0
+
+
 def collective_counts() -> dict:
     """Every counted collective: the all-reduces by op, the gathers and the
-    reduce-scatters of FSDP (and of those, the ones across processes), and
-    those of sequence parallelism."""
+    reduce-scatters of FSDP (and of those, the ones across processes),
+    those of sequence parallelism and the pipeline's handoffs."""
     return {**{f"all_reduce_{op}": n for op, n in all_reduce.counts.items()},
             "grad_all_reduce": grad_all_reduce.count, "all_gather": all_gather.count,
             "reduce_scatter": reduce_scatter.count,
             "process_all_gather": D.all_gather_across_processes.count,
             "process_reduce_scatter": D.reduce_scatter_across_processes.count,
             "seq_all_gather": SeqGather.gathers, "seq_reduce_scatter": SeqGather.reduce_scatters,
-            "seq_sum": SeqSum.count}
+            "seq_sum": SeqSum.count, "stage_send": stage_send.count, "stage_to_head": stage_to_head.count}
 
 
 def reset_collective_counts() -> None:
@@ -436,6 +471,7 @@ def reset_collective_counts() -> None:
     grad_all_reduce.count = all_gather.count = reduce_scatter.count = 0
     D.all_gather_across_processes.count = D.reduce_scatter_across_processes.count = 0
     SeqGather.gathers = SeqGather.reduce_scatters = SeqSum.count = 0
+    stage_send.count = stage_to_head.count = 0
 
 
 def lockstep(steps: list, seq: int = 1) -> list:
@@ -666,6 +702,7 @@ def shard_state(state, mesh: Mesh, groups: list, fsdp: bool = False) -> ShardedT
     global data axis: with several processes each cuts only its own global
     rows' pieces; a seq slot stores its own copy of its (data row, model
     column)'s pieces)."""
+    refuse_stage(mesh, "shard_state")
     world, rank = D.process_count(), D.process_index()
     full = dict(state.model.named_parameters())
     specs = param_specs(full, mesh.shape["data"] * world if fsdp else None)
@@ -927,6 +964,7 @@ def shard_train_step(step_fn, mesh: Mesh, state: ShardedTrainState | None = None
     flag, as in the JAX package). `grad_accum` must be the step's; the
     microbatch axis then leads the inputs, and each microbatch splits over
     "data" (and its frames over "seq") as a step of one does."""
+    refuse_stage(mesh, "shard_train_step")
     if state is not None and state.fsdp != fsdp:
         raise ValueError(f"a state sharded with fsdp={state.fsdp} given to shard_train_step(fsdp={fsdp})")
     return ShardedStep(step_fn, mesh, grad_accum, fsdp)

@@ -1,5 +1,5 @@
-"""Mesh-parallel sampling and training on grids of 1, 2, 4 and 8 slots: the
-port of the JAX package's `tools/scaling.py`.
+"""Mesh-parallel sampling and training on grids of 1, 2, 4 and 8 slots, and
+pipeline parallelism: the port of the JAX package's `tools/scaling.py`.
 
     PYTHONPATH=. python -m f5_tts_tpu_torch.tools.scaling               # slots on the cards
     PYTHONPATH=. python -m f5_tts_tpu_torch.tools.scaling --device cpu  # slots on the CPU
@@ -24,6 +24,15 @@ FSDP the gathers and reduce-scatters), then an FSDP row and a sequence
 parallel row (data x seq 2 x model 2: each seq slot computes 32 of the 64
 frames, with a key and value gather an attention and its reduce-scatter in
 the backward) on the largest grid of 4 slots or more.
+
+The pipeline half (parallel/pipeline.py), as the JAX tool's: the same DiT
+at depth 4 over data x stage grids of 1 x 2, 1 x 4 and 2 x 4 with 2
+microbatches, one forward of the global batch each: its max |delta|
+against the unpipelined forward (`DiT.forward_train`) and the counted
+handoffs (`stage_send`, `stage_to_head`).
+
+`sampling_rows`, `training_rows` and `pipeline_rows` run the three halves
+alone; the command runs all three.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch
 from f5_tts_tpu_torch.config import CFMConfig, DiTConfig
 from f5_tts_tpu_torch.models.cfm import F5TTS
 from f5_tts_tpu_torch.models.shard import shard_train_state
+from f5_tts_tpu_torch.parallel.pipeline import create_pipeline_mesh, dit_forward_pipelined, shard_params_for_pipeline
 from f5_tts_tpu_torch.parallel.mesh import (
     all_reduce,
     collective_counts,
@@ -53,6 +63,9 @@ GLOBAL_BATCH = 8
 SEQ = 64
 STEPS = 5  # Euler: 4 flow evaluations with CFG
 TRAIN_STEPS = 3
+PIPELINE_DEPTH = 4  # divisible by up to 4 stages
+PIPELINE_GRIDS = ((1, 2), (1, 4), (2, 4))  # (data, stages)
+PIPELINE_MICROBATCHES = 2
 
 
 def run_sampling(n: int, device: str) -> tuple[np.ndarray, dict, float]:
@@ -129,6 +142,54 @@ def training_rows(slots: list[int], device: str) -> list[dict]:
     return rows
 
 
+def sampling_rows(slots: list[int], device: str) -> list[dict]:
+    """The sampling half's rows: each grid of `slots` against 1 slot."""
+    rows, base = [], None
+    for n in slots:
+        out, reductions, wall = run_sampling(n, device)
+        base = out if base is None else base
+        row = {"part": "sampling", "slots": n, "mesh": f"{n // (2 if n >= 2 else 1)}x{2 if n >= 2 else 1}",
+               "max_abs_delta": float(np.abs(out - base).max()), "reductions": reductions, "wall_s": wall}
+        print(f"{row['slots']} slots ({row['mesh']}): max |delta| vs 1 slot {row['max_abs_delta']:.3e}; "
+              f"reductions {reductions}; wall {wall:.3f} s")
+        rows.append(row)
+    return rows
+
+
+def pipeline_rows(device: str) -> list[dict]:
+    """The pipeline half's rows: one forward of the global batch over each
+    data x stage grid of PIPELINE_GRIDS (the slots cycling over the devices
+    of `device`'s type) against the unpipelined forward."""
+    devices = device_list(device)
+    dev = devices[0]
+    cfg = CFG.replace(depth=PIPELINE_DEPTH)
+    model = F5TTS.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev, cfm_cfg=CFMConfig())
+    g = torch.Generator(device=dev).manual_seed(3)
+    x, cond = (torch.randn(GLOBAL_BATCH, SEQ, cfg.mel_dim, generator=g, device=dev) for _ in range(2))
+    text = torch.randint(-1, cfg.text_num_embeds, (GLOBAL_BATCH, SEQ), generator=g, device=dev)
+    time_ = torch.rand(GLOBAL_BATCH, generator=g, device=dev)
+    with torch.no_grad():
+        ref = model.dit.forward_train(x, cond, text, time_)
+    rows = []
+    for data, stages in PIPELINE_GRIDS:
+        mesh = create_pipeline_mesh(stages, data, [devices[i % len(devices)] for i in range(data * stages)])
+        pipelined = shard_params_for_pipeline(model.dit, mesh)
+        reset_collective_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = dit_forward_pipelined(pipelined, x, cond, text, time_, num_microbatches=PIPELINE_MICROBATCHES)
+            delta = (out - ref).abs().max().item()
+        wall = time.perf_counter() - t0
+        counts = collective_counts()
+        row = {"part": "pipeline", "data": data, "stages": stages, "mesh": f"{data}x{stages}",
+               "max_abs_delta": delta, "handoffs": {k: counts[k] for k in ("stage_send", "stage_to_head")},
+               "wall_s": wall}
+        print(f"pipeline {row['mesh']} (data x stage, {PIPELINE_MICROBATCHES} microbatches): forward max |delta| vs "
+              f"unpipelined {delta:.3e}; handoffs {row['handoffs']}; wall {wall:.3f} s")
+        rows.append(row)
+    return rows
+
+
 def main(argv: list[str] | None = None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="the slots' device type: the cards by default, 'cpu' on request")
@@ -137,18 +198,12 @@ def main(argv: list[str] | None = None) -> list[dict]:
     where = torch.cuda.get_device_name(0) if torch.device(args.device).type == "cuda" else "the CPU"
     print(f"mesh sampling on {where}: batch {GLOBAL_BATCH}, {SEQ} frames, {STEPS - 1} Euler evaluations with CFG, "
           f"dim {CFG.dim} x depth {CFG.depth}, float32")
-    rows, base = [], None
     slots = [int(s) for s in args.slots.split(",")]
-    for n in slots:
-        out, reductions, wall = run_sampling(n, args.device)
-        base = out if base is None else base
-        row = {"part": "sampling", "slots": n, "mesh": f"{n // (2 if n >= 2 else 1)}x{2 if n >= 2 else 1}",
-               "max_abs_delta": float(np.abs(out - base).max()), "reductions": reductions, "wall_s": wall}
-        print(f"{row['slots']} slots ({row['mesh']}): max |delta| vs 1 slot {row['max_abs_delta']:.3e}; "
-              f"reductions {reductions}; wall {wall:.3f} s")
-        rows.append(row)
+    rows = sampling_rows(slots, args.device)
     print(f"mesh training on {where}: global batch {GLOBAL_BATCH}, {SEQ} frames, {TRAIN_STEPS} CFM steps")
-    return rows + training_rows(slots, args.device)
+    rows += training_rows(slots, args.device)
+    print(f"pipeline on {where}: global batch {GLOBAL_BATCH}, {SEQ} frames, depth {PIPELINE_DEPTH}, forward")
+    return rows + pipeline_rows(args.device)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,7 @@ from f5_tts_tpu_torch.models.convert import (
 from f5_tts_tpu_torch.models.duration import DurationPredictor, duration_loss, duration_prefix
 from f5_tts_tpu_torch.models.shard import shard_train_state
 from f5_tts_tpu_torch.parallel import distributed as D
-from f5_tts_tpu_torch.parallel.mesh import ShardedTrainState, shard_train_step
+from f5_tts_tpu_torch.parallel.mesh import ShardedTrainState, refuse_stage, shard_train_step
 from f5_tts_tpu_torch.training import checkpoints as C
 from f5_tts_tpu_torch.training.trainer import (
     AdamW,
@@ -106,6 +106,8 @@ class DurationTrainer:
         mesh=None,
         fsdp: bool = False,
     ):
+        if mesh is not None:
+            refuse_stage(mesh, "DurationTrainer(mesh=)")
         self.model = model
         self.num_warmup_steps = num_warmup_steps
         self.max_grad_norm = max_grad_norm

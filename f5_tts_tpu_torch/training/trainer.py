@@ -41,7 +41,13 @@ from f5_tts_tpu_torch.models.convert import (
 )
 from f5_tts_tpu_torch.models.shard import shard_train_state
 from f5_tts_tpu_torch.parallel import distributed as D
-from f5_tts_tpu_torch.parallel.mesh import ShardedTrainState, create_mesh, gather_state, shard_train_step
+from f5_tts_tpu_torch.parallel.mesh import (
+    ShardedTrainState,
+    create_mesh,
+    gather_state,
+    refuse_stage,
+    shard_train_step,
+)
 from f5_tts_tpu_torch.training import checkpoints as C
 from f5_tts_tpu_torch.utils.safetensors import load_file, save_file
 
@@ -427,6 +433,8 @@ class F5TTSTrainer:
         mesh=None,
         fsdp: bool = False,
     ):
+        if mesh is not None:
+            refuse_stage(mesh, "F5TTSTrainer(mesh=)")
         self.model = model
         self.num_warmup_steps = num_warmup_steps
         self.max_grad_norm = max_grad_norm

@@ -50,6 +50,20 @@ from f5_tts_tpu_torch.ops import w8a8 as W
 from f5_tts_tpu_torch.parallel import mesh as tmesh
 from f5_tts_tpu_torch.serve import serve
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's torch work on one thread, restored after it. The suite's
+    workers share the CPU's cores, and torch's default of one thread a core
+    in each makes their OpenMP pools spin against each other: on an 8-core
+    CPU, six concurrent runs of the scaling tool's sampling and pipeline
+    halves took 414 s each so and 4.5 s each on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY = dict(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=100, text_num_embeds=256, text_dim=32,
             conv_layers=1)
 WIDE = dict(TINY, dim=256, heads=4, dim_head=64)  # int4 under model 2: 128 and 256 inputs a slot
@@ -442,7 +456,7 @@ def test_scaling_tool_on_the_cpu():
     reductions a block a flow evaluation a data row."""
     from f5_tts_tpu_torch.tools import scaling
 
-    rows = [r for r in scaling.main(["--slots", "1,2,4", "--device", "cpu"]) if r["part"] == "sampling"]
+    rows = scaling.sampling_rows([1, 2, 4], "cpu")
     evals, depth = scaling.STEPS - 1, scaling.CFG.depth
     assert [r["reductions"]["sum"] for r in rows] == [0, 2 * depth * evals, 2 * 2 * depth * evals]
     assert all(r["max_abs_delta"] < 1e-5 for r in rows)

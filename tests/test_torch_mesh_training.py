@@ -48,6 +48,20 @@ from f5_tts_tpu_torch.training import trainer as T
 from f5_tts_tpu_torch.training.duration_trainer import DurationTrainer, make_duration_train_step
 from f5_tts_tpu_torch.utils.modules import init_parameters_
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's torch work on one thread, restored after it. The suite's
+    workers share the CPU's cores, and torch's default of one thread a core
+    in each makes their OpenMP pools spin against each other: on an 8-core
+    CPU, six concurrent runs of the scaling tool's sampling and pipeline
+    halves took 414 s each so and 4.5 s each on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY = dict(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=100, text_num_embeds=256, text_dim=32,
             conv_layers=1)
 DUR = dict(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, text_dim=32, conv_layers=1)

@@ -28,16 +28,12 @@ from f5_tts_tpu_torch.config import AudioConfig
 from f5_tts_tpu_torch.data import libritts as lib
 from f5_tts_tpu_torch.utils import masks
 
-PIPELINE = "parallel/pipeline.py is not ported yet (ROADMAP, queue 1 item 5)"
 # package -> {JAX name the port leaves out: why}
 OMITTED = {
     "parallel": {
         "shard_params": "the port holds no parameter tree to place: a model's shards are per-slot modules "
                         "(shard_model_for_inference, models/shard.py shard_module), a training state's pieces "
                         "come from shard_state",
-        "create_pipeline_mesh": PIPELINE,
-        "dit_forward_pipelined": PIPELINE,
-        "shard_params_for_pipeline": PIPELINE,
     },
 }
 TOL = 1e-5
