@@ -1,0 +1,12 @@
+"""The share of the traced stretch in which no kernel, copy or set ran on
+the device: the complement of the union of their intervals."""
+
+NAME = "idle.train"
+UNIT = "%"
+
+
+def read(obs: dict):
+    t = obs.get("trace")
+    if obs.get("kind") != "train" or t is None or t.window_s <= 0 or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
