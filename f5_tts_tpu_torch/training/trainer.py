@@ -27,6 +27,7 @@ from typing import Callable
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from f5_tts_tpu_torch.audio.mel import log_mel_spectrogram
 from f5_tts_tpu_torch.config import AudioConfig, CFMConfig
@@ -276,11 +277,12 @@ class UpdateRule:
         """AdamW on `params` and `opt_state` in place (clipped by `norm`,
         the whole gradient's norm, when given, else by `grads`' own), then
         the optional EMA e <- d e + (1 - d) p on the updated parameters."""
-        self.optimizer.update_(params, grads, opt_state, norm=norm)
-        if self.ema_decay is not None:
-            e = [ema[name] for name in params]
-            torch._foreach_mul_(e, self.ema_decay)
-            torch._foreach_add_(e, list(params.values()), alpha=1.0 - self.ema_decay)
+        with record_function("train.update"):
+            self.optimizer.update_(params, grads, opt_state, norm=norm)
+            if self.ema_decay is not None:
+                e = [ema[name] for name in params]
+                torch._foreach_mul_(e, self.ema_decay)
+                torch._foreach_add_(e, list(params.values()), alpha=1.0 - self.ema_decay)
 
 
 def _build_step(objective, optimizer: AdamW, ema_decay: float | None, grad_accum: int):
@@ -291,7 +293,11 @@ def _build_step(objective, optimizer: AdamW, ema_decay: float | None, grad_accum
     it over a grid (`objective`, and `rule`, its `UpdateRule`).
 
     grad_accum == 1: one forward and backward, clip and AdamW, then the
-    optional EMA e <- d e + (1 - d) p on the updated parameters.
+    optional EMA e <- d e + (1 - d) p on the updated parameters. The step
+    and its parts are `torch.profiler.record_function` ranges, which a
+    running profiler records beside the kernels they launch: `train.step`
+    around it all, `train.forward` and `train.backward` a microbatch,
+    `train.update` around `UpdateRule.apply_`.
 
     grad_accum == k > 1: inputs carry a leading microbatch axis [k, b, ...]
     (and `draws`, when given, is a list of k); k forward and backward passes,
@@ -300,20 +306,24 @@ def _build_step(objective, optimizer: AdamW, ema_decay: float | None, grad_accum
     rule = UpdateRule(optimizer, ema_decay, int(grad_accum))
 
     def train_step(state: TrainState, inp, text, lens, generator=None, draws=None) -> torch.Tensor:
-        params = state.params
-        tensors = list(params.values())
+        with record_function("train.step"):
+            params = state.params
+            tensors = list(params.values())
 
-        def micro(i):
-            if i is None:
-                loss = objective.loss(state.model, inp, text, lens, generator, draws)
-            else:
-                loss = objective.loss(state.model, inp[i], text[i], lens[i], generator,
-                                      None if draws is None else draws[i])
-            return loss.detach().float(), [dict(zip(params, _grads(loss, tensors)))]
+            def micro(i):
+                with record_function("train.forward"):
+                    if i is None:
+                        loss = objective.loss(state.model, inp, text, lens, generator, draws)
+                    else:
+                        loss = objective.loss(state.model, inp[i], text[i], lens[i], generator,
+                                              None if draws is None else draws[i])
+                with record_function("train.backward"):
+                    grads = _grads(loss, tensors)
+                return loss.detach().float(), [dict(zip(params, grads))]
 
-        loss, (grads,) = rule.accumulate(micro)
-        rule.apply_(params, grads, state.opt_state, state.ema)
-        state.step += 1
+            loss, (grads,) = rule.accumulate(micro)
+            rule.apply_(params, grads, state.opt_state, state.ema)
+            state.step += 1
         return loss
 
     train_step.objective, train_step.rule = objective, rule
