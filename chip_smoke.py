@@ -186,7 +186,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      RoPE pre-pass's own device time and the host time per call) in bf16,
      with the outputs of P1, P3 and P4 at fixed inputs hashed
      and the Triton LayerNorm + modulate at the probe tools' shapes and at a
-     ragged n;
+     ragged n, and its training forward (with the row statistics) and
+     backward kernels at the training cell's widest shape, [16, 2400, 1024]
+     bf16, against their plain versions, by device time beside the bytes
+     bound: the kernels line's `ln_modulate` and `ln_modulate_bwd` rows
+     (their launches, 2 depth + 1 a DiT forward and as many a backward, are
+     held exactly in every counted run of phases 5 to 10d and summed there);
  12. probe tools: both tools' entry points once at their full shapes with
      few repetitions, counting each probe kernel's launches there;
  13. ranking: K3's device time per int4 request (launches per request
@@ -244,6 +249,8 @@ DIT_F32_TOL = 1e-4  # relative L2 of a float32 DiT forward on the card against t
 GRAD_TOL = {"bf16": 2e-2, "f32": 1e-4}  # attention backward: max error over the plain gradient's max magnitude
 TRAIN_GRAD_TOL = 5e-2  # relative L2 of the DiT's loss gradient, bf16 compute against float32, 22 layers
 LN_TOL = (1e-2, 8e-3)  # LayerNorm + modulate, bf16: |kernel - plain| <= a + b |plain| (one output rounding)
+LN_GRAD_TOL = 2e-2  # its backward, bf16: max error over the plain gradient's max magnitude (one rounding each)
+LN_TRAIN_SHAPE = (16, 2400, 1024)  # 38,400 rows: a batch of the training cell's 38,400 padded frames
 TRAIN_BATCH, TRAIN_FRAMES = 4, 1024
 TRAIN_LENS = (TRAIN_FRAMES, TRAIN_FRAMES - 24, TRAIN_FRAMES - 100, TRAIN_FRAMES - 217)
 # the card's published peaks at 700 W (NVIDIA H100 SXM data sheet, dense). A float32 product to
@@ -306,17 +313,20 @@ def build_phase():
 def reset_counts():
     from f5_tts_tpu_torch.ops import w8a8
     from f5_tts_tpu_torch.ops.flash_attention import flash_attention
+    from f5_tts_tpu_torch.ops.ln_modulate import ln_modulate
     from f5_tts_tpu_torch.ops.qmatmul import qmatmul
 
     flash_attention.launches = flash_attention.launches_f32 = qmatmul.launches = qmatmul.launches_f32 = 0
     flash_attention.launches_bwd = flash_attention.launches_bwd_f32 = 0
     w8a8.quantize_rows.launches = w8a8.rescale_bias.launches = 0
     w8a8.row_absmax.launches = w8a8.quantize_scaled.launches = 0
+    ln_modulate.launches = ln_modulate.launches_bwd = 0
 
 
 def counts() -> dict:
     from f5_tts_tpu_torch.ops import w8a8
     from f5_tts_tpu_torch.ops.flash_attention import flash_attention
+    from f5_tts_tpu_torch.ops.ln_modulate import ln_modulate
     from f5_tts_tpu_torch.ops.qmatmul import qmatmul
 
     return {"flash_attention_fwd": flash_attention.launches,
@@ -328,7 +338,9 @@ def counts() -> dict:
             "w8a8_quantize": w8a8.quantize_rows.launches,
             "w8a8_rescale": w8a8.rescale_bias.launches,
             "w8a8_row_absmax": w8a8.row_absmax.launches,
-            "w8a8_quantize_scaled": w8a8.quantize_scaled.launches}
+            "w8a8_quantize_scaled": w8a8.quantize_scaled.launches,
+            "ln_modulate": ln_modulate.launches,
+            "ln_modulate_bwd": ln_modulate.launches_bwd}
 
 
 def _time_ms(fn, iters=20):
@@ -647,7 +659,17 @@ def snapshot_phase(snap: str, artifact_snap: str | None = None):
 
 ZERO = {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0, "qmatmul": 0, "qmatmul_f32": 0,
         "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0, "w8a8_quantize": 0, "w8a8_rescale": 0,
-        "w8a8_row_absmax": 0, "w8a8_quantize_scaled": 0}
+        "w8a8_row_absmax": 0, "w8a8_quantize_scaled": 0, "ln_modulate": 0, "ln_modulate_bwd": 0}
+
+
+def adaln(blocks: int, finals: int, backward: bool = False, remat: bool = False) -> dict:
+    """The DiT's AdaLN kernels' launches (`ln_modulate`, `ln_modulate_bwd`)
+    where DiT blocks run `blocks` times, two norms each, and the final norm
+    `finals` times: each norm's forward once, and with `backward` its
+    backward once; with `remat` the blocks' forwards run once more, as the
+    backward recomputes them."""
+    norms = 2 * blocks + finals
+    return {"ln_modulate": norms + (2 * blocks if remat else 0), "ln_modulate_bwd": norms if backward else 0}
 
 
 def _request(model, ref, duration, card: str, label: str, expect: dict, expect_len: int) -> float:
@@ -743,7 +765,7 @@ def _dit_f32_check(model) -> dict:
     outs = [_dit_out(dits["cuda"], "cuda")]
     launched = counts()
     outs.append(_dit_out(dits["cpu"], "cpu"))
-    expect = {**ZERO, "flash_attention_fwd_f32": cfg.depth,
+    expect = {**ZERO, "flash_attention_fwd_f32": cfg.depth, **adaln(cfg.depth, 1),
               "qmatmul_f32": sum(isinstance(m, QuantizedLinear) for m in dits["cuda"].modules())}
     rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
     print(f"relative L2 of the float32 card forward against float32 CPU: {rel:.3e} (tol {DIT_F32_TOL}); "
@@ -769,7 +791,9 @@ def float_path_phase(card: str, snap: str):
     torch.cuda.synchronize()
     print(f"from_pretrained: {time.perf_counter() - t0:.1f} s")
     ref, duration, expect_len = _setup(model)
-    per_request = {**ZERO, "flash_attention_fwd": model.dit_cfg.depth * EVALS_PER_REQUEST}
+    depth = model.dit_cfg.depth
+    per_request = {**ZERO, "flash_attention_fwd": depth * EVALS_PER_REQUEST,
+                   **adaln(depth * EVALS_PER_REQUEST, EVALS_PER_REQUEST)}
     reset_counts()
     times = [_request(model, ref, duration, card, "warm-up" if i == 0 else f"request {i}", per_request, expect_len)
              for i in range(4)][1:]
@@ -813,7 +837,7 @@ def quantized_path_phase(card: str, snap: str):
     ref, duration, expect_len = _setup(model)
     cfg = model.dit_cfg
     per_request = {**ZERO, "flash_attention_fwd": cfg.depth * EVALS_PER_REQUEST,
-                   "qmatmul": qmm_launches_per_request(cfg)}
+                   "qmatmul": qmm_launches_per_request(cfg), **adaln(cfg.depth * EVALS_PER_REQUEST, EVALS_PER_REQUEST)}
     print(f"expected per request: {per_request}")
 
     # the predictor's duration for this request, worked out before the counted run
@@ -1147,8 +1171,10 @@ def mesh_phase(card: str, snap: str) -> tuple[dict, dict]:
     sharded = F5TTS.from_pretrained(snap, device="cuda").use_mesh(mesh)
     cfg = model.dit_cfg
     k1 = cfg.depth * EVALS_PER_REQUEST
-    unsharded_expect = {**ZERO, "flash_attention_fwd": k1}
-    expect = {**ZERO, "flash_attention_fwd": k1 * data * ways}
+    unsharded_expect = {**ZERO, "flash_attention_fwd": k1, **adaln(k1, EVALS_PER_REQUEST)}
+    # every slot runs the whole forward of its shard: its blocks and the final norm, over the full width
+    expect = {**ZERO, "flash_attention_fwd": k1 * data * ways,
+              **adaln(k1 * data * ways, EVALS_PER_REQUEST * data * ways)}
     reductions = {"sum": 2 * cfg.depth * EVALS_PER_REQUEST * data, "max": 0}
     _mesh_request(model, "float unsharded warm-up", card, unsharded_expect, None)
     _mesh_request(sharded, "float 2 x 2 warm-up", card, expect, reductions)
@@ -1364,7 +1390,7 @@ def _w8a8_mesh_check(snap: str, mesh, card: str, add) -> dict:
     slots = MESH["data"] * MESH["model"]
     expect = {**ZERO, "flash_attention_fwd": slots * cfg.depth, "w8a8_quantize": slots * 4 * cfg.depth,
               "w8a8_rescale": slots * 6 * cfg.depth, "w8a8_row_absmax": slots * 2 * cfg.depth,
-              "w8a8_quantize_scaled": slots * 2 * cfg.depth}
+              "w8a8_quantize_scaled": slots * 2 * cfg.depth, **adaln(slots * cfg.depth, slots)}
     red_expect = {"sum": MESH["data"] * 2 * cfg.depth, "max": MESH["data"] * 2 * cfg.depth}
     print(f"W8A8 DiT forward under 2 x 2 ({b} x {n} frames): each data row against the unsharded forward of its rows "
           f"equal to the bit: {per_row}; the gathered batch against the unsharded forward of all {b}: equal to the "
@@ -1542,6 +1568,24 @@ def _w8a8_block_errors(card, cpu_dits: dict) -> dict:
     return rel
 
 
+def _card_adaln_on_cpu():
+    """A context in which the DiT blocks' AdaLN computes, for CPU tensors,
+    the card's arithmetic (`ln_modulate_plain`: the modulation in float32,
+    one rounding) in place of the CPU operator's chain, which rounds the
+    norm and each step of the modulation to bf16; CUDA tensors run the
+    kernel as ever. The W8A8 check's CPU reference thus differs from the
+    card only in what that check holds: the W8A8 linears' arithmetic."""
+    from unittest import mock
+
+    from f5_tts_tpu_torch.models import blocks
+    from f5_tts_tpu_torch.ops.ln_modulate import ln_modulate, ln_modulate_plain
+
+    def card_adaln(x, scale, shift):
+        return (ln_modulate_plain if x.device.type == "cpu" else ln_modulate)(x, scale, shift)
+
+    return mock.patch.object(blocks, "ln_modulate", card_adaln)
+
+
 def _w8a8_dit_check(model_w8) -> dict:
     """The W8A8 DiT on the card against the plain W8A8 DiT on the CPU, on
     `_dit_out`'s input, in bf16 (the float32 master cast, then its blocks
@@ -1552,7 +1596,14 @@ def _w8a8_dit_check(model_w8) -> dict:
     forward is held to W8A8_DIT_TOL, which the float DiT meets too: a code
     next to a rounding boundary moves by one where the two sides'
     activations differ by an ulp, and later layers carry that on, so over
-    22 layers the distance is of the size of W8A8's own error."""
+    22 layers the distance is of the size of W8A8's own error. The CPU
+    side runs the card's AdaLN arithmetic on purpose (`_card_adaln_on_cpu`):
+    the blocks' bf16 chain on the CPU rounds twice where the card rounds
+    once, and the int8 codes of the norm's output flip on that ulp (on the
+    H100, block errors 4.7e-2 to 4.9e-2 against 2.4e-2 to 2.7e-2, as far as
+    the float block's), so that check would no longer tell W8A8 from float.
+    The card's AdaLN itself is held to the float32 CPU DiT by
+    `_dit_forward_check`, and to `ln_modulate_plain` by the card tests."""
     import torch
 
     from f5_tts_tpu_torch import F5TTS
@@ -1573,10 +1624,11 @@ def _w8a8_dit_check(model_w8) -> dict:
     for dtype, card_dit in card.items():
         out = _dit_out(card_dit, "cuda")
         cpu = {label: sampler_dit("cpu", dtype, int8) for label, int8 in (("W8A8", True), ("float", False))}
-        for label, dit in cpu.items():
-            ref = _dit_out(dit, "cpu")
-            rel[(dtype, label)] = ((out - ref).norm() / ref.norm()).item()
-        blocks[dtype] = _w8a8_block_errors(card_dit, cpu)
+        with _card_adaln_on_cpu():
+            for label, dit in cpu.items():
+                ref = _dit_out(dit, "cpu")
+                rel[(dtype, label)] = ((out - ref).norm() / ref.norm()).item()
+            blocks[dtype] = _w8a8_block_errors(card_dit, cpu)
         w8, fl = blocks[dtype]["W8A8"], blocks[dtype]["float"]
         print(f"{dtype}, block by block, each fed the card's input: |card - CPU| / |CPU update|, W8A8 "
               f"{min(w8):.3e} to {max(w8):.3e} (tol {W8A8_BLOCK_TOL[dtype]}), float {min(fl):.3e} to "
@@ -1612,9 +1664,10 @@ def w8a8_path_phase(card: str, snap: str, tmp_base: str | None) -> tuple[list, d
     ref, duration, expect_len = _setup(model)
     cfg, sr = model.dit_cfg, model.audio_cfg.sample_rate
     linears = W8A8_LINEARS * cfg.depth * EVALS_PER_REQUEST
+    norms = adaln(cfg.depth * EVALS_PER_REQUEST, EVALS_PER_REQUEST)
     per_request = {**ZERO, "flash_attention_fwd": cfg.depth * EVALS_PER_REQUEST, "w8a8_quantize": linears,
-                   "w8a8_rescale": linears}
-    float_request = {**ZERO, "flash_attention_fwd": cfg.depth * EVALS_PER_REQUEST}
+                   "w8a8_rescale": linears, **norms}
+    float_request = {**ZERO, "flash_attention_fwd": cfg.depth * EVALS_PER_REQUEST, **norms}
     print(f"expected per W8A8 request: {per_request}")
     reset_counts()
     with tempfile.TemporaryDirectory(dir=tmp_base) as tmp:
@@ -1692,7 +1745,7 @@ def w8a8_path_phase(card: str, snap: str, tmp_base: str | None) -> tuple[list, d
     want = 44 + 2 * ((int(7.0 * a.frames_per_second) - 1 - ref_frames) * a.hop_length)
     evals = (SERVE_STEPS - 1) * 4
     expect = {**ZERO, "flash_attention_fwd": evals * cfg.depth, "w8a8_quantize": evals * W8A8_LINEARS * cfg.depth,
-              "w8a8_rescale": evals * W8A8_LINEARS * cfg.depth}
+              "w8a8_rescale": evals * W8A8_LINEARS * cfg.depth, **adaln(evals * cfg.depth, evals)}
     print(f"W8A8 served request (7 s, RK4 at {SERVE_STEPS} steps): {time.perf_counter() - t0:.3f} s, "
           f"{len(body)} bytes (expected {want}); launches {served}")
     if len(body) != want or served != expect:
@@ -1854,15 +1907,15 @@ def serving_phase(card: str, snap: str) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         warmup(model, [7.0], steps=SERVE_STEPS, method="rk4", batch_sizes=(1, 4), batcher=httpd.batcher)
         print(f"warm-up (7 s at batch 1 and 4, and the predictor): {time.perf_counter() - t0:.1f} s")
-        groups = []  # (size, K1 launches, K1-f32 launches) of each group, in the batcher thread
+        groups = []  # (size, K1, K1-f32 and AdaLN launches) of each group, in the batcher thread
         run_group = httpd.batcher._run_group
 
         def recording(group):
             before = counts()
             run_group(group)
             after = counts()
-            groups.append((len(group), after["flash_attention_fwd"] - before["flash_attention_fwd"],
-                           after["flash_attention_fwd_f32"] - before["flash_attention_fwd_f32"]))
+            groups.append((len(group), *(after[k] - before[k] for k in ("flash_attention_fwd",
+                                                                        "flash_attention_fwd_f32", "ln_modulate"))))
 
         httpd.batcher._run_group = recording
         calls = []  # (args, kwargs, output) of each sample() call of the four concurrent requests
@@ -1940,17 +1993,20 @@ def serving_phase(card: str, snap: str) -> tuple[dict, dict]:
         httpd.shutdown()
         httpd.batcher.join(timeout=60)
     launched = counts()
-    per_group = (SERVE_STEPS - 1) * 4 * model.dit_cfg.depth
-    k1 = sorted({g[1] for g in groups})
+    evals = (SERVE_STEPS - 1) * 4
+    per_group = evals * model.dit_cfg.depth
+    ln_per_group = adaln(per_group, evals)["ln_modulate"]
+    k1, ln = sorted({g[1] for g in groups}), sorted({g[3] for g in groups})
     print(f"serving: warm_synthesize_s {lat['warm_synthesize_s']:.4f}, stream_ttfa_s {lat['stream_ttfa_s']:.4f}, "
           f"mixed_load_small_request_s {lat['mixed_load_small_request_s']:.4f} (idle baseline "
           f"{lat['idle_baseline_s']:.4f}); group sizes of the 4 concurrent requests {sizes}; phase "
           f"{time.perf_counter() - t_phase:.1f} s; on {card}")
     print(f"serving: K1 launches per group {k1} over {len(groups)} groups (expected {per_group}: "
-          f"{SERVE_STEPS - 1} RK4 intervals x 4 evaluations x {model.dit_cfg.depth} layers); "
-          f"launches over the phase {launched}")
-    if k1 != [per_group] or any(g[2] for g in groups):
-        raise AssertionError(f"K1 launches per group {k1} (K1-f32 {[g[2] for g in groups]}), expected {per_group}")
+          f"{SERVE_STEPS - 1} RK4 intervals x 4 evaluations x {model.dit_cfg.depth} layers), AdaLN {ln} (expected "
+          f"{ln_per_group}); launches over the phase {launched}")
+    if k1 != [per_group] or ln != [ln_per_group] or any(g[2] for g in groups):
+        raise AssertionError(f"K1 launches per group {k1} (K1-f32 {[g[2] for g in groups]}), AdaLN {ln}; expected "
+                             f"{per_group}, {ln_per_group}")
     _served_group_check(model, calls)
     return launched, lat
 
@@ -2086,7 +2142,7 @@ def export_child(snap: str, tmp: str, card: str) -> None:
     evals, depth = ARTIFACT_W8A8_STEPS - 1, model.dit_cfg.depth
     _artifact_vs_live("W8A8 sampler", w8, spec, model, cond1, ids_for([7.0]), [656], card, ARTIFACT_W8A8_STEPS,
                       "euler", {**ZERO, "flash_attention_fwd": depth * evals, "w8a8_quantize": 6 * depth * evals,
-                                "w8a8_rescale": 6 * depth * evals})
+                                "w8a8_rescale": 6 * depth * evals, **adaln(depth * evals, evals)})
 
 
 def _started(args: list, log: str) -> subprocess.Popen:
@@ -2229,7 +2285,8 @@ def artifact_phase(card: str, snap: str, tmp_base: str | None, live_lat: dict) -
         try:
             s = httpd.sampler
             b1, b4 = s.pick_artifact(ARTIFACT_BUCKET, 1), s.pick_artifact(ARTIFACT_BUCKET, 4)
-            float_expect = {**ZERO, "flash_attention_fwd": (SERVE_STEPS - 1) * 4 * depth}
+            evals = (SERVE_STEPS - 1) * 4
+            float_expect = {**ZERO, "flash_attention_fwd": evals * depth, **adaln(evals * depth, evals)}
             _, wave1 = _artifact_vs_live("sampler batch 1", b1.sampler, b1.spec, model, cond1, ids_for([7.0]),
                                          [656], card, SERVE_STEPS, "rk4", float_expect)
             cond4 = cond1.expand(4, -1, -1)
@@ -2433,7 +2490,7 @@ def artifact_mesh_phase(card: str, sampler, spec, depth: int, cond, ids) -> dict
               f"against the one-device batch of 4: "
               f"largest relative L2 of a row's mel {errs['mel']:.3e}, wave {errs['wave']:.3e} (tol {SERVE_TOL}); "
               f"launches {launched}", flush=True)
-        expect = {**ZERO, "flash_attention_fwd": k1 * data}
+        expect = {**ZERO, "flash_attention_fwd": k1 * data, **adaln(k1 * data, k1 // depth * data)}
         if not all(exact) or launched != expect or not all(errs[x] <= SERVE_TOL[x] for x in SERVE_TOL):
             raise AssertionError(f"data {data}: rows to the bit {exact}, launches {launched} (expected {expect}), "
                                  f"against one device {errs}")
@@ -2615,7 +2672,8 @@ def cfm_training_phase(card: str, tmp: str):
           f"audio {bool(draws.audio_drop[0] < model.cfm_cfg.audio_drop_prob)}, "
           f"text {bool(draws.text_drop[0] < model.cfm_cfg.cond_drop_prob)}")
 
-    per_micro = {**ZERO, "flash_attention_fwd": cfg.depth, "flash_attention_bwd": cfg.depth}
+    per_micro = {**ZERO, "flash_attention_fwd": cfg.depth, "flash_attention_bwd": cfg.depth,
+                 **adaln(cfg.depth, 1, backward=True)}
     reset_counts()
     step = T.make_train_step(model.cfm_cfg, opt, ema_decay=0.999)
     losses, ms = _train_steps("CFM step", step, state, (mel, text, lens), draws, per_micro, 8, card)
@@ -2911,7 +2969,8 @@ def wav_training_phase(card: str, tmp_base: str | None) -> dict:
             return make_training_pipeline(load_dir(root, max_duration=WAV_MAX_DURATION), batch_size=4, epochs=2,
                                           shuffle_buffer=32, num_threads=6, seed=0, on_device_mel=on_device_mel)
 
-        per_micro = {**ZERO, "flash_attention_fwd": cfg.depth, "flash_attention_bwd": cfg.depth}
+        per_micro = {**ZERO, "flash_attention_fwd": cfg.depth, "flash_attention_bwd": cfg.depth,
+                     **adaln(cfg.depth, 1, backward=True)}
         cfm = _trained("CFM from WAVs, on-device mel", trainer, pipeline(True), card,
                        {k: 12 * v for k, v in per_micro.items()}, 6, save_every=6, sample_every=10**9,
                        on_device_mel=True, grad_accum=2)
@@ -3304,7 +3363,9 @@ def mesh_training_phase(card: str, tmp_base: str | None) -> dict:
     def cfm_step(o, k):
         return T.make_train_step(cfm_cfg, o, ema_decay=0.999, grad_accum=k)
 
-    per_micro = {**ZERO, "flash_attention_fwd": bcfg.depth * slots, "flash_attention_bwd": bcfg.depth * slots}
+    data_rows = MESH_TRAIN["data"]  # a data row's first slot runs the final norm
+    per_micro = {**ZERO, "flash_attention_fwd": bcfg.depth * slots, "flash_attention_bwd": bcfg.depth * slots,
+                 **adaln(bcfg.depth * slots, data_rows, backward=True)}
     ref, dp, _ = _sharded_runs("base DiT, DP x TP", card, model.dit, cfm_step, opt, mesh, batch, draws, 2,
                                MESH_TRAIN_TOL, per_micro)
     add(dp["launches"])
@@ -3327,7 +3388,8 @@ def mesh_training_phase(card: str, tmp_base: str | None) -> dict:
     # the float32 witness: full width, reduced depth, dropout and remat on
     wcfg = F5TTS_V1_BASE.replace(compute_dtype="float32", depth=WITNESS_DEPTH, dropout=0.1, remat=True)
     wmodel, wbatch, wdraws = _mesh_train_inputs(wcfg, seed=13)
-    wper = {**ZERO, "flash_attention_fwd_f32": 2 * wcfg.depth * slots, "flash_attention_bwd_f32": wcfg.depth * slots}
+    wper = {**ZERO, "flash_attention_fwd_f32": 2 * wcfg.depth * slots, "flash_attention_bwd_f32": wcfg.depth * slots,
+            **adaln(wcfg.depth * slots, data_rows, backward=True, remat=True)}
     wref, wdp, wstate = _sharded_runs("float32 witness, DP x TP", card, wmodel.dit, cfm_step, opt, mesh, wbatch,
                                       wdraws, 2, WITNESS_TOL, wper, generator=100, keep=True)
     add(wdp["launches"])
@@ -3487,7 +3549,8 @@ def two_rank_case(card: str, opt, tmp_base: str | None) -> dict:
         fs = [rank["fsdp"] for rank in ranks]
         specs = M.param_specs(model.dit, 2)
         sharded = sorted(n for n, spec in specs.items() if "data" in spec)
-        launches = {**ZERO, "flash_attention_fwd": TWO_RANK_DEPTH, "flash_attention_bwd": TWO_RANK_DEPTH}
+        launches = {**ZERO, "flash_attention_fwd": TWO_RANK_DEPTH, "flash_attention_bwd": TWO_RANK_DEPTH,
+                    **adaln(TWO_RANK_DEPTH, 1, backward=True)}
         collectives = {"all_reduce_sum": 0, "all_reduce_max": 0, "grad_all_reduce": len(specs) - len(sharded),
                        "all_gather": len(sharded), "reduce_scatter": len(sharded), "process_all_gather": len(sharded),
                        "process_reduce_scatter": len(sharded), "seq_all_gather": 0, "seq_reduce_scatter": 0,
@@ -3698,7 +3761,8 @@ def seq_training_phase(card: str, tmp_base: str | None, refs: dict) -> dict:
         n = grid["data"] * grid["seq"] * grid["model"]
         mesh = M.create_mesh(**grid, devices=_grid_devices(n))
         depth = model.dit_cfg.depth
-        per = {**ZERO, "flash_attention_fwd": depth * n, "flash_attention_bwd": depth * n}
+        per = {**ZERO, "flash_attention_fwd": depth * n, "flash_attention_bwd": depth * n,
+               **adaln(depth * n, grid["data"] * grid["seq"], backward=True)}
         label = f"base DiT, SP {grid['data']} x {grid['seq']} x {grid['model']}"
         _, rec, _ = _sharded_runs(label, card, model.dit, cfm_step, opt, mesh, batch, draws, 1, MESH_TRAIN_TOL, per,
                                   reference=refs["base"])
@@ -3710,7 +3774,8 @@ def seq_training_phase(card: str, tmp_base: str | None, refs: dict) -> dict:
     wcfg = F5TTS_V1_BASE.replace(compute_dtype="float32", depth=WITNESS_DEPTH, dropout=0.1, remat=True)
     wmodel, wbatch, wdraws = _mesh_train_inputs(wcfg, seed=13)
     n = SEQ_WITNESS_GRID["data"] * SEQ_WITNESS_GRID["seq"] * SEQ_WITNESS_GRID["model"]
-    wper = {**ZERO, "flash_attention_fwd_f32": 2 * wcfg.depth * n, "flash_attention_bwd_f32": wcfg.depth * n}
+    wper = {**ZERO, "flash_attention_fwd_f32": 2 * wcfg.depth * n, "flash_attention_bwd_f32": wcfg.depth * n,
+            **adaln(wcfg.depth * n, SEQ_WITNESS_GRID["data"] * SEQ_WITNESS_GRID["seq"], backward=True, remat=True)}
     _, rec, _ = _sharded_runs("float32 witness, SP 2 x 2 x 2", card, wmodel.dit, cfm_step, opt,
                               M.create_mesh(**SEQ_WITNESS_GRID, devices=_grid_devices(n)), wbatch, wdraws, 1,
                               WITNESS_TOL, wper, generator=100, reference=refs["witness"])
@@ -3737,7 +3802,8 @@ def seq_training_phase(card: str, tmp_base: str | None, refs: dict) -> dict:
         trainer.train(data, learning_rate=MESH_TRAIN_LR, total_steps=2, save_every=2, sample_every=10**9, log_every=1)
         t1 = time.perf_counter()
         launched = {key: v - before[key] for key, v in counts().items()}
-        want = {**ZERO, "flash_attention_fwd_f32": 2 * 2 * wcfg.depth * 2, "flash_attention_bwd_f32": 2 * wcfg.depth * 2}
+        want = {**ZERO, "flash_attention_fwd_f32": 2 * 2 * wcfg.depth * 2, "flash_attention_bwd_f32": 2 * wcfg.depth * 2,
+                **{k: 2 * v for k, v in adaln(wcfg.depth * 2, 2, backward=True, remat=True).items()}}
         if launched != want:
             raise AssertionError(f"the 1 x 2 x 1 trainer's kernel launches {launched}, expected {want}")
         add(launched)
@@ -3879,17 +3945,18 @@ def pipeline_phase(card: str) -> dict:
           f"{PIPE_WITNESS['microbatches']}, with and without dropout")
     total = dict(ZERO)
 
-    def counted(grid, depth, launch_keys, run):
+    def counted(grid, depth, launch_keys, run, backward=True):
         """`run()` with every count set to 0 just before it, its launches
         and handoffs held to the schedule's: depth x M a data row of each of
-        `launch_keys`, (S - 1) M handoffs and one move to the head a data
-        row."""
+        `launch_keys`, the AdaLN's 2 depth x M + 1 a data row (forward, and
+        with `backward` backward), (S - 1) M handoffs and one move to the
+        head a data row."""
         reset_counts()
         M.reset_collective_counts()
         result = run()
         launched, coll = counts(), M.collective_counts()
         per_row = depth * grid["microbatches"] * grid["data"]
-        want = {**ZERO, **{k: per_row for k in launch_keys}}
+        want = {**ZERO, **{k: per_row for k in launch_keys}, **adaln(per_row, grid["data"], backward=backward)}
         handoffs = {"stage_send": grid["data"] * (grid["stages"] - 1) * grid["microbatches"],
                     "stage_to_head": grid["data"]}
         got = {k: coll[k] for k in handoffs}
@@ -3988,7 +4055,8 @@ def pipeline_phase(card: str) -> dict:
         dout, dlaunched, _ = counted(
             wgrid, wcfg.depth, ("flash_attention_fwd_f32",),
             lambda: dit_forward_pipelined(dpiped, x, cond, text, time_, num_microbatches=wgrid["microbatches"],
-                                          generator=torch.Generator(device="cuda").manual_seed(31), **kw))
+                                          generator=torch.Generator(device="cuda").manual_seed(31), **kw),
+            backward=False)
     over["dropout forward"] = beyond(dout, dref, PIPE_F32_TOL["forward"])
     dropped = (dout - out).abs().max().item()
     print(f"float32 witness ({wcfg.depth} layers) over {mesh}, M {wgrid['microbatches']}: against DiT.forward_train "
@@ -4100,8 +4168,60 @@ def probe_kernel_phase():
         _device_times(label, None, ln_modulate, (x, scale, shift))
         results[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                           "bound_ms": bound_ms, "bound_by": bound_by}
+    results.update(ln_training_kernels(gen))
     core_hashes()
     return results
+
+
+def ln_training_kernels(gen) -> dict:
+    """The DiT's AdaLN kernels as training runs them, at LN_TRAIN_SHAPE in
+    bf16 with scale and shift chunk views of a [b, 6 d] modulation: the
+    forward with the row statistics and the backward (its kernel and the
+    sum of its partial column sums), each against its plain version, timed
+    by `device_ms` beside its bytes bound (each input read once, each output
+    written once). Returns each one's kernels-line row ("AdaLN forward",
+    "AdaLN backward"): the largest error (the backward's over the plain
+    gradient's largest magnitude), the device ms of the kernel and of its
+    plain version, and the bound."""
+    import torch
+
+    from f5_tts_tpu_torch.ops import ln_modulate as lm
+
+    b, n, d = LN_TRAIN_SHAPE
+    x, dy = (torch.randn(b, n, d, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+    mod = torch.randn(b, 6 * d, generator=gen, device="cuda", dtype=torch.bfloat16)
+    shift, scale = mod.chunk(6, dim=-1)[:2]
+    _, out, mean, rstd = lm._forward(x, scale, shift, stats=True)
+    grads = lm._backward(x, dy, scale, mean, rstd, shift.dtype)
+    ref = lm.ln_modulate_plain(x, scale, shift).float()
+    err = (out.float() - ref).abs()
+    if not bool((err <= LN_TOL[0] + LN_TOL[1] * ref.abs()).all()):
+        raise AssertionError(f"the AdaLN forward disagrees with its plain version: {err.max().item()}")
+    ref_grads = lm.ln_modulate_bwd_plain(x, dy, scale, *lm.ln_stats_plain(x))
+    rel = [((g.float() - r).abs().max() / r.abs().max()).item() for g, r in zip(grads, ref_grads)]
+    if not max(rel) <= LN_GRAD_TOL:
+        raise AssertionError(f"the AdaLN backward disagrees with its plain version: dx, dscale, dshift {rel}")
+    again = lm._backward(x, dy, scale, mean, rstd, shift.dtype)
+    if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+        raise AssertionError("the AdaLN backward gave other bits on a second run")
+    mean_p, rstd_p = lm.ln_stats_plain(x)
+    rows = {}
+    for label, fn, plain, moved, max_err in (
+            ("forward", lambda: lm._forward(x, scale, shift, stats=True),
+             lambda: lm.ln_modulate_plain(x, scale, shift), nbytes(x, scale, shift, out, mean, rstd),
+             err.max().item()),
+            ("backward", lambda: lm._backward(x, dy, scale, mean, rstd, shift.dtype),
+             lambda: lm.ln_modulate_bwd_plain(x, dy, scale, mean_p, rstd_p), nbytes(x, dy, scale, mean, rstd, *grads),
+             max(rel))):
+        ms, plain_ms = device_ms(fn), device_ms(plain)
+        bound_ms = moved / PEAK_BYTES * 1e3
+        print(f"AdaLN {label} at [{b}, {n}, {d}] bf16: device {ms:.4f} ms, {moved / ms / 1e6:.0f} GB/s, "
+              f"{100 * bound_ms / ms:.1f}% of the bytes bound {bound_ms * 1e3:.1f} us; plain {plain_ms:.4f} ms")
+        rows[f"AdaLN {label}"] = {"err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                                  "bound_ms": bound_ms, "bound_by": "bytes"}
+    print(f"AdaLN at [{b}, {n}, {d}]: forward max|kernel - plain| {err.max().item():.3e}; backward dx, dscale, "
+          f"dshift max error over max |plain| {', '.join(f'{r:.2e}' for r in rel)}, two runs bit-equal")
+    return rows
 
 
 def core_hashes() -> dict:
@@ -4468,7 +4588,10 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main paths")
-    launches.update(probe_launches)
+    # the AdaLN forward is a main-path kernel now (every DiT norm): its row counts the main paths' launches
+    launches.update({name: probe_launches[name] for name in PROBE_ATTN})
+    print(f"ln_modulate launches in the probe tools' run, beside the main paths' {launches['ln_modulate']}: "
+          f"{probe_launches['ln_modulate']}")
     csrc = "f5_tts_tpu_torch/csrc/"
     rows = [
         ("flash_attention_fwd", "cuda", csrc + "attn_core.cuh", "f5_tts_tpu/ops/flash_attention.py:165",
@@ -4489,7 +4612,9 @@ def main() -> int:
         ("flash_bhnd_rope", "cuda", csrc + "attn_rope_wgmma.cu", "tools/fusion_probe.py:165",
          probe["flash_bhnd_rope"]),
         ("ln_modulate", "triton", "f5_tts_tpu_torch/ops/ln_modulate.py", "tools/fusion_probe.py:318",
-         probe["ln_modulate"]),
+         probe["AdaLN forward"]),
+        ("ln_modulate_bwd", "triton", "f5_tts_tpu_torch/ops/ln_modulate.py", "f5_tts_tpu/models/blocks.py:373",
+         probe["AdaLN backward"]),
         ("w8a8_quantize", "triton", "f5_tts_tpu_torch/ops/w8a8.py", "f5_tts_tpu/utils/modules.py:56",
          w8a8[("quantize", "to_q/k/v/out", torch.bfloat16)]),
         ("w8a8_rescale", "triton", "f5_tts_tpu_torch/ops/w8a8.py", "f5_tts_tpu/utils/modules.py:56",

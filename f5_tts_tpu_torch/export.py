@@ -9,7 +9,8 @@ reference and Vocos; `models/cfm.py` `cfm_sample_e2e`) for one
 is an input, so one artifact serves any sway coefficient, and the true
 longest duration is a 0-d input, so it serves every utterance that fits its
 bucket. The ODE steps unroll into the graph. The kernels on that path (K1,
-K1-f32, K3 and the W8A8 linear's two) are registered torch operators
+K1-f32, K3, the W8A8 linear's two and the DiT's AdaLN LayerNorm +
+modulate) are registered torch operators
 (ops/), so the program calls them by name: a serving host loads and runs it
 with this package's `ops` and host utilities, and without the model code,
 the weights' snapshot or the tokenizer assets. No decomposition runs on
@@ -78,6 +79,7 @@ from torch import nn
 
 # the registered operators must exist before a program that calls them is loaded
 from f5_tts_tpu_torch.ops import flash_attention as _k1  # noqa: F401
+from f5_tts_tpu_torch.ops import ln_modulate as _adaln  # noqa: F401
 from f5_tts_tpu_torch.ops import qmatmul as _k3  # noqa: F401
 from f5_tts_tpu_torch.ops import w8a8 as _n2  # noqa: F401
 from f5_tts_tpu_torch.parallel.mesh import Mesh, gather_batch, pad_batch, refuse_stage, split_batch

@@ -37,6 +37,7 @@ from torch import nn
 
 from f5_tts_tpu_torch.models.rope import get_pos_embed_indices, precompute_freqs_cis
 from f5_tts_tpu_torch.ops.attention import scaled_dot_product_attention
+from f5_tts_tpu_torch.ops.ln_modulate import ln_modulate
 from f5_tts_tpu_torch.utils.modules import apply_linear, cast, conv1d, embedding, gelu, layer_norm, linear, mish
 
 
@@ -433,8 +434,7 @@ class AdaLayerNormZero(nn.Module):
         """Split order: shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
         gate_mlp; `mod` is [b or 1, 6 * dim]."""
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
-        x = layer_norm(x) * (1 + scale_msa[:, None]) + shift_msa[:, None]
-        return x, gate_msa, shift_mlp, scale_mlp, gate_mlp
+        return ln_modulate(x, scale_msa, shift_msa), gate_msa, shift_mlp, scale_mlp, gate_mlp
 
 
 class AdaLayerNormZeroFinal(AdaLayerNormZero):
@@ -444,7 +444,7 @@ class AdaLayerNormZeroFinal(AdaLayerNormZero):
     def forward(self, x: torch.Tensor, mod: torch.Tensor) -> torch.Tensor:
         """Scale and shift only; split order scale, shift."""
         scale, shift = mod.chunk(2, dim=-1)
-        return layer_norm(x) * (1 + scale[:, None]) + shift[:, None]
+        return ln_modulate(x, scale, shift)
 
 
 # ------------------------------------------------------------ DiT block
@@ -473,6 +473,6 @@ class DiTBlock(nn.Module):
         attn = yield from self.attn.steps(norm, mask=mask, rope=rope, dropout_rate=dropout_rate, generator=g_attn,
                                           rows=rows, frames=frames)
         x = x + gate_msa[:, None] * attn
-        norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
+        norm = ln_modulate(x, scale_mlp, shift_mlp)
         ff = yield from self.ff.steps(norm, dropout_rate=dropout_rate, generator=g_ff, rows=rows, frames=frames)
         return x + gate_mlp[:, None] * ff

@@ -6,7 +6,10 @@ the same), the
 dequantizing matmul (its float32 kernel in 3xTF32 too), and the probe
 tools' kernels (the attention variants P1-P4, with the RoPE pre-pass of P3
 and P4 held exactly or within an ulp, and the Triton LayerNorm + modulate
-P5), and the W8A8 linear's Triton kernels (`quantize_rows`,
+P5, which is also the DiT's AdaLN: its forward at the training widths on
+chunk views of the modulation, its backward against float32 autograd and
+to the bit from run to run, and 5 + 5 launches in a 2-layer DiT's training
+step), and the W8A8 linear's Triton kernels (`quantize_rows`,
 `rescale_bias`) bit for bit against their plain versions; the registered
 operators that carry K1, K3 and the W8A8 kernels into exported programs
 launch them, and a program exported on the CPU launches K1 once moved to
@@ -41,7 +44,8 @@ magnitude, floored at 0.1 (at n = 1, dq and dk are a cancellation, 0 in
 exact arithmetic): 2e-2 in bf16 (P and dS rounded to bf16 on both sides, at
 different points), 1e-4 in float32. LayerNorm + modulate: 1e-2 + 8e-3 times
 the plain output's magnitude in bf16 (one bf16 rounding of the output, whose
-ulp grows with it), 1e-4 in float32.
+ulp grows with it), 1e-4 in float32; its gradients relative to the plain
+ones' largest magnitude, 2e-2 in bf16, 1e-4 in float32.
 """
 
 import pytest
@@ -681,6 +685,119 @@ def test_ln_modulate_strided_input_and_rejections(gen):
         ln_modulate(x, scale[:, :128], shift)
     with pytest.raises(ValueError, match=r"\[b, n, d\]"):
         ln_modulate(x[0], scale, shift)
+
+
+
+def _mod_views(gen, b, n, d, dtype, rows):
+    """x [b, n, d] and scale, shift as chunk views of a [rows, 6 d]
+    modulation (rows 1: broadcast over the batch, a stride-0 batch)."""
+    x = torch.randn(b, n, d, generator=gen, device="cuda").to(dtype) * 2 + 0.5
+    mod = torch.randn(rows, 6 * d, generator=gen, device="cuda").to(dtype)
+    shift, scale = mod.chunk(6, dim=-1)[:2]
+    return x, mod, scale, shift
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["per_item", "broadcast"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n", [2400, 1000])
+def test_ln_modulate_forward_at_the_training_widths(gen, n, dtype, rows):
+    """The forward kernel at the training cell's widths, [16, n, 1024], on
+    strided chunk views of a [16, 6 d] or a [1, 6 d] modulation, with and
+    without the statistics the backward reads."""
+    from f5_tts_tpu_torch.ops.ln_modulate import ln_stats_plain
+
+    x, mod, scale, shift = _mod_views(gen, 16, n, 1024, dtype, 16 if rows == "per_item" else 1)
+    ref = ln_modulate_plain(x, scale, shift).float()
+    before = ln_modulate.launches
+    out = ln_modulate(x, scale, shift)
+    out_g = ln_modulate(x.clone().requires_grad_(), scale, shift)
+    assert ln_modulate.launches == before + 2
+    for got in (out, out_g.detach()):
+        assert got.shape == x.shape and got.dtype == dtype
+        err = (got.float() - ref).abs()
+        if dtype == torch.bfloat16:
+            assert (err <= 1e-2 + 8e-3 * ref.abs()).all(), err.max().item()
+        else:
+            assert err.max().item() <= TOL_F32
+    mean, rstd = out_g.grad_fn.saved_tensors[2:]
+    for got, want in zip((mean, rstd), ln_stats_plain(x)):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+
+
+def _ln_grads(x, mod, cot, plain: bool):
+    """(dx, dmod) of <ln_modulate(x, scale, shift), cot> with scale and
+    shift chunk views of mod: through the kernels, or float32 autograd of
+    the plain function on float32 copies."""
+    x = (x.float() if plain else x).detach().requires_grad_()
+    mod = (mod.float() if plain else mod).detach().requires_grad_()
+    shift, scale = mod.chunk(6, dim=-1)[:2]
+    out = (ln_modulate_plain if plain else ln_modulate)(x, scale, shift)
+    return torch.autograd.grad(out, (x, mod), cot.float() if plain else cot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["per_item", "broadcast"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n", [2400, 1000])
+def test_ln_modulate_gradients_match_float32_autograd(gen, n, dtype, rows):
+    """dx, dscale and dshift from the backward kernel against float32
+    autograd of `ln_modulate_plain`, relative to each one's largest
+    magnitude: 2e-2 in bf16 (the inputs and the gradients each rounded to
+    bf16 once), 1e-4 in float32 (the same float32 math in another order)."""
+    x, mod, _, _ = _mod_views(gen, 16, n, 1024, dtype, 16 if rows == "per_item" else 1)
+    cot = torch.randn(16, n, 1024, generator=gen, device="cuda").to(dtype)
+    before = ln_modulate.launches_bwd
+    got = _ln_grads(x, mod, cot, plain=False)
+    assert ln_modulate.launches_bwd == before + 1
+    want = _ln_grads(x, mod, cot, plain=True)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert got[0].dtype == got[1].dtype == dtype
+    dmod_got, dmod_want = got[1][:, :2048].float(), want[1][:, :2048]  # dshift, dscale; the other chunks get 0
+    assert not got[1][:, 2048:].any()
+    for a, r in ((got[0].float(), want[0]), (dmod_got, dmod_want)):
+        assert (a - r).abs().max().item() <= tol * r.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_ln_modulate_backward_is_deterministic(gen):
+    """Two backward runs on the same inputs give the same bits: the column
+    sums are per-tile partials summed in a fixed order, no atomics."""
+    x, mod, _, _ = _mod_views(gen, 16, 1000, 1024, torch.bfloat16, 16)
+    cot = torch.randn(16, 1000, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    first, second = (_ln_grads(x, mod, cot, plain=False) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_training_step_launches_one_ln_modulate_a_norm(gen):
+    """One training step of a 2-layer bf16 DiT runs its 2 depth + 1 norms
+    through the kernels: 5 forward and 5 backward launches, by the counters
+    and by torch.profiler's kernel names."""
+    from f5_tts_tpu_torch.config import CFMConfig, F5TTS_V1_BASE
+    from f5_tts_tpu_torch.models.cfm import F5TTS, draw_cfm
+    from f5_tts_tpu_torch.training import trainer as T
+
+    cfg = F5TTS_V1_BASE.replace(depth=2, text_num_embeds=95, compute_dtype="bfloat16", dropout=0.1)
+    model = F5TTS.init(gen, cfg, device="cuda", cfm_cfg=CFMConfig())
+    b, n = 4, 512
+    mel = torch.randn(b, n, 100, generator=gen, device="cuda")
+    text = torch.randint(0, 95, (b, 60), generator=gen, device="cuda", dtype=torch.int32)
+    lens = torch.tensor([n, 430, 300, 260], device="cuda")
+    draws = draw_cfm(gen, model.cfm_cfg, b, n, 100, torch.device("cuda"))
+    opt = T.make_optimizer(1e-5, 1e-2, 0, 100)
+    step, state = T.make_train_step(model.cfm_cfg, opt), T.init_train_state(model.dit, opt)
+
+    def one_step():
+        step(state, mel, text, lens, generator=torch.Generator(device="cuda").manual_seed(1), draws=draws)
+
+    one_step()
+    before = (ln_modulate.launches, ln_modulate.launches_bwd)
+    one_step()
+    assert (ln_modulate.launches - before[0], ln_modulate.launches_bwd - before[1]) == (5, 5)
+    names = _cuda_kernel_names(one_step)
+    assert (_launched(names, "ln_modulate_fwd_kernel"), _launched(names, "ln_modulate_bwd_kernel")) == (5, 5)
 
 
 # ------------------------------------------------------------ the redesigned K2 and K3 (TMA + wgmma)

@@ -159,13 +159,15 @@ def test_rope_prepass_matches_the_pallas_rotation(tools, layout, perm, d):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_ln_modulate_matches_pallas(tools, dtype):
-    """P5 at [2, 256, 128], n a multiple of the TPU kernel's 256-row block."""
+    """P5 at [2, 256, 128], n a multiple of the TPU kernel's 256-row block:
+    its kernel's function, `ln_modulate_plain` (CPU tensors of the operator
+    run the DiT blocks' chain, which rounds twice in bf16)."""
     _, jfp = tools
     rng = np.random.default_rng(4)
     x, scale, shift = (_both(rng.standard_normal(s).astype(np.float32) * 2 + 0.5, dtype)
                        for s in ((2, 256, 128), (2, 128), (2, 128)))
     ref = jfp.ln_modulate_pallas(x[0], scale[0], shift[0])
-    got = ln_modulate(x[1], scale[1], shift[1])
+    got = ln_modulate_plain(x[1], scale[1], shift[1])
     assert got.dtype == DTYPES[dtype][1] and got.shape == (2, 256, 128)
     _close(got, ref.astype(jnp.float32), dtype)
 
