@@ -180,6 +180,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      float32 witness at 8 layers over 2 x 4 with 2 microbatches within the
      JAX suite's tolerances (forward 1e-5, gradients 2e-4 / 1e-4), and with
      dropout equal to the unpipelined forward under one generator;
+ 10e. E2 TTS Base (models/unett.py `UNetT`, 24 layers, bf16 compute on
+     float32 master weights, dropout 0.1) through make_train_step on the
+     CFM batch: each step's launches exactly (24 K1, 24 K2, 49 RMSNorm
+     forward and 49 backward) and the loss falling; its loss and gradient
+     on a small ragged batch against the benchmark's float32 reference
+     (benchmark/reference/unett.py, TF32 off, dropout drawn alike); K1
+     with its lse and K2 with RoPE on head 0 (`rope_heads=1`) at the cell's
+     widest shape, [16, 16, 2401, 64] bf16, against their plain versions;
+     the RMSNorm kernels at [16, 2401, 1024] bf16 against their plain
+     versions, bit-equal from run to run, by device time beside the bytes
+     bound and torch's `F.rms_norm` forward and backward (the kernels
+     line's `rms_norm` and `rms_norm_bwd` rows); then the hashes of
+     K1's and K2's outputs with RoPE on every head at fixed inputs
+     (`attention_hashes`, which after phase 1 also runs alone in another
+     checkout: the same bits show K1 and K2 unchanged for the DiT);
  11. probe kernels vs plain, timed with CUDA events: the attention variants
      (attn_pack2, attn_flat, flash_nhd in [b, n, h, d], flash_bhnd_rope; each
      also at a ragged n, and with their device time as in phase 13, the
@@ -252,6 +267,9 @@ LN_TOL = (1e-2, 8e-3)  # LayerNorm + modulate, bf16: |kernel - plain| <= a + b |
 LN_GRAD_TOL = 2e-2  # its backward, bf16: max error over the plain gradient's max magnitude (one rounding each)
 LN_TRAIN_SHAPE = (16, 2400, 1024)  # 38,400 rows: a batch of the training cell's 38,400 padded frames
 TRAIN_BATCH, TRAIN_FRAMES = 4, 1024
+# E2 TTS's UNetT's RMSNorm kernels at the training cell's rows (2400 frames and the time token, 16 items), held to
+# LN_TOL and LN_GRAD_TOL (one bf16 rounding of the output, of dx); its 24-layer step's gradient to TRAIN_GRAD_TOL
+RMS_TRAIN_SHAPE = (16, 2401, 1024)
 TRAIN_LENS = (TRAIN_FRAMES, TRAIN_FRAMES - 24, TRAIN_FRAMES - 100, TRAIN_FRAMES - 217)
 # the card's published peaks at 700 W (NVIDIA H100 SXM data sheet, dense). A float32 product to
 # float32 accuracy runs fastest on the tensor cores as 3xTF32 (three TF32 products of split operands,
@@ -315,12 +333,14 @@ def reset_counts():
     from f5_tts_tpu_torch.ops.flash_attention import flash_attention
     from f5_tts_tpu_torch.ops.ln_modulate import ln_modulate
     from f5_tts_tpu_torch.ops.qmatmul import qmatmul
+    from f5_tts_tpu_torch.ops.rms_norm import rms_norm
 
     flash_attention.launches = flash_attention.launches_f32 = qmatmul.launches = qmatmul.launches_f32 = 0
     flash_attention.launches_bwd = flash_attention.launches_bwd_f32 = 0
     w8a8.quantize_rows.launches = w8a8.rescale_bias.launches = 0
     w8a8.row_absmax.launches = w8a8.quantize_scaled.launches = 0
     ln_modulate.launches = ln_modulate.launches_bwd = 0
+    rms_norm.launches = rms_norm.launches_bwd = 0
 
 
 def counts() -> dict:
@@ -328,6 +348,7 @@ def counts() -> dict:
     from f5_tts_tpu_torch.ops.flash_attention import flash_attention
     from f5_tts_tpu_torch.ops.ln_modulate import ln_modulate
     from f5_tts_tpu_torch.ops.qmatmul import qmatmul
+    from f5_tts_tpu_torch.ops.rms_norm import rms_norm
 
     return {"flash_attention_fwd": flash_attention.launches,
             "flash_attention_fwd_f32": flash_attention.launches_f32,
@@ -340,7 +361,9 @@ def counts() -> dict:
             "w8a8_row_absmax": w8a8.row_absmax.launches,
             "w8a8_quantize_scaled": w8a8.quantize_scaled.launches,
             "ln_modulate": ln_modulate.launches,
-            "ln_modulate_bwd": ln_modulate.launches_bwd}
+            "ln_modulate_bwd": ln_modulate.launches_bwd,
+            "rms_norm": rms_norm.launches,
+            "rms_norm_bwd": rms_norm.launches_bwd}
 
 
 def _time_ms(fn, iters=20):
@@ -659,7 +682,8 @@ def snapshot_phase(snap: str, artifact_snap: str | None = None):
 
 ZERO = {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0, "qmatmul": 0, "qmatmul_f32": 0,
         "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0, "w8a8_quantize": 0, "w8a8_rescale": 0,
-        "w8a8_row_absmax": 0, "w8a8_quantize_scaled": 0, "ln_modulate": 0, "ln_modulate_bwd": 0}
+        "w8a8_row_absmax": 0, "w8a8_quantize_scaled": 0, "ln_modulate": 0, "ln_modulate_bwd": 0, "rms_norm": 0,
+        "rms_norm_bwd": 0}
 
 
 def adaln(blocks: int, finals: int, backward: bool = False, remat: bool = False) -> dict:
@@ -2033,9 +2057,9 @@ def _served_group_check(model, calls) -> None:
         return _rows_rel_l2((wave, traj), (want_wave, want_traj), lens.tolist(), durations.tolist(), hop)
 
     def plain(roll):
-        def attention(q, k, v, scale, key_mask=None, rope=None, q_offset=0):
+        def attention(q, k, v, scale, key_mask=None, rope=None, q_offset=0, rope_heads=None):
             mask = key_mask if key_mask is None or not roll else key_mask.roll(1, 0)
-            return fa.flash_attention_plain(q, k, v, scale, mask, rope, q_offset)
+            return fa.flash_attention_plain(q, k, v, scale, mask, rope, q_offset, rope_heads)
 
         with mock.patch.object(fa, "flash_attention", attention):
             return model.sample(*args, **kw)
@@ -2514,13 +2538,14 @@ def artifact_mesh_phase(card: str, sampler, spec, depth: int, cond, ids) -> dict
     return grid_launched
 
 
-def _attention_grad_case(gen, name: str, dtype, b: int, h: int, n: int, d: int, lens) -> dict:
+def _attention_grad_case(gen, name: str, dtype, b: int, h: int, n: int, d: int, lens, rope_heads=None) -> dict:
     """K1 with its log-sum-exp and K2 on one case against their plain
     versions, on q, k, v and g drawn as [b, n, h*d] projection views with
-    RoPE, as the trainers' attention takes them. `lens` is None (no key
-    mask, as in the training forward) or the valid keys, one count for
-    every row or one per row. Prints the errors, raises on a disagreement
-    and returns the case's tensors and errors."""
+    RoPE (on the first `rope_heads` heads, every head with None), as the
+    trainers' attention takes them. `lens` is None (no key mask, as in the
+    training forward) or the valid keys, one count for every row or one
+    per row. Prints the errors, raises on a disagreement and returns the
+    case's tensors and errors."""
     import torch
 
     from f5_tts_tpu_torch.models.rope import rotary_freqs
@@ -2536,21 +2561,23 @@ def _attention_grad_case(gen, name: str, dtype, b: int, h: int, n: int, d: int, 
     raw = rotary_freqs(n, d, device="cuda")
     rope = (torch.cos(raw), torch.sin(raw))
     scale = d ** -0.5
-    key_mask, cos, sin = fa._checked(q, k, v, mask, rope)
-    out, lse = fa._forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse=True)
-    out_err = (out.float() - fa.flash_attention_plain(q, k, v, scale, mask, rope).float()).abs().max().item()
+    key_mask, cos, sin = fa._checked(q, k, v, mask, rope, 0, rope_heads)
+    out, lse = fa._forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse=True, rope_heads=rope_heads)
+    out_err = (out.float() - fa.flash_attention_plain(q, k, v, scale, mask, rope, rope_heads=rope_heads).float()
+               ).abs().max().item()
     out_tol = ATTN_TOL if tag == "bf16" else F32_TOL
-    lse_err = (lse - fa.attention_lse_plain(q, k, scale, mask, rope)).abs().max().item()
+    lse_err = (lse - fa.attention_lse_plain(q, k, scale, mask, rope, rope_heads=rope_heads)).abs().max().item()
     lse_tol = 2e-2 if tag == "bf16" else F32_TOL
-    got = fa._backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin)
-    ref = fa.flash_attention_bwd_plain(q, k, v, out, g, scale, mask, rope)
+    got = fa._backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin, rope_heads=rope_heads)
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, g, scale, mask, rope, rope_heads=rope_heads)
     torch.cuda.synchronize()
     if any(a.dtype != dtype for a in got):
         raise AssertionError(f"the backward kernel wrote {[a.dtype for a in got]}, expected {dtype}")
     abs_errs = [(a.float() - r).abs().max().item() for a, r in zip(got, ref)]
     errs = [e / r.abs().max().item() for e, r in zip(abs_errs, ref)]
     shown = lens if lens is None or isinstance(lens, int) else list(lens)
-    print(f"{name}: {tag} [b={b}, h={h}, n={n}, d={d}] mask={shown} rope=True strided=True: "
+    print(f"{name}: {tag} [b={b}, h={h}, n={n}, d={d}] mask={shown} rope=True rope_heads={rope_heads} "
+          "strided=True: "
           f"max|kernel - plain| / max|plain| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
           f"(tol {GRAD_TOL[tag]}); forward max error {out_err:.3e} (tol {out_tol}); "
           f"lse max error {lse_err:.3e} (tol {lse_tol})")
@@ -2741,6 +2768,176 @@ def cfm_training_phase(card: str, tmp: str):
     if not rel <= TRAIN_GRAD_TOL:
         raise AssertionError(f"the DiT's gradient on the card disagrees with the CPU path: {rel}")
     return losses, ms, launched
+
+
+def attention_hashes() -> dict:
+    """SHA-256 of K1's output and lse and K2's dq, dk, dv in bf16 with RoPE
+    on every head, at fixed inputs made with numpy from a seed (d 64 and
+    128, the training cell's ragged n and the sampling shape), through
+    `flash_attention` with autograd, printed and returned: the same bits in
+    two checkouts show that a change left the kernels' arithmetic as it
+    was for every existing caller."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from f5_tts_tpu_torch.models.rope import rotary_freqs
+    from f5_tts_tpu_torch.ops.flash_attention import flash_attention
+
+    def digest(t):
+        return hashlib.sha256(t.detach().contiguous().view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+                              .cpu().numpy().tobytes()).hexdigest()[:16]
+
+    hashes = {}
+    for b, h, n, d in ((16, 16, 2400, 64), (2, 16, 1024, 64), (2, 4, 1000, 128)):
+        rng = np.random.default_rng(n + d)
+        q, k, v, g = (torch.tensor(rng.standard_normal((b, h, n, d), dtype=np.float32), device="cuda")
+                      .to(torch.bfloat16).requires_grad_() for _ in range(4))
+        raw = rotary_freqs(n, d, device="cuda")
+        out = flash_attention(q, k, v, d ** -0.5, rope=(torch.cos(raw), torch.sin(raw)))
+        lse = out.grad_fn.saved_tensors[4]
+        grads = torch.autograd.grad(out, (q, k, v), g.detach())
+        hashes[f"[{b}, {h}, {n}, {d}]"] = [digest(t) for t in (out, lse, *grads)]
+    print("K1 (out, lse) and K2 (dq, dk, dv) hashes: " + json.dumps(hashes))
+    return hashes
+
+
+def rms_training_kernels(gen) -> dict:
+    """E2 TTS's RMSNorm kernels as training runs them, at RMS_TRAIN_SHAPE in
+    bf16 (ops/rms_norm.py): the forward with the rows' inverse norms and the
+    backward (its kernel and the sum of its partial column sums), each
+    against its plain version, bit-equal from run to run, timed by
+    `device_ms` beside its bytes bound and beside torch's `F.rms_norm`
+    (forward, and its autograd backward). Returns the kernels-line rows
+    "rms_norm" and "rms_norm_bwd"."""
+    import torch
+
+    from f5_tts_tpu_torch.ops import rms_norm as rn
+
+    b, n, d = RMS_TRAIN_SHAPE
+    x, dy = (torch.randn(b, n, d, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+    w = torch.rand(d, generator=gen, device="cuda") + 0.5
+    _, out, r = rn._forward(x, w, stats=True)
+    grads = rn._backward(x, dy, w, r)
+    ref = rn.rms_norm_plain(x, w).float()
+    err = (out.float() - ref).abs()
+    if not bool((err <= LN_TOL[0] + LN_TOL[1] * ref.abs()).all()):
+        raise AssertionError(f"the RMSNorm forward disagrees with its plain version: {err.max().item()}")
+    r_plain = rn.rms_norm_stats_plain(x)
+    ref_grads = rn.rms_norm_bwd_plain(x, dy, w, r_plain)
+    rel = [((g.float() - q).abs().max() / q.abs().max()).item() for g, q in zip(grads, ref_grads)]
+    if not max(rel) <= LN_GRAD_TOL:
+        raise AssertionError(f"the RMSNorm backward disagrees with its plain version: dx, dg {rel}")
+    if not all(torch.equal(a, g) for a, g in zip(rn._backward(x, dy, w, r), grads)):
+        raise AssertionError("the RMSNorm backward gave other bits on a second run")
+    tiles = -(-b * n // rn.TILE)
+    # yardstick: torch's own RMSNorm, one call with autograd, x / rms(x) * g: the same function
+    lib = {"rms_norm": None, "rms_norm_bwd": None}
+    if hasattr(torch.nn.functional, "rms_norm"):
+        xl = x.detach().requires_grad_()
+        wl = w.to(x.dtype).requires_grad_()
+        yl = torch.nn.functional.rms_norm(xl, (d,), wl)
+        lib_err = (yl.float() - ref).abs()
+        if not bool((lib_err <= 2 * LN_TOL[0] + 2 * LN_TOL[1] * ref.abs()).all()):
+            raise AssertionError(f"F.rms_norm is not the RMSNorm timed beside it: {lib_err.max().item()}")
+        lib["rms_norm"] = device_ms(lambda: torch.nn.functional.rms_norm(x, (d,), wl.detach()))
+        lib["rms_norm_bwd"] = device_ms(lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True))
+    rows = {}
+    for label, fn, plain, moved, max_err in (
+            ("rms_norm", lambda: rn._forward(x, w, stats=True), lambda: rn.rms_norm_plain(x, w),
+             nbytes(x, w, out, r), err.max().item()),
+            ("rms_norm_bwd", lambda: rn._backward(x, dy, w, r), lambda: rn.rms_norm_bwd_plain(x, dy, w, r_plain),
+             nbytes(x, dy, w, r, grads[0]) + 4 * d * tiles, max(rel))):
+        ms, plain_ms = device_ms(fn), device_ms(plain)
+        bound_ms = moved / PEAK_BYTES * 1e3
+        print(f"RMSNorm {label} at [{b}, {n}, {d}] bf16: device {ms:.4f} ms, {moved / ms / 1e6:.0f} GB/s, "
+              f"{100 * bound_ms / ms:.1f}% of the bytes bound {bound_ms * 1e3:.1f} us; plain {plain_ms:.4f} ms")
+        _library_line(f"RMSNorm {label}", "F.rms_norm" + (" backward" if label.endswith("bwd") else ""),
+                      lib[label], bound_ms, "bytes")
+        rows[label] = {"err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib[label],
+                       "bound_ms": bound_ms, "bound_by": "bytes"}
+    print(f"RMSNorm at [{b}, {n}, {d}]: forward max|kernel - plain| {err.max().item():.3e}; backward dx, dg max "
+          f"error over max |plain| {', '.join(f'{q:.2e}' for q in rel)}, two runs bit-equal")
+    return rows
+
+
+def unett_training_phase(card: str) -> tuple[dict, dict]:
+    """E2 TTS Base's UNetT (24 layers, float32 master weights, bf16 compute,
+    dropout 0.1) through `make_train_step`: each step's launches exactly
+    (K1 and K2 a layer, 2 depth + 1 RMSNorms forward and backward), the
+    loss falling on a fixed batch; then the card's loss gradient on a small
+    ragged batch against the benchmark's float32 reference
+    (benchmark/reference/unett.py, TF32 off), dropout drawn alike on both
+    sides; then the RMSNorm kernels at the training rows. Returns (the
+    launches, the kernels-line rows)."""
+    import dataclasses
+
+    import torch
+
+    from benchmark.reference import unett as U
+    from f5_tts_tpu_torch.config import E2TTS_BASE, CFMConfig
+    from f5_tts_tpu_torch.models.cfm import cfm_loss, draw_cfm
+    from f5_tts_tpu_torch.models.unett import UNetT
+    from f5_tts_tpu_torch.training import trainer as T
+    from f5_tts_tpu_torch.utils.modules import init_parameters_
+
+    phase(f"E2 TTS Base (UNetT) training: float32 master + bf16 compute, AdamW + EMA, {TRAIN_BATCH} x {TRAIN_FRAMES} "
+          "frames")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cfg = E2TTS_BASE.replace(compute_dtype="bfloat16")
+    with torch.device("cuda"):
+        model = UNetT(cfg)
+    init_parameters_(model, gen)
+    cfm = CFMConfig()
+    opt = T.make_optimizer(learning_rate=1e-4, num_warmup_steps=0, total_steps=1000)
+    state = T.init_train_state(model, opt, ema=True)
+    mel, text, lens = _train_batch(gen)
+    draws = draw_cfm(gen, cfm, TRAIN_BATCH, TRAIN_FRAMES, 100, torch.device("cuda"))
+    norms = 2 * cfg.depth + 1
+    per_micro = {**ZERO, "flash_attention_fwd": cfg.depth, "flash_attention_bwd": cfg.depth, "rms_norm": norms,
+                 "rms_norm_bwd": norms}
+    print(f"UNetT parameters {sum(p.numel() for p in model.parameters())}")
+    reset_counts()
+    step = T.make_train_step(cfm, opt, ema_decay=0.999)
+
+    def step_fn(state, *batch, draws):
+        return step(state, *batch, generator=torch.Generator(device="cuda").manual_seed(9), draws=draws)
+
+    _train_steps("UNetT step", step_fn, state, (mel, text, lens), draws, per_micro, 6, card)
+    launched = counts()
+
+    phase("E2 TTS Base (UNetT) training: the gradient on the card (bf16 compute) against the float32 reference")
+    g_cpu = torch.Generator().manual_seed(5)
+    b, n = 2, 256
+    small = [torch.randn(b, n, 100, generator=g_cpu), torch.randint(0, 95, (b, 40), generator=g_cpu),
+             torch.tensor([n, 190])]
+    small[0][1, 190:] = 0
+    small = [t.cuda() for t in small]
+    small_draws = draw_cfm(g_cpu, cfm, b, n, 100, torch.device("cuda"))
+    loss = cfm_loss(model, cfm, *small, generator=torch.Generator(device="cuda").manual_seed(13), draws=small_draws)
+    params = dict(model.named_parameters())
+    card_grads = torch.autograd.grad(loss, list(params.values()))
+    P = {k: p.detach().float().clone().requires_grad_() for k, p in params.items()}
+    ucfg = dataclasses.asdict(cfg)
+    drop = U.dropout_for(torch.Generator(device="cuda").manual_seed(13), ucfg, b, n)
+    ref_loss, ref_grads = U.loss_and_grads(P, ucfg, dataclasses.asdict(cfm), *small, vars(small_draws), rows=b,
+                                           dropout=drop)
+    flat = [torch.cat([g.float().reshape(-1) for g in gs]) for gs in (card_grads, [ref_grads[k] for k in params])]
+    rel = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
+    print(f"UNetT loss on the card {loss.item():.6f}, float32 reference {ref_loss:.6f}; relative L2 of the card's "
+          f"gradient (bf16 compute) against the float32 reference: {rel:.3e} (tol {TRAIN_GRAD_TOL}); on {card}")
+    if not rel <= TRAIN_GRAD_TOL or not abs(loss.item() - ref_loss) <= 2e-2 * abs(ref_loss):
+        raise AssertionError(f"the UNetT's gradient or loss on the card disagrees with the reference: {rel}")
+    del state, model, P, ref_grads, card_grads
+    torch.cuda.empty_cache()
+
+    phase("E2 TTS Base (UNetT) attention: K1 with its lse and K2 with RoPE on head 0 against their plain versions")
+    b, h, n, d = RMS_TRAIN_SHAPE[0], cfg.heads, RMS_TRAIN_SHAPE[1], cfg.dim_head
+    _attention_grad_case(gen, "UNetT training (rope_heads=1)", torch.bfloat16, b, h, n, d, None,
+                         rope_heads=cfg.pe_attn_head)
+    torch.cuda.empty_cache()
+    return launched, rms_training_kernels(gen)
 
 
 def duration_training_phase(card: str):
@@ -4571,6 +4768,8 @@ def main() -> int:
         seq_train_launches = seq_training_phase(card, tmp_base, mesh_refs)
         del mesh_refs
         pipeline_launches = pipeline_phase(card)
+        unett_launches, rms_rows = unett_training_phase(card)
+        attention_hashes()
         probe = probe_kernel_phase()
         probe_launches = probe_tools_phase(card)
         ranking_phase(card, snap)
@@ -4583,7 +4782,7 @@ def main() -> int:
     # launches summed over the main paths' counted runs; the probe kernels' over the probe tools' run
     paths = (float_launches, q_launches, mesh_launches, w8a8_launches, serve_launches, artifact_launches,
              artifact_grid_launches, cfm_launches, dur_launches, wav_launches, mesh_train_launches, seq_train_launches,
-             pipeline_launches)
+             pipeline_launches, unett_launches)
     launches = {k: sum(p[k] for p in paths) for k in float_launches}
     for name, n in launches.items():
         if n <= 0:
@@ -4615,6 +4814,9 @@ def main() -> int:
          probe["AdaLN forward"]),
         ("ln_modulate_bwd", "triton", "f5_tts_tpu_torch/ops/ln_modulate.py", "f5_tts_tpu/models/blocks.py:373",
          probe["AdaLN backward"]),
+        ("rms_norm", "triton", "f5_tts_tpu_torch/ops/rms_norm.py", "none (E2 TTS's UNetT)", rms_rows["rms_norm"]),
+        ("rms_norm_bwd", "triton", "f5_tts_tpu_torch/ops/rms_norm.py", "none (E2 TTS's UNetT)",
+         rms_rows["rms_norm_bwd"]),
         ("w8a8_quantize", "triton", "f5_tts_tpu_torch/ops/w8a8.py", "f5_tts_tpu/utils/modules.py:56",
          w8a8[("quantize", "to_q/k/v/out", torch.bfloat16)]),
         ("w8a8_rescale", "triton", "f5_tts_tpu_torch/ops/w8a8.py", "f5_tts_tpu/utils/modules.py:56",

@@ -6,12 +6,12 @@ tested against. This package imports neither JAX nor `f5_tts_tpu`.
 
 import importlib
 
-from f5_tts_tpu_torch.config import AudioConfig, CFMConfig, DiTConfig, DurationConfig, VocosConfig
+from f5_tts_tpu_torch.config import AudioConfig, CFMConfig, DiTConfig, DurationConfig, UNetTConfig, VocosConfig
 
 # the model classes load on first use, so that an artifact server (artifact_serve.py), which runs exported
 # programs, imports no model code
 _MODELS = {"F5TTS": "f5_tts_tpu_torch.models.cfm", "DurationPredictor": "f5_tts_tpu_torch.models.duration",
-           "Vocos": "f5_tts_tpu_torch.models.vocos"}
+           "Vocos": "f5_tts_tpu_torch.models.vocos", "UNetT": "f5_tts_tpu_torch.models.unett"}
 
 
 def __getattr__(name: str):
@@ -19,5 +19,5 @@ def __getattr__(name: str):
         return getattr(importlib.import_module(_MODELS[name]), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
-__all__ = ["AudioConfig", "CFMConfig", "DiTConfig", "DurationConfig", "DurationPredictor", "F5TTS", "Vocos",
-           "VocosConfig"]
+__all__ = ["AudioConfig", "CFMConfig", "DiTConfig", "DurationConfig", "DurationPredictor", "F5TTS", "UNetT",
+           "UNetTConfig", "Vocos", "VocosConfig"]

@@ -70,6 +70,35 @@ class DiTConfig:
 
 
 @dataclass(frozen=True)
+class UNetTConfig:
+    """E2 TTS's flat U-Net transformer backbone (SWivid/F5-TTS
+    `model/backbones/unett.py` `UNetT`; arXiv:2406.18009), which the port
+    trains (models/unett.py). E2 TTS Base (`E2TTS_Base.yaml`): dim=1024,
+    depth=24, heads=16, ff_mult=4, text_mask_padding=False, pe_attn_head=1,
+    the rest UNetT's defaults: text_dim = mel_dim, no ConvNeXt text blocks,
+    concatenated skips, no qk norm (the only ones the port builds).
+    `pe_attn_head` rotates the first that many heads (None: every head)."""
+
+    dim: int = 1024
+    depth: int = 24
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 4
+    mel_dim: int = 100
+    text_num_embeds: int = 256
+    text_dim: int = 100
+    text_mask_padding: bool = False
+    pe_attn_head: int | None = 1
+    dropout: float = 0.0
+    compute_dtype: str = "float32"
+    # activation checkpointing of each layer in training
+    remat: bool = False
+
+    def replace(self, **kw) -> "UNetTConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
 class DurationConfig:
     """Duration-predictor transformer."""
 
@@ -133,3 +162,6 @@ F5TTS_SMALL = DiTConfig(
     conv_layers=4,
     text_num_embeds=256,
 )
+
+# E2 TTS Base (333 M parameters), with its training dropout.
+E2TTS_BASE = UNetTConfig(dropout=0.1)

@@ -17,6 +17,9 @@
 //   dQ, dK = the RoPE backward of dQ', dK': dx = dx' cos + (dx' sin) P^T,
 //         i.e. dx[2j] = dx'[2j] cos[2j] + dx'[2j+1] sin[2j+1] and
 //         dx[2j+1] = dx'[2j+1] cos[2j+1] - dx'[2j] sin[2j].
+// The bf16 path also takes a model that rotates only its first rope_heads
+// heads (E2 TTS's UNetT: head 0): the pre-pass copies the other heads' q
+// and k as they are, and their dQ and dK get no RoPE backward.
 // Products accumulate in float32. In the bf16 path P (for dV) and dS are
 // rounded to bf16 before their products, as the JAX kernel does, and dq, dk,
 // dv are written in bf16, one rounding of the float32 sum; the float32 path
@@ -215,6 +218,7 @@ struct BwdParams {
   __nv_bfloat16* dv;
   int h, n, n_pad;        // the query rows
   int nk, nk_pad, q_off;  // the keys, and the queries' first table row
+  int rope_heads;         // heads 0 .. rope_heads - 1 are rotated, the others not
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
   long long v_sb, v_sh, v_sn;
@@ -222,6 +226,12 @@ struct BwdParams {
   long long o_sb, o_sh, o_sn;
   float scale;
 };
+
+// Head h's rotary table: `table` where the head is rotated, else null (the
+// pre-pass copies it as it is and the epilogue applies no RoPE backward).
+__device__ __forceinline__ const float* head_table(const BwdParams& p, const float* table, int h) {
+  return h < p.rope_heads ? table : nullptr;
+}
 
 // Copy one 16-byte chunk (8 dims from an even dim c) of a row, rotated with
 // the row's tables when given (rope_chunk_bf16: the JAX body's x * cos +
@@ -259,13 +269,14 @@ __global__ void __launch_bounds__(256) flash_bwd_prepass_kernel(const BwdParams 
   const int b = static_cast<int>(bh / p.h), h = static_cast<int>(bh % p.h);
   const int c = sub * 8;
   float delta = 0.f;
+  const float* turn = head_table(p, p.cos, h);
   if (i < p.nk) {
-    copy_rotated_chunk<D>(p.kr + (bh * p.nk + i) * D + c, p.k + b * p.k_sb + h * p.k_sh + i * p.k_sn + c, p.cos,
+    copy_rotated_chunk<D>(p.kr + (bh * p.nk + i) * D + c, p.k + b * p.k_sb + h * p.k_sh + i * p.k_sn + c, turn,
                           p.sin, i, c);
   }
   if (i < p.n) {
     const long long o = (bh * p.n + i) * D + c;
-    copy_rotated_chunk<D>(p.qr + o, p.q + b * p.q_sb + h * p.q_sh + i * p.q_sn + c, p.cos, p.sin, i + p.q_off, c);
+    copy_rotated_chunk<D>(p.qr + o, p.q + b * p.q_sb + h * p.q_sh + i * p.q_sn + c, turn, p.sin, i + p.q_off, c);
     const uint4 gv = *reinterpret_cast<const uint4*>(p.g + b * p.g_sb + h * p.g_sh + i * p.g_sn + c);
     const uint4 ov = *reinterpret_cast<const uint4*>(p.out + b * p.o_sb + h * p.o_sh + i * p.o_sn + c);
     const __nv_bfloat162* gx = reinterpret_cast<const __nv_bfloat162*>(&gv);
@@ -487,7 +498,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qr_map, const __
     mbar_arrive(&empty[s]);
   }
 
-  store_acc<D>(p.dk + bh * p.nk * D, dk, k0 + row0, p.nk, p.cos, p.sin, 0);
+  store_acc<D>(p.dk + bh * p.nk * D, dk, k0 + row0, p.nk, head_table(p, p.cos, h), p.sin, 0);
   store_acc<D>(p.dv + bh * p.nk * D, dv, k0 + row0, p.nk, nullptr, nullptr, 0);
 }
 
@@ -614,7 +625,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qr_map, const __gr
     mbar_arrive(&empty[s]);
   }
 
-  store_acc<D>(p.dq + bh * p.n * D, dq, q0 + row0, p.n, p.cos, p.sin, p.q_off);
+  store_acc<D>(p.dq + bh * p.n * D, dq, q0 + row0, p.n, head_table(p, p.cos, h), p.sin, p.q_off);
 }
 
 // A 4-d tensor map of a [b, h, n, D] bf16 tensor with (batch, head, row)
@@ -818,7 +829,7 @@ __global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dkdv_kernel(const
     product<D>(dk, ds, sQ, c0);
   }
 
-  store_rows<D>(p.dk + bh * p.n * D, dk, k0 + wr, c0, p.n, p.cos, p.sin);
+  store_rows<D>(p.dk + bh * p.n * D, dk, k0 + wr, c0, p.n, head_table(p, p.cos, h), p.sin);
   store_rows<D>(p.dv + bh * p.n * D, dv, k0 + wr, c0, p.n, nullptr, nullptr);
 }
 
@@ -887,7 +898,7 @@ __global__ void __launch_bounds__(Shape<D>::THREADS) flash_bwd_dq_kernel(const B
     product<D>(dq, ds, sK, c0);
   }
 
-  store_rows<D>(p.dq + bh * p.n * D, dq, q0 + wr, c0, p.n, p.cos, p.sin);
+  store_rows<D>(p.dq + bh * p.n * D, dq, q0 + wr, c0, p.n, head_table(p, p.cos, h), p.sin);
 }
 
 template <int D>
@@ -1466,11 +1477,12 @@ extern "C" {
 // bf16 [b, h, nk, d], stats float32 [b, h, n_pad, 2] and kbias float32
 // [b, nk_pad], n_pad and nk_pad = n and nk rounded up to a multiple of 128.
 // dq is contiguous bf16 [b, h, n, d], dk and dv [b, h, nk, d]. At d = 256,
-// nk = n and q_off = 0.
+// nk = n and q_off = 0. Heads 0 .. rope_heads - 1 are rotated (0 <=
+// rope_heads <= h), the others not.
 int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const void* g, const void* out,
                            const void* lse, const void* mask, const void* cos, const void* sin, void* qr, void* kr,
                            void* stats, void* kbias, void* dq, void* dk, void* dv, int b, int h, int n, int nk,
-                           int q_off, int d, const long long* strides, float scale, void* stream) {
+                           int q_off, int d, int rope_heads, const long long* strides, float scale, void* stream) {
   BwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -1494,6 +1506,7 @@ int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
   p.nk = nk;
   p.nk_pad = (nk + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
   p.q_off = q_off;
+  p.rope_heads = rope_heads;
   p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_sn = strides[2];
   p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_sn = strides[5];
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_sn = strides[8];
@@ -1501,7 +1514,8 @@ int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
   p.o_sb = strides[12]; p.o_sh = strides[13]; p.o_sn = strides[14];
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || nk < 1 || q_off < 0 || (cos != nullptr && q_off + n > nk) || (d == 256 && (nk != n || q_off != 0))) {
+  if (n < 1 || nk < 1 || q_off < 0 || (cos != nullptr && q_off + n > nk) || (d == 256 && (nk != n || q_off != 0)) ||
+      rope_heads < 0 || rope_heads > h) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (d) {

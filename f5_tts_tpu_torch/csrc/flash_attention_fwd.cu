@@ -36,7 +36,9 @@
 //     once; and, with a key mask, each key's bias [b, n_pad] (0 kept, -1e30
 //     masked or past n: the body's -(1 - mask) * 1e30). Without RoPE it
 //     writes only the biases, and the core reads q and k in place; with
-//     neither, the core runs alone;
+//     neither, the core runs alone. A model that rotates only its first
+//     heads (E2 TTS's UNetT, RoPE on head 0) passes rope_heads: the other
+//     heads' chunks go to the scratch as they were loaded;
 //   - the core, with the key bias when there is a mask, reads q and k (or
 //     the scratch's halves) and v through tensor maps over their (batch,
 //     head, row) strides and writes the output through its strides, and the
@@ -306,6 +308,7 @@ struct PrepassParams {
   float* kbias;         // [b, nk_pad], written when mask is not null
   int b, h, n, n_pad;   // the query rows
   int nk, nk_pad, q_off;  // the keys, and the queries' first table row
+  int rope_heads;       // heads 0 .. rope_heads - 1 are rotated, the others copied as they are
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
 };
@@ -315,6 +318,7 @@ struct PrepassParams {
 // q and k chunks are loaded before any is rotated, so eight loads are in
 // flight a thread. The first row of blocks also writes the key biases of its
 // rows. Without an offset a row's tables serve both its query and its key.
+// Heads from rope_heads on are copied unrotated (RoPE on a subset of heads).
 template <int D>
 __global__ void __launch_bounds__(PRE_THREADS) flash_fwd_prepass_kernel(const PrepassParams p) {
   constexpr int CH = D / 8;
@@ -359,12 +363,13 @@ __global__ void __launch_bounds__(PRE_THREADS) flash_fwd_prepass_kernel(const Pr
   for (int j = 0; j < 2 * PRE_HEADS; ++j) {
     const int head = blockIdx.y * PRE_HEADS + j / 2;
     if (head >= bh) continue;
+    const bool turn = head % p.h < p.rope_heads;
     if (j % 2 == 0 && row < p.n_pad) {
       *reinterpret_cast<uint4*>(p.rot + (static_cast<long long>(head) * p.n_pad + row) * D + c) =
-          rope_chunk_bf16(x[j], qc, qs);
+          turn ? rope_chunk_bf16(x[j], qc, qs) : x[j];
     } else if (j % 2 == 1 && row < p.nk_pad) {
       *reinterpret_cast<uint4*>(rot_k + (static_cast<long long>(head) * p.nk_pad + row) * D + c) =
-          rope_chunk_bf16(x[j], kc, ks);
+          turn ? rope_chunk_bf16(x[j], kc, ks) : x[j];
     }
   }
 }
@@ -408,8 +413,8 @@ cudaError_t launch_core_fwd(const PrepassParams& pp, const void* v, long long v_
 
 PrepassParams prepass_params(const void* q, const void* k, const void* mask, const void* cos, const void* sin,
                              void* rot, void* kbias, int b, int h, int n, int nk, int n_pad, int nk_pad, int q_off,
-                             long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
-                             long long k_sn) {
+                             int rope_heads, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+                             long long k_sh, long long k_sn) {
   PrepassParams p{};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -425,6 +430,7 @@ PrepassParams prepass_params(const void* q, const void* k, const void* mask, con
   p.nk = nk;
   p.nk_pad = nk_pad;
   p.q_off = q_off;
+  p.rope_heads = rope_heads;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
   return p;
@@ -435,7 +441,7 @@ PrepassParams prepass_params(const void* q, const void* k, const void* mask, con
 // must hold the query block's rows.
 bool core_args_ok(const PrepassParams& p) {
   return p.b >= 1 && p.h >= 1 && p.n >= 1 && p.nk >= 1 && p.n_pad >= p.n && p.n_pad % ROW_PAD == 0 &&
-         p.nk_pad >= p.nk && p.nk_pad % ROW_PAD == 0 && p.q_off >= 0 &&
+         p.nk_pad >= p.nk && p.nk_pad % ROW_PAD == 0 && p.q_off >= 0 && p.rope_heads >= 0 && p.rope_heads <= p.h &&
          (p.cos == nullptr || (p.rot != nullptr && p.q_off + p.n <= p.nk)) &&
          (p.mask == nullptr || p.kbias != nullptr);
 }
@@ -822,17 +828,19 @@ int f5_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 // mask [b, nk], cos and sin [nk, d] with q_off + n <= nk (query row i is
 // rotated by table row q_off + i, key row i by row i); rot bf16 [b * h,
 // n_pad, d] then [b * h, nk_pad, d], kbias [b, nk_pad] float32 (16-byte
-// aligned), n_pad and nk_pad multiples of 128; lse [b, h, n] or null. The
-// tensors on `device`, the stream one of its streams. Returns the
+// aligned), n_pad and nk_pad multiples of 128; lse [b, h, n] or null;
+// heads 0 .. rope_heads - 1 rotated (0 <= rope_heads <= h), the others
+// not. The tensors on `device`, the stream one of its streams. Returns the
 // cudaError_t (0 on success).
 int f5_flash_attention_fwd_core(const void* q, const void* k, const void* v, void* o, void* lse, const void* mask,
                                 const void* cos, const void* sin, void* rot, void* kbias, int b, int h, int n,
-                                int nk, int n_pad, int nk_pad, int q_off, int d, long long q_sb, long long q_sh,
-                                long long q_sn, long long k_sb, long long k_sh, long long k_sn, long long v_sb,
-                                long long v_sh, long long v_sn, long long o_sb, long long o_sh, long long o_sn,
+                                int nk, int n_pad, int nk_pad, int q_off, int d, int rope_heads, long long q_sb,
+                                long long q_sh, long long q_sn, long long k_sb, long long k_sh, long long k_sn,
+                                long long v_sb, long long v_sh, long long v_sn, long long o_sb, long long o_sh,
+                                long long o_sn,
                                 float scale, int device, void* stream) {
-  const PrepassParams pp = prepass_params(q, k, mask, cos, sin, rot, kbias, b, h, n, nk, n_pad, nk_pad, q_off, q_sb,
-                                          q_sh, q_sn, k_sb, k_sh, k_sn);
+  const PrepassParams pp = prepass_params(q, k, mask, cos, sin, rot, kbias, b, h, n, nk, n_pad, nk_pad, q_off,
+                                          rope_heads, q_sb, q_sh, q_sn, k_sb, k_sh, k_sn);
   if (!core_args_ok(pp)) return static_cast<int>(cudaErrorInvalidValue);
   const DeviceScope scope(device);
   if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
@@ -859,10 +867,10 @@ int f5_flash_attention_fwd_core(const void* q, const void* k, const void* v, voi
 // reads); with neither cos nor mask it launches nothing.
 int f5_flash_fwd_prepass(const void* q, const void* k, const void* mask, const void* cos, const void* sin, void* rot,
                          void* kbias, int b, int h, int n, int nk, int n_pad, int nk_pad, int q_off, int d,
-                         long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
+                         int rope_heads, long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
                          long long k_sn, int device, void* stream) {
-  const PrepassParams pp = prepass_params(q, k, mask, cos, sin, rot, kbias, b, h, n, nk, n_pad, nk_pad, q_off, q_sb,
-                                          q_sh, q_sn, k_sb, k_sh, k_sn);
+  const PrepassParams pp = prepass_params(q, k, mask, cos, sin, rot, kbias, b, h, n, nk, n_pad, nk_pad, q_off,
+                                          rope_heads, q_sb, q_sh, q_sn, k_sb, k_sh, k_sn);
   if (!core_args_ok(pp)) return static_cast<int>(cudaErrorInvalidValue);
   if (cos == nullptr && mask == nullptr) return 0;
   const DeviceScope scope(device);

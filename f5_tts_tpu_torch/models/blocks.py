@@ -318,12 +318,14 @@ class Attention(nn.Module):
     (parallel/mesh.py) holds heads / tp of them, and its `to_out` is
     row-parallel: `steps` yields its partial output for the group's sum
     and adds the bias once, after it (`row_parallel`). With tp 1 it runs
-    as a plain module."""
+    as a plain module. `rope_heads` rotates only the first heads (E2 TTS's
+    UNetT: its `pe_attn_head`); None rotates every head."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, rope_heads: int | None = None):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
+        self.rope_heads = rope_heads
         self.tp, self.tp_index = 1, 0
         self.to_q = nn.Linear(dim, inner)
         self.to_k = nn.Linear(dim, inner)
@@ -370,7 +372,8 @@ class Attention(nn.Module):
         else:
             k, v = heads(apply_linear(self.to_k, x)), heads(apply_linear(self.to_v, x))
         out = scaled_dot_product_attention(
-            q, k, v, 1.0 / math.sqrt(q.shape[-1]), key_mask=mask, rope=rope, q_offset=offset
+            q, k, v, 1.0 / math.sqrt(q.shape[-1]), key_mask=mask, rope=rope, q_offset=offset,
+            rope_heads=self.rope_heads,
         )
         out = out.transpose(1, 2).reshape(b, n, -1)
         if self.tp > 1:

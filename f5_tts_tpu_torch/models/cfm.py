@@ -26,7 +26,7 @@ import torch
 
 from f5_tts_tpu_torch.audio.mel import log_mel_spectrogram
 from f5_tts_tpu_torch.config import AudioConfig, CFMConfig, DiTConfig
-from f5_tts_tpu_torch.models.dit import DiT
+from f5_tts_tpu_torch.models.dit import DiT, require_dit
 from f5_tts_tpu_torch.models.duration import DurationPredictor
 from f5_tts_tpu_torch.models.ode import odeint
 from f5_tts_tpu_torch.models.quant import w8a8_blocks_
@@ -302,6 +302,7 @@ class F5TTS:
         vocoder: Vocos | None = None,
         duration_predictor: DurationPredictor | None = None,
     ):
+        require_dit(dit, "F5TTS (sampling, serving, export)")
         self.dit = dit
         self.dit_cfg = dit_cfg
         self.cfm_cfg = cfm_cfg

@@ -152,6 +152,13 @@ def _on(value, device: torch.device):
     return value
 
 
+def require_dit(model, user: str) -> None:
+    """ValueError unless `model` is a DiT: `user` (sampling, serving,
+    export, quantization, a grid) is built on the DiT's blocks."""
+    if not isinstance(model, DiT):
+        raise ValueError(f"{user} takes the DiT, not a {type(model).__name__}")
+
+
 class DiTGroup:
     """One data row's DiT, split over its tensor-parallel group
     (models/shard.py `shard_model_for_inference`, or trainable shards from
@@ -171,6 +178,7 @@ class DiTGroup:
     `Frames`), and `forward_train` returns one output a seq slot."""
 
     def __init__(self, shards: list[DiT], seq: int = 1):
+        require_dit(shards[0], "DiTGroup (a tensor-parallel or sequence-parallel grid)")
         self.shards = list(shards)
         self.seq = seq
         self.cfg = self.shards[0].cfg

@@ -163,7 +163,10 @@ def quantize_module_(module: nn.Module, bits: int | None) -> nn.Module:
     """Swap every `nn.Linear` of `module` whose input width is a multiple of
     64 for a `QuantizedLinear`, in place: with `bits`, its weight quantized;
     with None, zero buffers of the right shapes for `load_state_dict` to
-    fill. Returns `module`."""
+    fill. Returns `module`, which must be a DiT (ValueError)."""
+    from f5_tts_tpu_torch.models.dit import require_dit
+
+    require_dit(module, "quantize_module_ (int4/int8 weights)")
     for parent in list(module.modules()):
         for name, child in list(parent.named_children()):
             if isinstance(child, nn.Linear) and child.in_features % GROUP_SIZE == 0:
@@ -229,7 +232,11 @@ def w8a8_blocks_(dit: nn.Module) -> nn.Module:
     blocks' attention and feed-forward (AdaLN modulations, embeddings,
     proj_out) stays float, as in the JAX package. A weight-only quantized
     target raises ValueError: re-quantizing group-quantized weights per
-    channel would compound two quantization errors."""
+    channel would compound two quantization errors. A model other than a
+    DiT raises ValueError."""
+    from f5_tts_tpu_torch.models.dit import require_dit
+
+    require_dit(dit, "w8a8_blocks_ (W8A8 int8 compute)")
     for i, block in enumerate(dit.transformer_blocks):
         for target in W8A8_TARGETS:
             owner_name, _, name = target.rpartition(".")

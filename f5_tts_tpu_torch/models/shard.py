@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from f5_tts_tpu_torch.models.blocks import Attention, FeedForward
-from f5_tts_tpu_torch.models.dit import DiT, DiTGroup
+from f5_tts_tpu_torch.models.dit import DiT, DiTGroup, require_dit
 from f5_tts_tpu_torch.models.duration import DurationGroup, DurationPredictor
 from f5_tts_tpu_torch.models.quant import QuantizedLinear
 from f5_tts_tpu_torch.ops.qmatmul import GROUP_SIZE
@@ -109,7 +109,8 @@ def shard_model_for_inference(dit: nn.Module, mesh: Mesh) -> list[DiTGroup]:
     `param_specs`: each attention keeps heads / model heads and each
     feed-forward hidden / model units; the rest is replicated. Returns one
     `DiTGroup` per data row, its shards on that row's devices. Raises
-    ValueError as `shard_module` does."""
+    ValueError as `shard_module` does, and for a model other than a DiT."""
+    require_dit(dit, "shard_model_for_inference")
     return [DiTGroup(shards) for shards in shard_module(dit, mesh)]
 
 
@@ -120,8 +121,10 @@ def shard_model_for_training(model: nn.Module, mesh: Mesh) -> list:
     across the grid; a seq slot holds its own copy of its model column's
     shard). Returns one group a data row over its seq x model slots:
     `DiTGroup`s or `DurationGroup`s. Raises ValueError as `shard_module`
-    does."""
-    group = {DiT: DiTGroup, DurationPredictor: DurationGroup}[type(model)]
+    does, and for another model."""
+    group = {DiT: DiTGroup, DurationPredictor: DurationGroup}.get(type(model))
+    if group is None:
+        raise ValueError(f"shard_model_for_training takes a DiT or a duration predictor, not a {type(model).__name__}")
     rows = shard_module(model, mesh, seq_slots=True)
     for shards in rows:
         for shard in shards:

@@ -35,11 +35,13 @@ def scaled_dot_product_attention(
     key_mask: torch.Tensor | None = None,
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,  # (cos, sin) [n', rot_dim]
     q_offset: int = 0,  # a query block's first row among k's (ops/flash_attention.py)
+    rope_heads: int | None = None,  # the rotated heads, the first ones; None: every head
 ) -> torch.Tensor:
-    """Attention after the interleaved rotary embedding of q and k. A rotation
-    of the full head goes into the kernel with the last n_k table rows (the
-    keys'; a query block takes its rows from q_offset of those); a partial
-    one is applied here first."""
+    """Attention after the interleaved rotary embedding of q and k (of the
+    first `rope_heads` heads, or of every head). A rotation of the full head
+    goes into the kernel with the last n_k table rows (the keys'; a query
+    block takes its rows from q_offset of those); a partial one is applied
+    here first."""
     from f5_tts_tpu_torch.ops.flash_attention import _rotated, flash_attention
 
     if rope is not None:
@@ -48,6 +50,6 @@ def scaled_dot_product_attention(
         if cos.shape[-1] == q.shape[-1]:
             rope = (cos[-n_k:], sin[-n_k:])
         else:
-            q, k = _rotated(q, k, rope, q_offset)
+            q, k = _rotated(q, k, rope, q_offset, rope_heads)
             rope = None
-    return flash_attention(q, k, v, scale, key_mask=key_mask, rope=rope, q_offset=q_offset)
+    return flash_attention(q, k, v, scale, key_mask=key_mask, rope=rope, q_offset=q_offset, rope_heads=rope_heads)

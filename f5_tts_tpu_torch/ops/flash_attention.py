@@ -26,8 +26,15 @@ rotates and splits the inputs into scratch the wrapper allocates; at d = 128
 and 256 on the FMA units. The source notes give the designs.
 
 `flash_attention` computes softmax(rope(q) rope(k)^T * scale, keys masked by
-key_mask) v. q may be a query block: [b, h, n_q, d] rows from `q_offset` of
-a sequence whose n_k keys k and v hold (sequence parallelism in training, a
+key_mask) v. With `rope_heads` only heads 0 .. rope_heads - 1 are rotated
+and the others attend unrotated (E2 TTS's UNetT rotates head 0 alone): the
+bf16 pre-passes of K1 (d = 64 and 128) and K2 copy the other heads as they
+are and K2's epilogue un-rotates only the first heads' dQ and dK; the
+float32 kernels and K1 at d = 256 raise ValueError for it. Such a call goes
+through `FlashAttentionFn` or the kernels' wrappers, as a query block does.
+`rope_heads=None` (or the head count) rotates every head: the kernels'
+launches and bits are those of a call without it. q may be a query block:
+[b, h, n_q, d] rows from `q_offset` of a sequence whose n_k keys k and v hold (sequence parallelism in training, a
 slot's frames against the keys its group gathered); the tables are the keys'
 [n_k, d], and the queries take rows q_offset .. q_offset + n_q - 1 of them.
 On the card the bf16 kernels at d = 64 and 128 and the float32 ones at d = 64
@@ -85,11 +92,29 @@ def _tables(rope, n_q: int, n_k: int, q_offset: int):
     return tuple(t[rows] for t in rope), tuple(t[base:] for t in rope)
 
 
-def _rotated(q, k, rope, q_offset: int = 0):
+def partial_heads(rope_heads: int | None, heads: int) -> int | None:
+    """`rope_heads` where it leaves heads unrotated, else None (every head
+    rotated); ValueError outside 0 .. heads."""
+    if rope_heads is None:
+        return None
+    if not 0 <= rope_heads <= heads:
+        raise ValueError(f"rope_heads must lie in 0 .. {heads}; got {rope_heads}")
+    return rope_heads if rope_heads < heads else None
+
+
+def rotate_heads(x: torch.Tensor, tab, rope_heads: int | None = None) -> torch.Tensor:
+    """`apply_rotary_pos_emb` of x [b, h, n, d] on its heads 0 ..
+    rope_heads - 1 (every head with None); the others as they are."""
+    if rope_heads is None:
+        return apply_rotary_pos_emb(x, tab)
+    return torch.cat([apply_rotary_pos_emb(x[:, :rope_heads], tab), x[:, rope_heads:]], dim=1)
+
+
+def _rotated(q, k, rope, q_offset: int = 0, rope_heads: int | None = None):
     if rope is None:
         return q, k
     q_tab, k_tab = _tables(rope, q.shape[-2], k.shape[-2], q_offset)
-    return apply_rotary_pos_emb(q, q_tab), apply_rotary_pos_emb(k, k_tab)
+    return rotate_heads(q, q_tab, rope_heads), rotate_heads(k, k_tab, rope_heads)
 
 
 def _logits(q, k, scale, key_mask):
@@ -108,19 +133,21 @@ def flash_attention_plain(
     key_mask: torch.Tensor | None = None,  # [b, n_k] bool, True = keep
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,  # (cos, sin), each [n_k, d] f32
     q_offset: int = 0,  # the queries' first table row
+    rope_heads: int | None = None,  # the rotated heads (the first ones); None: all
 ) -> torch.Tensor:
     """K1's function in plain PyTorch: rotary embedding, then
     `sdpa_reference`."""
-    q, k = _rotated(q, k, rope, q_offset)
+    q, k = _rotated(q, k, rope, q_offset, rope_heads)
     return sdpa_reference(q, k, v, scale, key_mask)
 
 
-def attention_lse_plain(q, k, scale, key_mask=None, rope=None, q_offset: int = 0) -> torch.Tensor:
+def attention_lse_plain(q, k, scale, key_mask=None, rope=None, q_offset: int = 0,
+                        rope_heads: int | None = None) -> torch.Tensor:
     """The per-row log-sum-exp of the scaled scores that K1 writes for the
     backward, [b, h, n_q] float32. A row whose keys are all masked is left
     out of the comparison: K1 biases masked keys by -1e30, where this
     version masks with the float32 minimum."""
-    q, k = _rotated(q, k, rope, q_offset)
+    q, k = _rotated(q, k, rope, q_offset, rope_heads)
     return torch.logsumexp(_logits(q, k, scale, key_mask), dim=-1)
 
 
@@ -130,19 +157,21 @@ def flash_prepass_plain(
     key_mask: torch.Tensor | None,  # [b, n] bool, True = keep
     rope: tuple[torch.Tensor, torch.Tensor] | None,  # (cos, sin), each [n, d] f32
     n_pad: int,
+    rope_heads: int | None = None,  # the rotated heads (the first ones); None: all
 ) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
     """K1's bf16 pre-pass in plain PyTorch: rope(q) and rope(k) as
     [b * h, n_pad, d] in q's dtype, rows n to n_pad zero (None without
     `rope`), and each key's bias [b, n_pad] float32, 0 kept and -1e30
     masked or past n (None without `key_mask`). The rotation is
     `apply_rotary_pos_emb`'s: x * cos + rotate_half(x) * sin in q's dtype,
-    the tables cast first, each product and the sum rounded."""
+    the tables cast first, each product and the sum rounded. Heads from
+    `rope_heads` on are copied unrotated."""
     b, h, n, d = q.shape
     qr = kr = kbias = None
     if rope is not None:
         qr, kr = (x.new_zeros(b * h, n_pad, d) for x in (q, k))
         for pad, x in ((qr, q), (kr, k)):
-            pad[:, :n] = apply_rotary_pos_emb(x, rope).reshape(b * h, n, d)
+            pad[:, :n] = rotate_heads(x, rope, rope_heads).reshape(b * h, n, d)
     if key_mask is not None:
         kbias = torch.full((b, n_pad), MASKED, dtype=torch.float32, device=q.device)
         kbias[:, :n] = torch.where(key_mask, 0.0, MASKED)
@@ -156,10 +185,12 @@ def bwd_prepass_plain(
     out: torch.Tensor,  # the forward's output
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
     q_offset: int = 0,
+    rope_heads: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The pre-pass of K2's bf16 path in plain PyTorch: the rotated q', k'
-    in q's dtype and delta = rowsum(g * out) in float32, [b, h, n_q]."""
-    qr, kr = _rotated(q, k, rope, q_offset)
+    in q's dtype (heads from `rope_heads` on as they are) and
+    delta = rowsum(g * out) in float32, [b, h, n_q]."""
+    qr, kr = _rotated(q, k, rope, q_offset, rope_heads)
     return qr, kr, (g.float() * out.float()).sum(dim=-1)
 
 
@@ -193,15 +224,20 @@ def bwd_epilogue_plain(
     dtype: torch.dtype,  # the inputs' dtype: the tables are rounded to it
     out_dtype: torch.dtype = torch.float32,
     q_offset: int = 0,
+    rope_heads: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's epilogue in plain PyTorch: the RoPE backward
     dx = dx' cos + (dx' sin) P^T = dx' cos - rotate_half(dx' sin) of dQ'
-    (by the queries' table rows) and dK' (by the keys'), then one rounding
-    of dq, dk, dv to `out_dtype` (the kernels write q's dtype)."""
+    (by the queries' table rows) and dK' (by the keys'), on heads 0 ..
+    rope_heads - 1 (every head with None), then one rounding of dq, dk, dv
+    to `out_dtype` (the kernels write q's dtype)."""
     if rope is not None:
         def backward(x, tab):
             cos, sin = (t.to(dtype).float() for t in tab)
-            return x * cos - rotate_half(x * sin)
+            if rope_heads is None:
+                return x * cos - rotate_half(x * sin)
+            turned = x[:, :rope_heads]
+            return torch.cat([turned * cos - rotate_half(turned * sin), x[:, rope_heads:]], dim=1)
 
         q_tab, k_tab = _tables(rope, dqr.shape[-2], dkr.shape[-2], q_offset)
         dqr, dkr = backward(dqr, q_tab), backward(dkr, k_tab)
@@ -238,13 +274,14 @@ def flash_attention_bwd_plain(
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
     out_dtype: torch.dtype = torch.float32,
     q_offset: int = 0,
+    rope_heads: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's function in plain PyTorch, the pre-pass, main and epilogue
     stages in turn: dq, dk, dv in `out_dtype` (float32 unless asked). For a
     query block dk and dv are the block's share of the keys' gradient."""
-    qr, kr, delta = bwd_prepass_plain(q, k, g, out, rope, q_offset)
+    qr, kr, delta = bwd_prepass_plain(q, k, g, out, rope, q_offset, rope_heads)
     return bwd_epilogue_plain(*bwd_main_plain(qr, kr, v, g, delta, scale, key_mask), rope, q.dtype, out_dtype,
-                              q_offset)
+                              q_offset, rope_heads)
 
 
 # ------------------------------------------------------------ the kernels
@@ -258,9 +295,9 @@ def _library() -> ctypes.CDLL:
     lib.f5_flash_attention_fwd.argtypes = [ptr] * 8 + [i32] * 4 + tail
     # + the pre-pass's scratch; b, h, n, nk, q_off, d
     lib.f5_flash_attention_fwd_f32.argtypes = [ptr] * 9 + [i32] * 6 + tail
-    # b, h, n, nk, n_pad, nk_pad, q_off, d
-    lib.f5_flash_attention_fwd_core.argtypes = [ptr] * 10 + [i32] * 8 + [i64] * 12 + [ctypes.c_float, i32, ptr]
-    lib.f5_flash_fwd_prepass.argtypes = [ptr] * 7 + [i32] * 8 + [i64] * 6 + [i32, ptr]
+    # b, h, n, nk, n_pad, nk_pad, q_off, d, rope_heads
+    lib.f5_flash_attention_fwd_core.argtypes = [ptr] * 10 + [i32] * 9 + [i64] * 12 + [ctypes.c_float, i32, ptr]
+    lib.f5_flash_fwd_prepass.argtypes = [ptr] * 7 + [i32] * 9 + [i64] * 6 + [i32, ptr]
     for name in (*_ENTRY.values(), "f5_flash_attention_fwd_core", "f5_flash_fwd_prepass"):
         getattr(lib, name).restype = i32
     lib.f5_cuda_error_string.argtypes = [i32]
@@ -273,8 +310,8 @@ def _bwd_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_build.build(BWD_SOURCE)[0]))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     strides = ctypes.POINTER(ctypes.c_longlong)
-    # b, h, n, nk, q_off, d
-    lib.f5_flash_attention_bwd.argtypes = [ptr] * 16 + [i32] * 6 + [strides, ctypes.c_float, ptr]
+    # b, h, n, nk, q_off, d (and rope_heads in bf16)
+    lib.f5_flash_attention_bwd.argtypes = [ptr] * 16 + [i32] * 7 + [strides, ctypes.c_float, ptr]
     lib.f5_flash_attention_bwd_f32.argtypes = [ptr] * 13 + [i32] * 6 + [strides, ctypes.c_float, ptr]
     for name in _BWD_ENTRY.values():
         getattr(lib, name).restype = i32
@@ -314,10 +351,11 @@ def block_covered(dtype: torch.dtype, d: int) -> bool:
     return (dtype == torch.bfloat16 and d in CORE_HEAD_DIMS) or (dtype == torch.float32 and d == TC_HEAD_DIM)
 
 
-def _checked(q, k, v, key_mask, rope, q_offset: int = 0):
+def _checked(q, k, v, key_mask, rope, q_offset: int = 0, rope_heads: int | None = None):
     """Validate the kernels' inputs; returns (key_mask, cos, sin) as the
     kernels take them. q may differ from k and v in its rows only (a query
-    block, where `block_covered`)."""
+    block, where `block_covered`); `rope_heads` below the head count only in
+    bf16 at head dims 64 and 128."""
     b, h, n, d = q.shape
     n_k = k.shape[2]
     if d not in HEAD_DIMS:
@@ -333,6 +371,9 @@ def _checked(q, k, v, key_mask, rope, q_offset: int = 0):
                              f"{TC_HEAD_DIM}; got {q.dtype} at {d}")
         if q_offset < 0 or q_offset + n > n_k:
             raise ValueError(f"a query block of {n} rows from row {q_offset} does not lie in {n_k} keys")
+    if partial_heads(rope_heads, h) is not None and not (q.dtype == torch.bfloat16 and d in CORE_HEAD_DIMS):
+        raise ValueError(f"the attention kernels rotate a subset of heads (rope_heads {rope_heads} of {h}) in "
+                         f"bfloat16 at head dims {CORE_HEAD_DIMS}; got {q.dtype} at {d}")
     if key_mask is not None:
         if key_mask.shape != (b, n_k) or key_mask.dtype != torch.bool or key_mask.device != q.device:
             raise ValueError(f"key_mask must be bool [{b}, {n_k}] on {q.device}")
@@ -389,7 +430,8 @@ def _core_scratch(b: int, h: int, n_pad: int, d: int, rotate: bool, masked: bool
     return buf, base if rotate else None, base + rot_bytes if masked else None
 
 
-def _core_forward(q, k, v, scale, key_mask, cos, sin, with_lse: bool, q_offset: int = 0):
+def _core_forward(q, k, v, scale, key_mask, cos, sin, with_lse: bool, q_offset: int = 0,
+                  rope_heads: int | None = None):
     """K1 bf16 at d = 64 and 128 on checked inputs: the pre-pass (with RoPE
     or a mask), then the core, on the current stream of q's device (which
     need not be the current device). Returns (out, lse or None)."""
@@ -406,7 +448,8 @@ def _core_forward(q, k, v, scale, key_mask, cos, sin, with_lse: bool, q_offset: 
     lib = _library()
     err = lib.f5_flash_attention_fwd_core(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(key_mask), _ptr(cos), _ptr(sin),
-        rot, kbias, b, h, n, n_k, n_pad, nk_pad, q_offset, d, *[s for x in (q, k, v, out) for s in x.stride()[:3]],
+        rot, kbias, b, h, n, n_k, n_pad, nk_pad, q_offset, d, h if rope_heads is None else rope_heads,
+        *[s for x in (q, k, v, out) for s in x.stride()[:3]],
         float(scale), dev, torch._C._cuda_getCurrentRawStream(dev),  # the raw stream getter torch's compiled code calls
     )
     _raise_on(err, lib, "flash attention")
@@ -414,15 +457,17 @@ def _core_forward(q, k, v, scale, key_mask, cos, sin, with_lse: bool, q_offset: 
     return out, lse
 
 
-def _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse: bool, q_offset: int = 0):
+def _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse: bool, q_offset: int = 0,
+                    rope_heads: int | None = None):
     """Launch K1 on checked inputs; returns (out, lse or None). The output
     has q's strides when q is dense, else it is contiguous; d stays
-    innermost, so the other strides are multiples of d. A query block
-    (`_checked` let it through) goes to a kernel that takes one."""
+    innermost, so the other strides are multiples of d. A query block or a
+    subset of rotated heads (`_checked` let it through) goes to a kernel
+    that takes one."""
     b, h, n, d = q.shape
     n_k = k.shape[2]
     if q.dtype == torch.bfloat16 and d in CORE_HEAD_DIMS:
-        return _core_forward(q, k, v, scale, key_mask, cos, sin, with_lse, q_offset)
+        return _core_forward(q, k, v, scale, key_mask, cos, sin, with_lse, q_offset, rope_heads)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
@@ -444,14 +489,15 @@ def _forward_kernel(q, k, v, scale, key_mask, cos, sin, with_lse: bool, q_offset
     return out, lse
 
 
-def flash_prepass(q, k, key_mask, rope, n_pad: int):
+def flash_prepass(q, k, key_mask, rope, n_pad: int, rope_heads: int | None = None):
     """K1's bf16 pre-pass alone (`flash_prepass_plain`'s function): on the
-    card rope(q) and rope(k) as [b * h, n_pad, d] views of one scratch and
-    the key biases [b, n_pad], for bf16 at head dims 64 and 128 and n_pad a
-    multiple of CORE_ROW_PAD. CPU tensors run the plain version."""
+    card rope(q) and rope(k) as [b * h, n_pad, d] views of one scratch (heads
+    from `rope_heads` on unrotated) and the key biases [b, n_pad], for bf16
+    at head dims 64 and 128 and n_pad a multiple of CORE_ROW_PAD. CPU
+    tensors run the plain version."""
     if q.device.type == "cpu":
-        return flash_prepass_plain(q, k, key_mask, rope, n_pad)
-    key_mask, cos, sin = _checked(q, k, k, key_mask, rope)
+        return flash_prepass_plain(q, k, key_mask, rope, n_pad, rope_heads)
+    key_mask, cos, sin = _checked(q, k, k, key_mask, rope, 0, rope_heads)
     b, h, n, d = q.shape
     if q.dtype != torch.bfloat16 or d not in CORE_HEAD_DIMS:
         raise ValueError(f"the pre-pass takes bfloat16 at head dims {CORE_HEAD_DIMS}; got {q.dtype}, {d}")
@@ -462,7 +508,8 @@ def flash_prepass(q, k, key_mask, rope, n_pad: int):
     lib = _library()
     err = lib.f5_flash_fwd_prepass(
         q.data_ptr(), k.data_ptr(), _ptr(key_mask), _ptr(cos), _ptr(sin), rot, kbias, b, h, n, n, n_pad, n_pad, 0, d,
-        *q.stride()[:3], *k.stride()[:3], dev, torch._C._cuda_getCurrentRawStream(dev),
+        h if rope_heads is None else rope_heads, *q.stride()[:3], *k.stride()[:3], dev,
+        torch._C._cuda_getCurrentRawStream(dev),
     )
     _raise_on(err, lib, "flash attention pre-pass")
     flash_prepass.launches += 1
@@ -475,16 +522,19 @@ def flash_prepass(q, k, key_mask, rope, n_pad: int):
     return qr, kr, bias
 
 
-def _backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset: int = 0):
+def _backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset: int = 0,
+                     rope_heads: int | None = None):
     """Launch K2; returns (dq, dk, dv) in q's dtype, contiguous
     [b, h, n, d] (dk and dv [b, h, n_k, d] for a query block: its share of
     the keys' gradient). g (and v) are taken as strided views when their
     layout allows, else made contiguous. The pre-pass, then the main
-    kernels, with the pre-pass's scratch allocated here."""
-    return _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset)[:3]
+    kernels, with the pre-pass's scratch allocated here. Heads from
+    `rope_heads` on are not rotated (bf16 only)."""
+    return _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset, rope_heads)[:3]
 
 
-def _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset: int = 0):
+def _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset: int = 0,
+                     rope_heads: int | None = None):
     """`_backward_kernel`'s launch; returns (dq, dk, dv, qr, kr), where qr
     and kr are the bf16 pre-pass's rope(q) [b, h, n, d] and rope(k)
     [b, h, n_k, d] (None in float32)."""
@@ -504,6 +554,8 @@ def _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset: 
         return torch.empty((b, h, m, d), dtype=dtype, device=q.device)
 
     if q.dtype == torch.float32:
+        if rope_heads is not None and rope_heads < h:
+            raise ValueError(f"the float32 attention backward rotates every head; got rope_heads {rope_heads} of {h}")
         scratch = _f32_scratch(b, h, n, d, True, q.device, n_k)
         dq, dk, dv = rows(n, torch.float32), rows(n_k, torch.float32), rows(n_k, torch.float32)
         with torch.cuda.device(q.device):
@@ -524,8 +576,8 @@ def _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset: 
         err = lib.f5_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _ptr(key_mask), _ptr(cos), _ptr(sin), qr.data_ptr(), kr.data_ptr(), stats.data_ptr(),
-            kbias.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, n_k, q_offset, d, strides,
-            float(scale), stream,
+            kbias.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, n_k, q_offset, d,
+            h if rope_heads is None else rope_heads, strides, float(scale), stream,
         )
     _raise_on(err, lib, "flash attention backward")
     flash_attention.launches_bwd += 1
@@ -574,22 +626,24 @@ def _flash_attention_fwd_fake(q, k, v, scale, key_mask, cos, sin, with_lse):
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with K1 forward and K2 backward on CUDA tensors, the plain
     versions on CPU tensors. Gradients flow to q, k and v; the mask, the
-    rotary tables and the query offset are constants. A query block launches
-    K1 through its wrapper (`_forward_kernel`), not the registered operator."""
+    rotary tables, the query offset and the rotated heads are constants. A
+    query block or a subset of rotated heads launches K1 through its wrapper
+    (`_forward_kernel`), not the registered operator."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, key_mask, cos, sin, q_offset=0):
+    def forward(ctx, q, k, v, scale, key_mask, cos, sin, q_offset=0, rope_heads=None):
         rope = None if cos is None else (cos, sin)
+        rope_heads = None if rope is None else partial_heads(rope_heads, q.shape[1])
         lse = None
         if q.device.type == "cpu":
-            out = flash_attention_plain(q, k, v, scale, key_mask, rope, q_offset)
+            out = flash_attention_plain(q, k, v, scale, key_mask, rope, q_offset, rope_heads)
         else:
-            key_mask, cos, sin = _checked(q, k, v, key_mask, rope, q_offset)
-            if is_block(q, k, q_offset):
-                out, lse = _forward_kernel(q, k, v, scale, key_mask, cos, sin, True, q_offset)
+            key_mask, cos, sin = _checked(q, k, v, key_mask, rope, q_offset, rope_heads)
+            if is_block(q, k, q_offset) or rope_heads is not None:
+                out, lse = _forward_kernel(q, k, v, scale, key_mask, cos, sin, True, q_offset, rope_heads)
             else:
                 out, lse = flash_attention_fwd(q, k, v, scale, key_mask, cos, sin, True)
-        ctx.scale, ctx.q_offset = scale, q_offset
+        ctx.scale, ctx.q_offset, ctx.rope_heads = scale, q_offset, rope_heads
         ctx.save_for_backward(q, k, v, out, lse, key_mask, cos, sin)
         return out
 
@@ -599,10 +653,11 @@ class FlashAttentionFn(torch.autograd.Function):
         if q.device.type == "cpu":
             rope = None if cos is None else (cos, sin)
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, g, ctx.scale, key_mask, rope, out_dtype=q.dtype,
-                                                   q_offset=ctx.q_offset)
+                                                   q_offset=ctx.q_offset, rope_heads=ctx.rope_heads)
         else:
-            dq, dk, dv = _backward_kernel(q, k, v, out, lse, g, ctx.scale, key_mask, cos, sin, ctx.q_offset)
-        return dq, dk, dv, None, None, None, None, None
+            dq, dk, dv = _backward_kernel(q, k, v, out, lse, g, ctx.scale, key_mask, cos, sin, ctx.q_offset,
+                                          ctx.rope_heads)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -613,12 +668,14 @@ def flash_attention(
     key_mask: torch.Tensor | None = None,  # [b, n_k] bool, True = keep
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,  # (cos, sin), each [n_k, d] f32
     q_offset: int = 0,  # a query block's first row in the keys' sequence
+    rope_heads: int | None = None,  # the rotated heads, the first ones; None: every head
 ) -> torch.Tensor:
     """Non-causal attention with an optional key mask and in-kernel rotary
     embedding. CPU tensors run the plain versions; CUDA tensors launch the
     kernels of their dtype (bfloat16 or float32), and anything the kernels
     do not take raises ValueError. Differentiable in q, k and v. q may be a
-    query block (see the module's docstring).
+    query block, and `rope_heads` may rotate only the first heads (see the
+    module's docstring).
 
     The output has q's shape and dtype (and q's strides when q is dense), so
     a q viewed from a [b, n, h*d] projection gives an output that reshapes
@@ -627,12 +684,13 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, not {q.device.type}")
     cos, sin = (None, None) if rope is None else rope
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, scale, key_mask, cos, sin, q_offset)
-    if is_block(q, k, q_offset):
+        return FlashAttentionFn.apply(q, k, v, scale, key_mask, cos, sin, q_offset, rope_heads)
+    rope_heads = None if rope is None else partial_heads(rope_heads, q.shape[1])
+    if is_block(q, k, q_offset) or rope_heads is not None:
         if q.device.type == "cpu":
-            return flash_attention_plain(q, k, v, scale, key_mask, rope, q_offset)
-        key_mask, cos, sin = _checked(q, k, v, key_mask, rope, q_offset)
-        return _forward_kernel(q, k, v, float(scale), key_mask, cos, sin, False, q_offset)[0]
+            return flash_attention_plain(q, k, v, scale, key_mask, rope, q_offset, rope_heads)
+        key_mask, cos, sin = _checked(q, k, v, key_mask, rope, q_offset, rope_heads)
+        return _forward_kernel(q, k, v, float(scale), key_mask, cos, sin, False, q_offset, rope_heads)[0]
     return flash_attention_fwd(q, k, v, float(scale), key_mask, cos, sin, False)[0]
 
 

@@ -55,7 +55,7 @@ import torch
 from torch import nn
 
 from f5_tts_tpu_torch.models import blocks as B
-from f5_tts_tpu_torch.models.dit import DiT
+from f5_tts_tpu_torch.models.dit import DiT, require_dit
 from f5_tts_tpu_torch.models.rope import rotary_freqs
 from f5_tts_tpu_torch.parallel.mesh import Mesh, Rows, _as_device, device_list, gather_batch, stage_send, stage_to_head
 
@@ -132,7 +132,8 @@ def shard_params_for_pipeline(dit: DiT, mesh: Mesh) -> PipelinedDiT:
     device, and each data row the replicated layers on its first stage's
     device, where the schedule runs them (`dit` itself is left as it is). A
     mesh without a "stage" axis, or a depth that the stages do not divide,
-    raises ValueError."""
+    raises ValueError, as does a model other than a DiT."""
+    require_dit(dit, "shard_params_for_pipeline")
     return PipelinedDiT(dit, mesh)
 
 

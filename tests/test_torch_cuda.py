@@ -28,7 +28,11 @@ against the full call (to the bit where the blocks are whole query tiles)
 and against plain, a ragged block, and the ValueError of the variants that
 take no block; for FSDP across processes, the cross-process gather and
 reduce-scatter of two gloo ranks on CUDA tensors against the in-process
-result.
+result; for E2 TTS's UNetT, K1 and K2 with RoPE on head 0 of 16
+(`rope_heads=1`) against plain, both pre-passes' rotated q and k bit for
+bit, `rope_heads=16` bit for bit the call without it, the RMSNorm kernels
+at [16, 2401, 1024] against plain and float32 autograd (and bit-equal from
+run to run), and a 2-layer UNetT step's launches.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -1849,3 +1853,178 @@ def test_cross_process_collectives_on_cuda_tensors(gen):
     for r in results:
         assert r["result"] == {"0": ["cuda:0", True, "cuda:0", True], "1": ["cuda:0", True, "cuda:0", True]}
         assert r["counts"] == [2, 2]
+
+
+# ------------------------------------------------------------ E2 TTS's UNetT: RoPE on a subset of heads, RMSNorm
+
+
+def _unett_attention(gen, rope_heads, b=4, h=16, n=601, d=64):
+    """K1 then K2 through autograd with `rope_heads` on [b, n, h*d]
+    projection views at a ragged n + 1; returns (out, lse, (dq, dk, dv)),
+    the inputs and the output gradient."""
+    q, k, v, g = _projection_views(gen, b, h, n, d, count=4)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, d ** -0.5, rope=_rope(n, d), rope_heads=rope_heads)
+    lse = out.grad_fn.saved_tensors[4]
+    grads = torch.autograd.grad(out, leaves, g)
+    return out.detach(), lse, grads, (q, k, v, g)
+
+
+@pytest.mark.cuda
+def test_k1_k2_rope_on_one_head_match_plain(gen):
+    """E2 TTS Base's attention (RoPE on head 0 of 16) at [4, 16, 601, 64]:
+    K1's output and lse and K2's gradients against the plain versions
+    with `rope_heads=1`, and both pre-passes' rotated q and k bit for bit
+    (heads 1 to 15 copied as they are)."""
+    before = (flash_attention.launches, flash_attention.launches_bwd)
+    out, lse, got, (q, k, v, g) = _unett_attention(gen, 1)
+    assert (flash_attention.launches, flash_attention.launches_bwd) == (before[0] + 1, before[1] + 1)
+    rope = _rope(601, 64)
+    ref = flash_attention_plain(q, k, v, 0.125, None, rope, rope_heads=1)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=0)
+    torch.testing.assert_close(lse, attention_lse_plain(q, k, 0.125, None, rope, rope_heads=1), atol=1e-2, rtol=0)
+    want = flash_attention_bwd_plain(q, k, v, out, g, 0.125, None, rope, rope_heads=1)
+    for a, r in zip(got, want):
+        assert (a.float() - r).abs().max().item() <= 2e-2 * max(r.abs().max().item(), 0.1)
+    qr, kr, _ = fa.flash_prepass(q, k, None, rope, 640, rope_heads=1)
+    pq, pk, _ = fa.flash_prepass_plain(q, k, None, rope, 640, rope_heads=1)
+    torch.cuda.synchronize()
+    assert torch.equal(qr, pq) and torch.equal(kr, pk)
+    key_mask, cos, sin = fa._checked(q, k, v, None, rope, 0, 1)
+    o, l = fa._forward_kernel(q, k, v, 0.125, key_mask, cos, sin, True, 0, 1)
+    qr2, kr2 = fa._backward_launch(q, k, v, o, l, g, 0.125, key_mask, cos, sin, 0, 1)[3:]
+    torch.cuda.synchronize()
+    assert torch.equal(qr2, fa.rotate_heads(q, rope, 1)) and torch.equal(kr2, fa.rotate_heads(k, rope, 1))
+    assert torch.equal(qr2[:, 1:], q[:, 1:])
+
+
+@pytest.mark.cuda
+def test_k1_k2_rope_on_every_head_is_the_call_without_it(gen):
+    """`rope_heads=16` of 16 launches what a call without it launches and
+    gives its bits: K1's output and lse, K2's gradients."""
+    torch.manual_seed(0)
+    runs = []
+    for heads in (None, 16):
+        g2 = torch.Generator(device="cuda").manual_seed(5)
+        before = (flash_attention.launches, flash_attention.launches_bwd)
+        runs.append(_unett_attention(g2, heads)[:3])
+        assert (flash_attention.launches, flash_attention.launches_bwd) == (before[0] + 1, before[1] + 1)
+    (o1, l1, g1), (o2, l2, g2) = runs
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rope_heads_refusals(gen):
+    """A subset of rotated heads in float32 (or K1 at d = 256) raises; the
+    count lies in 0 .. heads."""
+    q, k, v = (torch.randn(2, 4, 64, 64, generator=gen, device="cuda") for _ in range(3))
+    with pytest.raises(ValueError, match="subset of heads"):
+        flash_attention(q, k, v, 0.125, rope=_rope(64, 64), rope_heads=1)
+    qb, kb, vb = _qkv(gen, 2, 4, 64, 256)
+    with pytest.raises(ValueError, match="subset of heads"):
+        flash_attention(qb, kb, vb, 0.0625, rope=_rope(64, 256), rope_heads=1)
+    with pytest.raises(ValueError, match="rope_heads"):
+        flash_attention(qb, kb, vb, 0.0625, rope=_rope(64, 256), rope_heads=5)
+
+
+def _rms_inputs(gen, dtype, shape=(16, 2401, 1024)):
+    x = (torch.randn(*shape, generator=gen, device="cuda") * 2).to(dtype)
+    g = torch.rand(shape[-1], generator=gen, device="cuda") + 0.5
+    return x, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_rms_norm_forward_matches_plain(gen, dtype):
+    """The RMSNorm forward kernel at E2 TTS's training rows, [16, 2401, 1024]
+    (2400 frames and the time token), with and without the rows' inverse
+    norms: 1e-2 + 8e-3 times the output's magnitude in bf16 (one rounding
+    of the output on both sides, after float32 sums in another order),
+    1e-5 relative in float32."""
+    from f5_tts_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain, rms_norm_stats_plain
+
+    x, g = _rms_inputs(gen, dtype)
+    ref = rms_norm_plain(x, g).float()
+    before = rms_norm.launches
+    out = rms_norm(x, g)
+    out_g = rms_norm(x, g.clone().requires_grad_())
+    assert rms_norm.launches == before + 2
+    for got in (out, out_g.detach()):
+        assert got.shape == x.shape and got.dtype == dtype
+        err = (got.float() - ref).abs()
+        if dtype == torch.bfloat16:
+            assert (err <= 1e-2 + 8e-3 * ref.abs()).all(), err.max().item()
+        else:
+            assert err.max().item() <= 1e-5 * ref.abs().max().item()
+    r = out_g.grad_fn.saved_tensors[2]
+    torch.testing.assert_close(r, rms_norm_stats_plain(x), atol=0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_rms_norm_gradients_match_float32_autograd(gen, dtype):
+    """dx and dg from the backward kernel at [16, 2401, 1024] against
+    float32 autograd of `rms_norm_plain`, relative to each one's largest
+    magnitude: 2e-2 in bf16 (the inputs and dx each rounded to bf16 once),
+    1e-4 in float32; two runs give the same bits (partial column sums
+    summed in a fixed order)."""
+    from f5_tts_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
+
+    x, g = _rms_inputs(gen, dtype)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+
+    def grads(plain: bool):
+        xs = (x.float() if plain else x).detach().requires_grad_()
+        gs = g.detach().clone().requires_grad_()
+        return torch.autograd.grad((rms_norm_plain if plain else rms_norm)(xs, gs), (xs, gs),
+                                   dy.float() if plain else dy)
+
+    before = rms_norm.launches_bwd
+    got = grads(False)
+    assert rms_norm.launches_bwd == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    want = grads(True)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, r in zip(got, want):
+        assert (a.float() - r).abs().max().item() <= tol * r.abs().max().item()
+    for a, b in zip(got, grads(False)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_unett_training_step_launches(gen):
+    """One training step of a 2-layer bf16 UNetT at E2 TTS Base's widths:
+    2 depth + 1 RMSNorm launches forward and as many backward, one K1 and one
+    K2 a layer, by the counters and by torch.profiler's kernel names."""
+    from f5_tts_tpu_torch.config import E2TTS_BASE, CFMConfig
+    from f5_tts_tpu_torch.models.cfm import draw_cfm
+    from f5_tts_tpu_torch.models.unett import UNetT
+    from f5_tts_tpu_torch.ops.rms_norm import rms_norm
+    from f5_tts_tpu_torch.training import trainer as T
+    from f5_tts_tpu_torch.utils.modules import init_parameters_
+
+    with torch.device("cuda"):
+        model = UNetT(E2TTS_BASE.replace(depth=2, compute_dtype="bfloat16"))
+    init_parameters_(model, gen)
+    b, n = 4, 512
+    mel = torch.randn(b, n, 100, generator=gen, device="cuda")
+    text = torch.randint(0, 256, (b, 60), generator=gen, device="cuda")
+    lens = torch.tensor([n, 430, 300, 260], device="cuda")
+    cfm = CFMConfig()
+    draws = draw_cfm(gen, cfm, b, n, 100, torch.device("cuda"))
+    opt = T.make_optimizer(1e-5, 1e-2, 0, 100)
+    step, state = T.make_train_step(cfm, opt), T.init_train_state(model, opt)
+
+    def one_step():
+        return step(state, mel, text, lens, generator=torch.Generator(device="cuda").manual_seed(1), draws=draws)
+
+    assert torch.isfinite(one_step())
+    before = (rms_norm.launches, rms_norm.launches_bwd, flash_attention.launches, flash_attention.launches_bwd)
+    one_step()
+    after = (rms_norm.launches, rms_norm.launches_bwd, flash_attention.launches, flash_attention.launches_bwd)
+    assert tuple(a - b for a, b in zip(after, before)) == (5, 5, 2, 2)
+    names = _cuda_kernel_names(one_step)
+    assert (_launched(names, "rms_norm_fwd_kernel"), _launched(names, "rms_norm_bwd_kernel")) == (5, 5)
+    assert _launched(names, "flash_fwd_prepass_kernel") == 2 and _launched(names, "flash_bwd_prepass_kernel") == 2
