@@ -108,7 +108,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   8. attention backward vs plain, timed with CUDA events: the backward
      kernel in bf16 at the CFM training shape and with a key mask at a
      ragged n, in float32 at the duration training shape, and the forward's
-     log-sum-exp output;
+     log-sum-exp output; in bf16 also K2's device time (the single pass at
+     d = 64, its launches counted) beside SDPA backward's and the bound, at
+     the CFM shape and at the training cells' [16, 16, 2400, 64] (the
+     kernels line's `device_ms` and `cell_*` keys of the
+     `flash_attention_bwd` row);
   9. CFM training: the base DiT with float32 master weights and bf16
      compute, AdamW and EMA, on a fixed synthetic batch of 4 x 1024 frames
      with fixed draws: one warm-up and eight timed steps (exact attention
@@ -182,8 +186,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      dropout equal to the unpipelined forward under one generator;
  10e. E2 TTS Base (models/unett.py `UNetT`, 24 layers, bf16 compute on
      float32 master weights, dropout 0.1) through make_train_step on the
-     CFM batch: each step's launches exactly (24 K1, 24 K2, 49 RMSNorm
-     forward and 49 backward) and the loss falling; its loss and gradient
+     CFM batch: each step's launches exactly (24 K1, 24 K2, each K2 the
+     single pass, 49 RMSNorm forward and 49 backward) and the loss falling; its loss and gradient
      on a small ragged batch against the benchmark's float32 reference
      (benchmark/reference/unett.py, TF32 off, dropout drawn alike); K1
      with its lse and K2 with RoPE on head 0 (`rope_heads=1`) at the cell's
@@ -336,7 +340,7 @@ def reset_counts():
     from f5_tts_tpu_torch.ops.rms_norm import rms_norm
 
     flash_attention.launches = flash_attention.launches_f32 = qmatmul.launches = qmatmul.launches_f32 = 0
-    flash_attention.launches_bwd = flash_attention.launches_bwd_f32 = 0
+    flash_attention.launches_bwd = flash_attention.launches_bwd_f32 = flash_attention.launches_bwd_fused = 0
     w8a8.quantize_rows.launches = w8a8.rescale_bias.launches = 0
     w8a8.row_absmax.launches = w8a8.quantize_scaled.launches = 0
     ln_modulate.launches = ln_modulate.launches_bwd = 0
@@ -355,6 +359,7 @@ def counts() -> dict:
             "qmatmul": qmatmul.launches,
             "qmatmul_f32": qmatmul.launches_f32,
             "flash_attention_bwd": flash_attention.launches_bwd,
+            "flash_attention_bwd_fused": flash_attention.launches_bwd_fused,
             "flash_attention_bwd_f32": flash_attention.launches_bwd_f32,
             "w8a8_quantize": w8a8.quantize_rows.launches,
             "w8a8_rescale": w8a8.rescale_bias.launches,
@@ -681,9 +686,9 @@ def snapshot_phase(snap: str, artifact_snap: str | None = None):
 
 
 ZERO = {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0, "qmatmul": 0, "qmatmul_f32": 0,
-        "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0, "w8a8_quantize": 0, "w8a8_rescale": 0,
-        "w8a8_row_absmax": 0, "w8a8_quantize_scaled": 0, "ln_modulate": 0, "ln_modulate_bwd": 0, "rms_norm": 0,
-        "rms_norm_bwd": 0}
+        "flash_attention_bwd": 0, "flash_attention_bwd_fused": 0, "flash_attention_bwd_f32": 0, "w8a8_quantize": 0,
+        "w8a8_rescale": 0, "w8a8_row_absmax": 0, "w8a8_quantize_scaled": 0, "ln_modulate": 0, "ln_modulate_bwd": 0,
+        "rms_norm": 0, "rms_norm_bwd": 0}
 
 
 def adaln(blocks: int, finals: int, backward: bool = False, remat: bool = False) -> dict:
@@ -2594,7 +2599,7 @@ def _attention_grad_case(gen, name: str, dtype, b: int, h: int, n: int, d: int, 
 def bwd_kernel_phase():
     import torch
 
-    from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb
+    from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb, rotary_freqs
     from f5_tts_tpu_torch.ops import flash_attention as fa
 
     phase("attention backward vs plain (bf16 and float32), and the forward's log-sum-exp")
@@ -2627,7 +2632,44 @@ def bwd_kernel_phase():
         _library_line(name, "SDPA backward, RoPE outside", library_ms, bound_ms, bound_by)
         results[name] = {"err": max(c["abs_errs"]), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by}
+        if dtype == torch.bfloat16 and valid is None:
+            # device times (the host left out): K2 and SDPA's backward at this shape and at the training cells'
+            # widest batch, [16, 16, 2400, 64] (19 key blocks in the single pass's ordered dq sum)
+            results[name].update(_bwd_device_times(f"{name} [{b}, {h}, {n}, {d}]", q, k, v, out, lse, g, rope, tag))
+            big = [t.view(16, 2400, 16, d).transpose(1, 2) for t in
+                   torch.randn(4, 16, 2400, 16 * d, generator=gen, device="cuda").to(torch.bfloat16)]
+            raw = rotary_freqs(2400, d, device="cuda")
+            big_rope = (torch.cos(raw), torch.sin(raw))
+            km, bcos, bsin = fa._checked(*big[:3], None, big_rope)
+            bout, blse = fa._forward_kernel(*big[:3], scale, km, bcos, bsin, with_lse=True)
+            cell = _bwd_device_times("training cells' widest batch [16, 16, 2400, 64]", *big[:3], bout, blse, big[3],
+                                     big_rope, tag)
+            results[name].update({f"cell_{key}": value for key, value in cell.items()})
     return results
+
+
+def _bwd_device_times(label, q, k, v, out, lse, g, rope, tag) -> dict:
+    """K2's device time on [b, h, n, d] views with RoPE and no mask, and
+    SDPA backward's on q and k rotated beforehand, beside K2's bound at
+    10 b h n^2 d operations; the single-pass launches counted."""
+    import torch
+
+    from f5_tts_tpu_torch.models.rope import apply_rotary_pos_emb
+    from f5_tts_tpu_torch.ops import flash_attention as fa
+
+    b, h, n, d = q.shape
+    scale = d ** -0.5
+    key_mask, cos, sin = fa._checked(q, k, v, None, rope)
+    before = getattr(fa.flash_attention, "launches_bwd_fused", 0)  # none before the single pass
+    ms = device_ms(lambda: fa._backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin))
+    fused = getattr(fa.flash_attention, "launches_bwd_fused", 0) - before
+    leaves = [t.detach().requires_grad_() for t in (apply_rotary_pos_emb(q, rope), apply_rotary_pos_emb(k, rope), v)]
+    sdpa_out = _sdpa(*leaves, scale)
+    lib = device_ms(lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True), iters=5)
+    bound_ms, bound_by = bound(10 * b * h * n * n * d, nbytes(q, k, v, out, g, lse, *rope, q, k, v), tag)
+    print(f"{label}: K2 device {ms:.4f} ms ({100 * bound_ms / ms:.1f}% of its bound {bound_ms * 1e3:.1f} us, "
+          f"{bound_by}), SDPA backward (RoPE outside) device {lib:.4f} ms; single-pass launches {fused}")
+    return {"device_ms": ms, "library_device_ms": lib, "device_bound_ms": bound_ms}
 
 
 def _train_batch(gen, mel_dim=100):
@@ -2700,7 +2742,7 @@ def cfm_training_phase(card: str, tmp: str):
           f"text {bool(draws.text_drop[0] < model.cfm_cfg.cond_drop_prob)}")
 
     per_micro = {**ZERO, "flash_attention_fwd": cfg.depth, "flash_attention_bwd": cfg.depth,
-                 **adaln(cfg.depth, 1, backward=True)}
+                 "flash_attention_bwd_fused": cfg.depth, **adaln(cfg.depth, 1, backward=True)}
     reset_counts()
     step = T.make_train_step(model.cfm_cfg, opt, ema_decay=0.999)
     losses, ms = _train_steps("CFM step", step, state, (mel, text, lens), draws, per_micro, 8, card)
@@ -2895,8 +2937,8 @@ def unett_training_phase(card: str) -> tuple[dict, dict]:
     mel, text, lens = _train_batch(gen)
     draws = draw_cfm(gen, cfm, TRAIN_BATCH, TRAIN_FRAMES, 100, torch.device("cuda"))
     norms = 2 * cfg.depth + 1
-    per_micro = {**ZERO, "flash_attention_fwd": cfg.depth, "flash_attention_bwd": cfg.depth, "rms_norm": norms,
-                 "rms_norm_bwd": norms}
+    per_micro = {**ZERO, "flash_attention_fwd": cfg.depth, "flash_attention_bwd": cfg.depth,
+                 "flash_attention_bwd_fused": cfg.depth, "rms_norm": norms, "rms_norm_bwd": norms}
     print(f"UNetT parameters {sum(p.numel() for p in model.parameters())}")
     reset_counts()
     step = T.make_train_step(cfm, opt, ema_decay=0.999)
@@ -3167,7 +3209,7 @@ def wav_training_phase(card: str, tmp_base: str | None) -> dict:
                                           shuffle_buffer=32, num_threads=6, seed=0, on_device_mel=on_device_mel)
 
         per_micro = {**ZERO, "flash_attention_fwd": cfg.depth, "flash_attention_bwd": cfg.depth,
-                     **adaln(cfg.depth, 1, backward=True)}
+                     "flash_attention_bwd_fused": cfg.depth, **adaln(cfg.depth, 1, backward=True)}
         cfm = _trained("CFM from WAVs, on-device mel", trainer, pipeline(True), card,
                        {k: 12 * v for k, v in per_micro.items()}, 6, save_every=6, sample_every=10**9,
                        on_device_mel=True, grad_accum=2)
@@ -3562,7 +3604,7 @@ def mesh_training_phase(card: str, tmp_base: str | None) -> dict:
 
     data_rows = MESH_TRAIN["data"]  # a data row's first slot runs the final norm
     per_micro = {**ZERO, "flash_attention_fwd": bcfg.depth * slots, "flash_attention_bwd": bcfg.depth * slots,
-                 **adaln(bcfg.depth * slots, data_rows, backward=True)}
+                 "flash_attention_bwd_fused": bcfg.depth * slots, **adaln(bcfg.depth * slots, data_rows, backward=True)}
     ref, dp, _ = _sharded_runs("base DiT, DP x TP", card, model.dit, cfm_step, opt, mesh, batch, draws, 2,
                                MESH_TRAIN_TOL, per_micro)
     add(dp["launches"])
@@ -3747,7 +3789,7 @@ def two_rank_case(card: str, opt, tmp_base: str | None) -> dict:
         specs = M.param_specs(model.dit, 2)
         sharded = sorted(n for n, spec in specs.items() if "data" in spec)
         launches = {**ZERO, "flash_attention_fwd": TWO_RANK_DEPTH, "flash_attention_bwd": TWO_RANK_DEPTH,
-                    **adaln(TWO_RANK_DEPTH, 1, backward=True)}
+                    "flash_attention_bwd_fused": TWO_RANK_DEPTH, **adaln(TWO_RANK_DEPTH, 1, backward=True)}
         collectives = {"all_reduce_sum": 0, "all_reduce_max": 0, "grad_all_reduce": len(specs) - len(sharded),
                        "all_gather": len(sharded), "reduce_scatter": len(sharded), "process_all_gather": len(sharded),
                        "process_reduce_scatter": len(sharded), "seq_all_gather": 0, "seq_reduce_scatter": 0,
@@ -3959,7 +4001,7 @@ def seq_training_phase(card: str, tmp_base: str | None, refs: dict) -> dict:
         mesh = M.create_mesh(**grid, devices=_grid_devices(n))
         depth = model.dit_cfg.depth
         per = {**ZERO, "flash_attention_fwd": depth * n, "flash_attention_bwd": depth * n,
-               **adaln(depth * n, grid["data"] * grid["seq"], backward=True)}
+               "flash_attention_bwd_fused": depth * n, **adaln(depth * n, grid["data"] * grid["seq"], backward=True)}
         label = f"base DiT, SP {grid['data']} x {grid['seq']} x {grid['model']}"
         _, rec, _ = _sharded_runs(label, card, model.dit, cfm_step, opt, mesh, batch, draws, 1, MESH_TRAIN_TOL, per,
                                   reference=refs["base"])
@@ -4190,7 +4232,7 @@ def pipeline_phase(card: str) -> dict:
         peaks["unpipelined"] = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         (out, gx, gw, wall), launched, handoffs = counted(
-            PIPE_GRID, depth, ("flash_attention_fwd", "flash_attention_bwd"),
+            PIPE_GRID, depth, ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_fused"),
             lambda: _pipe_run(piped, pipelined, x, cot, pipe_w))
         walls["pipelined"].append(wall)
         peaks["pipelined"] = torch.cuda.max_memory_allocated()
@@ -4838,6 +4880,9 @@ def main() -> int:
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
+        # K2 bf16: device times at [4, 16, 1024, 64] and at the training cells' [16, 16, 2400, 64]
+        **{key: r[key] for key in ("device_ms", "library_device_ms", "cell_device_ms", "cell_library_device_ms",
+                                   "cell_device_bound_ms") if key in r},
     } for name, route, src, replaces, r in rows]}))
 
     print(card)

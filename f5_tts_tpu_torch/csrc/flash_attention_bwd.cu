@@ -1,6 +1,7 @@
-// Flash-attention backward for Hopper (sm_90a): a bf16 kernel pair on the
-// tensor cores, a float32 kernel pair on the tensor cores in 3xTF32 at
-// d = 64, and a float32 kernel pair on the FMA units at d = 128 and 256.
+// Flash-attention backward for Hopper (sm_90a): in bf16 a single pass on the
+// tensor cores at d = 64 and a kernel pair at d = 128 and 256; in float32 a
+// kernel pair on the tensor cores in 3xTF32 at d = 64 and on the FMA units at
+// d = 128 and 256.
 //
 // Replaces the Pallas TPU kernel of the JAX package:
 // f5_tts_tpu/ops/flash_attention.py, `_flash_attention_bwd_call` (kernel body
@@ -27,15 +28,66 @@
 //
 // The TPU kernel holds all of K and V of one head in VMEM and accumulates dK
 // and dV across the sequential q-block grid in its output refs. Hopper
-// blocks run in parallel and in no order, so nothing can be carried between
-// them; both paths split the work in two kernels that need no float atomics
-// and are deterministic:
+// blocks run in parallel and in no order, so a sum across blocks needs
+// either a second kernel or an order that the blocks keep themselves.
+//
+// bf16 at d = 64 (every bf16 training path): one pass over the keys,
+// 10 n^2 d FLOP per (b, h), what the gradient needs. A block owns 128 keys
+// (dK and dV in registers) and streams Q', g and the row stats of each
+// 64-query tile; per tile it computes S^T, dP^T, dV += P^T g,
+// dK' += dS^T Q' and the tile's dQ' partial dS K' over its 128 keys
+// (dS^T goes through shared memory as bf16). The partials of one (b, h,
+// query tile) are summed in float32 in global memory, [b, h, tiles, 64 x 64]
+// in the consumers' fragment order, by a dQ warp that adds each with a bulk
+// reduce-add (cp.reduce.async.bulk .add.f32) from shared memory, the first
+// one a plain bulk store (no zeroing). A conversion kernel
+// (flash_bwd_dq_wgmma_kernel_sum) then applies the RoPE backward to the sum
+// and writes bf16 dq.
+// The sum is deterministic: the partials of a tile are added in a fixed
+// order of the key blocks, kept by a counter a tile in global memory (the
+// pre-pass zeroes it): the block in place p waits until the counter reads p
+// (ld.acquire), adds, waits for the add to complete and increments it
+// (red.release). The order: query tile i of a call is tile G = q_off / 64 + i
+// of the keys' sequence (key_tiles of them), block j's add into it has the
+// key (G + j) mod key_tiles, and each tile's partials are added in the order
+// of their keys; each block visits its tiles in the order of their keys too.
+// So a block's predecessor in every tile's order got there a step earlier
+// and no wait builds up along the J blocks (with every block visiting tile k
+// at step k and adding j-th, block j trails block 0 by j adds: 9-10% slower at
+// [16, 16, 2400, 64] on the H100), and the order depends on the tile's place
+// in the sequence alone: a query block's dq (sequence parallelism) at a
+// tile-aligned offset equals the full call's rows bit for bit.
+// No deadlock. Each block adds in the increasing order of its keys, and its
+// predecessor's add has the key one less, so no cycle of waits exists; a
+// wait needs the awaited block to be running. Blocks take their (key block,
+// b, h) from a ticket counter in the order they start (atomicAdd, reset by
+// the pre-pass), key block fastest, so every (b, h) but the one whose tickets
+// are being handed out has started all its blocks, and finishes on its own,
+// freeing SMs for the rest, if all J blocks of a (b, h) fit on the card at
+// once. The launcher rotates where 2 J <= the SM count (one block an SM) and
+// the call's tiles lie in the keys' sequence, else every block visits tile k
+// at step k and adds j-th (it then waits only on lower tickets, which have
+// all started).
+// What bounds it (H100, 700 W): at [16, 16, 2400, 64] the 10 n^2 d take
+// 0.954 ms at the tensor cores' peak; a call takes 2.77 ms (34.5%; SDPA's
+// backward 2.45, the kernel pair this pass replaced 4.96), of which the pass
+// 2.51, the pre-pass 0.16 and the conversion 0.11; at [4, 16, 1024, 64]
+// 0.181 ms (24%; SDPA's backward 0.139, the pair 0.283). The pass waits on
+// latency more than on the tensor cores: each warpgroup runs its products,
+// its softmax and dS math and its stores mostly one after another, and both
+// warpgroups meet at every tile for dQ'. Two attempts to overlap more were
+// slower: a two-tile software pipeline (the next tile's softmax behind the
+// previous tile's products) and a dQ' partial a warpgroup summed in shared
+// memory (no meeting).
+//
+// bf16 at d = 128 (no configuration trains it) keeps a kernel pair that needs
+// no float atomics and no ordering, at 14 n^2 d (S and dP computed in both):
 //   - dkdv: a block owns dK and dV of a run of keys in registers and streams
-//     Q', g and the row statistics over all queries;
+//     Q', g and the row stats over all queries;
 //   - dq: a block owns dQ of a run of queries and streams K', V and the key
 //     biases over all keys.
-// That is 14 n^2 d FLOP per (b, h) where the Pallas kernel does 10 (S and
-// dP are computed in both kernels). The row statistics come from the
+// At d = 256 the mma.sync pair below does the same. The float32 path keeps
+// its pair at every d (see below). The row statistics come from the
 // forward: P = exp(s - lse) with the log-sum-exp K1 saved
 // (flash_attention_fwd.cu), so no pass rescans a row. A row whose keys are
 // all masked has lse ~ -1e30, where m + log(l) loses log(l); such a row is
@@ -57,17 +109,22 @@
 //     rows with (FLT_MAX, 0), and each key's bias (0, -1e30 masked, -FLT_MAX
 //     past n), so rows and keys past n contribute exactly 0 whatever TMA's
 //     zero fill brings;
-//   - at d = 64 and 128 the main kernels are warp specialised: one producer
-//     warp keeps a ring of 2 or 3 shared-memory stages filled with TMA
-//     copies (4-d tensor maps over the (batch, head, row) strides, so v and
-//     g are read in place from [b, n, h, d] projection views; 128-byte
-//     swizzle) and bulk copies of the row stats or key biases, each stage
-//     guarded by a full and an empty mbarrier; one or two consumer
-//     warpgroups (64 owned rows each; two at d = 64, one at d = 128 to stay
-//     within 255 registers) run wgmma.m64nNk16: the score-shaped products
-//     with both operands in shared memory (K-major), the P V shaped ones
-//     with P or dS as bf16 register A fragments and the streamed tile as an
-//     MN-major B operand (wgmma's transpose bit, no scalar loads);
+//   - the TMA + wgmma kernels (the pass at d = 64, the pair at d = 128) are
+//     warp specialised: one producer warp keeps a ring of 3 (2 for the pair
+//     at d = 128) shared-memory stages filled with TMA copies (4-d tensor
+//     maps over the (batch, head, row) strides, so v and g are read in place
+//     from [b, n, h, d] projection views; 128-byte swizzle) and bulk copies
+//     of the row stats or key biases, each stage guarded by a full and an
+//     empty mbarrier; consumer warpgroups (64 owned rows each; two at d = 64,
+//     one at d = 128 to stay within 255 registers) run wgmma.m64nNk16: the
+//     score-shaped products with both operands in shared memory (K-major),
+//     the P V shaped ones with P or dS as bf16 register A fragments and the
+//     streamed tile as an MN-major B operand (wgmma's transpose bit, no
+//     scalar loads), the pass's dQ' with dS^T and K' both MN-major in shared
+//     memory. The pass's producer and dQ warps sit in a third warpgroup
+//     that gives its registers to the two consumer warpgroups (setmaxnreg:
+//     168 to 24 and 240); P is exp2 of one FMA of the score with the scale
+//     and bias in log2 units, without a branch;
 //   - at d = 256 the dK and dV accumulators of 64 rows would need 256
 //     registers a thread, so d = 256 keeps the first version's mma.sync
 //     kernels (4 or 8 warps a 64-row tile, tiles staged through padded
@@ -126,9 +183,9 @@
 // against k and v [b, h, nk, d] of the whole group): the bf16 kernels at
 // d = 64 and 128 and the 3xTF32 kernels at d = 64. dq, delta and the row
 // stats are n rows, dk and dv nk rows; the pre-passes rotate query row i by
-// table row q_off + i and key row i by row i, and the epilogue's RoPE
-// backward of dq uses the query rows' tables. The dK/dV kernel's grid covers
-// the keys and streams the n query rows, the dQ kernel's the reverse. A
+// table row q_off + i and key row i by row i, and the RoPE backward of dq
+// uses the query rows' tables. The pass's and the dK/dV kernel's grids cover
+// the keys and stream the n query rows, the dQ kernel's the reverse. A
 // slot's dk and dv are its share of the keys' gradient: the caller sums them
 // over the group. The mma.sync and FMA kernels (bf16 d = 256, float32 d = 128
 // and 256) take nk = n and q_off = 0 only: the entry points refuse a block.
@@ -139,6 +196,7 @@
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
@@ -150,6 +208,7 @@ constexpr int BM = 64;  // rows per tile (queries or keys)
 constexpr int PAD = 8;  // bf16 padding per shared-memory row of the mma.sync kernels
 constexpr float MASKED = -1e30f;
 constexpr float FULLY_MASKED = -1e29f;  // an lse below this marks a row with every key masked
+constexpr float LOG2E = 1.4426950408889634f;
 
 // The float32 kernels' arguments.
 template <typename T>
@@ -216,6 +275,12 @@ struct BwdParams {
   __nv_bfloat16* dq;    // [b, h, n, d] contiguous
   __nv_bfloat16* dk;    // [b, h, nk, d] contiguous
   __nv_bfloat16* dv;
+  float* dq_acc;          // d = 64: the dQ' sums [b, h, tiles, 64 x 64] in the consumers' fragment order (the pass)
+  int* dq_count;          // d = 64: [b, h, tiles] adds made to each query tile's sum; null at d = 128 and 256
+  int* dq_ticket;         // d = 64: the blocks' start order (one counter after dq_count)
+  int key_blocks;         // d = 64: 128-key blocks of the pass
+  int key_tiles;          // d = 64: 64-row tiles of the keys: the query tiles of the whole sequence
+  int dq_rotate;          // d = 64: each tile's dQ' partials added in the rotated order (see the source note)
   int h, n, n_pad;        // the query rows
   int nk, nk_pad, q_off;  // the keys, and the queries' first table row
   int rope_heads;         // heads 0 .. rope_heads - 1 are rotated, the others not
@@ -297,6 +362,8 @@ __global__ void __launch_bounds__(256) flash_bwd_prepass_kernel(const BwdParams 
       const uint8_t* mask = p.mask == nullptr ? nullptr : p.mask + static_cast<long long>(b) * p.nk;
       p.kbias[static_cast<long long>(b) * p.nk_pad + i] = key_bias(mask, i, p.nk);
     }
+    if (p.dq_count != nullptr && i < p.n && i % BM == 0) p.dq_count[bh * ((p.n + BM - 1) / BM) + i / BM] = 0;
+    if (p.dq_count != nullptr && bh == 0 && i == 0) *p.dq_ticket = 0;
   }
 }
 
@@ -320,13 +387,13 @@ __device__ __forceinline__ __nv_bfloat162 rope_bwd_pair(float x0, float x1, cons
 // ------------------------------------------ bf16, d = 64 and 128: TMA + wgmma
 
 template <int D>
-struct WShape {
-  static constexpr int WGS = D == 64 ? 2 : 1;   // consumer warpgroups, 64 owned rows each
+struct WShape {  // the pair at d = 128 (d = 64 takes the single pass)
+  static constexpr int WGS = 1;                 // consumer warpgroups, 64 owned rows each (255 registers)
   static constexpr int ROWS = 64 * WGS;         // rows a block owns (keys for dK/dV, queries for dQ)
   static constexpr int PANELS = D / 64;         // 64-dim panels of a tile (128-byte swizzled rows)
   static constexpr int CONSUMERS = 128 * WGS;
   static constexpr int THREADS = CONSUMERS + 32;  // + one producer warp
-  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int STAGES = 2;
   static constexpr int PANEL = BM * 128;         // bytes of one 64-row panel of a streamed tile
   static constexpr int TILE = PANELS * PANEL;    // a streamed 64-row tile
   static constexpr int OWN_PANEL = ROWS * 128;   // bytes of one panel of an owned tile
@@ -507,10 +574,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qr_map, const __
 // warpgroup owns 64 queries: S = Q' K'^T and dP = g V^T from shared memory,
 // P and dS in registers, dQ' += dS K' with K' as the MN-major B operand.
 // Two blocks share an SM: this kernel waits on latency more than on the
-// tensor cores, and four consumer warpgroups an SM beat two even though,
-// at d = 64, ptxas then serializes the wgmmas of a warpgroup to fit 112
-// registers a thread (0.287 against 0.310 ms a backward call at the CFM
-// training shape on the H100).
+// tensor cores (at d = 64, which it ran before the single pass, four consumer
+// warpgroups an SM beat two even though ptxas then serialized the wgmmas of
+// a warpgroup to fit 112 registers a thread: 0.287 against 0.310 ms a
+// backward call at the CFM training shape on the H100).
 template <int D>
 __global__ void __launch_bounds__(WShape<D>::THREADS, 2)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qr_map, const __grid_constant__ CUtensorMap kr_map,
@@ -662,6 +729,366 @@ cudaError_t launch_wgmma(const BwdParams& p, int b, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dq_wgmma_kernel<D><<<queries, W::THREADS, W::SMEM, stream>>>(qr_map, kr_map, v_map, g_map, p);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------ bf16, d = 64: one pass (dK, dV and dQ)
+
+// The shared memory of the pass: K' and V of the block's 128 keys, a ring of
+// STAGES stages (Q' and g of one 64-query tile and its row stats), two
+// buffers of dS^T (the block's keys against one query tile, bf16, 128-byte
+// swizzled rows of 64 queries) and two of the tile's dQ' partial (float32,
+// in the consumers' fragment order).
+struct PassShape {
+  static constexpr int ROWS = 128;                // keys a block owns: two consumer warpgroups of 64
+  static constexpr int CONSUMERS = 256;
+  // + a warpgroup that gives its registers to the consumers (setmaxnreg moves them within the block, so it has
+  // to free what the consumers take: 4 x 32 x (168 - 24) = 2 x 128 x (240 - 168)), of which one warp is the
+  // producer and one the dQ warp
+  static constexpr int THREADS = CONSUMERS + 128;
+  static constexpr int STAGES = 3;
+  static constexpr int TILE = BM * 128;           // 64 rows of 64 bf16
+  static constexpr int OWN = ROWS * 128;          // K' or V of the block's keys
+  static constexpr int STAGE = 2 * TILE + 1024;   // Q', g and 512 B of row stats
+  static constexpr int DS = ROWS * 128;
+  static constexpr int DQ = BM * 64 * 4;
+  static constexpr int STAGE_OFF = 2 * OWN;
+  static constexpr int DS_OFF = STAGE_OFF + STAGES * STAGE;
+  static constexpr int DQ_OFF = DS_OFF + 2 * DS;
+  static constexpr int BAR_OFF = DQ_OFF + 2 * DQ;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES + 4) * 8 + 16 + 1024;  // + the ticket, + alignment slack
+};
+
+// The order of the pass (see the source note). Query tile i of a call is
+// tile G = q_off / 64 + i of the sequence, and key block j's add into it has
+// the key (G + j) mod key_tiles. Rotated, each tile's partials are added in
+// the order of their keys and each block visits its tiles in the order of
+// their keys: pass_tile gives the tile of block j's step k, pass_place
+// block j's place in tile i's order. Otherwise block j visits tile k at step
+// k and adds j-th.
+__device__ __forceinline__ int pass_tile(const BwdParams& p, int k, int j, int tiles) {
+  if (!p.dq_rotate) return k;
+  const int first = p.key_tiles - (p.q_off / BM + j) % p.key_tiles;  // the first tile whose key wrapped past 0
+  return first < tiles ? (k + first) % tiles : k;
+}
+
+__device__ __forceinline__ int pass_place(const BwdParams& p, int i, int j) {
+  if (!p.dq_rotate) return j;
+  const int w = p.key_tiles - (p.q_off / BM + i);  // blocks j >= w have wrapped keys, the smallest
+  return j >= w ? j - w : j + (p.key_blocks > w ? p.key_blocks - w : 0);
+}
+
+// dK, dV and the dQ' partials of 128 keys in one pass over the query tiles.
+// Thread roles: two consumer warpgroups (64 keys each), then a warpgroup that
+// gives its registers to the consumers, of which two warps work: the producer
+// warp (lane 0 loads K' and V once, then streams Q', g and the row stats of
+// each query tile through the ring) and the dQ warp (lane 0 adds each tile's
+// partial into the float32 sum in global memory, in the tile's fixed order).
+// Per query tile each consumer warpgroup computes S^T = K' Q'^T and
+// dP^T = V g^T (shared memory, K-major), P^T and dS^T in registers,
+// dV += P^T g and dK' += dS^T Q' (register A, MN-major B), writes dS^T to
+// shared memory as bf16 and, once both warpgroups have, dQ' = dS K' over
+// the block's 128 keys for its half of the 64 columns (both operands
+// MN-major in shared memory). Each step waits for its S^T and dP^T, issues
+// dV's product before the dS math and the next tile's S^T and dP^T before it
+// waits for dV, dK' and dQ'. (Reading S^T while dP^T was still in flight made
+// ptxas serialise every wgmma of the kernel.)
+__global__ void __launch_bounds__(PassShape::THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel_dq(const __grid_constant__ CUtensorMap qr_map, const __grid_constant__ CUtensorMap kr_map,
+                               const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap g_map,
+                               const BwdParams p) {
+  using W = PassShape;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + W::OWN;
+  unsigned char* sDS = smem + W::DS_OFF;
+  unsigned char* sDQ = smem + W::DQ_OFF;
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + W::BAR_OFF);
+  uint64_t* full = own + 1;
+  uint64_t* empty = full + W::STAGES;
+  uint64_t* dq_full = empty + W::STAGES;
+  uint64_t* dq_empty = dq_full + 2;
+  int* ticket = reinterpret_cast<int*>(dq_empty + 2);
+  auto stage = [&](int s) { return smem + W::STAGE_OFF + s * W::STAGE; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(own, 1);
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W::CONSUMERS);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&dq_full[s], W::CONSUMERS);
+      mbar_init(&dq_empty[s], 1);
+    }
+    mbar_fence_init();
+    *ticket = atomicAdd(p.dq_ticket, 1);  // blocks take their work in the order they start
+  }
+  __syncthreads();
+
+  const int J = p.key_blocks;
+  const int j = *ticket % J;
+  const long long bh = *ticket / J;
+  const int h = static_cast<int>(bh % p.h), b = static_cast<int>(bh / p.h);
+  const int k0 = j * W::ROWS;
+  const int tiles = (p.n + BM - 1) / BM;
+
+  if (threadIdx.x >= W::CONSUMERS) {
+    setmaxnreg_dec<24>();
+    const bool producer = threadIdx.x < W::CONSUMERS + 32;
+    if (threadIdx.x % 32 != 0 || threadIdx.x >= W::CONSUMERS + 64) return;
+    if (producer) {
+      mbar_arrive_expect_tx(own, 2 * W::OWN);
+      for (int r = 0; r < 2; ++r) {
+        tma_load_4d(sK + r * W::TILE, &kr_map, own, 0, k0 + r * BM, h, b);
+        tma_load_4d(sV + r * W::TILE, &v_map, own, 0, k0 + r * BM, h, b);
+      }
+      for (int k = 0; k < tiles; ++k) {
+        const int s = k % W::STAGES;
+        if (k >= W::STAGES) mbar_wait(&empty[s], (k / W::STAGES - 1) & 1);
+        const int i = pass_tile(p, k, j, tiles);
+        unsigned char* st = stage(s);
+        mbar_arrive_expect_tx(&full[s], 2 * W::TILE + BM * 8);
+        tma_load_4d(st, &qr_map, &full[s], 0, i * BM, h, b);
+        tma_load_4d(st + W::TILE, &g_map, &full[s], 0, i * BM, h, b);
+        bulk_load(st + 2 * W::TILE, p.stats + bh * p.n_pad + i * BM, BM * 8, &full[s]);
+      }
+    } else {
+      // The ordered float32 sum: the block in place `place` of tile i waits
+      // until the tile's count says `place` partials are in, adds its own
+      // (the first stores it, so the sum needs no zeroing), waits for the
+      // write to complete and counts it.
+      float* acc = p.dq_acc + bh * tiles * (BM * 64);
+      int* count = p.dq_count + bh * tiles;
+      for (int k = 0; k < tiles; ++k) {
+        const int buf = k & 1;
+        const int i = pass_tile(p, k, j, tiles);
+        const int place = pass_place(p, i, j);
+        mbar_wait(&dq_full[buf], (k >> 1) & 1);
+        if (place > 0) {
+          while (ld_acquire_gpu(count + i) != place) {
+          }
+        }
+        fence_proxy_async_global();
+        float* dst = acc + static_cast<long long>(i) * (BM * 64);
+        if (place == 0) {
+          bulk_store(dst, sDQ + buf * W::DQ, W::DQ);
+        } else {
+          bulk_reduce_add_f32(dst, sDQ + buf * W::DQ, W::DQ);
+        }
+        bulk_commit();
+        bulk_wait<0>();
+        fence_proxy_async_global();
+        red_release_gpu_add(count + i, 1);
+        mbar_arrive(&dq_empty[buf]);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row0 = wg * 64 + (threadIdx.x / 32 % 4) * 16;  // this warp's first key in the block
+  const float* kbias = p.kbias + static_cast<long long>(b) * p.nk_pad + k0 + row0 + g;
+  // keys row0 + g and row0 + g + 8: the bias in log2 units, and P of a row with every key masked
+  const float bias2[2] = {kbias[0] * LOG2E, kbias[8] * LOG2E};
+  const float uniform[2] = {kbias[0] == -FLT_MAX ? 0.f : 1.f / p.nk, kbias[8] == -FLT_MAX ? 0.f : 1.f / p.nk};
+  const float scale2 = p.scale * LOG2E;
+
+  float dk[32], dv[32], dq[16], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dq[i] = 0.f;
+
+  mbar_wait(own, 0);
+  const uint64_t k_desc = sw128_desc(sK + wg * W::TILE);
+  const uint64_t v_desc = sw128_desc(sV + wg * W::TILE);
+  const uint64_t kn_desc = sw128_desc(sK + wg * 64);  // dQ's B: columns 32 wg .. 32 wg + 31 of the 128 keys' K'
+
+  // S^T and dP^T of step k, committed as two groups
+  auto scores = [&](int k) {
+    const int s = k % W::STAGES;
+    mbar_wait(&full[s], (k / W::STAGES) & 1);
+    unsigned char* st = stage(s);
+    const uint64_t q_desc = sw128_desc(st), g_desc = sw128_desc(st + W::TILE);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_ss(sc, kmajor(k_desc, kc, W::OWN), kmajor(q_desc, kc, W::TILE), kc > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_ss(dp, kmajor(v_desc, kc, W::OWN), kmajor(g_desc, kc, W::TILE), kc > 0);
+    wgmma_commit();
+  };
+
+  // step k of the pass; the last issues no next tile, so the loop's steps all take one path
+  auto step = [&](int k, auto last) {
+    const int s = k % W::STAGES;
+    unsigned char* st = stage(s);
+    const float2* stats = reinterpret_cast<const float2*>(st + 2 * W::TILE);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P^T = exp(s + bias - lse), rounded to bf16 for dV
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float lse = stats[8 * i + 2 * t + c].x;
+        const float lse2 = lse * LOG2E;
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int e = 4 * i + 2 * hi + c;
+          const float pr = exp2f(fmaf(sc[e], scale2, bias2[hi]) - lse2);
+          sc[e] = lse < FULLY_MASKED ? uniform[hi] : pr;
+        }
+      }
+    }
+    uint32_t pa[4][4];
+    to_a_frags(pa, sc);
+    const uint64_t gt_desc = sw128_desc(st + W::TILE, W::TILE), qt_desc = sw128_desc(st, W::TILE);
+    wgmma_fence();
+    fence_regs(dv);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dv, pa[kc], mnmajor(gt_desc, kc), 1);
+    wgmma_commit();
+
+    // dS^T = P^T (dP^T - delta) scale, rounded to bf16 for dK and dQ
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dp[4 * i + e] = sc[4 * i + e] * (dp[4 * i + e] - stats[8 * i + 2 * t + (e & 1)].y) * p.scale;
+      }
+    }
+    uint32_t da[4][4];
+    to_a_frags(da, dp);
+    // dS^T into shared memory: key row R, queries 8 c .. 8 c + 7 in 16-byte chunk c ^ (R % 8)
+    unsigned char* ds = sDS + (k & 1) * W::DS;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = row0 + g + 8 * (r & 1), c = 2 * kc + (r >> 1);
+        *reinterpret_cast<uint32_t*>(ds + row * 128 + ((c ^ g) << 4) + 4 * t) = da[kc][r];
+      }
+    }
+    fence_proxy_async();
+    wgmma_fence();
+    fence_regs(dk);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(dk, da[kc], mnmajor(qt_desc, kc), 1);
+    wgmma_commit();
+
+    // dQ' = dS K' over the block's keys, once both warpgroups' dS^T is in
+    bar_sync(1, W::CONSUMERS);
+    const uint64_t ds_desc = sw128_desc(ds);
+    wgmma_fence();
+    fence_regs(dq);
+#pragma unroll
+    for (int kc = 0; kc < 8; ++kc) wgmma_ss_t<1, 1>(dq, mnmajor(ds_desc, kc), mnmajor(kn_desc, kc), kc > 0);
+    wgmma_commit();
+
+    if constexpr (decltype(last)::value) {
+      wgmma_wait<0>();
+    } else {
+      scores(k + 1);
+      wgmma_wait<2>();
+    }
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(dq);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      fence_regs(pa[kc]);
+      fence_regs(da[kc]);
+    }
+    mbar_arrive(&empty[s]);
+
+    // the partial to the dQ warp: float4 i of thread x of warpgroup w at (w * 4 + i) * 128 + x
+    const int buf = k & 1;
+    if (k >= 2) mbar_wait(&dq_empty[buf], ((k >> 1) - 1) & 1);
+    float4* part = reinterpret_cast<float4*>(sDQ + buf * W::DQ) + wg * 512 + threadIdx.x % 128;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) part[i * 128] = make_float4(dq[4 * i], dq[4 * i + 1], dq[4 * i + 2], dq[4 * i + 3]);
+    fence_proxy_async();
+    mbar_arrive(&dq_full[buf]);
+  };
+
+  scores(0);
+  for (int k = 0; k + 1 < tiles; ++k) step(k, std::false_type{});
+  step(tiles - 1, std::true_type{});
+
+  store_acc<64>(p.dk + bh * p.nk * 64, dk, k0 + row0, p.nk, head_table(p, p.cos, h), p.sin, 0);
+  store_acc<64>(p.dv + bh * p.nk * 64, dv, k0 + row0, p.nk, nullptr, nullptr, 0);
+}
+
+// dQ from the pass's float32 sums, rounded once to bf16 after the RoPE
+// backward with the query rows' tables (row q_off + i) on rotated heads. One
+// thread takes the four float4s of a quad (lanes t = 0..3 of the fragment
+// order): columns 32 w + 8 c .. + 7 of rows r and r + 8, two 16-byte stores.
+__global__ void __launch_bounds__(256) flash_bwd_dq_wgmma_kernel_sum(const BwdParams p, long long count) {
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= count) return;
+  const int tiles = (p.n + BM - 1) / BM;
+  const int c = static_cast<int>(idx % 4), g = static_cast<int>(idx / 4 % 8);
+  const int warp = static_cast<int>(idx / 32 % 4), wg = static_cast<int>(idx / 128 % 2);
+  const long long tile = idx / 256;  // over (b, h, tiles)
+  const float4* src = reinterpret_cast<const float4*>(p.dq_acc) + tile * 1024 + (wg * 4 + c) * 128 + warp * 32 + g * 4;
+  const long long bh = tile / tiles;
+  const int row = static_cast<int>(tile % tiles) * BM + warp * 16 + g;
+  const int col = wg * 32 + c * 8;
+  const float* cos = head_table(p, p.cos, static_cast<int>(bh % p.h));
+  float4 v[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) v[t] = src[t];
+  __nv_bfloat16* out = p.dq + bh * p.n * 64 + col;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = row + 8 * hi;
+    if (r >= p.n) continue;
+    uint4 packed;
+    __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      pair[t] = rope_bwd_pair<64>(hi ? v[t].z : v[t].x, hi ? v[t].w : v[t].y, cos, p.sin, r + p.q_off, col + 2 * t);
+    }
+    *reinterpret_cast<uint4*>(out + static_cast<long long>(r) * 64) = packed;
+  }
+}
+
+cudaError_t launch_pass(BwdParams p, int b, cudaStream_t stream) {
+  using W = PassShape;
+  const long long hq = static_cast<long long>(p.n) * 64, hk = static_cast<long long>(p.nk) * 64;
+  CUtensorMap qr_map, kr_map, v_map, g_map;
+  cudaError_t err = head_map<64>(&qr_map, p.qr, b, p.h, p.n, p.h * hq, hq, 64);
+  if (err == cudaSuccess) err = head_map<64>(&kr_map, p.kr, b, p.h, p.nk, p.h * hk, hk, 64);
+  if (err == cudaSuccess) err = head_map<64>(&v_map, p.v, b, p.h, p.nk, p.v_sb, p.v_sh, p.v_sn);
+  if (err == cudaSuccess) err = head_map<64>(&g_map, p.g, b, p.h, p.n, p.g_sb, p.g_sh, p.g_sn);
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> raised[MAX_DEVICES];
+  err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dkdv_wgmma_kernel_dq), W::SMEM, raised);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int tiles = (p.n + BM - 1) / BM;
+  p.key_blocks = (p.nk + W::ROWS - 1) / W::ROWS;
+  p.key_tiles = (p.nk + BM - 1) / BM;
+  // rotated where the call's tiles are tiles of the keys' sequence (a query block lies inside it) and every
+  // block of a (b, h) fits on the card at once (one block an SM, with room to spare)
+  p.dq_rotate = p.q_off / BM + tiles <= p.key_tiles && 2 * p.key_blocks <= sms;
+  const long long blocks = static_cast<long long>(p.key_blocks) * p.h * b;
+  flash_bwd_dkdv_wgmma_kernel_dq<<<static_cast<unsigned>(blocks), W::THREADS, W::SMEM, stream>>>(qr_map, kr_map, v_map,
+                                                                                                  g_map, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long count = static_cast<long long>(b) * p.h * tiles * 256;
+  flash_bwd_dq_wgmma_kernel_sum<<<static_cast<unsigned>((count + 255) / 256), 256, 0, stream>>>(p, count);
   return cudaGetLastError();
 }
 
@@ -919,8 +1346,9 @@ cudaError_t launch_mma(const BwdParams& p, int b, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The pre-pass, then the main kernels of d: the TMA + wgmma pair at d = 64
-// and 128, the mma.sync pair at d = 256 (chosen by d, see above).
+// The pre-pass, then the main kernels of d: the single pass and its dQ
+// conversion at d = 64, the TMA + wgmma pair at d = 128, the mma.sync pair at
+// d = 256 (chosen by d, see above).
 template <int D>
 cudaError_t launch(const BwdParams& p, int b, cudaStream_t stream) {
   const long long rows = static_cast<long long>(b) * p.h * prepass_rows(p);
@@ -930,6 +1358,8 @@ cudaError_t launch(const BwdParams& p, int b, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   if constexpr (D == 256) {
     return launch_mma<D>(p, b, stream);
+  } else if constexpr (D == 64) {
+    return launch_pass(p, b, stream);
   } else {
     return launch_wgmma<D>(p, b, stream);
   }
@@ -1476,13 +1906,17 @@ extern "C" {
 // q_off + n <= nk). Scratch the caller allocates: qr bf16 [b, h, n, d], kr
 // bf16 [b, h, nk, d], stats float32 [b, h, n_pad, 2] and kbias float32
 // [b, nk_pad], n_pad and nk_pad = n and nk rounded up to a multiple of 128.
-// dq is contiguous bf16 [b, h, n, d], dk and dv [b, h, nk, d]. At d = 256,
-// nk = n and q_off = 0. Heads 0 .. rope_heads - 1 are rotated (0 <=
-// rope_heads <= h), the others not.
+// dq is contiguous bf16 [b, h, n, d], dk and dv [b, h, nk, d]. At d = 64
+// `dq_scratch` holds the pass's dQ' sums, float32 [b, h, tiles, 64 x 64]
+// with tiles = ceil(n / 64), then b h tiles + 1 int32 counters (the pre-pass
+// sets them); it is null at d = 128 and 256. At d = 256, nk = n and
+// q_off = 0. Heads 0 .. rope_heads - 1 are rotated (0 <= rope_heads <= h),
+// the others not.
 int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const void* g, const void* out,
                            const void* lse, const void* mask, const void* cos, const void* sin, void* qr, void* kr,
-                           void* stats, void* kbias, void* dq, void* dk, void* dv, int b, int h, int n, int nk,
-                           int q_off, int d, int rope_heads, const long long* strides, float scale, void* stream) {
+                           void* stats, void* kbias, void* dq, void* dk, void* dv, void* dq_scratch, int b, int h,
+                           int n, int nk, int q_off, int d, int rope_heads, const long long* strides, float scale,
+                           void* stream) {
   BwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -1500,6 +1934,15 @@ int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dq_acc = nullptr;
+  p.dq_count = p.dq_ticket = nullptr;
+  p.key_blocks = p.key_tiles = p.dq_rotate = 0;
+  if (d == 64 && dq_scratch != nullptr) {
+    const long long sums = static_cast<long long>(b) * h * ((n + BM - 1) / BM);
+    p.dq_acc = static_cast<float*>(dq_scratch);
+    p.dq_count = reinterpret_cast<int*>(p.dq_acc + sums * BM * 64);
+    p.dq_ticket = p.dq_count + sums;
+  }
   p.h = h;
   p.n = n;
   p.n_pad = (n + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
@@ -1515,7 +1958,7 @@ int f5_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < 1 || nk < 1 || q_off < 0 || (cos != nullptr && q_off + n > nk) || (d == 256 && (nk != n || q_off != 0)) ||
-      rope_heads < 0 || rope_heads > h) {
+      rope_heads < 0 || rope_heads > h || (d == 64) != (dq_scratch != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (d) {

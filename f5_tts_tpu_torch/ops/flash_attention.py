@@ -13,8 +13,11 @@ on PyTorch's current stream:
     an mma.sync kernel;
   - K2, the backward (csrc/flash_attention_bwd.cu): dq, dk and dv from q,
     k, v, the output, its gradient and the log-sum-exp. A pre-pass kernel
-    rotates q and k once and computes delta = rowsum(g * out), then TMA +
-    wgmma kernels (mma.sync at d = 256) write bf16 gradients, or the
+    rotates q and k once and computes delta = rowsum(g * out); in bf16 at
+    d = 64 one TMA + wgmma pass over the keys then writes dk and dv and sums
+    dq' in float32 in a fixed order (the wrapper allocates the sum and its
+    counters), and a conversion kernel writes bf16 dq; at d = 128 a TMA +
+    wgmma kernel pair (mma.sync at d = 256) writes bf16 gradients, and the
     float32 kernels float32 ones. `bwd_prepass_plain`, `bwd_main_plain` and
     `bwd_epilogue_plain` are the stages' plain versions;
     `flash_attention_bwd_plain` composes them.
@@ -51,7 +54,8 @@ for CPU tensors; `FlashAttentionFn` calls it too, for the kernel and its
 log-sum-exp. A program traced with torch.export records the operator, so it
 launches the kernel wherever its inputs lie on the card. Counts: `flash_attention.launches` and `.launches_f32` (K1
 bf16 and float32; one a call, pre-pass included), `.launches_bwd` and
-`.launches_bwd_f32` (K2), `flash_prepass.launches` (K1's pre-pass alone).
+`.launches_bwd_f32` (K2), of which `.launches_bwd_fused` took the single
+pass (bf16, d = 64), `flash_prepass.launches` (K1's pre-pass alone).
 """
 
 from __future__ import annotations
@@ -77,6 +81,8 @@ _ENTRY = {torch.bfloat16: "f5_flash_attention_fwd", torch.float32: "f5_flash_att
 _BWD_ENTRY = {torch.bfloat16: "f5_flash_attention_bwd", torch.float32: "f5_flash_attention_bwd_f32"}
 BWD_ROW_PAD = 128  # the row statistics and key biases of the pre-passes are padded to a multiple of this many rows
 TC_HEAD_DIM = 64  # the head dim of the float32 kernels on the tensor cores (3xTF32)
+PASS_HEAD_DIM = 64  # the bf16 head dim whose backward is one pass over the keys (dK, dV and dQ)
+PASS_TILE = 64  # the single pass's query tile: dQ' is summed per tile
 
 
 # ------------------------------------------------------------ plain versions
@@ -311,7 +317,7 @@ def _bwd_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     strides = ctypes.POINTER(ctypes.c_longlong)
     # b, h, n, nk, q_off, d (and rope_heads in bf16)
-    lib.f5_flash_attention_bwd.argtypes = [ptr] * 16 + [i32] * 7 + [strides, ctypes.c_float, ptr]
+    lib.f5_flash_attention_bwd.argtypes = [ptr] * 17 + [i32] * 7 + [strides, ctypes.c_float, ptr]
     lib.f5_flash_attention_bwd_f32.argtypes = [ptr] * 13 + [i32] * 6 + [strides, ctypes.c_float, ptr]
     for name in _BWD_ENTRY.values():
         getattr(lib, name).restype = i32
@@ -528,8 +534,9 @@ def _backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset: 
     [b, h, n, d] (dk and dv [b, h, n_k, d] for a query block: its share of
     the keys' gradient). g (and v) are taken as strided views when their
     layout allows, else made contiguous. The pre-pass, then the main
-    kernels, with the pre-pass's scratch allocated here. Heads from
-    `rope_heads` on are not rotated (bf16 only)."""
+    kernels, with the pre-pass's scratch (and at bf16 d = 64 the single
+    pass's float32 dq' sum) allocated here. Heads from `rope_heads` on are
+    not rotated (bf16 only)."""
     return _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset, rope_heads)[:3]
 
 
@@ -572,15 +579,20 @@ def _backward_launch(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset: 
     kr, dk, dv = rows(n_k, q.dtype), rows(n_k, q.dtype), rows(n_k, q.dtype)
     stats = torch.empty((b, h, n_pad, 2), dtype=torch.float32, device=q.device)
     kbias = torch.empty((b, nk_pad), dtype=torch.float32, device=q.device)
+    fused = d == PASS_HEAD_DIM
+    # the single pass's scratch: dQ' summed in float32 per 64-query tile, then each tile's count of adds
+    sums = b * h * -(-n // PASS_TILE)
+    dq_scratch = torch.empty(sums * PASS_TILE * d + sums + 1, dtype=torch.float32, device=q.device) if fused else None
     with torch.cuda.device(q.device):
         err = lib.f5_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _ptr(key_mask), _ptr(cos), _ptr(sin), qr.data_ptr(), kr.data_ptr(), stats.data_ptr(),
-            kbias.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, n_k, q_offset, d,
-            h if rope_heads is None else rope_heads, strides, float(scale), stream,
+            kbias.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dq_scratch), b, h, n, n_k, q_offset,
+            d, h if rope_heads is None else rope_heads, strides, float(scale), stream,
         )
     _raise_on(err, lib, "flash attention backward")
     flash_attention.launches_bwd += 1
+    flash_attention.launches_bwd_fused += fused
     return dq, dk, dv, qr, kr
 
 
@@ -698,4 +710,5 @@ flash_attention.launches = 0
 flash_attention.launches_f32 = 0
 flash_attention.launches_bwd = 0
 flash_attention.launches_bwd_f32 = 0
+flash_attention.launches_bwd_fused = 0
 flash_prepass.launches = 0

@@ -815,9 +815,10 @@ def _bwd_case(gen, b, h, n, d, key_mask=None):
     rope = _rope(n, d)
     key_mask_k, cos, sin = fa._checked(q, k, v, key_mask, rope)
     out, lse = fa._forward_kernel(q, k, v, d ** -0.5, key_mask_k, cos, sin, with_lse=True)
-    before = flash_attention.launches_bwd
+    before = (flash_attention.launches_bwd, flash_attention.launches_bwd_fused)
     got = fa._backward_kernel(q, k, v, out, lse, g, d ** -0.5, key_mask_k, cos, sin)
-    assert flash_attention.launches_bwd == before + 1  # one count per backward call, pre-pass included
+    # one count per backward call, pre-pass included; d = 64 takes the single pass, 128 and 256 the pair
+    assert (flash_attention.launches_bwd, flash_attention.launches_bwd_fused) == (before[0] + 1, before[1] + (d == 64))
     ref = flash_attention_bwd_plain(q, k, v, out, g, d ** -0.5, key_mask, rope)
     return (q, k, v, out, lse, g, key_mask_k, cos, sin), got, ref
 
@@ -873,13 +874,63 @@ def test_bwd_bf16_dv_is_the_float32_sum_rounded_once(gen, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256])
-def test_bwd_bf16_is_deterministic(gen, d):
+@pytest.mark.parametrize("b, h, n, d", [(2, 4, 300, 64), (2, 4, 300, 128), (2, 4, 300, 256), (2, 16, 2400, 64)],
+                         ids=["64", "128", "256", "64-2x16x2400"])
+def test_bwd_bf16_is_deterministic(gen, b, h, n, d):
     """No atomics: two runs on the same inputs give the same bits."""
-    args, first, _ = _bwd_case(gen, 2, 4, 300, d)
+    args, first, _ = _bwd_case(gen, b, h, n, d)
     second = fa._backward_kernel(*args[:6], d ** -0.5, *args[6:])
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# (b, h, n_q, n_k, q_offset, rope_heads): the training cells' shapes (19 key blocks at n = 2400, so the ordered dQ'
+# sum runs over many blocks), E2's n + 1 rows with RoPE on head 0, a sequence-parallel query block at its RoPE
+# offset, and a ragged n whose last key block is partial
+PASS_CASES = [(16, 16, 2400, 2400, 0, None), (64, 16, 600, 600, 0, None), (16, 16, 2401, 2401, 0, 1),
+              (4, 16, 512, 1024, 256, None), (2, 8, 1000, 1000, 0, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, h, n, n_k, q_offset, rope_heads", PASS_CASES,
+                         ids=["16x2400", "64x600", "e2-16x2401", "block-512-of-1024", "ragged-1000"])
+def test_bwd_bf16_single_pass_matches_plain(gen, b, h, n, n_k, q_offset, rope_heads):
+    """K2 bf16 at d = 64 is one pass over the keys (dK, dV and dQ' in one
+    kernel, dQ' summed in float32 in a fixed key-block order): its
+    gradients against the plain backward's within GRAD_TOL, on [b, n, h*d]
+    projection views with RoPE; the kernel runs the whole batch, the plain
+    version its first two rows (rows are independent)."""
+    d = 64
+    q, k, v, g = _projection_views(gen, b, h, n_k, d, count=4)
+    q, g = q[:, :, q_offset:q_offset + n], g[:, :, q_offset:q_offset + n]
+    rope, scale = _rope(n_k, d), d ** -0.5
+    key_mask, cos, sin = fa._checked(q, k, v, None, rope, q_offset, rope_heads)
+    out, lse = fa._forward_kernel(q, k, v, scale, key_mask, cos, sin, True, q_offset, rope_heads)
+    before = (flash_attention.launches_bwd, flash_attention.launches_bwd_fused)
+    got = fa._backward_kernel(q, k, v, out, lse, g, scale, key_mask, cos, sin, q_offset, rope_heads)
+    assert (flash_attention.launches_bwd, flash_attention.launches_bwd_fused) == (before[0] + 1, before[1] + 1)
+    rows = slice(0, 2)
+    ref = flash_attention_bwd_plain(q[rows], k[rows], v[rows], out[rows], g[rows], scale, None, rope,
+                                    q_offset=q_offset, rope_heads=rope_heads)
+    for name, a, r in zip("qkv", got, ref):
+        assert a.dtype == torch.bfloat16 and a.is_contiguous() and torch.isfinite(a).all()
+        err = (a[rows].float() - r).abs().max().item() / max(r.abs().max().item(), 0.1)
+        assert err <= GRAD_TOL[torch.bfloat16], (f"d{name}", err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_bwd_bf16_launches_by_name(gen, d):
+    """A bf16 backward call launches K2's pre-pass, then at d = 64 the
+    single pass (its name holds flash_bwd_dkdv_wgmma_kernel) and the dQ
+    conversion (flash_bwd_dq_wgmma_kernel), at d = 128 the dK/dV and dQ
+    pair: one launch of each and no other kernel, so the benchmark's K2
+    readers see the whole backward."""
+    args = _bwd_case(gen, 2, 4, 300, d)[0]
+    names = _cuda_kernel_names(lambda: fa._backward_kernel(*args[:6], d ** -0.5, *args[6:]))
+    parts = ("flash_bwd_prepass_kernel", "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+    assert [_launched(names, part) for part in parts] == [1, 1, 1] and sum(names.values()) == 3, names
+    assert _launched(names, "flash_bwd_dkdv_wgmma_kernel_dq") == (d == 64), names
 
 
 @pytest.mark.cuda
